@@ -1,0 +1,47 @@
+"""PyTorch/CUDA port of the SPARC decode path (the JAX package
+`sparc_ldpc_tpu` is the reference and is left unchanged).
+
+Module names mirror the reference package so each counterpart is easy to
+find:
+
+  utils/bits.py      MSB-first bits <-> section indices
+  utils/rng.py       one torch.Generator per (base, point, block)
+  ops/fwht.py        Hadamard factors and plain Kronecker FWHT
+  ops/operators.py   matrix-free partial-Hadamard and dense operators
+  ops/denoiser.py    sectionwise softmax denoiser
+  ops/amp_kernel.py  whole-trial AMP: CUDA kernel (csrc/amp_split.cu) and
+                     its plain PyTorch version
+  models/amp.py      amp_decode (fused route and the scan route)
+  models/sparc.py    SparcModel: build, encode, channel, decode, run_block
+
+The port imports `torch`, never `jax`.  The configuration and the
+host-side design code (power allocation, state evolution, operator plans)
+are NumPy-only and shared with the reference: they define the code itself.
+"""
+
+import torch
+
+from sparc_ldpc_tpu.config import PRESETS, SparcConfig  # noqa: F401
+
+__version__ = "0.1.0"
+
+
+def default_device() -> torch.device:
+    """The device the main path runs on: the first CUDA device.
+
+    Raises when no GPU is visible; the main path never falls back to the
+    CPU (the CPU routes exist for tests, which pass device="cpu")."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; the main path needs "
+                           "a GPU (pass device='cpu' explicitly for the "
+                           "plain CPU routes)")
+    return torch.device("cuda", 0)
+
+
+def check_device(device) -> torch.device:
+    """Normalize `device`; a CUDA device without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    return device

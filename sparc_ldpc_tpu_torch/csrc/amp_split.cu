@@ -1,0 +1,690 @@
+// Whole-trial AMP decode of the partial-Hadamard SPARC, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel sparc_ldpc_tpu/ops/amp_kernel.py::_amp_kernel_split
+// (launched by amp_fused, fixed T, in-kernel encode).  Per codeword, on the
+// (L, M) section tile:
+//
+//   y  = where(mask, noise, 0) + mask/n * H(sqo * one_hot(idx))     (encode)
+//   T times:
+//     z    = y - mask/n * H(beta') + coef * z,  coef = (P - |beta'|^2/n^2)/tau2_prev
+//     tau2 = |z|^2 / n
+//     beta' = sqo * softmax_row((sqi / tau2) * (H(z) + beta'))
+//   beta = beta' / sqrt(n)
+//
+// H = H_L (x) H_M is the unnormalized Kronecker Hadamard transform of the
+// tile (H_L down the columns, H_M along each section row).  The scale-free
+// scheme is the reference's: beta' = beta * sqrt(n), sqi = sq / sqrt(n),
+// sqo = sq * sqrt(n); z and tau2 stay in true scale.  As in the reference,
+// the data operand of each transform stage is rounded to bfloat16 and the
+// sums are float32 (round_bf16 = 0 keeps every operand float32); the encode
+// transform is all float32, so codeword power is exact to float32.
+//
+// What bounds it: device-memory bytes.  The TPU kernel kept a codeword's
+// whole state (beta, z, y, a work tile: 4 x 2 MiB at 1024 x 512) in VMEM for
+// all T iterations.  A Hopper block has at most 227 KB of shared memory, so
+// here the state lives in device memory and each iteration is two launches
+// over the batch:
+//   column stage: one block per (codeword, 32-column strip) holds the
+//     (L, 32) strip (128 KB at L = 1024) in registers and shared memory:
+//     H_L of the forward transform, the residual and Onsager term, the
+//     strip's |z|^2, then H_L of the adjoint transform;
+//   row stage: one thread group per section row: H_M of the adjoint, the
+//     max-subtracted softmax, the row's |beta'|^2, then H_M of the next
+//     iteration's forward transform.
+// That is about 9 (B, L, M) passes per iteration (column: read w, y, z,
+// write z, u; row: read u, beta', write beta', w), 7 float32-equivalent
+// passes with the work tile w/u in bf16; the (L, M) mask is shared by the
+// batch and stays in L2.  On an H100 (700 W) both stages move about
+// 2.1 TB/s of the 3.35: their in-block phases, not run concurrently with
+// the loads (one 1024-thread block per SM in the column stage), hold them
+// back as well (PERF.md).  The later design keeps the tile on chip: a
+// thread-block cluster per codeword (16 CTAs x 227 KB hold a 2 MiB tile)
+// with distributed shared memory in place of the two passes.
+//
+// Determinism: no float atomics.  Per-codeword sums are fixed-order trees
+// inside a block plus a fixed-order second pass over the per-block partials,
+// so the same inputs give bitwise-identical outputs.
+//
+// The transform stages (reg_fwht, col_fwht_ab / col_fwht_ba, row_fwht) are
+// device functions so the standalone tile transform and the softmax
+// denoiser kernels can reuse them; amp_fwht_tile exposes the transform alone.
+//
+// Built by sparc_ldpc_tpu_torch/ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// and called through ctypes (plain C interface below).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kStrip = 32;         // columns per column-stage block
+constexpr int kRowThreads = 256;   // threads per row-stage block
+constexpr int kBadShape = -1;      // return code for an unsupported shape
+
+__device__ __forceinline__ float maybe_round(float x, int round_bf16) {
+  return round_bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// Storage type of the work tile (w = H_M beta', u = H_L z): float, or
+// bfloat16 when the transforms round their operands to bf16.  Both stages
+// round the work tile when they read it, so rounding it when it is stored
+// gives the same values and moves half the bytes.
+template <typename WT>
+struct IsBf16 {
+  static constexpr int value = 0;
+};
+template <>
+struct IsBf16<__nv_bfloat16> {
+  static constexpr int value = 1;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename WT>
+__device__ __forceinline__ WT from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Butterflies over the register index bits with stride < H: the Hadamard
+// factor H_H acting on the low log2(H) bits of the index into v.
+template <int R, int H>
+__device__ __forceinline__ void reg_fwht(float (&v)[R]) {
+#pragma unroll
+  for (int h = 1; h < H; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if ((i & h) == 0) {
+        const float a = v[i], b = v[i + h];
+        v[i] = a + b;
+        v[i + h] = a - b;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  // xor tree: partners add the same two values, so every lane ends with the
+  // same bits
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
+}
+
+// Sum over a block of NW warps in a fixed order; every thread gets it.
+template <int NW>
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  x = warp_sum(x);
+  __syncthreads();  // earlier readers of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) s += red[i];
+  return s;
+}
+
+// ---------------------------------------------------------------- columns
+//
+// A column-stage block owns an (L, 32) strip, L = W * R, with 32 * W
+// threads.  Thread (w = warp, c = lane) holds R values of column c:
+//   layout A: rows w + W * k   (k, the register index, holds the high
+//                               log2(R) bits of the row)
+//   layout B: rows R * w + k   (k holds the low log2(R) bits)
+// H_L is the butterflies over all bits of k in layout A, a transpose
+// through shared memory, and the butterflies over the low log2(W) bits of
+// k in layout B.  W <= R, so every row bit is transformed exactly once.
+// Shared-memory rows are 32 floats wide: a warp touches one row, one bank
+// per lane.
+
+template <int W, int R>
+__device__ __forceinline__ void a_to_b(float (&v)[R], float* sm, int w,
+                                       int c) {
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < R; ++k) sm[(w + W * k) * kStrip + c] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < R; ++k) v[k] = sm[(R * w + k) * kStrip + c];
+}
+
+template <int W, int R>
+__device__ __forceinline__ void b_to_a(float (&v)[R], float* sm, int w,
+                                       int c) {
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < R; ++k) sm[(R * w + k) * kStrip + c] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < R; ++k) v[k] = sm[(w + W * k) * kStrip + c];
+}
+
+// H_L on a strip held in layout A; the result is in layout B.
+template <int W, int R>
+__device__ __forceinline__ void col_fwht_ab(float (&v)[R], float* sm, int w,
+                                            int c) {
+  reg_fwht<R, R>(v);
+  a_to_b<W, R>(v, sm, w, c);
+  reg_fwht<R, W>(v);
+}
+
+// H_L on a strip held in layout B; the result is in layout A.
+template <int W, int R>
+__device__ __forceinline__ void col_fwht_ba(float (&v)[R], float* sm, int w,
+                                            int c) {
+  reg_fwht<R, W>(v);
+  b_to_a<W, R>(v, sm, w, c);
+  reg_fwht<R, R>(v);
+}
+
+// In-kernel encode: y = where(mask > 0, noise, 0) + mask/n * H(sqo one_hot).
+// The one-hot row's H_M is closed-form, (e_idx H_M)[m] = (-1)^popc(idx & m),
+// exact in float32; H_L then runs in float32.  enc_idx == nullptr only
+// applies the mask.
+template <int W, int R>
+__global__ void __launch_bounds__(32 * W, 1)
+amp_encode_kernel(const float* __restrict__ y_n,
+                  const float* __restrict__ mask_n,
+                  const float* __restrict__ sqo,
+                  const int32_t* __restrict__ enc_idx,
+                  float* __restrict__ y, int M) {
+  extern __shared__ float sm[];
+  constexpr int L = W * R;
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int m = blockIdx.x * kStrip + c;
+  const size_t base = (size_t)b * L * M;
+  float v[R];
+  if (enc_idx != nullptr) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int l = w + W * k;
+      const float s = sqo[l];
+      v[k] = (__popc(enc_idx[(size_t)b * L + l] & m) & 1) ? -s : s;
+    }
+    col_fwht_ab<W, R>(v, sm, w, c);
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int l = R * w + k;
+    const size_t off = base + (size_t)l * M + m;
+    const float mk = mask_n[(size_t)l * M + m];
+    y[off] = (mk > 0.f ? y_n[off] : 0.f) + mk * v[k];
+  }
+}
+
+// Column stage of iteration t.  work holds H_M beta' (from the row stage)
+// on entry and H_L z on exit.
+template <int W, int R, typename WT>
+__global__ void __launch_bounds__(32 * W, 1)
+amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
+               float* __restrict__ z, const float* __restrict__ mask_n,
+               float* __restrict__ zpart,        // (B, M / 32)
+               const float* __restrict__ bpart,  // (B, L) row |beta'|^2
+               const float* __restrict__ trace,  // (T, B)
+               int B, int M, int t, float P, float nn) {
+  extern __shared__ float sm[];
+  __shared__ float red[W];
+  constexpr int kRound = IsBf16<WT>::value;
+  constexpr int L = W * R;
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int b = blockIdx.y, s = blockIdx.x;
+  const int m = s * kStrip + c;
+  const size_t base = (size_t)b * L * M;
+  float v[R];
+  float coef = 0.f;  // beta' = 0 and z = 0 before the first iteration
+  if (t > 0) {
+    float acc = 0.f;
+    for (int l = threadIdx.x; l < L; l += 32 * W) acc += bpart[(size_t)b * L + l];
+    const float bnorm2 = block_sum<W>(acc, red);
+    coef = (P - bnorm2 / nn) / trace[(size_t)(t - 1) * B + b];
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      v[k] = to_f32(work[base + (size_t)(w + W * k) * M + m]);
+    col_fwht_ab<W, R>(v, sm, w, c);
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = 0.f;
+  }
+  float zz = 0.f;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int l = R * w + k;
+    const size_t off = base + (size_t)l * M + m;
+    float zk = y[off] - mask_n[(size_t)l * M + m] * v[k];
+    if (t > 0) zk += coef * z[off];
+    z[off] = zk;
+    zz += zk * zk;
+    v[k] = maybe_round(zk, kRound);
+  }
+  const float zsum = block_sum<W>(zz, red);
+  if (threadIdx.x == 0) zpart[(size_t)b * gridDim.x + s] = zsum;
+  col_fwht_ba<W, R>(v, sm, w, c);
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    work[base + (size_t)(w + W * k) * M + m] = from_f32<WT>(v[k]);
+}
+
+// Standalone H_L of every strip (in place), data rounded to bf16 first when
+// round_bf16 is set.
+template <int W, int R>
+__global__ void __launch_bounds__(32 * W, 1)
+fwht_cols_kernel(float* __restrict__ x, int M, int round_bf16) {
+  extern __shared__ float sm[];
+  constexpr int L = W * R;
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int m = blockIdx.x * kStrip + c;
+  const size_t base = (size_t)blockIdx.y * L * M;
+  float v[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    v[k] = maybe_round(x[base + (size_t)(w + W * k) * M + m], round_bf16);
+  col_fwht_ab<W, R>(v, sm, w, c);
+#pragma unroll
+  for (int k = 0; k < R; ++k) x[base + (size_t)(R * w + k) * M + m] = v[k];
+}
+
+// ------------------------------------------------------------------- rows
+//
+// A section row of M columns is handled by TPR = M / 4 threads, each with
+// 4 adjacent columns (one float4); a block of 256 threads holds
+// RPB = 256 / TPR rows.  Row bits 0-1 are inside the thread, bits 2-6 go
+// through warp shuffles, and the bits above (M > 128: a row spans warps)
+// through shared memory.
+
+template <int M>
+__device__ __forceinline__ void row_fwht(float (&v)[4], float* srow, int j) {
+  constexpr int TPR = M / 4;
+  constexpr int LANES = TPR < 32 ? TPR : 32;
+  {
+    const float a = v[0] + v[1], b = v[0] - v[1];
+    const float c = v[2] + v[3], d = v[2] - v[3];
+    v[0] = a + c;
+    v[1] = b + d;
+    v[2] = a - c;
+    v[3] = b - d;
+  }
+#pragma unroll
+  for (int mk = 1; mk < LANES; mk <<= 1) {
+    const bool hi = (j & mk) != 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[i], mk);
+      v[i] = hi ? o - v[i] : v[i] + o;
+    }
+  }
+  if constexpr (TPR > 32) {
+    __syncthreads();
+    reinterpret_cast<float4*>(srow)[j] = make_float4(v[0], v[1], v[2], v[3]);
+    __syncthreads();
+    for (int h = 128; h < M; h <<= 1) {
+      for (int i = j; i < M / 2; i += TPR) {
+        const int p = (i / h) * 2 * h + (i % h);
+        const float a = srow[p], b = srow[p + h];
+        srow[p] = a + b;
+        srow[p + h] = a - b;
+      }
+      __syncthreads();
+    }
+    const float4 q = reinterpret_cast<const float4*>(srow)[j];
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+}
+
+// Max or sum over one row's TPR threads, fixed order; every thread of the
+// row gets the result.
+template <int M, bool IS_MAX>
+__device__ __forceinline__ float row_reduce(float x, float* red, int r) {
+  constexpr int TPR = M / 4;
+  constexpr int LANES = TPR < 32 ? TPR : 32;
+#pragma unroll
+  for (int mk = 1; mk < LANES; mk <<= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, x, mk);
+    x = IS_MAX ? fmaxf(x, o) : x + o;
+  }
+  if constexpr (TPR > 32) {
+    constexpr int WPR = TPR / 32;  // warps per row
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+    __syncthreads();
+    x = red[r * WPR];
+#pragma unroll
+    for (int i = 1; i < WPR; ++i) {
+      const float o = red[r * WPR + i];
+      x = IS_MAX ? fmaxf(x, o) : x + o;
+    }
+  }
+  return x;
+}
+
+__device__ __forceinline__ void load4(float (&v)[4], const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void load4(float (&v)[4], const __nv_bfloat16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<const unsigned int*>(&a);
+  q.y = *reinterpret_cast<const unsigned int*>(&b);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+// Row stage of iteration t.  work holds H_L z on entry and, unless this is
+// the last iteration, H_M beta'_new (the next forward transform) on exit.
+// beta holds beta' and, after the last iteration, the true-scale beta.
+template <int M, typename WT>
+__global__ void __launch_bounds__(kRowThreads)
+amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
+               const float* __restrict__ zpart,  // (B, M / 32)
+               float* __restrict__ bpart,        // (B, L)
+               float* __restrict__ trace,        // (T, B)
+               const float* __restrict__ sqi, const float* __restrict__ sqo,
+               int B, int L, int t, int last, float n, float inv_sqrt_n) {
+  constexpr int TPR = M / 4, RPB = kRowThreads / TPR, NS = M / kStrip;
+  constexpr int kRound = IsBf16<WT>::value;
+  __shared__ __align__(16) float srows[RPB * M];
+  __shared__ float red[kRowThreads / 32];
+  const int r = threadIdx.x / TPR, j = threadIdx.x % TPR;
+  const int b = blockIdx.y;
+  const int l = blockIdx.x * RPB + r;
+  float* srow = srows + r * M;
+  const size_t off = ((size_t)b * L + l) * M + 4 * j;
+
+  float zz = 0.f;
+  for (int s = 0; s < NS; ++s) zz += zpart[(size_t)b * NS + s];
+  const float tau2 = zz / n;
+
+  float v[4];
+  load4(v, work + off);
+  row_fwht<M>(v, srow, j);
+  if (t > 0) {
+    float bo[4];
+    load4(bo, beta + off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] += bo[i];
+  }
+  const float ai = sqi[l] / tau2;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = ai * v[i];
+    mx = fmaxf(mx, v[i]);
+  }
+  mx = row_reduce<M, true>(mx, red, r);
+  float se = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = expf(v[i] - mx);
+    se += v[i];
+  }
+  se = row_reduce<M, false>(se, red, r);
+  const float so = sqo[l] / se;
+  float bb = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = so * v[i];
+    bb += v[i] * v[i];
+  }
+  if (last) {
+    float out[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = v[i] * inv_sqrt_n;
+    store4(beta + off, out);
+  } else {
+    store4(beta + off, v);
+    bb = row_reduce<M, false>(bb, red, r);
+    if (j == 0) bpart[(size_t)b * L + l] = bb;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = maybe_round(v[i], kRound);
+    row_fwht<M>(v, srow, j);
+    store4(work + off, v);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) trace[(size_t)t * B + b] = tau2;
+}
+
+// Standalone H_M of every row of x into out.
+template <int M>
+__global__ void __launch_bounds__(kRowThreads)
+fwht_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
+                 int round_bf16) {
+  constexpr int TPR = M / 4, RPB = kRowThreads / TPR;
+  __shared__ __align__(16) float srows[RPB * M];
+  const int r = threadIdx.x / TPR, j = threadIdx.x % TPR;
+  const size_t off = ((size_t)blockIdx.x * RPB + r) * M + 4 * j;
+  float v[4];
+  load4(v, x + off);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = maybe_round(v[i], round_bf16);
+  row_fwht<M>(v, srows + r * M, j);
+  store4(out + off, v);
+}
+
+// ------------------------------------------------------------- launchers
+
+template <int W, int R, typename K>
+int set_col_smem(K kernel) {
+  const int bytes = W * R * kStrip * (int)sizeof(float);
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int W, int R>
+struct Cols {
+  static int encode(const float* y_n, const float* mask_n, const float* sqo,
+                    const int32_t* enc_idx, float* y, int B, int M,
+                    cudaStream_t st) {
+    int rc = set_col_smem<W, R>(amp_encode_kernel<W, R>);
+    if (rc) return rc;
+    amp_encode_kernel<W, R><<<dim3(M / kStrip, B), 32 * W,
+                              W * R * kStrip * sizeof(float), st>>>(
+        y_n, mask_n, sqo, enc_idx, y, M);
+    return (int)cudaGetLastError();
+  }
+  template <typename WT>
+  static int step(WT* work, const float* y, float* z, const float* mask_n,
+                  float* zpart, const float* bpart, const float* trace, int B,
+                  int M, int t, float P, float nn, cudaStream_t st) {
+    int rc = set_col_smem<W, R>(amp_col_kernel<W, R, WT>);
+    if (rc) return rc;
+    amp_col_kernel<W, R, WT><<<dim3(M / kStrip, B), 32 * W,
+                               W * R * kStrip * sizeof(float), st>>>(
+        work, y, z, mask_n, zpart, bpart, trace, B, M, t, P, nn);
+    return (int)cudaGetLastError();
+  }
+  static int fwht(float* x, int B, int M, int round_bf16, cudaStream_t st) {
+    int rc = set_col_smem<W, R>(fwht_cols_kernel<W, R>);
+    if (rc) return rc;
+    fwht_cols_kernel<W, R><<<dim3(M / kStrip, B), 32 * W,
+                             W * R * kStrip * sizeof(float), st>>>(
+        x, M, round_bf16);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int M>
+struct Rows {
+  static constexpr int RPB = kRowThreads / (M / 4);
+  template <typename WT>
+  static int step(WT* work, float* beta, const float* zpart, float* bpart,
+                  float* trace, const float* sqi, const float* sqo, int B,
+                  int L, int t, int last, float n, float inv_sqrt_n,
+                  cudaStream_t st) {
+    amp_row_kernel<M, WT><<<dim3(L / RPB, B), kRowThreads, 0, st>>>(
+        work, beta, zpart, bpart, trace, sqi, sqo, B, L, t, last, n,
+        inv_sqrt_n);
+    return (int)cudaGetLastError();
+  }
+  static int fwht(const float* x, float* out, int rows, int round_bf16,
+                  cudaStream_t st) {
+    fwht_rows_kernel<M><<<rows / RPB, kRowThreads, 0, st>>>(x, out,
+                                                            round_bf16);
+    return (int)cudaGetLastError();
+  }
+};
+
+// Returns CALL with C = Cols<W, R> for the supported L = W * R (W <= R),
+// and with Q = Rows<M> for the supported M.
+#define DISPATCH_L(L, CALL)                             \
+  switch (L) {                                          \
+    case 32: { using C = Cols<4, 8>; return CALL; }     \
+    case 64: { using C = Cols<8, 8>; return CALL; }     \
+    case 128: { using C = Cols<8, 16>; return CALL; }   \
+    case 256: { using C = Cols<16, 16>; return CALL; }  \
+    case 512: { using C = Cols<16, 32>; return CALL; }  \
+    case 1024: { using C = Cols<32, 32>; return CALL; } \
+    default: return kBadShape;                          \
+  }
+
+#define DISPATCH_M(M, CALL)                          \
+  switch (M) {                                       \
+    case 32: { using Q = Rows<32>; return CALL; }    \
+    case 64: { using Q = Rows<64>; return CALL; }    \
+    case 128: { using Q = Rows<128>; return CALL; }  \
+    case 256: { using Q = Rows<256>; return CALL; }  \
+    case 512: { using Q = Rows<512>; return CALL; }  \
+    case 1024: { using Q = Rows<1024>; return CALL; } \
+    default: return kBadShape;                       \
+  }
+
+int encode(const float* y_n, const float* mask_n, const float* sqo,
+           const int32_t* enc_idx, float* y, int B, int L, int M,
+           cudaStream_t st) {
+  DISPATCH_L(L, C::encode(y_n, mask_n, sqo, enc_idx, y, B, M, st))
+}
+
+template <typename WT>
+int col_step(WT* work, const float* y, float* z, const float* mask_n,
+             float* zpart, const float* bpart, const float* trace, int B,
+             int L, int M, int t, float P, float nn, cudaStream_t st) {
+  DISPATCH_L(L, C::step(work, y, z, mask_n, zpart, bpart, trace, B, M, t, P,
+                        nn, st))
+}
+
+template <typename WT>
+int row_step(WT* work, float* beta, const float* zpart, float* bpart,
+             float* trace, const float* sqi, const float* sqo, int B, int L,
+             int M, int t, int last, float n, float inv_sqrt_n,
+             cudaStream_t st) {
+  DISPATCH_M(M, Q::step(work, beta, zpart, bpart, trace, sqi, sqo, B, L, t,
+                        last, n, inv_sqrt_n, st))
+}
+
+template <typename WT>
+int amp_iterations(const float* mask_n, const float* sqi, const float* sqo,
+                   float* beta, float* trace, const float* y, float* z,
+                   WT* work, float* zpart, float* bpart, int B, int L, int M,
+                   int T, float P, float n, float inv_sqrt_n,
+                   cudaStream_t st) {
+  const float nn = n * n;
+  for (int t = 0; t < T; ++t) {
+    int rc = col_step(work, y, z, mask_n, zpart, bpart, trace, B, L, M, t, P,
+                      nn, st);
+    if (rc) return rc;
+    rc = row_step(work, beta, zpart, bpart, trace, sqi, sqo, B, L, M, t,
+                  t == T - 1, n, inv_sqrt_n, st);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+int cols_fwht(float* x, int B, int L, int M, int round_bf16,
+              cudaStream_t st) {
+  DISPATCH_L(L, C::fwht(x, B, M, round_bf16, st))
+}
+
+int rows_fwht(const float* x, float* out, int rows, int M, int round_bf16,
+              cudaStream_t st) {
+  DISPATCH_M(M, Q::fwht(x, out, rows, round_bf16, st))
+}
+
+bool supported(int B, int L, int M) {
+  const bool pow2_l = L >= 32 && L <= 1024 && (L & (L - 1)) == 0;
+  const bool pow2_m = M >= 32 && M <= 1024 && (M & (M - 1)) == 0;
+  return B >= 1 && B <= 65535 && pow2_l && pow2_m;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Whole-trial AMP for B codewords.  Inputs: y_n (B, L, M) the channel
+// noise (enc_idx given) or the whole observation (enc_idx null), embedded
+// on the row support; mask_n (L, M) = mask / n; sqi, sqo (L,); enc_idx
+// (B, L) int32 or null.  Outputs: beta (B, L, M) true scale, trace (T, B).
+// Scratch: y, z (B, L, M) float; work (B, L, M), bfloat16 when round_bf16
+// (transform operands rounded to bf16) and float otherwise; zpart
+// (B, M / 32); bpart (B, L).
+// Returns 0, a cudaError_t, or -1 for an unsupported shape.
+int amp_split_run(const float* y_n, const float* mask_n, const float* sqi,
+                  const float* sqo, const int32_t* enc_idx, float* beta,
+                  float* trace, float* y, float* z, void* work, float* zpart,
+                  float* bpart, int B, int L, int M, int T, float P, float n,
+                  float inv_sqrt_n, int round_bf16, void* stream) {
+  if (!supported(B, L, M) || T < 1) return kBadShape;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = encode(y_n, mask_n, sqo, enc_idx, y, B, L, M, st);
+  if (rc) return rc;
+  if (round_bf16)
+    return amp_iterations(mask_n, sqi, sqo, beta, trace, y, z,
+                          static_cast<__nv_bfloat16*>(work), zpart, bpart, B,
+                          L, M, T, P, n, inv_sqrt_n, st);
+  return amp_iterations(mask_n, sqi, sqo, beta, trace, y, z,
+                        static_cast<float*>(work), zpart, bpart, B, L, M, T,
+                        P, n, inv_sqrt_n, st);
+}
+
+// H_L (x) H_M of each (L, M) tile of x (B, L, M) into out: H_M along the
+// rows, then H_L down the columns, each stage's input rounded to bfloat16
+// when round_bf16 is set.
+int amp_fwht_tile(const float* x, float* out, int B, int L, int M,
+                  int round_bf16, void* stream) {
+  if (!supported(B, L, M)) return kBadShape;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = rows_fwht(x, out, B * L, M, round_bf16, st);
+  if (rc) return rc;
+  return cols_fwht(out, B, L, M, round_bf16, st);
+}
+
+const char* amp_split_error_string(int code) {
+  if (code == kBadShape) return "unsupported shape";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

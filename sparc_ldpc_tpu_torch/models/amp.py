@@ -1,0 +1,138 @@
+"""AMP decode loop (port of sparc_ldpc_tpu/models/amp.py).
+
+Per iteration: two transform matvecs and one sectionwise softmax, with the
+Onsager correction and online tau tracking:
+
+    z_t    = y - A beta_t + (z_{t-1} / tau2_{t-1}) (P - |beta_t|^2 / n)
+    tau2_t = |z_t|^2 / n                      (or an SE schedule)
+    s_t    = beta_t + A^T z_t
+    beta_{t+1} = eta(s_t; tau2_t)             (ops.denoiser)
+
+Two routes: the fused whole-trial route (ops.amp_kernel.amp_fused: the CUDA
+kernel on a GPU, its plain version on the CPU) and the scan route, a Python
+loop with the reference's per-codeword freeze mask: once
+|tau2_t - tau2_{t-1}| < tol * tau2_t a codeword's state stops changing, and
+`iters` counts the iterations it really ran.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops.amp_kernel import amp_fused
+from ..ops.denoiser import denoise
+from ..ops.operators import BatchedOperator
+
+
+@dataclass(frozen=True)
+class AmpResult:
+    """Final AMP state; the posteriors are derived from beta on demand."""
+    beta: torch.Tensor         # (B, L, M) final posterior-mean estimate
+    tau2_trace: torch.Tensor   # (T, B)
+    iters: torch.Tensor        # (B,) iterations actually used
+    sq_npl: torch.Tensor       # (L,) sqrt(n P_l)
+
+    @property
+    def posteriors(self) -> torch.Tensor:
+        """(B, L, M) section posteriors (= beta / sqrt(n P_l))."""
+        return self.beta / self.sq_npl[None, :, None]
+
+
+def amp_decode(
+    y: torch.Tensor,              # (B, n)
+    op: BatchedOperator,
+    sq_npl: torch.Tensor,         # (L,)
+    P: float,
+    n: int,
+    T: int,
+    tol: float = 1e-6,
+    tau2_schedule: Optional[torch.Tensor] = None,   # (T,) SE schedule
+    residual_space: str = "n",
+    fused: bool = False,
+    encode_idx: Optional[torch.Tensor] = None,      # (B, L) int32: y IS the
+                                                    # noise, the fused route
+                                                    # synthesizes the codeword
+) -> AmpResult:
+    B = y.shape[0]
+    L = sq_npl.shape[0]
+    ML = op.ML
+    M = ML // L
+
+    if fused and op.mask is not None and L <= 4096 and M <= 1024:
+        # schedule mode has no online tau to compare: no early stop there
+        k_tol = tol if (tol > 0 and tau2_schedule is None) else 0.0
+        y_n = op.embed_y(y).reshape(B, L, M)
+        beta3, trace = amp_fused(y_n, op.mask.reshape(L, M), sq_npl, P, n, T,
+                                 encode_idx=encode_idx, tol=k_tol,
+                                 tau2_schedule=tau2_schedule)
+        iters = torch.full((B,), T, dtype=torch.int32, device=y.device)
+        return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
+                         sq_npl=sq_npl)
+    if encode_idx is not None:
+        raise ValueError("encode_idx needs the fused route (op.mask present, "
+                         "L <= 4096, M <= 1024); encode outside amp_decode")
+
+    n_space = op.embed_y is not None and residual_space == "N"
+    yN = op.embed_y(y) if n_space else None
+    dev, dt = y.device, y.dtype
+    beta = torch.zeros((B, ML), dtype=dt, device=dev)
+    z = torch.zeros((B, op.N) if n_space else y.shape, dtype=dt, device=dev)
+    tau2_prev = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    trace = torch.empty((T, B), dtype=dt, device=dev)
+    for t in range(T):
+        bnorm2 = (beta * beta).sum(-1)
+        coef = (P - bnorm2 / n) / tau2_prev            # 0 at t = 0 (inf)
+        if n_space:
+            z_new = op.resid_n(yN, beta, z, coef[:, None])
+        else:
+            z_new = y - op.Ax(beta) + z * coef[:, None]
+        if tau2_schedule is None:
+            tau2 = (z_new * z_new).sum(-1) / n
+        else:
+            tau2 = torch.full((B,), float(tau2_schedule[t]), dtype=dt,
+                              device=dev)
+        adj = op.adj_n(z_new) if n_space else op.Ay(z_new)
+        beta3, _ = denoise((beta + adj).reshape(B, L, M), tau2, sq_npl)
+        if tau2_schedule is None:
+            conv = (tau2 - tau2_prev).abs() < tol * tau2
+        else:
+            conv = torch.zeros_like(done)
+        keep = done[:, None]
+        beta = torch.where(keep, beta, beta3.reshape(B, ML))
+        z = torch.where(keep, z, z_new)
+        tau2_prev = torch.where(done, tau2_prev, tau2)
+        iters = iters + (~done).to(torch.int32)
+        trace[t] = tau2_prev
+        done = done | conv
+    return AmpResult(beta=beta.reshape(B, L, M), tau2_trace=trace,
+                     iters=iters, sq_npl=sq_npl)
+
+
+def hard_indices(scores_or_beta: torch.Tensor) -> torch.Tensor:
+    """Sectionwise argmax: (B, L, M) -> (B, L) int32."""
+    return scores_or_beta.argmax(-1).to(torch.int32)
+
+
+def decision_flips(beta_a, beta_b, rel_margin: float = 2e-2
+                   ) -> Tuple[int, int]:
+    """Compare the hard decisions of two decodes of the same input.
+
+    Returns (flips, decisive): the sections whose argmax differs, and those
+    of them where both sides' top-2 relative margin exceeds rel_margin
+    (the rule of the reference's tests/test_precision.py
+    assert_decisions_match: bf16 rounding noise may flip near-ties only)."""
+    a = torch.as_tensor(beta_a).detach().cpu().to(torch.float64)
+    b = torch.as_tensor(beta_b).detach().cpu().to(torch.float64)
+    mm = a.argmax(-1) != b.argmax(-1)
+
+    def margin(x):
+        top2 = x.topk(2, dim=-1).values
+        return (top2[..., 0] - top2[..., 1]) / top2[..., 0].clamp(min=1e-30)
+
+    decisive = mm & (margin(a) > rel_margin) & (margin(b) > rel_margin)
+    return int(mm.sum()), int(decisive.sum())

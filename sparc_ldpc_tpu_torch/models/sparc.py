@@ -1,0 +1,201 @@
+"""SPARC codec pipeline: encode -> channel -> AMP decode -> error counters
+(port of sparc_ldpc_tpu/models/sparc.py `SparcModel`).
+
+A model is one SPARC codebook at one operating point, with its constants
+on an explicit device.  The design constants (power allocation, the
+SE-derived iteration budget, the operator's row set) come from the shared
+NumPy design code, or from `from_numpy`, which takes them as arrays so that
+the reference and the port compute with the same constants.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from sparc_ldpc_tpu.config import SparcConfig
+from sparc_ldpc_tpu.design.codebook import HadamardPlan
+from sparc_ldpc_tpu.design.power import power_allocation
+from sparc_ldpc_tpu.design.se import se_converged_iters, se_trajectory
+
+from .. import check_device
+from ..ops.operators import BatchedOperator, make_operator
+from ..utils.bits import bits_to_indices, indices_to_bits
+from .amp import AmpResult, amp_decode, hard_indices
+
+
+@dataclass(frozen=True)
+class SparcModel:
+    cfg: SparcConfig                     # amp_iters is the effective T
+    ebno_db: float
+    sigma2: float
+    p_alloc: np.ndarray                  # (L,) design-time power allocation
+    sq_npl: torch.Tensor                 # (L,) sqrt(n P_l), float32
+    op: BatchedOperator
+    tau2_schedule: Optional[torch.Tensor]  # (T,) when cfg.tau_mode == "se"
+    device: torch.device
+
+    @staticmethod
+    def build(cfg: SparcConfig, ebno_db: float, device) -> "SparcModel":
+        """Design the code at `ebno_db` (as the reference's build does)."""
+        sigma2 = cfg.sigma2(ebno_db)
+        p = power_allocation(cfg.power_alloc, cfg.L, cfg.P, sigma2, cfg.n,
+                             cfg.M, cfg.pa_a, cfg.pa_f)
+        if cfg.amp_iters_auto:
+            cfg = replace(cfg, amp_iters=se_converged_iters(
+                p, cfg.n, cfg.M, sigma2, tol=cfg.amp_auto_tol,
+                T_max=cfg.amp_iters, margin=cfg.amp_auto_margin))
+        sq = np.sqrt(cfg.n * p).astype(np.float32)
+        return SparcModel._make(cfg, ebno_db, sigma2, p, sq, None, device)
+
+    @staticmethod
+    def from_numpy(cfg: SparcConfig, ebno_db: float,
+                   params: Mapping[str, np.ndarray], device) -> "SparcModel":
+        """A model from constants computed elsewhere.
+
+        params: p_alloc (L,), sq_npl (L,), rows (n,) and mask (N,) of the
+        Hadamard operator, sigma2 and the effective amp_iters."""
+        cfg = replace(cfg, amp_iters=int(params["amp_iters"]))
+        plan = None
+        if cfg.op_kind == "hadamard":
+            mask = np.asarray(params["mask"])
+            rows = np.asarray(params["rows"]).astype(np.int32)
+            if not np.array_equal(np.flatnonzero(mask), np.sort(rows)):
+                raise ValueError("params['mask'] is not the support of "
+                                 "params['rows']")
+            plan = HadamardPlan(N=mask.size, n=cfg.n, ML=cfg.ML, rows=rows,
+                                signs=None)
+        return SparcModel._make(
+            cfg, ebno_db, float(params["sigma2"]),
+            np.asarray(params["p_alloc"], dtype=np.float64),
+            np.asarray(params["sq_npl"], dtype=np.float32), plan, device)
+
+    @staticmethod
+    def _make(cfg, ebno_db, sigma2, p, sq, plan, device) -> "SparcModel":
+        device = check_device(device)
+        if cfg.amp_kernel in ("fused", "fused_slab"):
+            raise NotImplementedError(
+                f"amp_kernel={cfg.amp_kernel!r} is not ported yet; the port "
+                "has the 'fused_split' kernel and the 'xla' scan route")
+        sched = None
+        if cfg.tau_mode == "se":
+            tr = se_trajectory(p, cfg.n, cfg.M, sigma2, T=cfg.amp_iters)
+            tr = np.pad(tr[1:], (0, max(0, cfg.amp_iters - len(tr) + 1)),
+                        mode="edge")[: cfg.amp_iters]
+            sched = torch.as_tensor(tr, dtype=torch.float32, device=device)
+        return SparcModel(
+            cfg=cfg, ebno_db=ebno_db, sigma2=sigma2, p_alloc=p,
+            sq_npl=torch.tensor(sq, device=device),
+            op=make_operator(cfg, device, plan), tau2_schedule=sched,
+            device=device)
+
+    @property
+    def fused(self) -> bool:
+        return self.cfg.amp_kernel == "fused_split"
+
+    # ------------------------------------------------------------ encode
+
+    def build_beta(self, indices: torch.Tensor) -> torch.Tensor:
+        """(B, L) indices -> (B, ML) beta = sqrt(n P_l) * one_hot."""
+        onehot = torch.nn.functional.one_hot(indices.to(torch.int64),
+                                             self.cfg.M).to(torch.float32)
+        beta = self.sq_npl[None, :, None] * onehot
+        return beta.reshape(indices.shape[0], self.cfg.ML)
+
+    def encode(self, bits: torch.Tensor) -> torch.Tensor:
+        """(B, k_bits) -> (B, n) codewords."""
+        return self.op.Ax(self.build_beta(bits_to_indices(bits,
+                                                          self.cfg.logM)))
+
+    def channel(self, x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        noise = torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                            device=x.device)
+        return x + noise * math.sqrt(self.sigma2)
+
+    # ------------------------------------------------------------ decode
+
+    def decode(self, y: torch.Tensor, T: Optional[int] = None,
+               encode_idx: Optional[torch.Tensor] = None) -> AmpResult:
+        return amp_decode(
+            y, self.op, self.sq_npl, self.cfg.P, self.cfg.n,
+            T=T or self.cfg.amp_iters, tol=self.cfg.amp_tol,
+            tau2_schedule=self.tau2_schedule,
+            residual_space=self.cfg.amp_residual_space, fused=self.fused,
+            encode_idx=encode_idx)
+
+    def decode_bits(self, y: torch.Tensor) -> torch.Tensor:
+        return indices_to_bits(hard_indices(self.decode(y).beta),
+                               self.cfg.logM)
+
+    # ------------------------------------------------------------- trial
+
+    def run_block(self, gen: torch.Generator, batch: int
+                  ) -> Dict[str, torch.Tensor]:
+        """One Monte-Carlo block of `batch` trials drawn from `gen`."""
+        return self.run_block_params(gen, batch, self.sq_npl,
+                                     math.sqrt(self.sigma2))
+
+    def run_block_params(self, gen: torch.Generator, batch: int,
+                         sq_npl: torch.Tensor, sigma: float
+                         ) -> Dict[str, torch.Tensor]:
+        """run_block with the operating point's sq_npl and sigma given."""
+        bits = torch.randint(0, 2, (batch, self.cfg.k_bits), generator=gen,
+                             dtype=torch.int32, device=self.device)
+        noise = torch.randn((batch, self.cfg.n), generator=gen,
+                            dtype=torch.float32, device=self.device)
+        return self._block(bits, noise, sq_npl, sigma)
+
+    def run_block_from(self, bits, noise) -> Dict[str, torch.Tensor]:
+        """run_block on given draws: bits (B, k_bits) {0,1} and standard
+        normal noise (B, n), as arrays or tensors."""
+        bits = torch.as_tensor(bits, dtype=torch.int32, device=self.device)
+        noise = torch.as_tensor(noise, dtype=torch.float32,
+                                device=self.device)
+        return self._block(bits, noise, self.sq_npl, math.sqrt(self.sigma2))
+
+    def _block(self, bits, noise, sq_npl, sigma) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        batch = bits.shape[0]
+        idx_true = bits_to_indices(bits, cfg.logM)
+        # In-kernel encode: the fused route synthesizes x = A beta0 from the
+        # true indices, so only the noise is materialized here.
+        in_kernel_enc = (self.fused and cfg.amp_encode_in_kernel
+                         and self.op.mask is not None
+                         and cfg.L <= 4096 and cfg.M <= 1024)
+        if in_kernel_enc and cfg.amp_noise_in_kernel:
+            raise NotImplementedError(
+                "amp_noise_in_kernel=True (in-kernel channel noise) is not "
+                "ported yet; set it to False")
+        if in_kernel_enc:
+            y = noise * sigma
+            enc_idx = idx_true
+        else:
+            onehot = torch.nn.functional.one_hot(idx_true.to(torch.int64),
+                                                 cfg.M).to(torch.float32)
+            beta = (sq_npl[None, :, None] * onehot).reshape(batch, cfg.ML)
+            y = self.op.Ax(beta) + noise * sigma
+            enc_idx = None
+        res = amp_decode(
+            y, self.op, sq_npl, cfg.P, cfg.n, T=cfg.amp_iters,
+            tol=cfg.amp_tol, tau2_schedule=self.tau2_schedule,
+            residual_space=cfg.amp_residual_space, fused=self.fused,
+            encode_idx=enc_idx)
+        idx_hat = hard_indices(res.beta)
+        bits_hat = indices_to_bits(idx_hat, cfg.logM)
+        bit_errors = (bits != bits_hat).sum(-1)              # (B,)
+        section_errors = (idx_true != idx_hat).sum(-1)       # (B,)
+        return dict(
+            bit_errors=bit_errors.sum(),
+            # bit errors cluster within frames: the frame-level second
+            # moment gives honest BER confidence intervals
+            bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
+            frame_errors=(bit_errors > 0).sum(),
+            section_errors=section_errors.sum(),
+            trials=torch.tensor(batch, dtype=torch.int32, device=self.device),
+            iters_sum=res.iters.sum(),
+            tau2_final=res.tau2_trace[-1].mean(),
+        )

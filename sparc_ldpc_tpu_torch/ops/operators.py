@@ -1,0 +1,107 @@
+"""Batched matrix-free measurement operators (port of
+sparc_ldpc_tpu/ops/operators.py: `BatchedOperator`, `dense_operator`,
+`hadamard_operator` with the "mxu" transform scheme).
+
+    Ax: (B, ML) -> (B, n)       Ay: (B, n) -> (B, ML)
+
+Operators are built from the shared host-side plans
+(sparc_ldpc_tpu.design.codebook), so the reference and the port use
+identical index sets.  The reference's "rev" transform scheme computes the
+same transform in another TPU layout; here both schemes run `fwht_kron`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from sparc_ldpc_tpu.config import SparcConfig
+from sparc_ldpc_tpu.design.codebook import HadamardPlan, hadamard_plan
+
+from .fwht import fwht_kron
+
+
+class BatchedOperator(NamedTuple):
+    """Forward/adjoint pair plus static geometry.
+
+    N-space members (Hadamard only) keep the AMP residual in the length-N
+    transform domain:
+      embed_y:  (B, n) -> (B, N)   scatter of y onto the row support
+      resid_n:  (yN, beta, zN, coef) -> mask*(yN - A_full beta) + coef*zN
+      adj_n:    (B, N) -> (B, ML)  adjoint straight from the N-space residual
+    `mask` is the (N,) 0/1 row support, present when the operator can run
+    the fused whole-trial AMP (ML == N, no column signs)."""
+    Ax: Callable[[torch.Tensor], torch.Tensor]
+    Ay: Callable[[torch.Tensor], torch.Tensor]
+    n: int
+    ML: int
+    N: int
+    embed_y: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    resid_n: Optional[Callable] = None
+    adj_n: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    mask: Optional[torch.Tensor] = None
+
+
+def dense_operator(cfg: SparcConfig, device="cpu") -> BatchedOperator:
+    """Explicit iid N(0, 1/n) matrix with the reference's seed chain."""
+    n, ML = cfg.n, cfg.ML
+    rng = np.random.default_rng(np.random.SeedSequence([0xDE45E, cfg.op_seed]))
+    A = torch.as_tensor(rng.standard_normal((n, ML)) / math.sqrt(n),
+                        dtype=torch.float32, device=device)
+    return BatchedOperator(Ax=lambda beta: beta @ A.T, Ay=lambda z: z @ A,
+                           n=n, ML=ML, N=ML)
+
+
+def hadamard_operator(cfg: SparcConfig, device="cpu",
+                      plan: Optional[HadamardPlan] = None) -> BatchedOperator:
+    """Matrix-free partial-Hadamard operator A = H_N[rows, :ML] / sqrt(n).
+
+    `plan` defaults to the config's own `hadamard_plan`; passing one lets a
+    caller reuse constants taken from another implementation."""
+    if cfg.col_signs:
+        raise NotImplementedError("col_signs=True is not ported yet")
+    if plan is None:
+        plan = hadamard_plan(cfg.n, cfg.ML, cfg.op_seed, cfg.col_signs)
+    N, n, ML = plan.N, plan.n, plan.ML
+    rows = torch.as_tensor(plan.rows, dtype=torch.int64, device=device)
+    mask = torch.zeros(N, dtype=torch.float32, device=device)
+    mask[rows] = 1.0
+    inv_sqrt_n = 1.0 / math.sqrt(n)
+    prec = cfg.transform_precision
+
+    def pad(beta):
+        return beta if ML == N else torch.nn.functional.pad(beta, (0, N - ML))
+
+    def embed_y(y):
+        u = torch.zeros(y.shape[:-1] + (N,), dtype=y.dtype, device=y.device)
+        u[..., rows] = y
+        return u
+
+    def Ax(beta):
+        return fwht_kron(pad(beta), prec)[..., rows] * inv_sqrt_n
+
+    def Ay(z):
+        return fwht_kron(embed_y(z), prec)[..., :ML] * inv_sqrt_n
+
+    def resid_n(yN, beta, zN, coef):
+        w = fwht_kron(pad(beta), prec)
+        return mask * (yN - w * inv_sqrt_n) + zN * coef
+
+    def adj_n(zN):
+        return fwht_kron(zN, prec)[..., :ML] * inv_sqrt_n
+
+    return BatchedOperator(Ax=Ax, Ay=Ay, n=n, ML=ML, N=N, embed_y=embed_y,
+                           resid_n=resid_n, adj_n=adj_n,
+                           mask=mask if ML == N else None)
+
+
+def make_operator(cfg: SparcConfig, device="cpu",
+                  plan: Optional[HadamardPlan] = None) -> BatchedOperator:
+    if cfg.op_kind == "dense":
+        return dense_operator(cfg, device)
+    if cfg.op_kind == "hadamard":
+        return hadamard_operator(cfg, device, plan)
+    raise NotImplementedError(f"op_kind={cfg.op_kind!r} is not ported yet")

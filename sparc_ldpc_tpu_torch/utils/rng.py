@@ -1,0 +1,30 @@
+"""Seeded random streams for Monte-Carlo blocks (port of
+sparc_ldpc_tpu/utils/rng.py).
+
+One explicit torch.Generator per (base, point, block): its seed is drawn
+from a NumPy SeedSequence of those three integers, so a block's draws
+depend only on its coordinates.  Within a block, draws depend on the batch
+size (the reference folds a key per trial, which makes its draws
+independent of how a block is split; that per-trial invariance is not
+ported yet).  Torch and JAX streams differ: same-input tests make their
+draws with NumPy and hand them to both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def block_seed(base: int, point: int, block: int) -> int:
+    """64-bit seed of block (base, point, block)."""
+    ss = np.random.SeedSequence([base, point, block])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
+def block_generator(base: int, point: int, block: int,
+                    device="cpu") -> torch.Generator:
+    """A torch.Generator on `device`, seeded for (base, point, block)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(block_seed(base, point, block))
+    return gen

@@ -1,0 +1,175 @@
+"""The port's AMP (fused whole-trial route and scan route) against the JAX
+reference on the CPU.  The CUDA kernel is held against its plain version
+in tests/test_torch_cuda.py and, at full width, by chip_smoke.py.
+
+Tolerances are the reference's own for bf16 transforms: margin-aware
+decisions (tests/test_precision.py assert_decisions_match), tau2 traces to
+rtol 2e-2, beta to rtol/atol 5e-2.
+"""
+
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparc_ldpc_tpu.config import SparcConfig
+from sparc_ldpc_tpu.models.amp import amp_decode as j_amp_decode
+from sparc_ldpc_tpu.models.sparc import SparcModel as JModel
+from sparc_ldpc_tpu.ops.amp_kernel import amp_fused as j_amp_fused
+from sparc_ldpc_tpu.utils.bits import np_bits_to_indices
+from test_precision import assert_decisions_match
+
+from sparc_ldpc_tpu_torch.models.amp import (
+    AmpResult, amp_decode, decision_flips, hard_indices)
+from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, amp_fused_reference
+from sparc_ldpc_tpu_torch.ops.operators import hadamard_operator
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _fused_inputs(L, M, B=2, ebno_db=5.0, seed=0):
+    """NumPy inputs of the fused route with in-kernel encode: the scaled
+    channel noise y (B, n) and its embedding y_n (B, L, M) on the row
+    support, the true section indices, and the JAX model's constants."""
+    cfg = SparcConfig(L=L, M=M, R=1.0, op_kind="hadamard", amp_iters=8,
+                      amp_tol=0.0, transform_precision="bf16",
+                      amp_kernel="fused_split")
+    m = JModel.build(cfg, ebno_db=ebno_db)
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (B, cfg.k_bits))
+    noise = rng.standard_normal((B, cfg.n)).astype(np.float32)
+    y = noise * np.float32(np.sqrt(m.sigma2))
+    y_n = np.asarray(m.op.embed_y(jnp.asarray(y))).reshape(B, L, M)
+    idx = np_bits_to_indices(bits, cfg.logM).astype(np.int32)
+    mask = np.asarray(m.op.mask).reshape(L, M)
+    return SimpleNamespace(cfg=cfg, model=m, y=y, y_n=y_n, mask=mask,
+                           sq=np.asarray(m.sq_npl), idx=idx)
+
+
+@pytest.mark.parametrize("L,M", [(256, 64), (64, 256), (256, 256)])
+def test_amp_fused_reference_matches_jax_split_kernel(L, M):
+    d = _fused_inputs(L, M)
+    cfg, T = d.cfg, d.cfg.amp_iters
+    bj, tj = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                         jnp.asarray(d.sq), cfg.P, cfg.n, T, interpret=True,
+                         split=True, encode_idx=jnp.asarray(d.idx))
+    bt, tt = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), cfg.P,
+                                 cfg.n, T, encode_idx=_t(d.idx))
+    bj, tj = np.asarray(bj), np.asarray(tj)
+    assert bt.shape == bj.shape and tt.shape == tj.shape == (T, 2)
+    assert_decisions_match(bj, bt.numpy())
+    np.testing.assert_allclose(tt.numpy(), tj, rtol=2e-2)
+    np.testing.assert_allclose(bt.numpy(), bj, rtol=5e-2, atol=5e-2)
+
+
+def test_amp_fused_on_cpu_runs_the_plain_version_without_launch():
+    d = _fused_inputs(64, 128)
+    args = (_t(d.y_n), _t(d.mask), _t(d.sq), d.cfg.P, d.cfg.n,
+            d.cfg.amp_iters)
+    launches = amp_fused.launches
+    b1, t1 = amp_fused(*args, encode_idx=_t(d.idx))
+    b2, t2 = amp_fused_reference(*args, encode_idx=_t(d.idx))
+    assert amp_fused.launches == launches
+    assert torch.equal(b1, b2) and torch.equal(t1, t2)
+
+
+@pytest.mark.parametrize("option", [
+    dict(tol=1e-4), dict(pin_idx=torch.zeros(2, 64, dtype=torch.int32)),
+    dict(tau2_schedule=torch.ones(8)),
+    dict(noise_seed=torch.zeros(2, 2, dtype=torch.int32))])
+def test_amp_fused_unported_options_raise(option):
+    d = _fused_inputs(64, 128)
+    with pytest.raises(NotImplementedError):
+        amp_fused(_t(d.y_n), _t(d.mask), _t(d.sq), d.cfg.P, d.cfg.n, 8,
+                  encode_idx=_t(d.idx), **option)
+
+
+def test_amp_fused_encode_matches_explicit_codeword():
+    """In-kernel encode == decoding y = mask o (A beta0) + noise with
+    encode_idx=None (the codeword synthesized outside)."""
+    d = _fused_inputs(64, 128)
+    cfg = d.cfg.replace(transform_precision="highest")
+    op = hadamard_operator(cfg)
+    beta0 = torch.nn.functional.one_hot(_t(d.idx).long(), cfg.M).float()
+    beta0 = (_t(d.sq)[None, :, None] * beta0).reshape(2, cfg.ML)
+    x_n = op.embed_y(op.Ax(beta0)).reshape(2, cfg.L, cfg.M)
+    args = (_t(d.mask), _t(d.sq), cfg.P, cfg.n, cfg.amp_iters)
+    b1, t1 = amp_fused(_t(d.y_n), *args, encode_idx=_t(d.idx),
+                       precision="highest")
+    b2, t2 = amp_fused(_t(d.y_n) + x_n, *args, precision="highest")
+    np.testing.assert_allclose(t1.numpy(), t2.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(b1.numpy(), b2.numpy(), atol=1e-4)
+
+
+# ------------------------------------------------------------- scan route
+
+@pytest.mark.parametrize("variant", [
+    dict(), dict(amp_tol=1e-3), dict(tau_mode="se"),
+    dict(amp_residual_space="N", amp_tol=1e-3)])
+def test_scan_amp_decode_matches_jax_scan(variant):
+    cfg = SparcConfig(L=64, M=128, R=1.0, op_kind="hadamard", amp_iters=12,
+                      amp_tol=0.0, transform_precision="highest"
+                      ).replace(**variant)
+    m = JModel.build(cfg, ebno_db=6.0)
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, (3, cfg.k_bits))
+    noise = rng.standard_normal((3, cfg.n)).astype(np.float32)
+    y = np.asarray(m.encode(jnp.asarray(bits))) \
+        + noise * np.float32(np.sqrt(m.sigma2))
+    rj = m.decode(jnp.asarray(y))
+    sched = (None if m.tau2_schedule is None
+             else _t(m.tau2_schedule))
+    rt = amp_decode(_t(y), hadamard_operator(cfg), _t(m.sq_npl), cfg.P,
+                    cfg.n, T=cfg.amp_iters, tol=cfg.amp_tol,
+                    tau2_schedule=sched,
+                    residual_space=cfg.amp_residual_space)
+    assert isinstance(rt, AmpResult)
+    assert_decisions_match(np.asarray(rj.beta), rt.beta.numpy())
+    np.testing.assert_array_equal(hard_indices(rt.beta).numpy(),
+                                  np.asarray(rj.beta).argmax(-1))
+    np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
+    np.testing.assert_allclose(rt.tau2_trace.numpy(),
+                               np.asarray(rj.tau2_trace), rtol=1e-4)
+    np.testing.assert_allclose(rt.posteriors.numpy(),
+                               np.asarray(rj.posteriors), atol=1e-4)
+    if cfg.amp_tol:
+        assert int(rt.iters.max()) < cfg.amp_iters, "early stop not engaged"
+
+
+def test_fused_amp_decode_matches_jax_fused_route():
+    """amp_decode(fused=True, encode_idx=...) end to end against the JAX
+    fused route in interpret mode."""
+    d = _fused_inputs(64, 256, B=3, seed=1)
+    cfg, m = d.cfg, d.model
+    rj = j_amp_decode(jnp.asarray(d.y), m.op, m.sq_npl, cfg.P, cfg.n,
+                      T=cfg.amp_iters, tol=0.0, fused=True,
+                      fused_interpret=True, fused_split=True,
+                      encode_idx=jnp.asarray(d.idx))
+    rt = amp_decode(_t(d.y), hadamard_operator(cfg), _t(d.sq), cfg.P, cfg.n,
+                    T=cfg.amp_iters, tol=0.0, fused=True,
+                    encode_idx=_t(d.idx))
+    assert_decisions_match(np.asarray(rj.beta), rt.beta.numpy())
+    np.testing.assert_allclose(rt.tau2_trace.numpy(),
+                               np.asarray(rj.tau2_trace), rtol=2e-2)
+    np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
+
+
+def test_decision_flips_follows_assert_decisions_match():
+    rng = np.random.default_rng(6)
+    a = rng.random((2, 16, 8)) + 0.1
+    b = a.copy()
+    b[0, 3] = a[0, 3][::-1]                       # a decisive flip
+    a[1, 5, :2] = [1.0, 0.999]                    # a near-tie ...
+    b[1, 5, :2] = [0.999, 1.0]                    # ... that flips
+    a[1, 5, 2:] = b[1, 5, 2:] = 0.1
+    flips, decisive = decision_flips(a, b)
+    assert (flips, decisive) == (2, 1)
+    with pytest.raises(AssertionError):
+        assert_decisions_match(a, b)
+    b[0, 3] = a[0, 3]
+    assert decision_flips(torch.tensor(a), torch.tensor(b)) == (1, 0)
+    assert_decisions_match(a, b, max_flips=1.0)

@@ -1,0 +1,228 @@
+"""The port's SparcModel (the whole decode slice) against the JAX reference
+on the CPU, and the guards around it: the port imports no JAX, a CUDA
+request without CUDA raises, unported options raise.
+
+Both packages get the same NumPy draws (torch and JAX random streams
+differ).  Contracts: exact for the design constants; for decodes with
+bf16 transforms, margin-aware decisions (tests/test_precision.py
+assert_decisions_match), equal trial and iteration counts, tau2 to rtol
+2e-2.
+"""
+
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparc_ldpc_tpu.config import SparcConfig
+from sparc_ldpc_tpu.models.amp import amp_decode as j_amp_decode
+from sparc_ldpc_tpu.models.sparc import SparcModel as JModel
+from sparc_ldpc_tpu.utils.bits import np_bits_to_indices, np_indices_to_bits
+from test_precision import assert_decisions_match
+
+import sparc_ldpc_tpu_torch as slt
+from sparc_ldpc_tpu_torch.models.sparc import SparcModel
+from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
+from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+EBNO = 4.0
+# the headline configuration's options at a CPU-test size
+FUSED = SparcConfig(L=64, M=128, R=1.0, power_alloc="iterative",
+                    op_kind="hadamard", amp_kernel="fused_split",
+                    transform_precision="bf16", amp_iters=16, amp_tol=0.0,
+                    amp_iters_auto=True)
+XLA = SparcConfig(L=64, M=128, R=1.0, power_alloc="iterative",
+                  op_kind="hadamard", transform_precision="highest",
+                  amp_iters=16, amp_tol=1e-4)
+
+
+def _params(mj):
+    """The reference model's constants as NumPy arrays."""
+    mask = np.asarray(mj.op.mask)
+    return dict(p_alloc=np.asarray(mj.p_alloc), sq_npl=np.asarray(mj.sq_npl),
+                rows=np.flatnonzero(mask), mask=mask, sigma2=mj.sigma2,
+                amp_iters=mj.cfg.amp_iters)
+
+
+def _draws(cfg, B, seed=0):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (B, cfg.k_bits)).astype(np.int32)
+    noise = rng.standard_normal((B, cfg.n)).astype(np.float32)
+    return bits, noise
+
+
+def _counters(idx_true, idx_hat, logM):
+    """The reference's counter definitions, in NumPy."""
+    bits_true = np_indices_to_bits(idx_true, logM)
+    bit_errors = (bits_true != np_indices_to_bits(idx_hat, logM)).sum(-1)
+    return dict(bit_errors=int(bit_errors.sum()),
+                frame_errors=int((bit_errors > 0).sum()),
+                section_errors=int((idx_true != idx_hat).sum()))
+
+
+# ---------------------------------------------------------- constants
+
+@pytest.mark.parametrize("cfg", [FUSED, XLA, XLA.replace(tau_mode="se"),
+                                 XLA.replace(power_alloc="flat")])
+def test_build_constants_match_jax_exactly(cfg):
+    mj = JModel.build(cfg, EBNO)
+    mt = SparcModel.build(cfg, EBNO, "cpu")
+    assert mt.cfg == mj.cfg                      # incl. the SE-derived T
+    assert mt.sigma2 == mj.sigma2
+    np.testing.assert_array_equal(mt.p_alloc, mj.p_alloc)
+    np.testing.assert_array_equal(mt.sq_npl.numpy(), np.asarray(mj.sq_npl))
+    np.testing.assert_array_equal(mt.op.mask.numpy(), np.asarray(mj.op.mask))
+    if cfg.tau_mode == "se":
+        np.testing.assert_array_equal(mt.tau2_schedule.numpy(),
+                                      np.asarray(mj.tau2_schedule))
+    else:
+        assert mt.tau2_schedule is None
+
+
+def test_from_numpy_takes_the_reference_constants():
+    mj = JModel.build(FUSED, EBNO)
+    mt = SparcModel.from_numpy(FUSED, EBNO, _params(mj), "cpu")
+    mb = SparcModel.build(FUSED, EBNO, "cpu")
+    assert mt.cfg == mj.cfg
+    np.testing.assert_array_equal(mt.sq_npl.numpy(), np.asarray(mj.sq_npl))
+    np.testing.assert_array_equal(mt.op.mask.numpy(), np.asarray(mj.op.mask))
+    bits, noise = _draws(FUSED, 2)
+    a, b = mt.run_block_from(bits, noise), mb.run_block_from(bits, noise)
+    assert {k: v.item() for k, v in a.items()} == \
+        {k: v.item() for k, v in b.items()}
+    bad = dict(_params(mj), rows=_params(mj)["rows"][1:])
+    with pytest.raises(ValueError):
+        SparcModel.from_numpy(FUSED, EBNO, bad, "cpu")
+
+
+# ------------------------------------------------------------- slice
+
+def test_run_block_from_matches_jax_in_kernel_encode_route():
+    """The headline route: fused AMP with in-kernel encode, the noise drawn
+    outside (the reference's CPU route, models/sparc.py:188-193)."""
+    mj = JModel.build(FUSED, EBNO)
+    mt = SparcModel.build(FUSED, EBNO, "cpu")
+    c, B = mj.cfg, 4
+    bits, noise = _draws(c, B)
+    idx = np_bits_to_indices(bits, c.logM).astype(np.int32)
+    y = noise * np.float32(math.sqrt(mj.sigma2))
+    rj = j_amp_decode(jnp.asarray(y), mj.op, mj.sq_npl, c.P, c.n,
+                      T=c.amp_iters, tol=c.amp_tol, fused=True,
+                      fused_interpret=True, fused_split=True,
+                      encode_idx=jnp.asarray(idx))
+    launches = amp_fused.launches
+    out = mt.run_block_from(bits, noise)
+    assert amp_fused.launches == launches       # CPU: the plain version
+    rt = mt.decode(torch.tensor(y), encode_idx=torch.tensor(idx))
+    bj, bt = np.asarray(rj.beta), rt.beta.numpy()
+    assert_decisions_match(bj, bt)
+    ih_j, ih_t = bj.argmax(-1), bt.argmax(-1)
+    want = _counters(idx, ih_t, c.logM)
+    assert {k: out[k].item() for k in want} == want
+    ref = _counters(idx, ih_j, c.logM)
+    assert abs(want["section_errors"] - ref["section_errors"]) \
+        <= int((ih_j != ih_t).sum())
+    assert out["trials"].item() == B
+    assert out["iters_sum"].item() == int(np.asarray(rj.iters).sum()) \
+        == B * c.amp_iters
+    np.testing.assert_allclose(out["tau2_final"].item(),
+                               float(np.mean(np.asarray(rj.tau2_trace)[-1])),
+                               rtol=2e-2)
+
+
+def test_run_block_from_matches_jax_xla_route():
+    """The scan route with the encode outside the decoder and early stop."""
+    mj = JModel.build(XLA, EBNO)
+    mt = SparcModel.build(XLA, EBNO, "cpu")
+    c, B = mj.cfg, 3
+    bits, noise = _draws(c, B, seed=1)
+    x_j = np.asarray(mj.encode(jnp.asarray(bits)))
+    x_t = mt.encode(torch.tensor(bits)).numpy()
+    np.testing.assert_allclose(x_t, x_j, rtol=1e-5,
+                               atol=1e-5 * np.abs(x_j).max())
+    rj = mj.decode(jnp.asarray(x_j + noise * np.float32(math.sqrt(mj.sigma2))))
+    out = mt.run_block_from(bits, noise)
+    idx = np_bits_to_indices(bits, c.logM)
+    want = _counters(idx, np.asarray(rj.beta).argmax(-1), c.logM)
+    assert {k: out[k].item() for k in want} == want
+    assert out["iters_sum"].item() == int(np.asarray(rj.iters).sum())
+    assert out["iters_sum"].item() < B * c.amp_iters, "early stop unused"
+    np.testing.assert_allclose(out["tau2_final"].item(),
+                               float(np.mean(np.asarray(rj.tau2_trace)[-1])),
+                               rtol=1e-4)
+
+
+def test_encode_channel_decode_roundtrip_at_high_snr():
+    mt = SparcModel.build(XLA, 8.0, "cpu")
+    bits = torch.tensor(_draws(XLA, 2)[0])
+    y = mt.channel(mt.encode(bits), block_generator(3, 0, 0))
+    assert torch.equal(mt.decode_bits(y), bits)
+
+
+def test_run_block_is_a_function_of_the_generator_seed():
+    mt = SparcModel.build(FUSED, EBNO, "cpu")
+
+    def run(block):
+        out = mt.run_block(block_generator(5, 0, block), 3)
+        return {k: v.item() for k, v in out.items()}
+
+    first = run(0)
+    assert first == run(0)
+    assert first["trials"] == 3
+    assert first["iters_sum"] == 3 * mt.cfg.amp_iters
+    assert first["tau2_final"] != run(1)["tau2_final"]
+
+
+# ------------------------------------------------------------- guards
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import sparc_ldpc_tpu_torch as slt\n"
+        "from sparc_ldpc_tpu_torch.models.sparc import SparcModel\n"
+        "from sparc_ldpc_tpu_torch.utils.rng import block_generator\n"
+        "cfg = slt.SparcConfig(L=32, M=64, R=1.0, amp_kernel='fused_split',\n"
+        "                      amp_tol=0.0, amp_iters=6)\n"
+        "m = SparcModel.build(cfg, 6.0, 'cpu')\n"
+        "assert int(m.run_block(block_generator(0, 0, 0), 2)['trials']) == 2\n"
+        "jax = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "assert not jax, jax\n"
+        "ref = [k for k in sys.modules if k.startswith('sparc_ldpc_tpu.')]\n"
+        "shared = ('sparc_ldpc_tpu.config', 'sparc_ldpc_tpu.design')\n"
+        "assert all(k.startswith(shared) for k in ref), ref\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=Path(__file__).resolve().parents[1],
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible here")
+    with pytest.raises(RuntimeError):
+        slt.default_device()
+    with pytest.raises(RuntimeError):
+        SparcModel.build(FUSED, EBNO, "cuda")
+    with pytest.raises(RuntimeError):
+        SparcModel.from_numpy(FUSED, EBNO, _params(JModel.build(FUSED, EBNO)),
+                              "cuda")
+
+
+@pytest.mark.parametrize("change", [
+    dict(amp_kernel="fused"), dict(amp_kernel="fused_slab"),
+    dict(col_signs=True), dict(op_kind="dct")])
+def test_unported_configs_raise_at_build(change):
+    with pytest.raises(NotImplementedError):
+        SparcModel.build(FUSED.replace(**change), EBNO, "cpu")
+
+
+def test_in_kernel_noise_is_not_ported():
+    mt = SparcModel.build(FUSED.replace(amp_noise_in_kernel=True), EBNO,
+                          "cpu")
+    with pytest.raises(NotImplementedError):
+        mt.run_block(block_generator(0, 0, 0), 2)
