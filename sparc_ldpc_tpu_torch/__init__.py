@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the SPARC decode path (the JAX package
+"""PyTorch/CUDA port of the SPARC and SPARC + LDPC decode paths (the JAX package
 `sparc_ldpc_tpu` is the reference and is left unchanged).
 
 Module names mirror the reference package so each counterpart is easy to
@@ -11,8 +11,14 @@ find:
   ops/denoiser.py    sectionwise softmax denoiser
   ops/amp_kernel.py  whole-trial AMP: CUDA kernel (csrc/amp_split.cu) and
                      its plain PyTorch version
+  ops/bp.py          LDPC BP on padded edge tables (flooding)
+  ops/bp_qc.py       QC-LDPC BP on circulant tensors (flooding, layered)
+  ops/bp_qc_kernel.py  layered QC-LDPC min-sum: CUDA kernel
+                     (csrc/bp_qc_layered.cu); plain version in ops/bp_qc.py
   models/amp.py      amp_decode (fused route and the scan route)
   models/sparc.py    SparcModel: build, encode, channel, decode, run_block
+  models/ldpc.py     LdpcModel: encode, decode, extract_message
+  models/concat.py   ConcatModel: SPARC + LDPC with decision feedback
 
 The port imports `torch`, never `jax`.  The configuration and the
 host-side design code (power allocation, state evolution, operator plans)
@@ -21,7 +27,8 @@ are NumPy-only and shared with the reference: they define the code itself.
 
 import torch
 
-from sparc_ldpc_tpu.config import PRESETS, SparcConfig  # noqa: F401
+from sparc_ldpc_tpu.config import (  # noqa: F401
+    PRESETS, ConcatConfig, LdpcConfig, SparcConfig)
 
 __version__ = "0.1.0"
 

@@ -1,15 +1,32 @@
 // Whole-trial AMP decode of the partial-Hadamard SPARC, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sparc_ldpc_tpu/ops/amp_kernel.py::_amp_kernel_split
-// (launched by amp_fused, fixed T, in-kernel encode).  Per codeword, on the
-// (L, M) section tile:
+// (launched by amp_fused: in-kernel encode, early stop, pinning, SE
+// schedule; not the in-kernel noise).  Per codeword, on the (L, M) section
+// tile:
 //
 //   y  = where(mask, noise, 0) + mask/n * H(sqo * one_hot(idx))     (encode)
-//   T times:
+//   T times, while the codeword is active:
 //     z    = y - mask/n * H(beta') + coef * z,  coef = (P - |beta'|^2/n^2)/tau2_prev
-//     tau2 = |z|^2 / n
+//     tau2 = |z|^2 / n                    (or sched[t], an SE schedule)
 //     beta' = sqo * softmax_row((sqi / tau2) * (H(z) + beta'))
+//     pinned rows (pin[l] >= 0): beta'[l] = sqo[l] * one_hot(pin[l])
+//     active while |tau2 - tau2_prev| >= tol * tau2
 //   beta = beta' / sqrt(n)
+//
+// Early stop: a codeword whose tau2 plateaus within tol is frozen from
+// the next iteration on.  The state lives in device memory and each
+// iteration is two launches, so the freeze flag is a (T + 1, B) table:
+// row t says which codewords run iteration t; the row stage of iteration
+// t writes row t + 1 and only the launches of iteration t + 1 read it, so
+// no launch reads a flag that another block of the same launch writes.
+// Every block of a frozen codeword returns at once in both stages (the
+// early stop saves real time); block 0 of its row stage copies tau2_prev
+// into the trace.  Every block of the row stage computes tau2 and the
+// convergence test itself, from the same partials in the same order, so
+// the block that finishes a codeword knows it: the codeword's last
+// iteration (converged, or t = T - 1) stores beta in true scale, and
+// block 0 writes its iteration count.
 //
 // H = H_L (x) H_M is the unnormalized Kronecker Hadamard transform of the
 // tile (H_L down the columns, H_M along each section row).  The scale-free
@@ -29,8 +46,8 @@
 //     H_L of the forward transform, the residual and Onsager term, the
 //     strip's |z|^2, then H_L of the adjoint transform;
 //   row stage: one thread group per section row: H_M of the adjoint, the
-//     max-subtracted softmax, the row's |beta'|^2, then H_M of the next
-//     iteration's forward transform.
+//     max-subtracted softmax, the pin, the row's |beta'|^2, then H_M of
+//     the next iteration's forward transform.
 // That is about 9 (B, L, M) passes per iteration (column: read w, y, z,
 // write z, u; row: read u, beta', write beta', w), 7 float32-equivalent
 // passes with the work tile w/u in bf16; the (L, M) mask is shared by the
@@ -235,6 +252,7 @@ amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
                float* __restrict__ zpart,        // (B, M / 32)
                const float* __restrict__ bpart,  // (B, L) row |beta'|^2
                const float* __restrict__ trace,  // (T, B)
+               const int32_t* __restrict__ active,  // (T + 1, B)
                int B, int M, int t, float P, float nn) {
   extern __shared__ float sm[];
   __shared__ float red[W];
@@ -242,6 +260,7 @@ amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
   constexpr int L = W * R;
   const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
   const int b = blockIdx.y, s = blockIdx.x;
+  if (!active[(size_t)t * B + b]) return;  // frozen: uniform per block
   const int m = s * kStrip + c;
   const size_t base = (size_t)b * L * M;
   float v[R];
@@ -407,16 +426,22 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
 }
 
 // Row stage of iteration t.  work holds H_L z on entry and, unless this is
-// the last iteration, H_M beta'_new (the next forward transform) on exit.
-// beta holds beta' and, after the last iteration, the true-scale beta.
+// the codeword's last iteration, H_M beta'_new (the next forward
+// transform) on exit.  beta holds beta' and, after the codeword's last
+// iteration, the true-scale beta.
 template <int M, typename WT>
 __global__ void __launch_bounds__(kRowThreads)
 amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
                const float* __restrict__ zpart,  // (B, M / 32)
                float* __restrict__ bpart,        // (B, L)
                float* __restrict__ trace,        // (T, B)
+               int32_t* __restrict__ iters,      // (B,)
+               int32_t* __restrict__ active,     // (T + 1, B)
+               const int32_t* __restrict__ pin,  // (B, L) or null
+               const float* __restrict__ sched,  // (T,) or null
                const float* __restrict__ sqi, const float* __restrict__ sqo,
-               int B, int L, int t, int last, float n, float inv_sqrt_n) {
+               int B, int L, int t, int last, float n, float inv_sqrt_n,
+               float tol) {
   constexpr int TPR = M / 4, RPB = kRowThreads / TPR, NS = M / kStrip;
   constexpr int kRound = IsBf16<WT>::value;
   __shared__ __align__(16) float srows[RPB * M];
@@ -426,10 +451,26 @@ amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
   const int l = blockIdx.x * RPB + r;
   float* srow = srows + r * M;
   const size_t off = ((size_t)b * L + l) * M + 4 * j;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const float tau2_prev = t > 0 ? trace[(size_t)(t - 1) * B + b] : INFINITY;
 
-  float zz = 0.f;
-  for (int s = 0; s < NS; ++s) zz += zpart[(size_t)b * NS + s];
-  const float tau2 = zz / n;
+  if (!active[(size_t)t * B + b]) {  // frozen: uniform per block
+    if (lead) {
+      trace[(size_t)t * B + b] = tau2_prev;
+      active[(size_t)(t + 1) * B + b] = 0;
+    }
+    return;
+  }
+  float tau2;
+  if (sched != nullptr) {
+    tau2 = sched[t];
+  } else {
+    float zz = 0.f;
+    for (int s = 0; s < NS; ++s) zz += zpart[(size_t)b * NS + s];
+    tau2 = zz / n;
+  }
+  const bool conv = fabsf(tau2 - tau2_prev) < tol * tau2;
+  const bool fin = last || conv;  // this codeword's last iteration
 
   float v[4];
   load4(v, work + off);
@@ -456,13 +497,19 @@ amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
   }
   se = row_reduce<M, false>(se, red, r);
   const float so = sqo[l] / se;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = so * v[i];
+  if (pin != nullptr) {
+    const int p = pin[(size_t)b * L + l];
+    if (p >= 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = (4 * j + i == p) ? sqo[l] : 0.f;
+    }
+  }
   float bb = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[i] = so * v[i];
-    bb += v[i] * v[i];
-  }
-  if (last) {
+  for (int i = 0; i < 4; ++i) bb += v[i] * v[i];
+  if (fin) {
     float out[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) out[i] = v[i] * inv_sqrt_n;
@@ -476,7 +523,11 @@ amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
     row_fwht<M>(v, srow, j);
     store4(work + off, v);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) trace[(size_t)t * B + b] = tau2;
+  if (lead) {
+    trace[(size_t)t * B + b] = tau2;
+    active[(size_t)(t + 1) * B + b] = fin ? 0 : 1;
+    if (fin) iters[b] = t + 1;
+  }
 }
 
 // Standalone H_M of every row of x into out.
@@ -519,13 +570,14 @@ struct Cols {
   }
   template <typename WT>
   static int step(WT* work, const float* y, float* z, const float* mask_n,
-                  float* zpart, const float* bpart, const float* trace, int B,
-                  int M, int t, float P, float nn, cudaStream_t st) {
+                  float* zpart, const float* bpart, const float* trace,
+                  const int32_t* active, int B, int M, int t, float P,
+                  float nn, cudaStream_t st) {
     int rc = set_col_smem<W, R>(amp_col_kernel<W, R, WT>);
     if (rc) return rc;
     amp_col_kernel<W, R, WT><<<dim3(M / kStrip, B), 32 * W,
                                W * R * kStrip * sizeof(float), st>>>(
-        work, y, z, mask_n, zpart, bpart, trace, B, M, t, P, nn);
+        work, y, z, mask_n, zpart, bpart, trace, active, B, M, t, P, nn);
     return (int)cudaGetLastError();
   }
   static int fwht(float* x, int B, int M, int round_bf16, cudaStream_t st) {
@@ -543,12 +595,13 @@ struct Rows {
   static constexpr int RPB = kRowThreads / (M / 4);
   template <typename WT>
   static int step(WT* work, float* beta, const float* zpart, float* bpart,
-                  float* trace, const float* sqi, const float* sqo, int B,
-                  int L, int t, int last, float n, float inv_sqrt_n,
-                  cudaStream_t st) {
+                  float* trace, int32_t* iters, int32_t* active,
+                  const int32_t* pin, const float* sched, const float* sqi,
+                  const float* sqo, int B, int L, int t, int last, float n,
+                  float inv_sqrt_n, float tol, cudaStream_t st) {
     amp_row_kernel<M, WT><<<dim3(L / RPB, B), kRowThreads, 0, st>>>(
-        work, beta, zpart, bpart, trace, sqi, sqo, B, L, t, last, n,
-        inv_sqrt_n);
+        work, beta, zpart, bpart, trace, iters, active, pin, sched, sqi,
+        sqo, B, L, t, last, n, inv_sqrt_n, tol);
     return (int)cudaGetLastError();
   }
   static int fwht(const float* x, float* out, int rows, int round_bf16,
@@ -591,34 +644,44 @@ int encode(const float* y_n, const float* mask_n, const float* sqo,
 
 template <typename WT>
 int col_step(WT* work, const float* y, float* z, const float* mask_n,
-             float* zpart, const float* bpart, const float* trace, int B,
-             int L, int M, int t, float P, float nn, cudaStream_t st) {
-  DISPATCH_L(L, C::step(work, y, z, mask_n, zpart, bpart, trace, B, M, t, P,
-                        nn, st))
+             float* zpart, const float* bpart, const float* trace,
+             const int32_t* active, int B, int L, int M, int t, float P,
+             float nn, cudaStream_t st) {
+  DISPATCH_L(L, C::step(work, y, z, mask_n, zpart, bpart, trace, active, B,
+                        M, t, P, nn, st))
 }
 
 template <typename WT>
 int row_step(WT* work, float* beta, const float* zpart, float* bpart,
-             float* trace, const float* sqi, const float* sqo, int B, int L,
-             int M, int t, int last, float n, float inv_sqrt_n,
-             cudaStream_t st) {
-  DISPATCH_M(M, Q::step(work, beta, zpart, bpart, trace, sqi, sqo, B, L, t,
-                        last, n, inv_sqrt_n, st))
+             float* trace, int32_t* iters, int32_t* active, const int32_t* pin,
+             const float* sched, const float* sqi, const float* sqo, int B,
+             int L, int M, int t, int last, float n, float inv_sqrt_n,
+             float tol, cudaStream_t st) {
+  DISPATCH_M(M, Q::step(work, beta, zpart, bpart, trace, iters, active, pin,
+                        sched, sqi, sqo, B, L, t, last, n, inv_sqrt_n, tol,
+                        st))
 }
 
+// Arguments of the iteration loop (see amp_split_run).
+struct AmpArgs {
+  const float *mask_n, *sqi, *sqo, *y, *sched;
+  const int32_t* pin;
+  float *beta, *trace, *z, *zpart, *bpart;
+  int32_t *iters, *active;
+  int B, L, M, T;
+  float P, n, inv_sqrt_n, tol;
+};
+
 template <typename WT>
-int amp_iterations(const float* mask_n, const float* sqi, const float* sqo,
-                   float* beta, float* trace, const float* y, float* z,
-                   WT* work, float* zpart, float* bpart, int B, int L, int M,
-                   int T, float P, float n, float inv_sqrt_n,
-                   cudaStream_t st) {
-  const float nn = n * n;
-  for (int t = 0; t < T; ++t) {
-    int rc = col_step(work, y, z, mask_n, zpart, bpart, trace, B, L, M, t, P,
-                      nn, st);
+int amp_iterations(const AmpArgs& a, WT* work, cudaStream_t st) {
+  const float nn = a.n * a.n;
+  for (int t = 0; t < a.T; ++t) {
+    int rc = col_step(work, a.y, a.z, a.mask_n, a.zpart, a.bpart, a.trace,
+                      a.active, a.B, a.L, a.M, t, a.P, nn, st);
     if (rc) return rc;
-    rc = row_step(work, beta, zpart, bpart, trace, sqi, sqo, B, L, M, t,
-                  t == T - 1, n, inv_sqrt_n, st);
+    rc = row_step(work, a.beta, a.zpart, a.bpart, a.trace, a.iters, a.active,
+                  a.pin, a.sched, a.sqi, a.sqo, a.B, a.L, a.M, t,
+                  t == a.T - 1, a.n, a.inv_sqrt_n, a.tol, st);
     if (rc) return rc;
   }
   return 0;
@@ -647,27 +710,50 @@ extern "C" {
 // Whole-trial AMP for B codewords.  Inputs: y_n (B, L, M) the channel
 // noise (enc_idx given) or the whole observation (enc_idx null), embedded
 // on the row support; mask_n (L, M) = mask / n; sqi, sqo (L,); enc_idx
-// (B, L) int32 or null.  Outputs: beta (B, L, M) true scale, trace (T, B).
-// Scratch: y, z (B, L, M) float; work (B, L, M), bfloat16 when round_bf16
-// (transform operands rounded to bf16) and float otherwise; zpart
-// (B, M / 32); bpart (B, L).
+// (B, L) int32 or null; pin (B, L) int32 (-1 = unpinned) or null; sched
+// (T,) SE tau2 schedule or null; tol the early-stop threshold (0 = fixed
+// T).  Outputs: beta (B, L, M) true scale, trace (T, B), iters (B,) int32.
+// active (T + 1, B) int32 holds the freeze flags and must arrive with row
+// 0 all ones.  Scratch: y, z (B, L, M) float; work (B, L, M), bfloat16
+// when round_bf16 (transform operands rounded to bf16) and float
+// otherwise; zpart (B, M / 32); bpart (B, L).
 // Returns 0, a cudaError_t, or -1 for an unsupported shape.
 int amp_split_run(const float* y_n, const float* mask_n, const float* sqi,
-                  const float* sqo, const int32_t* enc_idx, float* beta,
-                  float* trace, float* y, float* z, void* work, float* zpart,
-                  float* bpart, int B, int L, int M, int T, float P, float n,
-                  float inv_sqrt_n, int round_bf16, void* stream) {
+                  const float* sqo, const int32_t* enc_idx,
+                  const int32_t* pin, const float* sched, float* beta,
+                  float* trace, int32_t* iters, int32_t* active, float* y,
+                  float* z, void* work, float* zpart, float* bpart, int B,
+                  int L, int M, int T, float P, float n, float inv_sqrt_n,
+                  float tol, int round_bf16, void* stream) {
   if (!supported(B, L, M) || T < 1) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = encode(y_n, mask_n, sqo, enc_idx, y, B, L, M, st);
   if (rc) return rc;
+  AmpArgs a;
+  a.mask_n = mask_n;
+  a.sqi = sqi;
+  a.sqo = sqo;
+  a.y = y;
+  a.sched = sched;
+  a.pin = pin;
+  a.beta = beta;
+  a.trace = trace;
+  a.z = z;
+  a.zpart = zpart;
+  a.bpart = bpart;
+  a.iters = iters;
+  a.active = active;
+  a.B = B;
+  a.L = L;
+  a.M = M;
+  a.T = T;
+  a.P = P;
+  a.n = n;
+  a.inv_sqrt_n = inv_sqrt_n;
+  a.tol = tol;
   if (round_bf16)
-    return amp_iterations(mask_n, sqi, sqo, beta, trace, y, z,
-                          static_cast<__nv_bfloat16*>(work), zpart, bpart, B,
-                          L, M, T, P, n, inv_sqrt_n, st);
-  return amp_iterations(mask_n, sqi, sqo, beta, trace, y, z,
-                        static_cast<float*>(work), zpart, bpart, B, L, M, T,
-                        P, n, inv_sqrt_n, st);
+    return amp_iterations(a, static_cast<__nv_bfloat16*>(work), st);
+  return amp_iterations(a, static_cast<float*>(work), st);
 }
 
 // H_L (x) H_M of each (L, M) tile of x (B, L, M) into out: H_M along the

@@ -10,9 +10,11 @@ Onsager correction and online tau tracking:
 
 Two routes: the fused whole-trial route (ops.amp_kernel.amp_fused: the CUDA
 kernel on a GPU, its plain version on the CPU) and the scan route, a Python
-loop with the reference's per-codeword freeze mask: once
+loop.  Both have the reference's per-codeword freeze: once
 |tau2_t - tau2_{t-1}| < tol * tau2_t a codeword's state stops changing, and
-`iters` counts the iterations it really ran.
+`iters` counts the iterations it really ran.  Decision-feedback pinning
+overrides the pinned sections with sqrt(n P_l) * one_hot after every
+denoise (the fused route takes the pins as indices, -1 = unpinned).
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ def amp_decode(
     T: int,
     tol: float = 1e-6,
     tau2_schedule: Optional[torch.Tensor] = None,   # (T,) SE schedule
+    pinned_onehot: Optional[torch.Tensor] = None,   # (B, L, M) one-hot targets
+    pinned_mask: Optional[torch.Tensor] = None,     # (B, L) bool
+    pinned_idx: Optional[torch.Tensor] = None,      # (B, L) int pin targets
+                                                    # (instead of onehot)
     residual_space: str = "n",
     fused: bool = False,
     encode_idx: Optional[torch.Tensor] = None,      # (B, L) int32: y IS the
@@ -64,16 +70,30 @@ def amp_decode(
     if fused and op.mask is not None and L <= 4096 and M <= 1024:
         # schedule mode has no online tau to compare: no early stop there
         k_tol = tol if (tol > 0 and tau2_schedule is None) else 0.0
+        pin_idx = None
+        if pinned_mask is not None:
+            src = (pinned_idx if pinned_idx is not None
+                   else pinned_onehot.argmax(-1))
+            pin_idx = torch.where(pinned_mask, src.to(torch.int32), -1)
         y_n = op.embed_y(y).reshape(B, L, M)
-        beta3, trace = amp_fused(y_n, op.mask.reshape(L, M), sq_npl, P, n, T,
-                                 encode_idx=encode_idx, tol=k_tol,
-                                 tau2_schedule=tau2_schedule)
-        iters = torch.full((B,), T, dtype=torch.int32, device=y.device)
+        beta3, trace, iters = amp_fused(
+            y_n, op.mask.reshape(L, M), sq_npl, P, n, T,
+            encode_idx=encode_idx, tol=k_tol, pin_idx=pin_idx,
+            tau2_schedule=tau2_schedule)
         return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
                          sq_npl=sq_npl)
     if encode_idx is not None:
         raise ValueError("encode_idx needs the fused route (op.mask present, "
                          "L <= 4096, M <= 1024); encode outside amp_decode")
+
+    def apply_pin(beta3):
+        if pinned_mask is None:
+            return beta3
+        oh = (pinned_onehot if pinned_onehot is not None
+              else torch.nn.functional.one_hot(pinned_idx.to(torch.int64),
+                                               M).to(beta3.dtype))
+        return torch.where(pinned_mask[:, :, None],
+                           sq_npl[None, :, None] * oh, beta3)
 
     n_space = op.embed_y is not None and residual_space == "N"
     yN = op.embed_y(y) if n_space else None
@@ -98,6 +118,7 @@ def amp_decode(
                               device=dev)
         adj = op.adj_n(z_new) if n_space else op.Ay(z_new)
         beta3, _ = denoise((beta + adj).reshape(B, L, M), tau2, sq_npl)
+        beta3 = apply_pin(beta3)
         if tau2_schedule is None:
             conv = (tau2 - tau2_prev).abs() < tol * tau2
         else:

@@ -119,11 +119,18 @@ class SparcModel:
     # ------------------------------------------------------------ decode
 
     def decode(self, y: torch.Tensor, T: Optional[int] = None,
-               encode_idx: Optional[torch.Tensor] = None) -> AmpResult:
+               encode_idx: Optional[torch.Tensor] = None,
+               pinned_idx: Optional[torch.Tensor] = None,
+               pinned_mask: Optional[torch.Tensor] = None,
+               pinned_onehot: Optional[torch.Tensor] = None) -> AmpResult:
+        """AMP decode of y (B, n); with encode_idx, y is the noise and the
+        fused route synthesizes the codeword.  The pinned_* arguments are
+        amp_decode's decision-feedback pins."""
         return amp_decode(
             y, self.op, self.sq_npl, self.cfg.P, self.cfg.n,
             T=T or self.cfg.amp_iters, tol=self.cfg.amp_tol,
-            tau2_schedule=self.tau2_schedule,
+            tau2_schedule=self.tau2_schedule, pinned_onehot=pinned_onehot,
+            pinned_mask=pinned_mask, pinned_idx=pinned_idx,
             residual_space=self.cfg.amp_residual_space, fused=self.fused,
             encode_idx=encode_idx)
 

@@ -1,15 +1,17 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-`load_library()` compiles every `csrc/*.cu` on first use with
+Each `csrc/<name>.cu` becomes its own shared library, compiled with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-into `sparc_ldpc_tpu_torch/build/` (a content-addressed file name, so an
-edited source is rebuilt) and loads it.  The sources have a plain C
-interface and include no PyTorch header, which keeps a build to seconds.
-The compiler's output, with ptxas's register and spill report, is kept in
-`build/nvcc.log`.  A missing compiler or a failed build raises.
+into `sparc_ldpc_tpu_torch/build/` under a content-addressed file name (an
+edited source is rebuilt).  `build()` starts one nvcc per missing library,
+all at once, and waits for them; `load_library(name)` builds if needed and
+loads one library.  The sources have a plain C interface and include no
+PyTorch header, which keeps a build to seconds.  Each compiler's output,
+with ptxas's register and spill report, is kept in `build/nvcc_<name>.log`.
+A missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -32,12 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# source name -> {entry point: (argtypes, restype)}; every source also
+# exports `<name>_error_string(int) -> const char*` for its return codes
 _SIGNATURES = {
-    # name: (argtypes, restype)
-    "amp_split_run": ((_P,) * 12 + (_I,) * 4 + (_F,) * 3 + (_I, _P), _I),
-    "amp_fwht_tile": ((_P, _P, _I, _I, _I, _I, _P), _I),
-    "amp_split_error_string": ((_I,), ctypes.c_char_p),
+    "amp_split": {
+        "amp_split_run": ((_P,) * 16 + (_I,) * 4 + (_F,) * 4 + (_I, _P), _I),
+        "amp_fwht_tile": ((_P, _P, _I, _I, _I, _I, _P), _I),
+    },
+    "bp_qc_layered": {
+        "bp_qc_layered_run": ((_P,) * 5 + (_I,) * 8 + (_F,) * 3 + (_P,), _I),
+    },
 }
+LIBRARIES = tuple(_SIGNATURES)
 
 
 def nvcc_path() -> str:
@@ -52,57 +60,70 @@ def nvcc_path() -> str:
                        "built")
 
 
-def _sources():
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
-    return srcs
+def source_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    if name not in _SIGNATURES or not src.exists():
+        raise RuntimeError(f"no CUDA source {src}")
+    return src
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
+    src = source_path(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libsparc_kernels_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build() -> float:
-    """Compile the sources if the library is missing; returns seconds."""
-    so = library_path()
-    if so.exists():
+    """Compile every library that is missing, one nvcc each, all started
+    together; returns the wall seconds."""
+    missing = [n for n in LIBRARIES if not library_path(n).exists()]
+    if not missing:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return seconds
+    jobs = []
+    for name in missing:
+        so = library_path(name)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, cmd, proc))
+    failed = []
+    for name, so, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        (BUILD_DIR / f"nvcc_{name}.log").write_text(" ".join(cmd) + "\n"
+                                                    + out)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} ({proc.returncode}):\n{out[-4000:]}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, then load and declare the C entry points."""
-    build()
-    lib = ctypes.CDLL(str(library_path()))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build if needed, then load library `name` and declare its entry
+    points."""
+    if not library_path(name).exists():
+        build()
+    lib = ctypes.CDLL(str(library_path(name)))
+    sigs = dict(_SIGNATURES[name])
+    sigs[f"{name}_error_string"] = ((_I,), ctypes.c_char_p)
+    for fn_name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = restype
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a C entry point returned an error code."""
+def check(name: str, rc: int, what: str) -> None:
+    """Raise if an entry point of library `name` returned an error code."""
     if rc != 0:
-        msg = lib.amp_split_error_string(rc).decode()
-        raise RuntimeError(f"{what} failed: {msg} (code {rc})")
+        msg = getattr(load_library(name), f"{name}_error_string")(rc)
+        raise RuntimeError(f"{what} failed: {msg.decode()} (code {rc})")

@@ -1,6 +1,7 @@
 """Whole-trial AMP decode on the (L, M) section tile (port of
 sparc_ldpc_tpu/ops/amp_kernel.py `amp_fused` with the split kernel
-`_amp_kernel_split`, fixed T, optional in-kernel encode).
+`_amp_kernel_split`: optional in-kernel encode, per-codeword early stop,
+decision-feedback pinning and an SE tau2 schedule).
 
 With the Kronecker split N = L * M and ML == N, the transform of a
 codeword is H_L @ X @ H_M on its (L, M) tile, the same tile the sectionwise
@@ -10,7 +11,9 @@ softmax works on.  `amp_fused` runs all T iterations:
     tau2  = |z|^2 / n
     beta' = sqo * softmax_row((sqi / tau2) * (H(z) + beta'))
 
-in the reference's scale-free form (beta' = beta * sqrt(n), sqi = sq /
+(tau2 from an SE schedule when one is given; pinned rows overridden after
+the softmax; a codeword frozen once its tau2 plateaus within tol) in the
+reference's scale-free form (beta' = beta * sqrt(n), sqi = sq /
 sqrt(n), sqo = sq * sqrt(n)).  As in the reference kernel, the data operand
 of each transform stage is rounded to bfloat16 and the sums are float32;
 the encode transform is float32, so codeword power is exact to float32.
@@ -93,10 +96,10 @@ def fwht_tile(x: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     B, L, M = x.shape
     _check_cuda_shape(B, L, M)
     _check_cuda_tensor("x", x, torch.float32, (B, L, M), x.device)
-    lib = load_library()
+    lib = load_library("amp_split")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    check(lib, lib.amp_fwht_tile(x.data_ptr(), out.data_ptr(), B, L, M,
+    check("amp_split", lib.amp_fwht_tile(x.data_ptr(), out.data_ptr(), B, L, M,
                                  int(precision == "bf16"), stream),
           "amp_fwht_tile")
     fwht_tile.launches += 1
@@ -117,11 +120,23 @@ def _constants(mask, sq_npl, n):
     return mask_n, sqi, sqo
 
 
+def _pin_rows(beta, pin_idx, sqo):
+    """Pinned rows (pin_idx >= 0) become sqo * one_hot(pin_idx); -1 rows
+    keep beta.  beta (B, L, M) in beta*sqrt(n) scale, sqo (L, 1)."""
+    cols = torch.arange(beta.shape[-1], device=beta.device)
+    pin = pin_idx[..., None].to(torch.int64)
+    pinned = torch.where(cols == pin, sqo, 0.0)
+    return torch.where(pin >= 0, pinned, beta)
+
+
 def amp_fused_reference(y_n: torch.Tensor, mask: torch.Tensor,
                         sq_npl: torch.Tensor, P: float, n: int, T: int,
                         encode_idx: Optional[torch.Tensor] = None,
                         precision: str = "bf16",
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        tol: float = 0.0,
+                        pin_idx: Optional[torch.Tensor] = None,
+                        tau2_schedule: Optional[torch.Tensor] = None,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `amp_fused` (same arguments and results)."""
     B, L, M = y_n.shape
     mask_n, sqi, sqo = _constants(mask, sq_npl, n)
@@ -134,22 +149,39 @@ def amp_fused_reference(y_n: torch.Tensor, mask: torch.Tensor,
     beta = torch.zeros_like(y)
     z = y
     trace = torch.empty((T, B), dtype=torch.float32, device=y.device)
-    tau2_prev = None
+    tau2_prev = torch.full((B,), math.inf, device=y.device)
+    active = torch.ones((B,), dtype=torch.bool, device=y.device)
+    iters = torch.zeros((B,), dtype=torch.int32, device=y.device)
     for t in range(T):
+        z_new = y
         if t > 0:
             bnorm2 = (beta * beta).sum((1, 2))
             coef = (P - bnorm2 / (n * n)) / tau2_prev
             w = fwht_tile_reference(beta, precision)
-            z = y - mask_n * w + coef[:, None, None] * z
-        tau2 = (z * z).sum((1, 2)) / n
-        s = fwht_tile_reference(z, precision) + beta
+            z_new = y - mask_n * w + coef[:, None, None] * z
+        if tau2_schedule is None:
+            tau2 = (z_new * z_new).sum((1, 2)) / n
+        else:
+            tau2 = tau2_schedule[t].to(torch.float32).expand(B)
+        s = fwht_tile_reference(z_new, precision) + beta
         a = (sqi / tau2[:, None, None]) * s
         a = a - a.amax(-1, keepdim=True)
         e = torch.exp(a)
-        beta = (sqo / e.sum(-1, keepdim=True)) * e
-        trace[t] = tau2
-        tau2_prev = tau2
-    return beta * (1.0 / math.sqrt(n)), trace
+        beta_new = (sqo / e.sum(-1, keepdim=True)) * e
+        if pin_idx is not None:
+            beta_new = _pin_rows(beta_new, pin_idx, sqo)
+        # per-codeword freeze (the reference's early stop): a codeword
+        # whose tau2 plateaued within tol stops from the next iteration
+        # on, and its frozen trace entries repeat the last tau2
+        conv = (tau2 - tau2_prev).abs() < tol * tau2
+        act3 = active[:, None, None]
+        beta = torch.where(act3, beta_new, beta)
+        z = torch.where(act3, z_new, z)
+        tau2_prev = torch.where(active, tau2, tau2_prev)
+        trace[t] = tau2_prev
+        iters += active.to(torch.int32)
+        active = active & ~conv
+    return beta * (1.0 / math.sqrt(n)), trace, iters
 
 
 def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
@@ -159,11 +191,12 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
               encode_idx: Optional[torch.Tensor] = None,   # (B, L) int32
               precision: str = "bf16",
               tol: float = 0.0,
-              pin_idx: Optional[torch.Tensor] = None,
-              tau2_schedule: Optional[torch.Tensor] = None,
+              pin_idx: Optional[torch.Tensor] = None,      # (B, L) int32
+              tau2_schedule: Optional[torch.Tensor] = None,  # (T,) f32
               noise_seed: Optional[torch.Tensor] = None,
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Whole-trial AMP: returns (beta (B, L, M), tau2 trace (T, B)).
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-trial AMP: returns (beta (B, L, M), tau2 trace (T, B),
+    iterations used (B,) int32).
 
     encode_idx (B, L) turns on the in-kernel encode: y_n then holds the
     channel noise on the row support, and the codeword
@@ -174,21 +207,27 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
     float32 operands, in which the kernel and its plain version differ
     only in summation order.
 
-    The reference's early stop (tol > 0), pinning (pin_idx), SE schedule
-    (tau2_schedule) and in-kernel noise (noise_seed) are not ported yet and
-    raise NotImplementedError."""
-    if tol or pin_idx is not None or tau2_schedule is not None \
-            or noise_seed is not None:
+    tol > 0 is the reference's per-codeword early stop: once
+    |tau2_t - tau2_{t-1}| < tol * tau2_t a codeword is frozen from
+    iteration t + 1 on, its frozen trace entries repeat tau2_t, and its
+    iteration count stops.  pin_idx (B, L), -1 = unpinned, overrides each
+    pinned row with sq * one_hot(pin_idx) after every softmax (decision
+    feedback).  tau2_schedule (T,) replaces |z|^2 / n with a state-
+    evolution schedule; the Onsager term then divides by the schedule's
+    previous entry.  The in-kernel noise (noise_seed) is not ported yet
+    and raises NotImplementedError."""
+    if noise_seed is not None:
         raise NotImplementedError(
-            "amp_fused: tol, pin_idx, tau2_schedule and noise_seed are not "
-            "ported yet (fixed-T AMP with optional in-kernel encode only)")
+            "amp_fused: the in-kernel noise (noise_seed) is not ported yet")
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
+    if tol < 0:
+        raise ValueError(f"tol must be >= 0, got {tol}")
     if y_n.device.type == "cpu":
         return amp_fused_reference(y_n, mask, sq_npl, P, n, T, encode_idx,
-                                   precision)
+                                   precision, tol, pin_idx, tau2_schedule)
     if y_n.device.type != "cuda":
         raise ValueError(f"amp_fused runs on cpu or cuda, not {y_n.device}")
     from ._build import check, load_library
@@ -199,12 +238,21 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
     _check_cuda_tensor("y_n", y_n, torch.float32, (B, L, M), dev)
     _check_cuda_tensor("mask", mask, torch.float32, (L, M), dev)
     _check_cuda_tensor("sq_npl", sq_npl, torch.float32, (L,), dev)
-    if encode_idx is not None:
-        _check_cuda_tensor("encode_idx", encode_idx, torch.int32, (B, L), dev)
+    for name, idx in (("encode_idx", encode_idx), ("pin_idx", pin_idx)):
+        if idx is not None:
+            _check_cuda_tensor(name, idx, torch.int32, (B, L), dev)
+    if tau2_schedule is not None:
+        _check_cuda_tensor("tau2_schedule", tau2_schedule, torch.float32,
+                           (T,), dev)
     mask_n, sqi, sqo = _constants(mask, sq_npl, n)
-    lib = load_library()
+    lib = load_library("amp_split")
     beta = torch.empty_like(y_n)
     trace = torch.empty((T, B), dtype=torch.float32, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    # active[t, b]: codeword b runs iteration t.  Row 0 is all ones; the
+    # row stage of iteration t writes row t + 1, which only the launches
+    # of iteration t + 1 read.
+    active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
     y = torch.empty_like(y_n)
     z = torch.empty_like(y_n)
     # the transform stages round the work tile to bf16 when they read it:
@@ -214,16 +262,21 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
     zpart = torch.empty((B, M // 32), dtype=torch.float32, device=dev)
     bpart = torch.empty((B, L), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     rc = lib.amp_split_run(
         y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
-        encode_idx.data_ptr() if encode_idx is not None else None,
-        beta.data_ptr(), trace.data_ptr(), y.data_ptr(), z.data_ptr(),
+        ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+        beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+        active.data_ptr(), y.data_ptr(), z.data_ptr(),
         work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(),
-        B, L, M, T, float(P), float(n), 1.0 / math.sqrt(n), int(bf16),
-        stream)
-    check(lib, rc, "amp_split_run")
+        B, L, M, T, float(P), float(n), 1.0 / math.sqrt(n), float(tol),
+        int(bf16), stream)
+    check("amp_split", rc, "amp_split_run")
     amp_fused.launches += 1
-    return beta, trace
+    return beta, trace, iters
 
 
 # kernel runs (one per amp_fused call on a CUDA tensor: the encode launch

@@ -7,6 +7,7 @@ decisions (tests/test_precision.py assert_decisions_match), tau2 traces to
 rtol 2e-2, beta to rtol/atol 5e-2.
 """
 
+import math
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from sparc_ldpc_tpu.ops.amp_kernel import amp_fused as j_amp_fused
 from sparc_ldpc_tpu.utils.bits import np_bits_to_indices
 from test_precision import assert_decisions_match
 
+from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 from sparc_ldpc_tpu_torch.models.amp import (
     AmpResult, amp_decode, decision_flips, hard_indices)
 from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, amp_fused_reference
@@ -57,10 +59,11 @@ def test_amp_fused_reference_matches_jax_split_kernel(L, M):
     bj, tj = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
                          jnp.asarray(d.sq), cfg.P, cfg.n, T, interpret=True,
                          split=True, encode_idx=jnp.asarray(d.idx))
-    bt, tt = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), cfg.P,
-                                 cfg.n, T, encode_idx=_t(d.idx))
+    bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), cfg.P,
+                                     cfg.n, T, encode_idx=_t(d.idx))
     bj, tj = np.asarray(bj), np.asarray(tj)
     assert bt.shape == bj.shape and tt.shape == tj.shape == (T, 2)
+    assert it.tolist() == [T, T]
     assert_decisions_match(bj, bt.numpy())
     np.testing.assert_allclose(tt.numpy(), tj, rtol=2e-2)
     np.testing.assert_allclose(bt.numpy(), bj, rtol=5e-2, atol=5e-2)
@@ -71,15 +74,14 @@ def test_amp_fused_on_cpu_runs_the_plain_version_without_launch():
     args = (_t(d.y_n), _t(d.mask), _t(d.sq), d.cfg.P, d.cfg.n,
             d.cfg.amp_iters)
     launches = amp_fused.launches
-    b1, t1 = amp_fused(*args, encode_idx=_t(d.idx))
-    b2, t2 = amp_fused_reference(*args, encode_idx=_t(d.idx))
+    b1, t1, i1 = amp_fused(*args, encode_idx=_t(d.idx))
+    b2, t2, i2 = amp_fused_reference(*args, encode_idx=_t(d.idx))
     assert amp_fused.launches == launches
     assert torch.equal(b1, b2) and torch.equal(t1, t2)
+    assert torch.equal(i1, i2)
 
 
 @pytest.mark.parametrize("option", [
-    dict(tol=1e-4), dict(pin_idx=torch.zeros(2, 64, dtype=torch.int32)),
-    dict(tau2_schedule=torch.ones(8)),
     dict(noise_seed=torch.zeros(2, 2, dtype=torch.int32))])
 def test_amp_fused_unported_options_raise(option):
     d = _fused_inputs(64, 128)
@@ -98,9 +100,9 @@ def test_amp_fused_encode_matches_explicit_codeword():
     beta0 = (_t(d.sq)[None, :, None] * beta0).reshape(2, cfg.ML)
     x_n = op.embed_y(op.Ax(beta0)).reshape(2, cfg.L, cfg.M)
     args = (_t(d.mask), _t(d.sq), cfg.P, cfg.n, cfg.amp_iters)
-    b1, t1 = amp_fused(_t(d.y_n), *args, encode_idx=_t(d.idx),
-                       precision="highest")
-    b2, t2 = amp_fused(_t(d.y_n) + x_n, *args, precision="highest")
+    b1, t1, _ = amp_fused(_t(d.y_n), *args, encode_idx=_t(d.idx),
+                          precision="highest")
+    b2, t2, _ = amp_fused(_t(d.y_n) + x_n, *args, precision="highest")
     np.testing.assert_allclose(t1.numpy(), t2.numpy(), rtol=1e-5)
     np.testing.assert_allclose(b1.numpy(), b2.numpy(), atol=1e-4)
 
@@ -173,3 +175,142 @@ def test_decision_flips_follows_assert_decisions_match():
     b[0, 3] = a[0, 3]
     assert decision_flips(torch.tensor(a), torch.tensor(b)) == (1, 0)
     assert_decisions_match(a, b, max_flips=1.0)
+
+
+# ------------------------------------- early stop, pinning, SE schedule
+
+def _stop_inputs(ebno_db, T, B, seed, L=64, M=64):
+    """The reference's early-stop test point (tests/test_precision.py
+    test_fused_split_early_stop_*): L = M = 64 at a high SNR, NumPy draws,
+    the codeword encoded outside (y is the whole observation)."""
+    cfg = SparcConfig(L=L, M=M, R=1.0, op_kind="hadamard", amp_iters=T,
+                      amp_tol=1e-4, transform_precision="bf16")
+    m = JModel.build(cfg, ebno_db=ebno_db)
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (B, cfg.k_bits))
+    noise = rng.standard_normal((B, cfg.n)).astype(np.float32)
+    y = np.asarray(m.encode(jnp.asarray(bits))) \
+        + noise * np.float32(np.sqrt(m.sigma2))
+    y_n = np.asarray(m.op.embed_y(jnp.asarray(y))).reshape(B, L, M)
+    return SimpleNamespace(cfg=cfg, model=m, y=y, y_n=y_n, rng=rng,
+                           mask=np.asarray(m.op.mask).reshape(L, M),
+                           sq=np.asarray(m.sq_npl))
+
+
+def test_fused_split_with_default_tol_decodes():
+    """A fused_split config with the default amp_tol (1e-6) decodes through
+    the port, as it does in the reference: the per-codeword freeze on the
+    fused route, with the iterations each codeword really used."""
+    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard",
+                      amp_kernel="fused_split", amp_iters=16)
+    assert cfg.amp_tol == 1e-6
+    mj = JModel.build(cfg, ebno_db=6.0)
+    mt = SparcModel.build(cfg, 6.0, "cpu")
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2, (3, cfg.k_bits))
+    y = np.asarray(mj.encode(jnp.asarray(bits))) + rng.standard_normal(
+        (3, cfg.n)).astype(np.float32) * np.float32(np.sqrt(mj.sigma2))
+    rj = mj.decode(jnp.asarray(y))
+    rt = mt.decode(torch.tensor(y))
+    assert_decisions_match(np.asarray(rj.beta), rt.beta.numpy())
+    # a 1e-6 plateau test sits at float32 rounding noise: the counts agree
+    # to the reference's own rule (tests/test_precision.py:448-449)
+    it, ij = rt.iters.numpy(), np.asarray(rj.iters)
+    assert int(np.max(np.abs(it - ij))) <= 4 and int(it.max()) < 16
+    np.testing.assert_allclose(rt.tau2_trace.numpy()[:int(it.min())],
+                               np.asarray(rj.tau2_trace)[:int(it.min())],
+                               rtol=2e-2)
+
+
+def test_amp_fused_reference_early_stop_matches_jax_split_kernel():
+    """K1 (c): the plain version's per-codeword freeze against the JAX
+    split kernel (interpret mode) with tol = 1e-4: equal iteration counts,
+    equal decisions, tau2 to rtol 2e-2, frozen trace entries repeated."""
+    d = _stop_inputs(6.0, 16, 4, seed=0)
+    cfg = d.cfg
+    args = (d.mask, d.sq, cfg.P, cfg.n, cfg.amp_iters)
+    bj, tj, ij = j_amp_fused(jnp.asarray(d.y_n), *map(jnp.asarray, args[:2]),
+                             *args[2:], interpret=True, split=True, tol=1e-4)
+    bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq),
+                                     *args[2:], tol=1e-4)
+    ij = np.asarray(ij)
+    assert int(ij.max()) < cfg.amp_iters, "the point must stop early"
+    np.testing.assert_array_equal(it.numpy(), ij)
+    np.testing.assert_array_equal(bt.numpy().argmax(-1),
+                                  np.asarray(bj).argmax(-1))
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=2e-2)
+    tr = tt.numpy()
+    for b, used in enumerate(it.tolist()):
+        assert np.all(tr[used:, b] == tr[used - 1, b])
+
+
+def test_amp_fused_reference_pinning_with_tol_matches_jax():
+    """K1 (c)+(d): early stop and pinning together (the concat feedback
+    pass) against the JAX split kernel: iteration counts within 4 (the
+    reference's own rule), equal decisions, pinned rows exactly
+    sq * one_hot in true scale."""
+    d = _stop_inputs(8.0, 12, 3, seed=11)
+    cfg, B = d.cfg, 3
+    pin_mask = d.rng.random((B, cfg.L)) < 0.4
+    pin_idx = np.where(pin_mask, d.rng.integers(0, cfg.M, (B, cfg.L)),
+                       -1).astype(np.int32)
+    args = (cfg.P, cfg.n, cfg.amp_iters)
+    bj, tj, ij = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                             jnp.asarray(d.sq), *args, interpret=True,
+                             split=True, tol=1e-4,
+                             pin_idx=jnp.asarray(pin_idx))
+    bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), *args,
+                                     tol=1e-4, pin_idx=_t(pin_idx))
+    assert int(np.max(np.abs(it.numpy() - np.asarray(ij)))) <= 4
+    np.testing.assert_array_equal(bt.numpy().argmax(-1),
+                                  np.asarray(bj).argmax(-1))
+    # sq * one_hot in the kernel's scale-free form, then back to true scale
+    sqo = _t(d.sq).reshape(1, cfg.L, 1) * math.sqrt(cfg.n)
+    want = torch.where(torch.arange(cfg.M) == _t(pin_idx)[..., None].long(),
+                       sqo, 0.0) * (1.0 / math.sqrt(cfg.n))
+    pinned = _t(pin_mask)
+    assert torch.equal(bt[pinned], want[pinned])
+    np.testing.assert_array_equal(bt.numpy()[pin_mask].argmax(-1),
+                                  pin_idx[pin_mask])
+
+
+def test_amp_fused_reference_se_schedule_matches_jax():
+    """K1 (d): with an SE tau2 schedule the trace IS the schedule, and the
+    decode matches the JAX split kernel's on the same schedule."""
+    d = _stop_inputs(6.0, 10, 2, seed=4)
+    cfg = d.cfg
+    sched = np.linspace(0.5, 0.05, cfg.amp_iters).astype(np.float32)
+    args = (cfg.P, cfg.n, cfg.amp_iters)
+    bj, tj = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                         jnp.asarray(d.sq), *args, interpret=True,
+                         split=True, tau2_schedule=jnp.asarray(sched))
+    bt, tt, it = amp_fused(_t(d.y_n), _t(d.mask), _t(d.sq), *args,
+                           tau2_schedule=_t(sched))
+    assert torch.equal(tt, _t(sched)[:, None].expand(-1, 2))
+    np.testing.assert_array_equal(np.asarray(tj), tt.numpy())
+    assert it.tolist() == [cfg.amp_iters] * 2
+    assert_decisions_match(np.asarray(bj), bt.numpy())
+
+
+def test_scan_route_pinning_matches_jax_scan():
+    """Decision-feedback pinning on the scan route (one-hot targets and
+    index targets) against the JAX scan."""
+    d = _stop_inputs(6.0, 10, 3, seed=5)
+    cfg = d.cfg.replace(transform_precision="highest")
+    m, B = JModel.build(cfg, ebno_db=6.0), 3
+    pin_mask = d.rng.random((B, cfg.L)) < 0.4
+    pin_idx = d.rng.integers(0, cfg.M, (B, cfg.L)).astype(np.int32)
+    onehot = np.eye(cfg.M, dtype=np.float32)[pin_idx]
+    kw = dict(T=cfg.amp_iters, tol=1e-4)
+    rj = j_amp_decode(jnp.asarray(d.y), m.op, m.sq_npl, cfg.P, cfg.n,
+                      pinned_onehot=jnp.asarray(onehot),
+                      pinned_mask=jnp.asarray(pin_mask), **kw)
+    op = hadamard_operator(cfg)
+    for pins in (dict(pinned_onehot=_t(onehot)), dict(pinned_idx=_t(pin_idx))):
+        rt = amp_decode(_t(d.y), op, _t(d.sq), cfg.P, cfg.n,
+                        pinned_mask=_t(pin_mask), **pins, **kw)
+        np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
+        np.testing.assert_array_equal(hard_indices(rt.beta).numpy(),
+                                      np.asarray(rj.beta).argmax(-1))
+        np.testing.assert_array_equal(
+            rt.beta.numpy().argmax(-1)[pin_mask], pin_idx[pin_mask])

@@ -190,6 +190,12 @@ def test_port_imports_no_jax():
         "                      amp_tol=0.0, amp_iters=6)\n"
         "m = SparcModel.build(cfg, 6.0, 'cpu')\n"
         "assert int(m.run_block(block_generator(0, 0, 0), 2)['trials']) == 2\n"
+        "from sparc_ldpc_tpu_torch.models.concat import ConcatModel\n"
+        "ccfg = slt.ConcatConfig(sparc=cfg, ldpc=slt.LdpcConfig(\n"
+        "    kind='array', z=13, rows_b=3, cols_b=12, engine='qc',\n"
+        "    schedule='layered', bp_iters=4), f_prot=0.9, feedback_iters=2)\n"
+        "c = ConcatModel.build(ccfg, 6.0, 'cpu')\n"
+        "assert int(c.run_block(block_generator(0, 0, 0), 2)['trials']) == 2\n"
         "jax = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]\n"
         "assert not jax, jax\n"
         "ref = [k for k in sys.modules if k.startswith('sparc_ldpc_tpu.')]\n"
