@@ -1,16 +1,27 @@
-"""PyTorch/CUDA port of the SPARC and SPARC + LDPC decode paths (the JAX package
-`sparc_ldpc_tpu` is the reference and is left unchanged).
+"""PyTorch/CUDA port of the SPARC and SPARC + LDPC decode paths and their
+campaign CLI (the JAX package `sparc_ldpc_tpu` is the reference and is
+left unchanged).
 
 Module names mirror the reference package so each counterpart is easy to
 find:
 
+  cli.py             campaign | se | plot (python -m sparc_ldpc_tpu_torch.cli)
+  parallel/campaign.py  Monte-Carlo campaign: budgets, journal resume,
+                     pipelined dispatch, steady bits/s
   utils/bits.py      MSB-first bits <-> section indices
   utils/rng.py       one torch.Generator per (base, point, block)
+  utils/io.py        jsonl results and the campaign journal
+  utils/provenance.py  config hash, commit, backend and device of a record
+  utils/profiling.py   timing and torch.profiler traces
   ops/fwht.py        Hadamard factors and plain Kronecker FWHT
+  ops/fwht_kernel.py   length-N FWHT as one (f1, f2) tile: CUDA kernel
+                     (csrc/amp_split.cu fwht2_run) and its plain version
   ops/operators.py   matrix-free partial-Hadamard and dense operators
-  ops/denoiser.py    sectionwise softmax denoiser
-  ops/amp_kernel.py  whole-trial AMP: CUDA kernel (csrc/amp_split.cu) and
-                     its plain PyTorch version
+  ops/denoiser.py    sectionwise softmax denoiser: plain, and the CUDA
+                     kernel csrc/denoise.cu
+  ops/amp_kernel.py  whole-trial AMP with in-kernel encode and Philox
+                     noise: CUDA kernel (csrc/amp_split.cu) and its plain
+                     PyTorch version
   ops/bp.py          LDPC BP on padded edge tables (flooding)
   ops/bp_qc.py       QC-LDPC BP on circulant tensors (flooding, layered)
   ops/bp_qc_kernel.py  layered QC-LDPC min-sum: CUDA kernel

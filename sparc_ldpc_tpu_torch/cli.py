@@ -1,0 +1,283 @@
+"""Campaign CLI of the PyTorch/CUDA port (port of sparc_ldpc_tpu/cli.py).
+
+Presets are the reference's (sparc_ldpc_tpu.config.PRESETS).  Examples:
+
+  # BER sweep on the power-allocated L=1024 config, scan AMP through the
+  # hand-written FWHT and denoiser kernels
+  python -m sparc_ldpc_tpu_torch.cli campaign --preset pa_l1024 --pallas \\
+      --ebno 2.5 3.0 --batch 512 --min-frame-errors 100 \\
+      --out results/pa_l1024_torch.jsonl
+
+  # concatenated SPARC + LDPC as shipped (fused AMP kernel with in-kernel
+  # noise, layered BP kernel)
+  python -m sparc_ldpc_tpu_torch.cli campaign --preset concat --ebno 3.0 \\
+      --batch 2048 --out results/concat_torch.jsonl
+
+  # the plain CPU routes, at a small size
+  python -m sparc_ldpc_tpu_torch.cli campaign --preset plain_small --cpu \\
+      --ebno 6.0 --batch 2 --max-trials 4
+
+  # state-evolution design report (host only)
+  python -m sparc_ldpc_tpu_torch.cli se --preset pa_l1024 --ebno 2.0
+
+Without --cpu the campaign runs on the first CUDA device and fails where
+there is none.  One device only: --distributed, --section-shards > 1 and
+several visible GPUs exit (ROADMAP A10).  Results are jsonl, one record per
+sweep point with the reference's keys plus backend and device, and a
+per-block journal for restart; --profile writes a torch.profiler trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sparc_ldpc_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("campaign", help="run a Monte-Carlo BER/FER campaign")
+    c.add_argument("--preset", default="plain_small",
+                   help="plain_small | pa_l1024 | fast_l4096 | concat | "
+                        "concat_wifi | concat_r56")
+    c.add_argument("--ebno", type=float, nargs="+", default=None,
+                   help="Eb/N0 grid in dB (default: preset grid)")
+    c.add_argument("--batch", type=int, default=64)
+    c.add_argument("--min-frame-errors", type=int, default=100)
+    c.add_argument("--max-trials", type=int, default=100_000)
+    c.add_argument("--seed", type=int, default=1234)
+    c.add_argument("--out", default=None, help="results jsonl path")
+    c.add_argument("--journal", default=None,
+                   help="block journal for restart (default: <out>.journal)")
+    c.add_argument("--section-shards", type=int, default=1)
+    c.add_argument("--cpu", action="store_true",
+                   help="run the plain CPU routes (debug, small sizes)")
+    c.add_argument("--pallas", action="store_true",
+                   help="the reference's Pallas route: scan AMP through the "
+                        "FWHT and denoiser kernels")
+    c.add_argument("--fused", action="store_true",
+                   help="use the fused whole-AMP kernel (fixed-T)")
+    c.add_argument("--amp-iters", type=int, default=None,
+                   help="override the AMP iteration cap (e.g. 64 for "
+                        "mid-waterfall points where SE needs >32 iters)")
+    c.add_argument("--auto-iters", action="store_true",
+                   help="SE-derived per-point AMP iteration budget "
+                        "(amp_iters becomes the cap; design/se.py)")
+    c.add_argument("--profile", default=None,
+                   help="torch.profiler trace output dir")
+    c.add_argument("--distributed", action="store_true",
+                   help="multi-host campaign (not ported: ROADMAP A10)")
+
+    s = sub.add_parser("se", help="state-evolution design report")
+    s.add_argument("--preset", default="pa_l1024")
+    s.add_argument("--ebno", type=float, default=2.0)
+
+    b = sub.add_parser("plot", help="render BER/FER curves from jsonl")
+    b.add_argument("results", nargs="+")
+    b.add_argument("--out", default="curves.png")
+    return p
+
+
+def _unported(cfg) -> str | None:
+    """Why the port cannot run this config's AMP route, or None."""
+    from sparc_ldpc_tpu.config import ConcatConfig
+
+    sp = cfg.sparc if isinstance(cfg, ConcatConfig) else cfg
+    if sp.amp_kernel == "fused":
+        return ("amp_kernel='fused' is not ported: it routes to K1's split "
+                "form above L = 1024 (ROADMAP K1 (f)) and to the monolithic "
+                "kernel K6 at or below it (ROADMAP K6)")
+    if sp.amp_kernel == "fused_slab":
+        return "amp_kernel='fused_slab' (K7) is not ported (ROADMAP K7)"
+    if sp.amp_kernel == "fused_split" and sp.L > 1024:
+        return (f"the fused kernel takes L <= 1024, this config has "
+                f"L = {sp.L} (ROADMAP K1 (f))")
+    return None
+
+
+def cmd_campaign(args) -> int:
+    if args.distributed:
+        raise SystemExit("--distributed: multi-host campaigns are not "
+                         "ported (ROADMAP A10)")
+    if args.section_shards > 1:
+        raise SystemExit("--section-shards > 1: section-sharded AMP is not "
+                         "ported (ROADMAP A10)")
+
+    from sparc_ldpc_tpu.config import (
+        PRESETS, CampaignConfig, ConcatConfig, SparcConfig)
+
+    cfg = PRESETS[args.preset]
+    if not isinstance(cfg, (SparcConfig, ConcatConfig)):
+        raise SystemExit(f"--preset {args.preset} is not a code "
+                         f"configuration")
+    if args.fused:
+        sp = cfg.sparc if isinstance(cfg, ConcatConfig) else cfg
+        if sp.amp_tol != 0.0:
+            print(f"--fused: fixed-T route replaces the preset's adaptive "
+                  f"amp_tol={sp.amp_tol:g} with 0.0 "
+                  f"(every codeword runs all {sp.amp_iters} iterations; "
+                  f"drop --fused to keep the preset's kernel+tol)")
+        if isinstance(cfg, ConcatConfig):
+            cfg = cfg.replace(sparc=cfg.sparc.replace(
+                amp_kernel="fused_split", amp_tol=0.0,
+                transform_precision="bf16"))
+        else:
+            cfg = cfg.replace(amp_kernel="fused_split", amp_tol=0.0,
+                              transform_precision="bf16")
+    why = _unported(cfg)
+    if why is not None:
+        raise SystemExit(f"--preset {args.preset}: {why}")
+    if args.amp_iters is not None:
+        if args.amp_iters <= 0:
+            raise SystemExit(f"--amp-iters must be positive, "
+                             f"got {args.amp_iters}")
+        if isinstance(cfg, ConcatConfig):
+            cfg = cfg.replace(sparc=cfg.sparc.replace(
+                amp_iters=args.amp_iters))
+        else:
+            cfg = cfg.replace(amp_iters=args.amp_iters)
+    if args.auto_iters:
+        if isinstance(cfg, ConcatConfig):
+            cfg = cfg.replace(sparc=cfg.sparc.replace(amp_iters_auto=True))
+        else:
+            cfg = cfg.replace(amp_iters_auto=True)
+    grid = tuple(args.ebno) if args.ebno else (1.5, 2.0, 2.5, 3.0)
+    ccfg = CampaignConfig(ebno_grid_db=grid, batch=args.batch,
+                          min_frame_errors=args.min_frame_errors,
+                          max_trials=args.max_trials, base_seed=args.seed,
+                          section_shards=args.section_shards)
+
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+    from .parallel.campaign import run_campaign
+    from .utils.profiling import trace
+    from .utils.provenance import artifact_meta
+
+    if args.cpu:
+        device = torch.device("cpu")
+    else:
+        device = slt.default_device()
+        if torch.cuda.device_count() > 1:
+            raise SystemExit(
+                f"{torch.cuda.device_count()} GPUs are visible: the port "
+                f"runs a campaign on one (ROADMAP A10); make one visible "
+                f"with CUDA_VISIBLE_DEVICES")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    if isinstance(cfg, ConcatConfig):
+        from .models.concat import ConcatSweep
+        sweep = ConcatSweep(cfg, use_pallas=args.pallas, device=device)
+
+        def k_bits(m):
+            return m.k_user
+    else:
+        from .models.sparc import SparcSweep
+        sweep = SparcSweep(cfg, use_pallas=args.pallas, device=device)
+
+        def k_bits(m):
+            return m.cfg.k_bits
+
+    out = args.out
+    journal = args.journal or (out + ".journal" if out else None)
+    dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+    print(f"campaign: preset={args.preset} grid={grid} "
+          f"batch={args.batch} device={dev_name} "
+          f"section_shards={args.section_shards}")
+
+    def go():
+        return run_campaign(sweep.model_for_point, ccfg, k_bits,
+                            journal_path=journal, results_path=out,
+                            meta=artifact_meta(args.preset, cfg, device))
+
+    if args.profile:
+        with trace(args.profile):
+            go()
+        print(f"profile trace written to {args.profile}")
+    else:
+        go()
+    return 0
+
+
+def cmd_se(args) -> int:
+    from sparc_ldpc_tpu.config import PRESETS, ConcatConfig
+    from sparc_ldpc_tpu.design.power import power_allocation
+    from sparc_ldpc_tpu.design.se import se_trajectory
+
+    cfg = PRESETS[args.preset]
+    if isinstance(cfg, ConcatConfig):
+        cfg = cfg.sparc
+    sigma2 = cfg.sigma2(args.ebno)
+    p = power_allocation(cfg.power_alloc, cfg.L, cfg.P, sigma2, cfg.n, cfg.M,
+                         cfg.pa_a, cfg.pa_f)
+    tr = se_trajectory(p, cfg.n, cfg.M, sigma2)
+    rec = dict(preset=args.preset, ebno_db=args.ebno, sigma2=sigma2,
+               n=cfg.n, L=cfg.L, M=cfg.M,
+               pa_kind=cfg.power_alloc,
+               pa_min=float(p.min()), pa_max=float(p.max()),
+               se_iters=len(tr) - 1, tau2_final=float(tr[-1]),
+               decodes=bool(tr[-1] < 1.25 * sigma2),
+               tau2_trace=[round(float(t), 6) for t in tr])
+    print(json.dumps(rec, indent=2))
+    return 0
+
+
+def cmd_plot(args) -> int:
+    from .utils.io import read_jsonl
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        print("matplotlib not available", file=sys.stderr)
+        return 1
+    fig, ax = plt.subplots(1, 2, figsize=(11, 4))
+    for path in args.results:
+        recs = list(read_jsonl(path))
+        pts = [r for r in recs if r.get("kind") == "point"]
+        if not pts:
+            continue
+        eb = [r["ebno_db"] for r in pts]
+        label = os.path.basename(path).replace(".jsonl", "")
+        ax[0].semilogy(eb, [max(r["ber"], 1e-12) for r in pts],
+                       "o-", label=label)
+        ax[1].semilogy(eb, [max(r["fer"], 1e-12) for r in pts],
+                       "s-", label=label)
+        # overlay SE-prediction legs when the artifact carries them
+        se = sorted((r["ebno_db"], r["ber"]) for r in recs
+                    if r.get("kind") == "se")
+        if se:
+            ax[0].semilogy([e for e, _ in se],
+                           [max(b, 1e-12) for _, b in se],
+                           "k--", alpha=0.7, label=f"{label} (SE)")
+    for a, name in zip(ax, ("BER", "FER")):
+        a.set_xlabel("Eb/N0 (dB)")
+        a.set_ylabel(name)
+        a.grid(True, which="both", alpha=0.3)
+        a.legend()
+    fig.tight_layout()
+    fig.savefig(args.out, dpi=130)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def main(argv=None) -> int:
+    args = _build_parser().parse_args(argv)
+    if args.cmd == "campaign":
+        return cmd_campaign(args)
+    if args.cmd == "se":
+        return cmd_se(args)
+    if args.cmd == "plot":
+        return cmd_plot(args)
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,9 +1,8 @@
 // Whole-trial AMP decode of the partial-Hadamard SPARC, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sparc_ldpc_tpu/ops/amp_kernel.py::_amp_kernel_split
-// (launched by amp_fused: in-kernel encode, early stop, pinning, SE
-// schedule; not the in-kernel noise).  Per codeword, on the (L, M) section
-// tile:
+// (launched by amp_fused: in-kernel encode and channel noise, early stop,
+// pinning, SE schedule).  Per codeword, on the (L, M) section tile:
 //
 //   y  = where(mask, noise, 0) + mask/n * H(sqo * one_hot(idx))     (encode)
 //   T times, while the codeword is active:
@@ -62,9 +61,24 @@
 // inside a block plus a fixed-order second pass over the per-block partials,
 // so the same inputs give bitwise-identical outputs.
 //
+// In-kernel channel noise: with per-codeword seeds the encode launch draws
+// the masked AWGN itself, so no (B, L, M) noise tensor is written or read.
+// The generator is Philox4x32-10 (Salmon et al., SC'11), a counter-based
+// generator written out below, so the plain PyTorch version
+// (ops/amp_kernel.py, philox4x32) reproduces every draw.  Layout: element
+// (l, m) of codeword b uses
+//   key (seed[b][0], seed[b][1]), counter (m, l / 4, 0, 0) -> words x0..x3,
+//   pair p = (l % 4) / 2: u1 = (x_{2p} >> 8) 2^-24 + 2^-25,
+//                         theta = 2 pi (x_{2p+1} >> 8) 2^-24,
+//   normal = sqrt(-2 ln u1) * (l even ? cos theta : sin theta).
+// Each thread of the encode launch owns R >= 8 consecutive rows of one
+// column, so one Philox block feeds four of its rows.  The transcendentals
+// are the precise logf/sincosf/sqrtf (no fast-math).
+//
 // The transform stages (reg_fwht, col_fwht_ab / col_fwht_ba, row_fwht) are
-// device functions so the standalone tile transform and the softmax
-// denoiser kernels can reuse them; amp_fwht_tile exposes the transform alone.
+// device functions, so the standalone tile transform (amp_fwht_tile) and the
+// plain length-N FWHT of the operator route (fwht2_run, the counterpart of
+// sparc_ldpc_tpu/ops/fwht.py::_fwht2_kernel) reuse them.
 //
 // Built by sparc_ldpc_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -204,19 +218,84 @@ __device__ __forceinline__ void col_fwht_ba(float (&v)[R], float* sm, int w,
   reg_fwht<R, R>(v);
 }
 
+// ------------------------------------------------------------------ noise
+
+// Philox4x32-10: ten rounds, the key bumped between rounds.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// The reference's 24-bit uniforms (ops/amp_kernel.py boxmuller_pair_f32):
+// u1 in (0, 1), floored at 2^-25 so the log never sees 0, and the angle.
+// Explicit roundings keep nvcc from contracting them into an FMA.
+__device__ __forceinline__ float bm_u1(uint32_t bits) {
+  return __fadd_rn(__fmul_rn((float)(bits >> 8), 0x1p-24f), 0x1p-25f);
+}
+__device__ __forceinline__ float bm_theta(uint32_t bits) {
+  return __fmul_rn(__fmul_rn(6.28318548f, (float)(bits >> 8)), 0x1p-24f);
+}
+
+// The four standard normals of rows 4q .. 4q + 3 in column m (layout above).
+__device__ __forceinline__ void normal4(uint2 key, int m, int q, float (&e)[4]) {
+  const uint4 x = philox4x32_10(make_uint4((uint32_t)m, (uint32_t)q, 0u, 0u),
+                                key);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float r = sqrtf(-2.f * logf(bm_u1(w[2 * p])));
+    float s, c;
+    sincosf(bm_theta(w[2 * p + 1]), &s, &c);
+    e[2 * p] = r * c;
+    e[2 * p + 1] = r * s;
+  }
+}
+
+// The uniforms behind every draw: u1 and theta of element (l, m) of every
+// codeword (rows 2j and 2j + 1 share their pair's).  For checking the
+// generator against its plain version; the decode never launches it.
+__global__ void noise_draws_kernel(const uint32_t* __restrict__ seeds,
+                                   float* __restrict__ u1,
+                                   float* __restrict__ theta, int L, int M) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (L / 4) * M) return;
+  const int q = i / M, m = i % M, b = blockIdx.y;
+  const uint4 x = philox4x32_10(make_uint4((uint32_t)m, (uint32_t)q, 0u, 0u),
+                                make_uint2(seeds[2 * b], seeds[2 * b + 1]));
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const size_t off = ((size_t)b * L + 4 * q + r) * M + m;
+    u1[off] = bm_u1(w[2 * (r / 2)]);
+    theta[off] = bm_theta(w[2 * (r / 2) + 1]);
+  }
+}
+
 // In-kernel encode: y = where(mask > 0, noise, 0) + mask/n * H(sqo one_hot).
 // The one-hot row's H_M is closed-form, (e_idx H_M)[m] = (-1)^popc(idx & m),
 // exact in float32; H_L then runs in float32.  enc_idx == nullptr only
-// applies the mask.
+// applies the mask.  The noise is y_n, or with seeds != nullptr sigma times
+// the Philox normals (y_n is then not read).
 template <int W, int R>
 __global__ void __launch_bounds__(32 * W, 1)
 amp_encode_kernel(const float* __restrict__ y_n,
                   const float* __restrict__ mask_n,
                   const float* __restrict__ sqo,
                   const int32_t* __restrict__ enc_idx,
+                  const uint32_t* __restrict__ seeds, float sigma,
                   float* __restrict__ y, int M) {
   extern __shared__ float sm[];
   constexpr int L = W * R;
+  static_assert(R % 4 == 0, "a Philox block feeds four rows of a thread");
   const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
   const int b = blockIdx.y;
   const int m = blockIdx.x * kStrip + c;
@@ -234,12 +313,23 @@ amp_encode_kernel(const float* __restrict__ y_n,
 #pragma unroll
     for (int k = 0; k < R; ++k) v[k] = 0.f;
   }
+  uint2 key = make_uint2(0u, 0u);
+  if (seeds != nullptr) key = make_uint2(seeds[2 * b], seeds[2 * b + 1]);
 #pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int l = R * w + k;
-    const size_t off = base + (size_t)l * M + m;
-    const float mk = mask_n[(size_t)l * M + m];
-    y[off] = (mk > 0.f ? y_n[off] : 0.f) + mk * v[k];
+  for (int g = 0; g < R / 4; ++g) {
+    float e[4];
+    if (seeds != nullptr) normal4(key, m, (R * w) / 4 + g, e);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * g + i;
+      const int l = R * w + k;
+      const size_t off = base + (size_t)l * M + m;
+      const float mk = mask_n[(size_t)l * M + m];
+      const float noise =
+          mk > 0.f ? (seeds != nullptr ? __fmul_rn(sigma, e[i]) : y_n[off])
+                   : 0.f;
+      y[off] = noise + mk * v[k];
+    }
   }
 }
 
@@ -559,13 +649,13 @@ int set_col_smem(K kernel) {
 template <int W, int R>
 struct Cols {
   static int encode(const float* y_n, const float* mask_n, const float* sqo,
-                    const int32_t* enc_idx, float* y, int B, int M,
-                    cudaStream_t st) {
+                    const int32_t* enc_idx, const uint32_t* seeds,
+                    float sigma, float* y, int B, int M, cudaStream_t st) {
     int rc = set_col_smem<W, R>(amp_encode_kernel<W, R>);
     if (rc) return rc;
     amp_encode_kernel<W, R><<<dim3(M / kStrip, B), 32 * W,
                               W * R * kStrip * sizeof(float), st>>>(
-        y_n, mask_n, sqo, enc_idx, y, M);
+        y_n, mask_n, sqo, enc_idx, seeds, sigma, y, M);
     return (int)cudaGetLastError();
   }
   template <typename WT>
@@ -637,9 +727,10 @@ struct Rows {
   }
 
 int encode(const float* y_n, const float* mask_n, const float* sqo,
-           const int32_t* enc_idx, float* y, int B, int L, int M,
-           cudaStream_t st) {
-  DISPATCH_L(L, C::encode(y_n, mask_n, sqo, enc_idx, y, B, M, st))
+           const int32_t* enc_idx, const uint32_t* seeds, float sigma,
+           float* y, int B, int L, int M, cudaStream_t st) {
+  DISPATCH_L(L, C::encode(y_n, mask_n, sqo, enc_idx, seeds, sigma, y, B, M,
+                          st))
 }
 
 template <typename WT>
@@ -709,25 +800,29 @@ extern "C" {
 
 // Whole-trial AMP for B codewords.  Inputs: y_n (B, L, M) the channel
 // noise (enc_idx given) or the whole observation (enc_idx null), embedded
-// on the row support; mask_n (L, M) = mask / n; sqi, sqo (L,); enc_idx
-// (B, L) int32 or null; pin (B, L) int32 (-1 = unpinned) or null; sched
-// (T,) SE tau2 schedule or null; tol the early-stop threshold (0 = fixed
-// T).  Outputs: beta (B, L, M) true scale, trace (T, B), iters (B,) int32.
-// active (T + 1, B) int32 holds the freeze flags and must arrive with row
-// 0 all ones.  Scratch: y, z (B, L, M) float; work (B, L, M), bfloat16
-// when round_bf16 (transform operands rounded to bf16) and float
+// on the row support, or null when seeds is given; seeds (B, 2) uint32
+// Philox keys or null: the kernel then draws the masked noise itself,
+// sigma times standard normals; mask_n (L, M) = mask / n; sqi, sqo (L,);
+// enc_idx (B, L) int32 or null; pin (B, L) int32 (-1 = unpinned) or null;
+// sched (T,) SE tau2 schedule or null; tol the early-stop threshold (0 =
+// fixed T).  Outputs: beta (B, L, M) true scale, trace (T, B), iters (B,)
+// int32.  active (T + 1, B) int32 holds the freeze flags and must arrive
+// with row 0 all ones.  Scratch: y, z (B, L, M) float; work (B, L, M),
+// bfloat16 when round_bf16 (transform operands rounded to bf16) and float
 // otherwise; zpart (B, M / 32); bpart (B, L).
 // Returns 0, a cudaError_t, or -1 for an unsupported shape.
 int amp_split_run(const float* y_n, const float* mask_n, const float* sqi,
                   const float* sqo, const int32_t* enc_idx,
-                  const int32_t* pin, const float* sched, float* beta,
-                  float* trace, int32_t* iters, int32_t* active, float* y,
-                  float* z, void* work, float* zpart, float* bpart, int B,
-                  int L, int M, int T, float P, float n, float inv_sqrt_n,
-                  float tol, int round_bf16, void* stream) {
+                  const uint32_t* seeds, const int32_t* pin,
+                  const float* sched, float* beta, float* trace,
+                  int32_t* iters, int32_t* active, float* y, float* z,
+                  void* work, float* zpart, float* bpart, int B, int L,
+                  int M, int T, float P, float n, float inv_sqrt_n,
+                  float tol, float sigma, int round_bf16, void* stream) {
   if (!supported(B, L, M) || T < 1) return kBadShape;
+  if ((y_n == nullptr) == (seeds == nullptr)) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = encode(y_n, mask_n, sqo, enc_idx, y, B, L, M, st);
+  int rc = encode(y_n, mask_n, sqo, enc_idx, seeds, sigma, y, B, L, M, st);
   if (rc) return rc;
   AmpArgs a;
   a.mask_n = mask_n;
@@ -766,6 +861,40 @@ int amp_fwht_tile(const float* x, float* out, int B, int L, int M,
   int rc = rows_fwht(x, out, B * L, M, round_bf16, st);
   if (rc) return rc;
   return cols_fwht(out, B, L, M, round_bf16, st);
+}
+
+// The masked channel noise alone: y = where(mask_n > 0, sigma * normal, 0)
+// for (B, L, M), the encode launch with no codeword.
+int amp_noise_run(const uint32_t* seeds, const float* mask_n, float sigma,
+                  float* y, int B, int L, int M, void* stream) {
+  if (!supported(B, L, M)) return kBadShape;
+  return encode(nullptr, mask_n, nullptr, nullptr, seeds, sigma, y, B, L, M,
+                static_cast<cudaStream_t>(stream));
+}
+
+// u1 and theta of every draw of amp_noise_run, (B, L, M) each.
+int amp_noise_draws(const uint32_t* seeds, float* u1, float* theta, int B,
+                    int L, int M, void* stream) {
+  if (!supported(B, L, M)) return kBadShape;
+  constexpr int kThreads = 256;
+  const int blocks = ((L / 4) * M + kThreads - 1) / kThreads;
+  noise_draws_kernel<<<dim3(blocks, B), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(seeds, u1, theta,
+                                                            L, M);
+  return (int)cudaGetLastError();
+}
+
+// Length-N FWHT of B rows, N = f1 * f2, each row viewed as an (f1, f2)
+// row-major tile: H_f2 along the tile's rows (the input rounded to
+// bfloat16 first when round_input is set), then H_f1 down its columns, in
+// float32 and natural order.
+int fwht2_run(const float* x, float* out, int B, int f1, int f2,
+              int round_input, void* stream) {
+  if (!supported(B, f1, f2)) return kBadShape;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = rows_fwht(x, out, B * f1, f2, round_input, st);
+  if (rc) return rc;
+  return cols_fwht(out, B, f1, f2, 0, st);
 }
 
 const char* amp_split_error_string(int code) {

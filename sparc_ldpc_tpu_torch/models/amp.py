@@ -9,8 +9,11 @@ Onsager correction and online tau tracking:
     beta_{t+1} = eta(s_t; tau2_t)             (ops.denoiser)
 
 Two routes: the fused whole-trial route (ops.amp_kernel.amp_fused: the CUDA
-kernel on a GPU, its plain version on the CPU) and the scan route, a Python
-loop.  Both have the reference's per-codeword freeze: once
+kernel on a GPU, its plain version on the CPU; with noise seeds it also
+draws the channel noise) and the scan route, a Python loop, whose
+denoiser is `denoise` or, with use_pallas_denoiser, the CUDA kernel
+`denoise_kernel` (the reference's `denoise_pallas`).  Both have the
+reference's per-codeword freeze: once
 |tau2_t - tau2_{t-1}| < tol * tau2_t a codeword's state stops changing, and
 `iters` counts the iterations it really ran.  Decision-feedback pinning
 overrides the pinned sections with sqrt(n P_l) * one_hot after every
@@ -25,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.amp_kernel import amp_fused
-from ..ops.denoiser import denoise
+from ..ops.denoiser import denoise, denoise_kernel
 from ..ops.operators import BatchedOperator
 
 
@@ -61,8 +64,13 @@ def amp_decode(
     encode_idx: Optional[torch.Tensor] = None,      # (B, L) int32: y IS the
                                                     # noise, the fused route
                                                     # synthesizes the codeword
+    noise_seed: Optional[torch.Tensor] = None,      # (B, 2) int32: the fused
+                                                    # route draws the noise
+                                                    # too; y is None
+    noise_sigma: Optional[float] = None,
+    use_pallas_denoiser: bool = False,
 ) -> AmpResult:
-    B = y.shape[0]
+    B = y.shape[0] if noise_seed is None else noise_seed.shape[0]
     L = sq_npl.shape[0]
     ML = op.ML
     M = ML // L
@@ -75,16 +83,20 @@ def amp_decode(
             src = (pinned_idx if pinned_idx is not None
                    else pinned_onehot.argmax(-1))
             pin_idx = torch.where(pinned_mask, src.to(torch.int32), -1)
-        y_n = op.embed_y(y).reshape(B, L, M)
+        y_n = None if noise_seed is not None else op.embed_y(y).reshape(
+            B, L, M)
         beta3, trace, iters = amp_fused(
             y_n, op.mask.reshape(L, M), sq_npl, P, n, T,
             encode_idx=encode_idx, tol=k_tol, pin_idx=pin_idx,
-            tau2_schedule=tau2_schedule)
+            tau2_schedule=tau2_schedule, noise_seed=noise_seed,
+            noise_sigma=noise_sigma)
         return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
                          sq_npl=sq_npl)
-    if encode_idx is not None:
-        raise ValueError("encode_idx needs the fused route (op.mask present, "
-                         "L <= 4096, M <= 1024); encode outside amp_decode")
+    if encode_idx is not None or noise_seed is not None:
+        raise ValueError("encode_idx/noise_seed need the fused route (op.mask "
+                         "present, L <= 4096, M <= 1024); encode outside "
+                         "amp_decode")
+    dn = denoise_kernel if use_pallas_denoiser else denoise
 
     def apply_pin(beta3):
         if pinned_mask is None:
@@ -117,7 +129,7 @@ def amp_decode(
             tau2 = torch.full((B,), float(tau2_schedule[t]), dtype=dt,
                               device=dev)
         adj = op.adj_n(z_new) if n_space else op.Ay(z_new)
-        beta3, _ = denoise((beta + adj).reshape(B, L, M), tau2, sq_npl)
+        beta3, _ = dn((beta + adj).reshape(B, L, M), tau2, sq_npl)
         beta3 = apply_pin(beta3)
         if tau2_schedule is None:
             conv = (tau2 - tau2_prev).abs() < tol * tau2

@@ -16,6 +16,14 @@ Decode chain:
      codewords pinned to their decoded indices;
   5. user bits: the unprotected sections' argmax from the feedback pass
      and the LDPC message bits.
+
+With the config's in-kernel noise, a block draws one Philox key per frame
+and both AMP passes take the same keys, so the pinned feedback pass's
+kernel regenerates exactly the noise the main pass decoded (as it
+re-synthesizes the same codeword from the same true indices).
+`ConcatSweep` builds a model per Eb/N0 point; the reference's staged
+s1/s2/s3 runner exists for its JIT compile times and has no counterpart
+here (the campaign takes `run_block`).
 """
 
 from __future__ import annotations
@@ -61,9 +69,10 @@ class ConcatModel:
     num_cw: int              # LDPC codewords per SPARC frame
 
     @staticmethod
-    def build(cfg: ConcatConfig, ebno_db: float, device) -> "ConcatModel":
-        return ConcatModel._make(cfg, SparcModel.build(cfg.sparc, ebno_db,
-                                                       device))
+    def build(cfg: ConcatConfig, ebno_db: float, device,
+              use_pallas: bool = False) -> "ConcatModel":
+        return ConcatModel._make(cfg, SparcModel.build(
+            cfg.sparc, ebno_db, device, use_pallas=use_pallas))
 
     @staticmethod
     def from_numpy(cfg: ConcatConfig, ebno_db: float,
@@ -115,16 +124,6 @@ class ConcatModel:
         return bits_to_indices(torch.cat([unprot, cw], dim=1), logM)
 
     # ------------------------------------------------------------ decode
-
-    @property
-    def _enc_in_kernel(self) -> bool:
-        """The self-generated trial paths encode inside the fused AMP (the
-        kernel synthesizes x = A beta0 from the true indices, in both AMP
-        passes), as SparcModel._block does."""
-        c = self.cfg.sparc
-        return (self.sparc.fused and c.amp_encode_in_kernel
-                and self.sparc.op.mask is not None
-                and c.L <= 4096 and c.M <= 1024)
 
     def _protected_llrs(self, scores: torch.Tensor) -> torch.Tensor:
         """Log-posterior scores (B, L, M) -> bitwise LLRs (B, Lp*logM) of
@@ -180,15 +179,17 @@ class ConcatModel:
         cw_hat = cw_bits.reshape(B, self.num_cw * self.ldpc.n)
         return cw_hat, bp.ok.reshape(B, self.num_cw), bp.iters.reshape(B, -1)
 
-    def _feedback_user_bits(self, y: torch.Tensor, cw_hat: torch.Tensor,
-                            ok: torch.Tensor,
-                            enc_idx: Optional[torch.Tensor] = None
+    def _feedback_user_bits(self, y: Optional[torch.Tensor],
+                            cw_hat: torch.Tensor, ok: torch.Tensor,
+                            enc_idx: Optional[torch.Tensor] = None,
+                            noise_kw: Optional[dict] = None
                             ) -> torch.Tensor:
         """Pinned AMP again -> assembled user bits (B, k_user) int32.
 
         Only sections whose bits all come from syndrome-verified codewords
         are pinned: pinning a wrongly decoded codeword poisons the second
-        pass."""
+        pass.  noise_kw (noise_seed, noise_sigma) must be the main pass's,
+        so that the kernel draws the same noise again (y is then None)."""
         B = cw_hat.shape[0]
         logM = self.cfg.sparc.logM
         dev = cw_hat.device
@@ -203,7 +204,7 @@ class ConcatModel:
              prot_idx], dim=1)
         res2 = self.sparc.decode(y, T=self.cfg.feedback_iters,
                                  pinned_idx=full_idx, pinned_mask=pin_mask,
-                                 encode_idx=enc_idx)
+                                 encode_idx=enc_idx, **(noise_kw or {}))
         unprot_bits = indices_to_bits(hard_indices(res2.beta)[:, :self.Lu],
                                       logM)
         msg_bits = self.ldpc.extract_message(
@@ -226,6 +227,8 @@ class ConcatModel:
         """One Monte-Carlo block of `batch` frames drawn from `gen`."""
         bits = torch.randint(0, 2, (batch, self.k_user), generator=gen,
                              dtype=torch.int32, device=self.device)
+        if self.sparc.noise_in_kernel:
+            return self._block(bits, None, self.sparc.draw_seeds(gen, batch))
         noise = torch.randn((batch, self.sparc.cfg.n), generator=gen,
                             dtype=torch.float32, device=self.device)
         return self._block(bits, noise)
@@ -238,19 +241,23 @@ class ConcatModel:
                                 device=self.device)
         return self._block(bits, noise)
 
-    def _block(self, bits, noise) -> Dict[str, torch.Tensor]:
+    def _block(self, bits, noise, noise_seed=None
+               ) -> Dict[str, torch.Tensor]:
+        """One block on given draws: noise (B, n) standard normal, or None
+        with noise_seed (B, 2) for the in-kernel noise."""
         sigma = math.sqrt(self.sparc.sigma2)
-        if self._enc_in_kernel and self.cfg.sparc.amp_noise_in_kernel:
-            raise NotImplementedError(
-                "amp_noise_in_kernel=True (in-kernel channel noise) is not "
-                "ported yet; set it to False")
-        if self._enc_in_kernel:
-            # y carries the noise; both AMP passes add mask o (A beta0)
+        if noise_seed is not None or self.sparc.enc_in_kernel:
+            # both AMP passes add mask o (A beta0) from the true indices, and
+            # take the noise as y or draw it again from the same seeds
             idx = self._true_indices(bits)
-            y = noise * sigma
-            res = self.sparc.decode(y, encode_idx=idx)
+            if noise_seed is None:
+                y, nkw = noise * sigma, {}
+            else:
+                y, nkw = None, dict(noise_seed=noise_seed, noise_sigma=sigma)
+            res = self.sparc.decode(y, encode_idx=idx, **nkw)
             cw_hat, ok, bp_iters = self._bp_from_beta(res.beta)
-            user_hat = self._feedback_user_bits(y, cw_hat, ok, enc_idx=idx)
+            user_hat = self._feedback_user_bits(y, cw_hat, ok, enc_idx=idx,
+                                                noise_kw=nkw)
             out = dict(user_bits=user_hat, bp_ok=ok, amp_iters=res.iters)
         else:
             out = self.decode(self.encode(bits) + noise * sigma)
@@ -261,8 +268,24 @@ class ConcatModel:
             # moment gives honest BER confidence intervals
             bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
             frame_errors=(bit_errors > 0).sum(),
-            trials=torch.tensor(bits.shape[0], dtype=torch.int32,
-                                device=self.device),
+            trials=torch.full((), bits.shape[0], dtype=torch.int32,
+                              device=self.device),
             bp_ok=out["bp_ok"].sum(),
             iters_sum=out["amp_iters"].sum(),
         )
+
+
+class ConcatSweep:
+    """A model per Eb/N0 point of a campaign (the reference's ConcatSweep,
+    which shares its staged jit compilations across points; PyTorch runs
+    eagerly, so each point builds its own model)."""
+
+    def __init__(self, cfg: ConcatConfig, use_pallas: bool = False,
+                 device="cpu"):
+        self.cfg = cfg
+        self.use_pallas = use_pallas
+        self.device = device
+
+    def model_for_point(self, ebno_db: float) -> ConcatModel:
+        return ConcatModel.build(self.cfg, ebno_db, self.device,
+                                 use_pallas=self.use_pallas)

@@ -6,6 +6,13 @@ on an explicit device.  The design constants (power allocation, the
 SE-derived iteration budget, the operator's row set) come from the shared
 NumPy design code, or from `from_numpy`, which takes them as arrays so that
 the reference and the port compute with the same constants.
+
+A block draws its message bits and then either the channel noise
+(torch.randn) or, with the config's in-kernel noise, one Philox key per
+codeword, from which the fused AMP draws the noise itself.  The gate is
+the reference's, without its backend test: on the CPU the plain version
+draws the same noise.  `use_pallas` is the reference's --pallas route
+(ops/operators.py).
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ class SparcModel:
     op: BatchedOperator
     tau2_schedule: Optional[torch.Tensor]  # (T,) when cfg.tau_mode == "se"
     device: torch.device
+    use_pallas: bool = False
 
     @staticmethod
-    def build(cfg: SparcConfig, ebno_db: float, device) -> "SparcModel":
+    def build(cfg: SparcConfig, ebno_db: float, device,
+              use_pallas: bool = False) -> "SparcModel":
         """Design the code at `ebno_db` (as the reference's build does)."""
         sigma2 = cfg.sigma2(ebno_db)
         p = power_allocation(cfg.power_alloc, cfg.L, cfg.P, sigma2, cfg.n,
@@ -50,7 +59,8 @@ class SparcModel:
                 p, cfg.n, cfg.M, sigma2, tol=cfg.amp_auto_tol,
                 T_max=cfg.amp_iters, margin=cfg.amp_auto_margin))
         sq = np.sqrt(cfg.n * p).astype(np.float32)
-        return SparcModel._make(cfg, ebno_db, sigma2, p, sq, None, device)
+        return SparcModel._make(cfg, ebno_db, sigma2, p, sq, None, device,
+                                use_pallas)
 
     @staticmethod
     def from_numpy(cfg: SparcConfig, ebno_db: float,
@@ -75,7 +85,8 @@ class SparcModel:
             np.asarray(params["sq_npl"], dtype=np.float32), plan, device)
 
     @staticmethod
-    def _make(cfg, ebno_db, sigma2, p, sq, plan, device) -> "SparcModel":
+    def _make(cfg, ebno_db, sigma2, p, sq, plan, device,
+              use_pallas=False) -> "SparcModel":
         device = check_device(device)
         if cfg.amp_kernel in ("fused", "fused_slab"):
             raise NotImplementedError(
@@ -90,12 +101,34 @@ class SparcModel:
         return SparcModel(
             cfg=cfg, ebno_db=ebno_db, sigma2=sigma2, p_alloc=p,
             sq_npl=torch.tensor(sq, device=device),
-            op=make_operator(cfg, device, plan), tau2_schedule=sched,
-            device=device)
+            op=make_operator(cfg, device, plan, use_pallas),
+            tau2_schedule=sched, device=device, use_pallas=use_pallas)
 
     @property
     def fused(self) -> bool:
         return self.cfg.amp_kernel == "fused_split"
+
+    @property
+    def enc_in_kernel(self) -> bool:
+        """The trial paths encode inside the fused AMP."""
+        c = self.cfg
+        return (self.fused and c.amp_encode_in_kernel
+                and self.op.mask is not None and c.L <= 4096
+                and c.M <= 1024)
+
+    @property
+    def noise_in_kernel(self) -> bool:
+        """The trial paths draw the channel noise inside the fused AMP (the
+        reference's gate: split form, or "fused" above L = 1024)."""
+        c = self.cfg
+        return (self.enc_in_kernel and c.amp_noise_in_kernel
+                and (c.amp_kernel == "fused_split"
+                     or (c.amp_kernel == "fused" and c.L > 1024)))
+
+    def draw_seeds(self, gen: torch.Generator, batch: int) -> torch.Tensor:
+        """(batch, 2) int32 Philox keys (uint32 bit patterns) from gen."""
+        return torch.randint(-2 ** 31, 2 ** 31, (batch, 2), generator=gen,
+                             dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------ encode
 
@@ -118,21 +151,25 @@ class SparcModel:
 
     # ------------------------------------------------------------ decode
 
-    def decode(self, y: torch.Tensor, T: Optional[int] = None,
+    def decode(self, y: Optional[torch.Tensor], T: Optional[int] = None,
                encode_idx: Optional[torch.Tensor] = None,
                pinned_idx: Optional[torch.Tensor] = None,
                pinned_mask: Optional[torch.Tensor] = None,
-               pinned_onehot: Optional[torch.Tensor] = None) -> AmpResult:
+               pinned_onehot: Optional[torch.Tensor] = None,
+               noise_seed: Optional[torch.Tensor] = None,
+               noise_sigma: Optional[float] = None) -> AmpResult:
         """AMP decode of y (B, n); with encode_idx, y is the noise and the
-        fused route synthesizes the codeword.  The pinned_* arguments are
-        amp_decode's decision-feedback pins."""
+        fused route synthesizes the codeword; with noise_seed too, y is None
+        and the fused route draws noise_sigma * N(0, 1) itself.  The
+        pinned_* arguments are amp_decode's decision-feedback pins."""
         return amp_decode(
             y, self.op, self.sq_npl, self.cfg.P, self.cfg.n,
             T=T or self.cfg.amp_iters, tol=self.cfg.amp_tol,
             tau2_schedule=self.tau2_schedule, pinned_onehot=pinned_onehot,
             pinned_mask=pinned_mask, pinned_idx=pinned_idx,
             residual_space=self.cfg.amp_residual_space, fused=self.fused,
-            encode_idx=encode_idx)
+            encode_idx=encode_idx, noise_seed=noise_seed,
+            noise_sigma=noise_sigma, use_pallas_denoiser=self.use_pallas)
 
     def decode_bits(self, y: torch.Tensor) -> torch.Tensor:
         return indices_to_bits(hard_indices(self.decode(y).beta),
@@ -152,6 +189,9 @@ class SparcModel:
         """run_block with the operating point's sq_npl and sigma given."""
         bits = torch.randint(0, 2, (batch, self.cfg.k_bits), generator=gen,
                              dtype=torch.int32, device=self.device)
+        if self.noise_in_kernel:
+            return self._block(bits, None, sq_npl, sigma,
+                               self.draw_seeds(gen, batch))
         noise = torch.randn((batch, self.cfg.n), generator=gen,
                             dtype=torch.float32, device=self.device)
         return self._block(bits, noise, sq_npl, sigma)
@@ -164,20 +204,22 @@ class SparcModel:
                                 device=self.device)
         return self._block(bits, noise, self.sq_npl, math.sqrt(self.sigma2))
 
-    def _block(self, bits, noise, sq_npl, sigma) -> Dict[str, torch.Tensor]:
+    def _block(self, bits, noise, sq_npl, sigma, noise_seed=None
+               ) -> Dict[str, torch.Tensor]:
+        """One block on given draws: noise (B, n) standard normal, or None
+        with noise_seed (B, 2) for the in-kernel noise."""
         cfg = self.cfg
         batch = bits.shape[0]
         idx_true = bits_to_indices(bits, cfg.logM)
         # In-kernel encode: the fused route synthesizes x = A beta0 from the
-        # true indices, so only the noise is materialized here.
-        in_kernel_enc = (self.fused and cfg.amp_encode_in_kernel
-                         and self.op.mask is not None
-                         and cfg.L <= 4096 and cfg.M <= 1024)
-        if in_kernel_enc and cfg.amp_noise_in_kernel:
-            raise NotImplementedError(
-                "amp_noise_in_kernel=True (in-kernel channel noise) is not "
-                "ported yet; set it to False")
-        if in_kernel_enc:
+        # true indices, so only the noise is materialized here (and with
+        # in-kernel noise, nothing: the kernel draws it from the seeds).
+        noise_kw = {}
+        if noise_seed is not None:
+            y = None
+            enc_idx = idx_true
+            noise_kw = dict(noise_seed=noise_seed, noise_sigma=sigma)
+        elif self.enc_in_kernel:
             y = noise * sigma
             enc_idx = idx_true
         else:
@@ -190,7 +232,8 @@ class SparcModel:
             y, self.op, sq_npl, cfg.P, cfg.n, T=cfg.amp_iters,
             tol=cfg.amp_tol, tau2_schedule=self.tau2_schedule,
             residual_space=cfg.amp_residual_space, fused=self.fused,
-            encode_idx=enc_idx)
+            encode_idx=enc_idx, use_pallas_denoiser=self.use_pallas,
+            **noise_kw)
         idx_hat = hard_indices(res.beta)
         bits_hat = indices_to_bits(idx_hat, cfg.logM)
         bit_errors = (bits != bits_hat).sum(-1)              # (B,)
@@ -202,7 +245,28 @@ class SparcModel:
             bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
             frame_errors=(bit_errors > 0).sum(),
             section_errors=section_errors.sum(),
-            trials=torch.tensor(batch, dtype=torch.int32, device=self.device),
+            # a fill, not a host-to-device copy, which would wait for the
+            # stream and stall the campaign's pipelined dispatch
+            trials=torch.full((), batch, dtype=torch.int32,
+                              device=self.device),
             iters_sum=res.iters.sum(),
             tau2_final=res.tau2_trace[-1].mean(),
         )
+
+
+class SparcSweep:
+    """A model per Eb/N0 point of a campaign (the reference's SparcSweep).
+
+    The reference shares one jit compilation across points; PyTorch runs
+    eagerly, so there is nothing to share and each point builds its own
+    model (design constants and operator)."""
+
+    def __init__(self, cfg: SparcConfig, use_pallas: bool = False,
+                 device="cpu"):
+        self.cfg = cfg
+        self.use_pallas = use_pallas
+        self.device = device
+
+    def model_for_point(self, ebno_db: float) -> SparcModel:
+        return SparcModel.build(self.cfg, ebno_db, self.device,
+                                use_pallas=self.use_pallas)

@@ -38,11 +38,17 @@ _F = ctypes.c_float
 # exports `<name>_error_string(int) -> const char*` for its return codes
 _SIGNATURES = {
     "amp_split": {
-        "amp_split_run": ((_P,) * 16 + (_I,) * 4 + (_F,) * 4 + (_I, _P), _I),
+        "amp_split_run": ((_P,) * 17 + (_I,) * 4 + (_F,) * 5 + (_I, _P), _I),
         "amp_fwht_tile": ((_P, _P, _I, _I, _I, _I, _P), _I),
+        "amp_noise_run": ((_P, _P, _F, _P, _I, _I, _I, _P), _I),
+        "amp_noise_draws": ((_P, _P, _P, _I, _I, _I, _P), _I),
+        "fwht2_run": ((_P, _P, _I, _I, _I, _I, _P), _I),
     },
     "bp_qc_layered": {
         "bp_qc_layered_run": ((_P,) * 5 + (_I,) * 8 + (_F,) * 3 + (_P,), _I),
+    },
+    "denoise": {
+        "denoise_run": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
     },
 }
 LIBRARIES = tuple(_SIGNATURES)

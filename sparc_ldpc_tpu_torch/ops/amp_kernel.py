@@ -12,7 +12,8 @@ softmax works on.  `amp_fused` runs all T iterations:
     beta' = sqo * softmax_row((sqi / tau2) * (H(z) + beta'))
 
 (tau2 from an SE schedule when one is given; pinned rows overridden after
-the softmax; a codeword frozen once its tau2 plateaus within tol) in the
+the softmax; a codeword frozen once its tau2 plateaus within tol; the
+channel noise drawn inside the kernel from per-codeword seeds) in the
 reference's scale-free form (beta' = beta * sqrt(n), sqi = sq /
 sqrt(n), sqo = sq * sqrt(n)).  As in the reference kernel, the data operand
 of each transform stage is rounded to bfloat16 and the sums are float32;
@@ -28,6 +29,16 @@ softmax), so its second rounding falls after H_L instead.  In float32
 (precision="highest") the two agree to summation order; with bf16
 rounding they draw different rounding noise, which T iterations amplify
 at near-tie sections, so they agree in distribution.
+
+In-kernel noise (`noise_seed`): Philox4x32-10 keyed by the codeword's two
+seed words, with the counter (m, l // 4, 0, 0) for element (l, m) of the
+(L, M) tile, and both outputs of Box-Muller on the reference's 24-bit
+uniforms (csrc/amp_split.cu states the layout).  `philox4x32` and
+`noise_uniforms_reference` are the same generator in PyTorch integer
+arithmetic, so the kernel and its plain version draw identical uniforms;
+their normals differ only in the last bits of log, sin and cos.  The
+stream is not the reference's TPU PRNG stream (nor jax.random's), so
+against JAX it agrees in distribution only.
 """
 
 from __future__ import annotations
@@ -109,6 +120,156 @@ def fwht_tile(x: torch.Tensor, precision: str = "highest") -> torch.Tensor:
 fwht_tile.launches = 0
 
 
+# ----------------------------------------------------------------- noise
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of m * a, a int64 in [0, 2^32): torch has no
+    unsigned 32-bit multiply-high, so a is split into 16-bit halves and
+    every partial product stays below 2^49."""
+    p_lo = (a & 0xFFFF) * m
+    p_hi = (a >> 16) * m
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(ctr, key) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 (Salmon et al., SC'11) on int64 words in [0, 2^32):
+    ctr a 4-tuple, key a 2-tuple of broadcastable tensors; returns the
+    four output words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for r in range(10):
+        if r > 0:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo32(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo32(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _seed_words(noise_seed: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(B, 2) int32 seed bit patterns -> two (B, 1, 1) int64 key words."""
+    s = noise_seed.to(torch.int64) & _MASK32
+    return s[:, 0, None, None], s[:, 1, None, None]
+
+
+def _philox_words(noise_seed: torch.Tensor, L: int, M: int):
+    """The four Philox words of every (codeword, row quad, column): counter
+    (m, q, 0, 0), key the codeword's seed; each (B, L // 4, M) int64."""
+    if L % 4:
+        raise ValueError(f"L must be a multiple of 4, got {L}")
+    dev = noise_seed.device
+    q = torch.arange(L // 4, dtype=torch.int64, device=dev)[:, None]
+    m = torch.arange(M, dtype=torch.int64, device=dev)[None, :]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return philox4x32((m, q, zero, zero), _seed_words(noise_seed))
+
+
+def _bm_uniforms(bits1: torch.Tensor, bits2: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's 24-bit Box-Muller inputs (boxmuller_pair_f32):
+    u1 = (bits1 >> 8) 2^-24 + 2^-25 in (0, 1) and theta = 2 pi (bits2 >> 8)
+    2^-24, float32.  bits are integers in [0, 2^32)."""
+    u1 = (bits1 >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
+    theta = (2.0 * math.pi) * (bits2 >> 8).to(torch.float32) * 2.0 ** -24
+    return u1, theta
+
+
+def box_muller(bits1: torch.Tensor, bits2: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both Box-Muller outputs (r cos theta, r sin theta), r = sqrt(-2 ln
+    u1): two independent standard normals per pair of 32-bit words."""
+    u1, theta = _bm_uniforms(bits1, bits2)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def noise_uniforms_reference(noise_seed: torch.Tensor, L: int, M: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u1, theta), each (B, L, M) float32: the Box-Muller inputs of every
+    draw of the in-kernel noise (rows 2j and 2j + 1 share their pair's)."""
+    x = _philox_words(noise_seed, L, M)
+    pairs = (_bm_uniforms(x[0], x[1]), _bm_uniforms(x[2], x[3]))
+    B = noise_seed.shape[0]
+
+    def rows(t):                # (B, L/4, pair, M) -> rows 4q + 2 pair + s
+        return t[:, :, :, None, :].expand(B, L // 4, 2, 2, M).reshape(B, L, M)
+
+    return (rows(torch.stack([p[0] for p in pairs], 2)),
+            rows(torch.stack([p[1] for p in pairs], 2)))
+
+
+def channel_noise_reference(noise_seed: torch.Tensor, mask: torch.Tensor,
+                            sigma: float) -> torch.Tensor:
+    """Plain version of `channel_noise`: where(mask > 0, sigma * normal, 0),
+    (B, L, M) float32, normal the in-kernel noise's draws."""
+    L, M = mask.shape
+    x = _philox_words(noise_seed, L, M)
+    z = torch.stack(box_muller(x[0], x[1]) + box_muller(x[2], x[3]), 2)
+    z = z.reshape(noise_seed.shape[0], L, M)   # rows 4q + {0, 1, 2, 3}
+    return torch.where(mask > 0, sigma * z, 0.0)
+
+
+def _check_seed(noise_seed, B, dev):
+    _check_cuda_tensor("noise_seed", noise_seed, torch.int32, (B, 2), dev)
+
+
+def channel_noise(noise_seed: torch.Tensor, mask: torch.Tensor,
+                  sigma: float) -> torch.Tensor:
+    """The in-kernel channel noise alone, (B, L, M): where(mask > 0,
+    sigma * normal, 0) for noise_seed (B, 2) int32 (uint32 bit patterns)
+    and mask (L, M).  On a CUDA tensor the encode launch of the AMP kernel
+    with no codeword, on a CPU tensor `channel_noise_reference`."""
+    if mask.device.type == "cpu":
+        return channel_noise_reference(noise_seed, mask, sigma)
+    from ._build import check, load_library
+
+    dev = mask.device
+    L, M = mask.shape
+    B = noise_seed.shape[0]
+    _check_cuda_shape(B, L, M)
+    _check_cuda_tensor("mask", mask, torch.float32, (L, M), dev)
+    _check_seed(noise_seed, B, dev)
+    y = torch.empty((B, L, M), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check("amp_split", load_library("amp_split").amp_noise_run(
+        noise_seed.data_ptr(), mask.data_ptr(), float(sigma), y.data_ptr(),
+        B, L, M, stream), "amp_noise_run")
+    channel_noise.launches += 1
+    return y
+
+
+channel_noise.launches = 0
+
+
+def noise_uniforms(noise_seed: torch.Tensor, L: int, M: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u1, theta) of every in-kernel noise draw, (B, L, M) each: on a CUDA
+    tensor from the kernel's generator, on a CPU tensor
+    `noise_uniforms_reference`."""
+    if noise_seed.device.type == "cpu":
+        return noise_uniforms_reference(noise_seed, L, M)
+    from ._build import check, load_library
+
+    dev = noise_seed.device
+    B = noise_seed.shape[0]
+    _check_cuda_shape(B, L, M)
+    _check_seed(noise_seed, B, dev)
+    u1 = torch.empty((B, L, M), dtype=torch.float32, device=dev)
+    theta = torch.empty_like(u1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check("amp_split", load_library("amp_split").amp_noise_draws(
+        noise_seed.data_ptr(), u1.data_ptr(), theta.data_ptr(), B, L, M,
+        stream), "amp_noise_draws")
+    return u1, theta
+
+
 # ------------------------------------------------------------------- AMP
 
 def _constants(mask, sq_npl, n):
@@ -129,15 +290,19 @@ def _pin_rows(beta, pin_idx, sqo):
     return torch.where(pin >= 0, pinned, beta)
 
 
-def amp_fused_reference(y_n: torch.Tensor, mask: torch.Tensor,
+def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
                         sq_npl: torch.Tensor, P: float, n: int, T: int,
                         encode_idx: Optional[torch.Tensor] = None,
                         precision: str = "bf16",
                         tol: float = 0.0,
                         pin_idx: Optional[torch.Tensor] = None,
                         tau2_schedule: Optional[torch.Tensor] = None,
+                        noise_seed: Optional[torch.Tensor] = None,
+                        noise_sigma: Optional[float] = None,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `amp_fused` (same arguments and results)."""
+    if noise_seed is not None:
+        y_n = channel_noise_reference(noise_seed, mask, noise_sigma)
     B, L, M = y_n.shape
     mask_n, sqi, sqo = _constants(mask, sq_npl, n)
     y = torch.where(mask_n > 0, y_n, 0.0)
@@ -184,7 +349,7 @@ def amp_fused_reference(y_n: torch.Tensor, mask: torch.Tensor,
     return beta * (1.0 / math.sqrt(n)), trace, iters
 
 
-def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
+def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
               mask: torch.Tensor,           # (L, M) 0/1 row support
               sq_npl: torch.Tensor,         # (L,) sqrt(n P_l)
               P: float, n: int, T: int,
@@ -193,7 +358,8 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
               tol: float = 0.0,
               pin_idx: Optional[torch.Tensor] = None,      # (B, L) int32
               tau2_schedule: Optional[torch.Tensor] = None,  # (T,) f32
-              noise_seed: Optional[torch.Tensor] = None,
+              noise_seed: Optional[torch.Tensor] = None,   # (B, 2) int32
+              noise_sigma: Optional[float] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-trial AMP: returns (beta (B, L, M), tau2 trace (T, B),
     iterations used (B,) int32).
@@ -214,28 +380,42 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
     pinned row with sq * one_hot(pin_idx) after every softmax (decision
     feedback).  tau2_schedule (T,) replaces |z|^2 / n with a state-
     evolution schedule; the Onsager term then divides by the schedule's
-    previous entry.  The in-kernel noise (noise_seed) is not ported yet
-    and raises NotImplementedError."""
+    previous entry.
+
+    noise_seed (B, 2) int32 (the uint32 bit patterns of each codeword's
+    Philox key) with noise_sigma turns on the in-kernel noise: y_n is then
+    None, and the kernel draws the masked AWGN noise_sigma * N(0, 1) on the
+    row support itself (module docstring).  It needs encode_idx, as in the
+    reference.  Equal seeds give identical noise, which is how the concat
+    chain's pinned feedback pass sees its main pass's channel."""
     if noise_seed is not None:
-        raise NotImplementedError(
-            "amp_fused: the in-kernel noise (noise_seed) is not ported yet")
+        if encode_idx is None or y_n is not None or noise_sigma is None:
+            raise ValueError("the in-kernel noise needs encode_idx and "
+                             "noise_sigma, and no y_n")
+    elif y_n is None:
+        raise ValueError("y_n is needed unless noise_seed is given")
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     if tol < 0:
         raise ValueError(f"tol must be >= 0, got {tol}")
-    if y_n.device.type == "cpu":
+    dev = (y_n if y_n is not None else noise_seed).device
+    if dev.type == "cpu":
         return amp_fused_reference(y_n, mask, sq_npl, P, n, T, encode_idx,
-                                   precision, tol, pin_idx, tau2_schedule)
-    if y_n.device.type != "cuda":
-        raise ValueError(f"amp_fused runs on cpu or cuda, not {y_n.device}")
+                                   precision, tol, pin_idx, tau2_schedule,
+                                   noise_seed, noise_sigma)
+    if dev.type != "cuda":
+        raise ValueError(f"amp_fused runs on cpu or cuda, not {dev}")
     from ._build import check, load_library
 
-    dev = y_n.device
-    B, L, M = y_n.shape
+    L, M = mask.shape
+    B = encode_idx.shape[0] if y_n is None else y_n.shape[0]
     _check_cuda_shape(B, L, M)
-    _check_cuda_tensor("y_n", y_n, torch.float32, (B, L, M), dev)
+    if y_n is None:
+        _check_seed(noise_seed, B, dev)
+    else:
+        _check_cuda_tensor("y_n", y_n, torch.float32, (B, L, M), dev)
     _check_cuda_tensor("mask", mask, torch.float32, (L, M), dev)
     _check_cuda_tensor("sq_npl", sq_npl, torch.float32, (L,), dev)
     for name, idx in (("encode_idx", encode_idx), ("pin_idx", pin_idx)):
@@ -246,19 +426,19 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
                            (T,), dev)
     mask_n, sqi, sqo = _constants(mask, sq_npl, n)
     lib = load_library("amp_split")
-    beta = torch.empty_like(y_n)
+    beta = torch.empty((B, L, M), dtype=torch.float32, device=dev)
     trace = torch.empty((T, B), dtype=torch.float32, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     # active[t, b]: codeword b runs iteration t.  Row 0 is all ones; the
     # row stage of iteration t writes row t + 1, which only the launches
     # of iteration t + 1 read.
     active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
-    y = torch.empty_like(y_n)
-    z = torch.empty_like(y_n)
+    y = torch.empty_like(beta)
+    z = torch.empty_like(beta)
     # the transform stages round the work tile to bf16 when they read it:
     # in bf16 mode it is stored in bf16 (same values, half the bytes)
     bf16 = precision == "bf16"
-    work = torch.empty_like(y_n, dtype=torch.bfloat16 if bf16 else None)
+    work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
     zpart = torch.empty((B, M // 32), dtype=torch.float32, device=dev)
     bpart = torch.empty((B, L), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -267,18 +447,22 @@ def amp_fused(y_n: torch.Tensor,            # (B, L, M) N-space embedded y
         return t.data_ptr() if t is not None else None
 
     rc = lib.amp_split_run(
-        y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
-        ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+        ptr(y_n), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
+        ptr(encode_idx), ptr(noise_seed), ptr(pin_idx), ptr(tau2_schedule),
         beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
         active.data_ptr(), y.data_ptr(), z.data_ptr(),
         work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(),
         B, L, M, T, float(P), float(n), 1.0 / math.sqrt(n), float(tol),
-        int(bf16), stream)
+        float(noise_sigma or 0.0), int(bf16), stream)
     check("amp_split", rc, "amp_split_run")
     amp_fused.launches += 1
+    if noise_seed is not None:
+        amp_fused.noise_launches += 1
     return beta, trace, iters
 
 
 # kernel runs (one per amp_fused call on a CUDA tensor: the encode launch
-# plus 2 T iteration launches); never counted on the CPU route
+# plus 2 T iteration launches), and those of them that drew the channel
+# noise in the kernel; never counted on the CPU route
 amp_fused.launches = 0
+amp_fused.noise_launches = 0

@@ -8,6 +8,11 @@ Operators are built from the shared host-side plans
 (sparc_ldpc_tpu.design.codebook), so the reference and the port use
 identical index sets.  The reference's "rev" transform scheme computes the
 same transform in another TPU layout; here both schemes run `fwht_kron`.
+With use_pallas (the reference's --pallas route) the Hadamard operator's
+transforms are `fwht2` (ops/fwht_kernel.py, the counterpart of
+`fwht_pallas`) in float32 whatever the config's transform precision, and,
+as in the reference, the operator has no N-space members, so the AMP takes
+the scan route with the encode and the noise outside the decoder.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from sparc_ldpc_tpu.config import SparcConfig
 from sparc_ldpc_tpu.design.codebook import HadamardPlan, hadamard_plan
 
 from .fwht import fwht_kron
+from .fwht_kernel import fwht2
 
 
 class BatchedOperator(NamedTuple):
@@ -56,11 +62,14 @@ def dense_operator(cfg: SparcConfig, device="cpu") -> BatchedOperator:
 
 
 def hadamard_operator(cfg: SparcConfig, device="cpu",
-                      plan: Optional[HadamardPlan] = None) -> BatchedOperator:
+                      plan: Optional[HadamardPlan] = None,
+                      use_pallas: bool = False) -> BatchedOperator:
     """Matrix-free partial-Hadamard operator A = H_N[rows, :ML] / sqrt(n).
 
     `plan` defaults to the config's own `hadamard_plan`; passing one lets a
-    caller reuse constants taken from another implementation."""
+    caller reuse constants taken from another implementation.  use_pallas
+    gives the reference's `fwht_pallas` operator: Ax and Ay on `fwht2`,
+    no N-space members."""
     if cfg.col_signs:
         raise NotImplementedError("col_signs=True is not ported yet")
     if plan is None:
@@ -74,6 +83,18 @@ def hadamard_operator(cfg: SparcConfig, device="cpu",
 
     def pad(beta):
         return beta if ML == N else torch.nn.functional.pad(beta, (0, N - ML))
+
+    if use_pallas:
+        def Ax_k(beta):
+            return fwht2(pad(beta).contiguous())[..., rows] * inv_sqrt_n
+
+        def Ay_k(z):
+            u = torch.zeros(z.shape[:-1] + (N,), dtype=z.dtype,
+                            device=z.device)
+            u[..., rows] = z
+            return fwht2(u)[..., :ML] * inv_sqrt_n
+
+        return BatchedOperator(Ax=Ax_k, Ay=Ay_k, n=n, ML=ML, N=N)
 
     def embed_y(y):
         u = torch.zeros(y.shape[:-1] + (N,), dtype=y.dtype, device=y.device)
@@ -99,9 +120,10 @@ def hadamard_operator(cfg: SparcConfig, device="cpu",
 
 
 def make_operator(cfg: SparcConfig, device="cpu",
-                  plan: Optional[HadamardPlan] = None) -> BatchedOperator:
+                  plan: Optional[HadamardPlan] = None,
+                  use_pallas: bool = False) -> BatchedOperator:
     if cfg.op_kind == "dense":
         return dense_operator(cfg, device)
     if cfg.op_kind == "hadamard":
-        return hadamard_operator(cfg, device, plan)
+        return hadamard_operator(cfg, device, plan, use_pallas)
     raise NotImplementedError(f"op_kind={cfg.op_kind!r} is not ported yet")

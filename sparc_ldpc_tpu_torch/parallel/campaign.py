@@ -1,0 +1,233 @@
+"""Monte-Carlo BER/FER campaign driver (port of
+sparc_ldpc_tpu/parallel/campaign.py, on one device).
+
+Per Eb/N0 point: run trial blocks until the frame-error budget or the
+trial cap is met.  Block b of point p draws everything from
+`block_generator(base_seed, p, b, device)`, so a block's counters depend
+only on its coordinates, and:
+
+  - completed blocks are journaled (utils.io.CampaignState) and replayed on
+    restart; a crash costs only the in-flight block;
+  - the dispatch is pipelined: block b + 1 is launched before block b's
+    counters are read back, so the host's readback overlaps the device's
+    next block.  Block b's counters are copied into pinned host memory
+    right after its launch (non_blocking) and a CUDA event is recorded
+    behind the copy; the harvest waits on that event only.  A plain
+    `.item()` on block b after b + 1 is queued on the same stream would
+    wait for b + 1 as well and serialize the pipeline.
+
+Throughput comes from the blocks this process executed: journal-replayed
+blocks add counters but no time, and the first executed block, which
+carries the kernels' nvcc build at first use and the CUDA warm-up, is
+excluded (`first_block_s` is kept in the record).  Only one device: a
+sharding policy raises (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..utils import io as iou
+from ..utils.rng import block_generator
+
+_COUNTER_KEYS = ("bit_errors", "frame_errors", "section_errors", "trials",
+                 "iters_sum", "bp_ok", "bit_errors_sq")
+
+
+def _check_policy(policy) -> None:
+    if policy is not None:
+        raise NotImplementedError(
+            "sharding policies (several devices, section sharding) are not "
+            "ported yet: ROADMAP A10")
+
+
+def _stage(out: Dict[str, torch.Tensor]):
+    """Queue the copy of a block's counters to the host.
+
+    Returns (keys, values, event): on a CUDA device values is a pinned host
+    tensor that holds the counters once `event` has completed; on the CPU
+    it holds them already and event is None."""
+    keys = [k for k in _COUNTER_KEYS if k in out]
+    vals = torch.stack([out[k].reshape(()).to(torch.float64) for k in keys])
+    if not vals.is_cuda:
+        return keys, vals, None
+    host = torch.empty(vals.shape, dtype=torch.float64, pin_memory=True)
+    host.copy_(vals, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return keys, host, event
+
+
+def run_point(
+    run_block: Callable,
+    base_seed: int,
+    batch: int,
+    min_frame_errors: int,
+    max_trials: int,
+    state: Optional[iou.CampaignState] = None,
+    point_idx: int = 0,
+    device="cpu",
+    policy=None,
+    pipelined: bool = True,
+) -> Dict[str, float]:
+    """Run blocks until the error budget of one sweep point is met.
+
+    run_block(gen, batch) -> dict of counter tensors.  The budget check
+    sees counters lagged by the one block in flight, which over-dispatches
+    at most one block per point; that block is journaled like any other.
+    To keep a restart exact, journal-replayed blocks go through the same
+    one-slot pending machinery, so the decision to process block b always
+    uses the totals through block b - 2, and a point resumed from its
+    journal reproduces the original block set and counters bit for bit.
+    pipelined=False harvests each block before the next is launched (the
+    check then sees block b - 1); its block set can differ from the
+    pipelined one by the trailing block.
+    """
+    _check_policy(policy)
+    totals: Dict[str, float] = {}
+    block = 0
+    exec_blocks = 0
+    exec_trials = 0
+    exec_wall = 0.0
+    t0 = time.perf_counter()
+    t_last = t0
+    pending = None      # ("exec", block_idx, staged) | ("replay", idx, rec)
+
+    def harvest():
+        """Fold the pending block's counters into totals (and journal)."""
+        nonlocal pending, exec_blocks, exec_trials, exec_wall, t_last
+        if pending is None:
+            return
+        tag, blk, payload = pending
+        pending = None
+        if tag == "replay":
+            for k in _COUNTER_KEYS:
+                if k in payload:
+                    totals[k] = totals.get(k, 0) + payload[k]
+            t_last = time.perf_counter()
+            return
+        keys, vals, event = payload
+        if event is not None:
+            event.synchronize()
+        out = {k: int(v) for k, v in zip(keys, vals.tolist())}
+        now = time.perf_counter()
+        blk_s = now - t_last
+        t_last = now
+        if "first_block_s" not in totals:
+            # the first executed block carries the kernels' build at first
+            # use and the CUDA warm-up; kept apart from the throughput
+            totals["first_block_s"] = blk_s
+        exec_blocks += 1
+        exec_trials += out.get("trials", 0)
+        exec_wall += blk_s
+        for k, v in out.items():
+            totals[k] = totals.get(k, 0) + v
+        if state is not None:
+            state.record_block(point_idx, blk, out)
+
+    while (totals.get("frame_errors", 0) < min_frame_errors
+           and totals.get("trials", 0) < max_trials):
+        if state is not None and state.is_done(point_idx, block):
+            rec = state.block_record(point_idx, block)
+            harvest()
+            pending = ("replay", block, rec)
+            if not pipelined:
+                harvest()
+            block += 1
+            continue
+        gen = block_generator(base_seed, point_idx, block, device)
+        staged = _stage(run_block(gen, batch))   # queued, not waited on
+        harvest()                                # the PREVIOUS block
+        pending = ("exec", block, staged)
+        if not pipelined:
+            harvest()
+        block += 1
+    harvest()
+    totals["wall_s"] = time.perf_counter() - t0
+    totals["blocks"] = block
+    totals["exec_blocks"] = exec_blocks
+    totals["exec_trials"] = exec_trials
+    totals["exec_wall_s"] = exec_wall
+    return totals
+
+
+def steady_bits_per_s(tot: Dict[str, float], batch: int,
+                      kb: int) -> Optional[float]:
+    """Steady-state throughput: blocks this process executed, the first
+    (build- and warm-up-bearing) block excluded.
+
+    None below two executed blocks: a one-block point's only timing
+    includes the first use, and a journal-replayed point did no work
+    here."""
+    eb = tot.get("exec_blocks", 0)
+    fb = tot.get("first_block_s")
+    if fb is None or eb < 2:
+        return None
+    et = tot.get("exec_trials", 0)
+    return ((et - batch) * kb
+            / max(tot.get("exec_wall_s", 0.0) - fb, 1e-9))
+
+
+def run_campaign(
+    model_for_point: Callable[[float], object],
+    cfg,
+    k_bits_fn: Callable[[object], int],
+    journal_path: Optional[str] = None,
+    results_path: Optional[str] = None,
+    policy=None,
+    verbose: bool = True,
+    meta: Optional[Dict[str, object]] = None,
+    pipelined: bool = True,
+) -> List[Dict[str, float]]:
+    """Full Eb/N0 sweep -> list of result records (also appended to
+    results_path as jsonl).
+
+    Args:
+      model_for_point: ebno_db -> model with .run_block(gen, batch) and
+        .device.
+      cfg: a CampaignConfig (grid, batch, budgets, base seed).
+      k_bits_fn: model -> payload bits per trial (the BER denominator).
+      meta: provenance fields merged into every record
+        (utils.provenance.artifact_meta).
+    """
+    _check_policy(policy)
+    state = iou.CampaignState(journal_path) if journal_path else None
+    results = []
+    for pi, ebno in enumerate(cfg.ebno_grid_db):
+        model = model_for_point(ebno)
+        # the reference prefers a model's staged runner where it has one;
+        # the port's models have none (ROADMAP A7)
+        tot = run_point(model.run_block, cfg.base_seed, cfg.batch,
+                        cfg.min_frame_errors, cfg.max_trials, state=state,
+                        point_idx=pi, device=model.device,
+                        pipelined=pipelined)
+        kb = k_bits_fn(model)
+        trials = max(1, int(tot.get("trials", 0)))
+        rec = dict(
+            kind="point", ebno_db=float(ebno),
+            ber=tot.get("bit_errors", 0) / (trials * kb),
+            fer=tot.get("frame_errors", 0) / trials,
+            trials=trials,
+            bit_errors=int(tot.get("bit_errors", 0)),
+            bit_errors_sq=int(tot.get("bit_errors_sq", 0)),
+            frame_errors=int(tot.get("frame_errors", 0)),
+            mean_iters=tot.get("iters_sum", 0) / trials,
+            wall_s=tot["wall_s"],
+            first_block_s=tot.get("first_block_s"),
+            bits_per_s=steady_bits_per_s(tot, cfg.batch, kb),
+            blocks=int(tot["blocks"]),
+            exec_blocks=int(tot.get("exec_blocks", 0)),
+            **(meta or {}),
+        )
+        results.append(rec)
+        if results_path:
+            iou.append_jsonl(results_path, rec)
+        if verbose:
+            bps = rec["bits_per_s"]
+            bps_s = f"{bps:,.0f} bits/s" if bps else "bits/s: n/a (<2 blocks)"
+            print(f"  ebno={ebno:5.2f} dB  ber={rec['ber']:.3e}  "
+                  f"fer={rec['fer']:.3e}  trials={trials}  ({bps_s})")
+    return results

@@ -1,0 +1,60 @@
+"""Structured jsonl results and the restartable campaign journal (port of
+sparc_ldpc_tpu/utils/io.py).
+
+Every sweep point appends one json line {ebno_db, ber, fer, trials, ...};
+every executed block appends one journal line, so a restarted campaign
+replays the finished blocks instead of running them and ends with the
+same counters.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Iterator, Optional
+
+
+def append_jsonl(path: str, record: Dict[str, Any]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "a") as f:
+        f.write(json.dumps(record, sort_keys=True) + "\n")
+
+
+def read_jsonl(path: str) -> Iterator[Dict[str, Any]]:
+    if not os.path.exists(path):
+        return
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                yield json.loads(line)
+
+
+class CampaignState:
+    """Restartable per-point counters keyed by (point_idx, block_idx).
+
+    The journal is append-only jsonl; on restart, completed blocks are
+    replayed into counters and skipped by the driver, so a crash mid-block
+    costs only that block.
+    """
+
+    def __init__(self, journal_path: Optional[str]):
+        self.journal_path = journal_path
+        self.done: Dict[tuple, Dict[str, Any]] = {}
+        if journal_path:
+            for rec in read_jsonl(journal_path):
+                if rec.get("kind") == "block":
+                    self.done[(rec["point"], rec["block"])] = rec
+
+    def is_done(self, point: int, block: int) -> bool:
+        return (point, block) in self.done
+
+    def block_record(self, point: int, block: int) -> Dict[str, Any]:
+        return self.done[(point, block)]
+
+    def record_block(self, point: int, block: int,
+                     counters: Dict[str, Any]) -> None:
+        rec = dict(kind="block", point=point, block=block, **counters)
+        self.done[(point, block)] = rec
+        if self.journal_path:
+            append_jsonl(self.journal_path, rec)

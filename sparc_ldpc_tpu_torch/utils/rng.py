@@ -3,11 +3,14 @@ sparc_ldpc_tpu/utils/rng.py).
 
 One explicit torch.Generator per (base, point, block): its seed is drawn
 from a NumPy SeedSequence of those three integers, so a block's draws
-depend only on its coordinates.  Within a block, draws depend on the batch
-size (the reference folds a key per trial, which makes its draws
-independent of how a block is split; that per-trial invariance is not
-ported yet).  Torch and JAX streams differ: same-input tests make their
-draws with NumPy and hand them to both packages.
+depend only on its coordinates.  That is what the campaign's journal
+resume needs: a block executed again after a restart draws exactly what it
+drew the first time.  Within a block, draws depend on the batch size (the
+reference folds a key per trial, which makes its draws independent of how
+a block is split over devices); that per-trial fold invariance matters
+only for sharded runs and is queued with them (ROADMAP A10).  Torch and
+JAX streams differ: same-input tests make their draws with NumPy and hand
+them to both packages.
 """
 
 from __future__ import annotations

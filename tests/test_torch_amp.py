@@ -25,7 +25,10 @@ from test_precision import assert_decisions_match
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 from sparc_ldpc_tpu_torch.models.amp import (
     AmpResult, amp_decode, decision_flips, hard_indices)
-from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, amp_fused_reference
+from sparc_ldpc_tpu_torch.ops.amp_kernel import (
+    amp_fused, amp_fused_reference, channel_noise_reference)
+from sparc_ldpc_tpu_torch.ops.denoiser import denoise_kernel
+from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2
 from sparc_ldpc_tpu_torch.ops.operators import hadamard_operator
 
 
@@ -82,12 +85,32 @@ def test_amp_fused_on_cpu_runs_the_plain_version_without_launch():
 
 
 @pytest.mark.parametrize("option", [
-    dict(noise_seed=torch.zeros(2, 2, dtype=torch.int32))])
+    dict(noise_seed=torch.zeros(2, 2, dtype=torch.int32)),
+    dict(noise_seed=torch.zeros(2, 2, dtype=torch.int32), noise_sigma=0.5,
+         encode_idx=None)])
 def test_amp_fused_unported_options_raise(option):
+    """The in-kernel noise is ported; what the reference refuses still
+    raises: seeds next to a y_n, seeds without encode_idx."""
     d = _fused_inputs(64, 128)
-    with pytest.raises(NotImplementedError):
-        amp_fused(_t(d.y_n), _t(d.mask), _t(d.sq), d.cfg.P, d.cfg.n, 8,
-                  encode_idx=_t(d.idx), **option)
+    kw = {"encode_idx": _t(d.idx), **option}
+    with pytest.raises(ValueError):
+        amp_fused(_t(d.y_n), _t(d.mask), _t(d.sq), d.cfg.P, d.cfg.n, 8, **kw)
+
+
+def test_amp_fused_noise_route_is_the_explicit_noise_route():
+    """noise_seed draws channel_noise_reference's noise: the same decode as
+    passing that noise as y_n."""
+    d = _fused_inputs(64, 128)
+    seeds = torch.tensor([[1, 2], [-3, 2 ** 31 - 1]], dtype=torch.int32)
+    sigma = math.sqrt(d.model.sigma2)
+    args = (_t(d.mask), _t(d.sq), d.cfg.P, d.cfg.n, 8)
+    kw = dict(encode_idx=_t(d.idx), precision="highest")
+    b1, t1, i1 = amp_fused(None, *args, noise_seed=seeds, noise_sigma=sigma,
+                           **kw)
+    y_n = channel_noise_reference(seeds, _t(d.mask), sigma)
+    b2, t2, i2 = amp_fused(y_n, *args, **kw)
+    assert torch.equal(b1, b2) and torch.equal(t1, t2)
+    assert torch.equal(i1, i2)
 
 
 def test_amp_fused_encode_matches_explicit_codeword():
@@ -314,3 +337,45 @@ def test_scan_route_pinning_matches_jax_scan():
                                       np.asarray(rj.beta).argmax(-1))
         np.testing.assert_array_equal(
             rt.beta.numpy().argmax(-1)[pin_mask], pin_idx[pin_mask])
+
+
+# ----------------------------------------------------- the --pallas route
+
+def test_pallas_scan_route_matches_jax_pallas_route(monkeypatch):
+    """The whole --pallas scan AMP: the port's SparcModel (fwht2 and
+    denoise_kernel, their plain versions on the CPU) against the
+    reference's, whose fwht_pallas and denoise_pallas run in interpret mode
+    (patched here; the reference's files are untouched)."""
+    import functools
+
+    import sparc_ldpc_tpu.models.amp as jamp_mod
+    import sparc_ldpc_tpu.ops.operators as jops_mod
+    from sparc_ldpc_tpu.ops.denoiser import denoise_pallas
+    from sparc_ldpc_tpu.ops.fwht import fwht_pallas
+
+    monkeypatch.setattr(jops_mod, "fwht_pallas",
+                        functools.partial(fwht_pallas, interpret=True))
+    monkeypatch.setattr(jamp_mod, "denoise_pallas",
+                        functools.partial(denoise_pallas, interpret=True))
+    cfg = SparcConfig(L=32, M=64, R=1.0, power_alloc="iterative",
+                      op_kind="hadamard")
+    mj = JModel.build(cfg, 6.0, use_pallas=True)
+    mt = SparcModel.build(cfg, 6.0, "cpu", use_pallas=True)
+    assert mt.op.mask is None and mt.op.embed_y is None
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2, (4, cfg.k_bits)).astype(np.int32)
+    noise = rng.standard_normal((4, cfg.n)).astype(np.float32)
+    y = np.asarray(mj.encode(jnp.asarray(bits))) \
+        + noise * np.float32(math.sqrt(mj.sigma2))
+    np.testing.assert_allclose(
+        mt.encode(torch.tensor(bits)).numpy(),
+        np.asarray(mj.encode(jnp.asarray(bits))), rtol=1e-5, atol=1e-5)
+    rj = mj.decode(jnp.asarray(y), T=16)
+    launches = (fwht2.launches, denoise_kernel.launches, amp_fused.launches)
+    rt = mt.decode(torch.tensor(y), T=16)
+    assert (fwht2.launches, denoise_kernel.launches,
+            amp_fused.launches) == launches
+    np.testing.assert_allclose(rt.tau2_trace.numpy(),
+                               np.asarray(rj.tau2_trace), rtol=1e-4)
+    assert decision_flips(rt.beta, np.array(rj.beta))[1] == 0
+    np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))

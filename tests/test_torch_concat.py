@@ -215,7 +215,83 @@ def test_run_block_is_a_function_of_the_generator_seed():
 
 
 def test_in_kernel_noise_is_not_ported():
+    """Ported since: the shipped in-kernel noise runs; the same generator
+    gives the same counters, and BP decodes every codeword here."""
     cfg = SMALL.replace(sparc=SMALL.sparc.replace(amp_noise_in_kernel=True))
     mt = ConcatModel.build(cfg, EBNO, "cpu")
-    with pytest.raises(NotImplementedError):
-        mt.run_block(block_generator(0, 0, 0), 2)
+
+    def run(block):
+        return {k: v.item() for k, v in
+                mt.run_block(block_generator(0, 0, block), 4).items()}
+
+    out = run(0)
+    assert out == run(0)
+    assert out["trials"] == 4 and out["bp_ok"] == 4
+    assert out != run(1)
+
+
+def test_both_amp_passes_see_the_same_noise(monkeypatch):
+    """The pinned feedback pass takes the main pass's seeds, so the plain
+    version draws the identical channel noise twice."""
+    import sparc_ldpc_tpu_torch.ops.amp_kernel as amp_mod
+
+    cfg = SMALL.replace(sparc=SMALL.sparc.replace(amp_noise_in_kernel=True))
+    mt = ConcatModel.build(cfg, EBNO, "cpu")
+    drawn = []
+    real = amp_mod.channel_noise_reference
+
+    def record(*args):
+        drawn.append(real(*args))
+        return drawn[-1]
+
+    monkeypatch.setattr(amp_mod, "channel_noise_reference", record)
+    mt.run_block(block_generator(1, 0, 0), 3)
+    assert len(drawn) == 2
+    assert torch.equal(drawn[0], drawn[1])
+    assert drawn[0].abs().sum() > 0
+
+
+def test_pallas_concat_takes_the_scan_route_like_jax(monkeypatch):
+    """use_pallas on a fused concat config: as in the reference, the
+    operator has no row mask, so both AMP passes run the scan route
+    (fwht2, denoise_kernel) with the encode and the noise outside; against
+    the reference's --pallas chain in interpret mode, identical user bits
+    and ok flags."""
+    import functools
+
+    import sparc_ldpc_tpu.models.amp as jamp_mod
+    import sparc_ldpc_tpu.ops.operators as jops_mod
+    import sparc_ldpc_tpu_torch.models.amp as tamp_mod
+    from sparc_ldpc_tpu.ops.denoiser import denoise_pallas
+    from sparc_ldpc_tpu.ops.fwht import fwht_pallas
+
+    monkeypatch.setattr(jops_mod, "fwht_pallas",
+                        functools.partial(fwht_pallas, interpret=True))
+    monkeypatch.setattr(jamp_mod, "denoise_pallas",
+                        functools.partial(denoise_pallas, interpret=True))
+
+    def no_fused(*a, **k):
+        raise AssertionError("the --pallas route must not reach amp_fused")
+
+    monkeypatch.setattr(tamp_mod, "amp_fused", no_fused)
+    cfg = SMALL.replace(sparc=SMALL.sparc.replace(amp_noise_in_kernel=True))
+    mj = JConcat.build(cfg, EBNO, use_pallas=True)
+    mt = ConcatModel.build(cfg, EBNO, "cpu", use_pallas=True)
+    assert not mt.sparc.enc_in_kernel and not mt.sparc.noise_in_kernel
+    bits, noise = _draws(mt, 4, seed=3)
+    y = np.asarray(mj.encode(jnp.asarray(bits))) \
+        + noise * np.float32(math.sqrt(mj.sparc.sigma2))
+    dj = mj.decode(jnp.asarray(y))
+    dt = mt.decode(torch.tensor(y))
+    for k in ("user_bits", "bp_ok"):
+        np.testing.assert_array_equal(dt[k].numpy(), np.asarray(dj[k]),
+                                      err_msg=k)
+    np.testing.assert_allclose(dt["tau2_final"].numpy(),
+                               np.asarray(dj["tau2_final"]), rtol=1e-4)
+    out = {k: v.item() for k, v in mt.run_block_from(bits, noise).items()}
+    assert {k: out[k] for k in ("bit_errors", "frame_errors")} == \
+        {k: v for k, v in _counters(bits, dj["user_bits"]).items()
+         if k != "bit_errors_sq"}
+    run = {k: v.item() for k, v in
+           mt.run_block(block_generator(2, 0, 0), 2).items()}
+    assert run["trials"] == 2

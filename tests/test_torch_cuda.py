@@ -1,6 +1,6 @@
-"""The CUDA kernels (sparc_ldpc_tpu_torch/csrc/amp_split.cu and
-csrc/bp_qc_layered.cu) against their plain PyTorch versions, on an NVIDIA
-GPU.
+"""The CUDA kernels (sparc_ldpc_tpu_torch/csrc/amp_split.cu, with its
+in-kernel noise and the fwht2 entry, csrc/bp_qc_layered.cu and
+csrc/denoise.cu) against their plain PyTorch versions, on an NVIDIA GPU.
 
 Every test here is marked `cuda` and skips where no GPU is visible.  The
 file imports no JAX, so it also runs where the JAX reference is not
@@ -14,7 +14,11 @@ margin-aware); with bf16 operand rounding they agree in distribution
 (tau2 to rtol 2e-2, no decisive flips at these well-decoding points).
 With the early stop, iteration counts within 4 (the reference's rule) and
 the traces compared up to the first stop.  The layered BP kernel is
-bitwise equal to its plain version.
+bitwise equal to its plain version.  The in-kernel noise draws the same
+uniforms as its plain version bit for bit and normals within 1e-5 (log,
+sin and cos differ in their last bits); the FWHT within 1e-5 of the
+output scale; the denoiser to rtol 1e-5 (beta: atol 1e-6 max sq, post:
+atol 1e-7).
 """
 
 import math
@@ -29,7 +33,10 @@ from sparc_ldpc_tpu_torch.models.amp import decision_flips
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 from sparc_ldpc_tpu_torch.ops.amp_kernel import (
-    amp_fused, amp_fused_reference, fwht_tile, fwht_tile_reference)
+    amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
+    fwht_tile, fwht_tile_reference, noise_uniforms, noise_uniforms_reference)
+from sparc_ldpc_tpu_torch.ops.denoiser import denoise, denoise_kernel
+from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2, fwht2_reference
 from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
 from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
 from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
@@ -247,3 +254,159 @@ def test_cuda_concat_block_matches_cpu(cuda_device):
     assert abs(a["bp_ok"] - b["bp_ok"]) <= 1
     assert abs(a["frame_errors"] - b["frame_errors"]) <= 2
     assert abs(a["iters_sum"] - b["iters_sum"]) <= 4 * 16
+
+
+def _seeds(B, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (B, 2), generator=gen,
+                         dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("L,M", [(64, 128), (1024, 512)])
+def test_cuda_noise_matches_plain(cuda_device, L, M):
+    """K1 (e): the kernel's Philox uniforms equal the plain version's, its
+    masked normals agree within 1e-5 and are zero off the row support."""
+    model, _, mask, _, _ = _inputs(L, M, 2, cuda_device)
+    seeds = _seeds(64, cuda_device)
+    u1k, thk = noise_uniforms(seeds, L, M)
+    u1p, thp = noise_uniforms_reference(seeds, L, M)
+    assert torch.equal(u1k, u1p) and torch.equal(thk, thp)
+    launches = channel_noise.launches
+    zk = channel_noise(seeds, mask, 0.7)
+    assert channel_noise.launches == launches + 1
+    zp = channel_noise_reference(seeds, mask, 0.7)
+    assert float((zk - zp).abs().max()) <= 1e-5
+    assert bool((zk[:, mask == 0] == 0).all())
+    on = zk[:, mask > 0]
+    assert abs(float(on.var()) / 0.49 - 1) < 0.05
+
+
+def test_cuda_noise_route_matches_plain(cuda_device):
+    """amp_fused with noise seeds against its plain version (float32):
+    the same noise, so the same decode to summation order."""
+    model, _, mask, sq, idx = _inputs(64, 128, 4, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    seeds = _seeds(4, cuda_device, 1)
+    kw = dict(encode_idx=idx, precision="highest", tol=1e-4,
+              noise_seed=seeds, noise_sigma=math.sqrt(model.sigma2))
+    bk, tk, ik = amp_fused(None, mask, sq, c.P, c.n, 16, **kw)
+    bp, tp, ip = amp_fused_reference(None, mask, sq, c.P, c.n, 16, **kw)
+    assert np.abs(ik.cpu().numpy() - ip.cpu().numpy()).max() <= 4
+    t_min = int(min(ik.min(), ip.min()))
+    np.testing.assert_allclose(tk[:t_min].cpu().numpy(),
+                               tp[:t_min].cpu().numpy(), rtol=1e-4)
+    assert decision_flips(bp, bk)[1] == 0
+
+
+@pytest.mark.parametrize("N", [1 << 11, 1 << 13, 1 << 17, 1 << 19])
+def test_cuda_fwht2_matches_plain(cuda_device, N):
+    x = torch.randn((3, N), device=cuda_device)
+    launches = fwht2.launches
+    for bf16 in (False, True):
+        ref = fwht2_reference(x, bf16)
+        err = (fwht2(x, bf16) - ref).abs().max() / ref.abs().max()
+        assert float(err) <= 1e-5, (bf16, float(err))
+    assert fwht2.launches == launches + 2
+
+
+def test_cuda_fwht2_routes_like_the_reference(cuda_device):
+    """One factor (N <= 2^10) or three (N > 2^20): the plain fwht_kron,
+    as fwht_pallas falls back to fwht_mxu; what the kernel cannot take
+    raises."""
+    launches = fwht2.launches
+    for N in (1 << 10, 1 << 21):
+        x = torch.randn((2, N), device=cuda_device)
+        assert torch.equal(fwht2(x), fwht2_reference(x))
+    assert fwht2.launches == launches
+    with pytest.raises(ValueError):
+        fwht2(torch.randn((2, 1 << 12), device=cuda_device).double())
+    with pytest.raises(ValueError):
+        fwht2(torch.randn((1 << 12, 2), device=cuda_device).t())
+
+
+@pytest.mark.parametrize("L,M", [(32, 64), (256, 512), (64, 1024)])
+def test_cuda_denoise_kernel_matches_plain(cuda_device, L, M):
+    B = 6
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    s = 3.0 * torch.randn((B, L, M), generator=gen, device=cuda_device)
+    tau2 = torch.logspace(-3, math.log10(2.0), B, device=cuda_device)
+    sq = 10.0 + 20.0 * torch.rand((L,), generator=gen, device=cuda_device)
+    launches = denoise_kernel.launches
+    bk, pk = denoise_kernel(s, tau2, sq)
+    assert denoise_kernel.launches == launches + 1
+    bp, pp = denoise(s, tau2, sq)
+    assert bool(torch.isfinite(bk).all() & torch.isfinite(pk).all())
+    torch.testing.assert_close(bk, bp, rtol=1e-5,
+                               atol=1e-6 * float(sq.max()))
+    torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-7)
+
+
+def test_cuda_pallas_route_matches_cpu(cuda_device):
+    """The --pallas scan route on the card (fwht2 and the denoiser kernel
+    every iteration) against the CPU port on the same observation."""
+    cfg = SparcConfig(L=32, M=64, R=1.0, power_alloc="iterative",
+                      op_kind="hadamard", amp_iters=16, amp_tol=0.0)
+    cpu = SparcModel.build(cfg, 6.0, "cpu", use_pallas=True)
+    gpu = SparcModel.build(cfg, 6.0, cuda_device, use_pallas=True)
+    rng = np.random.default_rng(4)
+    bits = rng.integers(0, 2, (4, cfg.k_bits)).astype(np.int32)
+    noise = rng.standard_normal((4, cfg.n)).astype(np.float32)
+    x = cpu.encode(torch.tensor(bits))
+    y = x + torch.tensor(noise) * math.sqrt(cpu.sigma2)
+    launches = (fwht2.launches, denoise_kernel.launches, amp_fused.launches)
+    rg = gpu.decode(y.to(cuda_device))
+    assert fwht2.launches == launches[0] + 2 * 16
+    assert denoise_kernel.launches == launches[1] + 16
+    assert amp_fused.launches == launches[2]
+    rc = cpu.decode(y)
+    np.testing.assert_allclose(rg.tau2_trace.cpu().numpy(),
+                               rc.tau2_trace.numpy(), rtol=1e-4)
+    assert decision_flips(rc.beta, rg.beta)[1] == 0
+
+
+def test_cuda_concat_noise_route_runs_both_kernels(cuda_device):
+    """The shipped concat options with in-kernel noise on the card: both
+    AMP passes and BP launch, and the same generator gives the same
+    counters."""
+    cfg = ConcatConfig(
+        sparc=SparcConfig(L=64, M=64, R=1.0, power_alloc="iterative",
+                          op_kind="hadamard", amp_kernel="fused_split",
+                          amp_tol=1e-4, transform_precision="bf16",
+                          amp_iters=16, amp_noise_in_kernel=True),
+        ldpc=LdpcConfig(kind="array", z=13, rows_b=3, cols_b=12,
+                        engine="qc", schedule="layered", bp_iters=16),
+        f_prot=0.5)
+    gpu = ConcatModel.build(cfg, 4.0, cuda_device)
+    launches = (amp_fused.launches, bp_decode_qc_kernel.launches)
+
+    def run():
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        return {k: v.item() for k, v in gpu.run_block(gen, 16).items()}
+
+    a = run()
+    assert amp_fused.launches == launches[0] + 2
+    assert bp_decode_qc_kernel.launches == launches[1] + 1
+    assert a == run() and a["trials"] == 16
+
+
+def test_cuda_run_block_returns_before_the_device_finishes(cuda_device):
+    """run_block only queues work: the campaign launches block b + 1 before
+    it reads block b's counters.  A host-to-device copy inside the block
+    (torch.tensor(..., device=cuda) waits for the stream) would make it
+    return only once the block has run."""
+    import time
+
+    cfg = SparcConfig(L=1024, M=512, R=1.0, op_kind="hadamard",
+                      amp_kernel="fused_split", transform_precision="bf16",
+                      amp_iters=16, amp_tol=0.0, amp_noise_in_kernel=True)
+    model = SparcModel.build(cfg, 4.0, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model.run_block(gen, 256)                      # warm-up, build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.run_block(gen, 256)
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    done = time.perf_counter() - t0
+    assert out["trials"].item() == 256
+    assert queued < 0.5 * done, (queued, done)

@@ -15,14 +15,17 @@ import torch
 
 from sparc_ldpc_tpu.config import SparcConfig
 from sparc_ldpc_tpu.design.codebook import hadamard_plan
+from sparc_ldpc_tpu.ops import amp_kernel as jamp
 from sparc_ldpc_tpu.ops import denoiser as jden
 from sparc_ldpc_tpu.ops import fwht as jfwht
 from sparc_ldpc_tpu.ops import operators as jops
 from sparc_ldpc_tpu.oracle.fwht import fwht_np
 from sparc_ldpc_tpu.utils import bits as jbits
 
+from sparc_ldpc_tpu_torch.ops import amp_kernel as tamp
 from sparc_ldpc_tpu_torch.ops import denoiser as tden
 from sparc_ldpc_tpu_torch.ops import fwht as tfwht
+from sparc_ldpc_tpu_torch.ops import fwht_kernel as tfk
 from sparc_ldpc_tpu_torch.ops import operators as tops
 from sparc_ldpc_tpu_torch.ops.amp_kernel import fwht_tile, fwht_tile_reference
 from sparc_ldpc_tpu_torch.utils import bits as tbits
@@ -108,6 +111,130 @@ def test_fwht_tile_is_the_flattened_transform(L, M):
     np.testing.assert_array_equal(fwht_tile(_t(x)).numpy(),
                                   fwht_tile_reference(_t(x)).numpy())
     assert fwht_tile.launches == launches
+
+
+@pytest.mark.parametrize("N", [1 << 13, 1 << 15])
+def test_fwht2_route_matches_jax_fwht_pallas(N):
+    """K5: the port's fwht2 (its plain version on the CPU) against the
+    reference's Pallas kernel in interpret mode, to the reference's own
+    tolerance (tests/test_ops.py:46)."""
+    x = np.random.default_rng(N).standard_normal((3, N)).astype(np.float32)
+    want = np.asarray(jfwht.fwht_pallas(jnp.asarray(x), interpret=True))
+    launches = tfk.fwht2.launches
+    got = tfk.fwht2(_t(x)).numpy()
+    assert tfk.fwht2.launches == launches
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-3 * math.sqrt(N))
+    np.testing.assert_allclose(got, fwht_np(x.astype(np.float64)),
+                               rtol=1e-5, atol=1e-5 * math.sqrt(N) * 4)
+
+
+@pytest.mark.parametrize("N", [1 << 13, 1 << 15])
+def test_fwht2_bf16_rounds_only_the_input_like_fwht_pallas(N):
+    x = np.random.default_rng(N + 1).standard_normal((2, N)).astype(np.float32)
+    want = np.asarray(jfwht.fwht_pallas(jnp.asarray(x), interpret=True,
+                                        bf16=True))
+    got = tfk.fwht2(_t(x), bf16=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-3 * math.sqrt(N))
+    exact = fwht_np(tfwht.round_bf16(_t(x)).numpy().astype(np.float64))
+    np.testing.assert_allclose(got, exact, rtol=1e-5,
+                               atol=1e-5 * np.abs(exact).max())
+
+
+@pytest.mark.parametrize("N", [1 << 10, 1 << 21])
+def test_fwht2_routes_to_fwht_kron_where_fwht_pallas_falls_back(N):
+    """One factor (N <= 2^10) or three (N > 2^20): the reference's
+    fwht_mxu rule."""
+    assert len(tfwht.factorize_pow2(N, max_log=10)) != 2
+    x = torch.randn((1, N), generator=torch.Generator().manual_seed(N))
+    assert torch.equal(tfk.fwht2(x), tfwht.fwht_kron(x, "high"))
+
+
+# ------------------------------------------------------------------- noise
+
+def _philox_py(ctr, key):
+    """Philox4x32-10 in Python integers, as Random123 defines it."""
+    c, k = list(ctr), list(key)
+    for r in range(10):
+        if r:
+            k = [(k[0] + 0x9E3779B9) & 0xFFFFFFFF,
+                 (k[1] + 0xBB67AE85) & 0xFFFFFFFF]
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [((p1 >> 32) ^ c[1] ^ k[0]) & 0xFFFFFFFF, p1 & 0xFFFFFFFF,
+             ((p0 >> 32) ^ c[3] ^ k[1]) & 0xFFFFFFFF, p0 & 0xFFFFFFFF]
+    return c
+
+
+# Random123's known-answer vectors: counter, key -> output
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_matches_known_answers(ctr, key, want):
+    assert tuple(_philox_py(ctr, key)) == want
+    got = tamp.philox4x32(tuple(torch.tensor(c) for c in ctr),
+                          tuple(torch.tensor(k) for k in key))
+    assert tuple(int(w) for w in got) == want
+
+
+def test_philox_matches_python_philox_on_random_words():
+    rng = np.random.default_rng(9)
+    ctr = rng.integers(0, 2 ** 32, (4, 64), dtype=np.uint64)
+    key = rng.integers(0, 2 ** 32, (2, 64), dtype=np.uint64)
+    got = tamp.philox4x32(tuple(torch.tensor(c.astype(np.int64)) for c in ctr),
+                          tuple(torch.tensor(k.astype(np.int64)) for k in key))
+    got = np.stack([w.numpy() for w in got])
+    want = np.array([_philox_py([int(c) for c in ctr[:, i]],
+                                [int(k) for k in key[:, i]])
+                     for i in range(64)]).T
+    np.testing.assert_array_equal(got, want)
+
+
+def test_box_muller_matches_jax_on_the_same_bits():
+    rng = np.random.default_rng(10)
+    b1, b2 = (rng.integers(0, 2 ** 32, 4096, dtype=np.uint64)
+              for _ in range(2))
+    b1[:2] = (0, 0xFFFFFFFF)                      # the u1 floor and top
+    zc_j, zs_j = jamp.boxmuller_pair_f32(jnp.asarray(b1.astype(np.uint32)),
+                                         jnp.asarray(b2.astype(np.uint32)))
+    zc_t, zs_t = tamp.box_muller(torch.tensor(b1.astype(np.int64)),
+                                 torch.tensor(b2.astype(np.int64)))
+    np.testing.assert_allclose(zc_t.numpy(), np.asarray(zc_j), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(zs_t.numpy(), np.asarray(zs_j), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_channel_noise_is_masked_gaussian_and_a_function_of_the_seed():
+    L, M, B = 64, 128, 32
+    mask = torch.zeros((L, M))
+    mask.view(-1)[torch.randperm(L * M, generator=torch.Generator()
+                                 .manual_seed(0))[:L * M // 2]] = 1.0
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(1))
+    launches = tamp.channel_noise.launches
+    z = tamp.channel_noise(seeds, mask, 0.5)
+    assert tamp.channel_noise.launches == launches
+    assert torch.equal(z, tamp.channel_noise_reference(seeds, mask, 0.5))
+    assert bool((z[:, mask == 0] == 0).all())
+    on = z[:, mask > 0].double()
+    count = on.numel()
+    assert abs(float(on.mean())) < 4 * 0.5 / math.sqrt(count)
+    assert abs(float(on.var()) / 0.25 - 1) < 0.03
+    other = seeds.clone()
+    other[0, 1] ^= 1
+    z2 = tamp.channel_noise_reference(other, mask, 0.5)
+    assert torch.equal(z2[1:], z[1:]) and not torch.equal(z2[0], z[0])
+    u1, theta = tamp.noise_uniforms(seeds, L, M)
+    assert float(u1.min()) > 0 and float(u1.max()) < 1
+    assert float(theta.min()) >= 0 and float(theta.max()) < 2 * math.pi
 
 
 # --------------------------------------------------------------- operators
@@ -197,4 +324,24 @@ def test_denoise_matches_jax(scale):
     np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-6,
                                atol=1e-6 * math.sqrt(M))
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_denoise_kernel_route_matches_jax_denoise_pallas():
+    """K4: the port's denoise_kernel (its plain version on the CPU) against
+    the reference's Pallas kernel in interpret mode, to the reference's own
+    tolerance (tests/test_ops.py:104-107)."""
+    rng = np.random.default_rng(11)
+    B, L, M = 2, 32, 128
+    s = rng.standard_normal((B, L, M)).astype(np.float32)
+    tau2 = np.array([0.7, 0.2], dtype=np.float32)
+    sq = np.sqrt(100 * np.full(L, 1.0 / L)).astype(np.float32)
+    bj, pj = jden.denoise_pallas(jnp.asarray(s), jnp.asarray(tau2),
+                                 jnp.asarray(sq), l_tile=16, interpret=True)
+    launches = tden.denoise_kernel.launches
+    bt, pt = tden.denoise_kernel(_t(s), _t(tau2), _t(sq))
+    assert tden.denoise_kernel.launches == launches
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-5,
                                atol=1e-7)

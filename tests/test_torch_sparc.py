@@ -196,6 +196,12 @@ def test_port_imports_no_jax():
         "    schedule='layered', bp_iters=4), f_prot=0.9, feedback_iters=2)\n"
         "c = ConcatModel.build(ccfg, 6.0, 'cpu')\n"
         "assert int(c.run_block(block_generator(0, 0, 0), 2)['trials']) == 2\n"
+        "import sparc_ldpc_tpu_torch.parallel.campaign\n"
+        "import sparc_ldpc_tpu_torch.utils.io\n"
+        "import sparc_ldpc_tpu_torch.utils.profiling\n"
+        "import sparc_ldpc_tpu_torch.utils.provenance\n"
+        "from sparc_ldpc_tpu_torch import cli\n"
+        "assert cli.main(['se', '--preset', 'plain_small']) == 0\n"
         "jax = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]\n"
         "assert not jax, jax\n"
         "ref = [k for k in sys.modules if k.startswith('sparc_ldpc_tpu.')]\n"
@@ -228,7 +234,42 @@ def test_unported_configs_raise_at_build(change):
 
 
 def test_in_kernel_noise_is_not_ported():
+    """Ported since: with amp_noise_in_kernel the block draws one Philox
+    key per codeword after the bits, and the fused route draws the noise
+    from it; the same generator gives the same counters."""
     mt = SparcModel.build(FUSED.replace(amp_noise_in_kernel=True), EBNO,
                           "cpu")
-    with pytest.raises(NotImplementedError):
-        mt.run_block(block_generator(0, 0, 0), 2)
+    assert mt.noise_in_kernel
+    out = {k: v.item() for k, v in
+           mt.run_block(block_generator(0, 0, 0), 3).items()}
+    gen = block_generator(0, 0, 0)
+    bits = torch.randint(0, 2, (3, FUSED.k_bits), generator=gen,
+                         dtype=torch.int32)
+    seeds = mt.draw_seeds(gen, 3)
+    want = mt._block(bits, None, mt.sq_npl, math.sqrt(mt.sigma2), seeds)
+    assert out == {k: v.item() for k, v in want.items()}
+    assert out == {k: v.item() for k, v in
+                   mt.run_block(block_generator(0, 0, 0), 3).items()}
+    assert out["trials"] == 3
+
+
+def test_noise_route_gate_is_the_reference_gate():
+    on = FUSED.replace(amp_noise_in_kernel=True)
+    assert SparcModel.build(on, EBNO, "cpu").noise_in_kernel
+    for cfg in (FUSED, on.replace(amp_encode_in_kernel=False),
+                XLA.replace(amp_noise_in_kernel=True)):
+        assert not SparcModel.build(cfg, EBNO, "cpu").noise_in_kernel
+    # the --pallas operator has no row mask: scan route, XLA-side noise
+    assert not SparcModel.build(on, EBNO, "cpu",
+                                use_pallas=True).noise_in_kernel
+
+
+def test_noise_route_decodes_without_errors_at_high_snr():
+    mt = SparcModel.build(FUSED.replace(amp_noise_in_kernel=True), 8.0,
+                          "cpu")
+    out = mt.run_block(block_generator(3, 0, 0), 4)
+    assert out["trials"].item() == 4
+    assert out["section_errors"].item() == 0
+    assert out["bit_errors"].item() == 0
+    # the decoder's final tau2 sits at the noise level it was given
+    assert abs(out["tau2_final"].item() / mt.sigma2 - 1) < 0.2
