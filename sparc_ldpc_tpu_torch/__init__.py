@@ -20,8 +20,10 @@ find:
   ops/denoiser.py    sectionwise softmax denoiser: plain, and the CUDA
                      kernel csrc/denoise.cu
   ops/amp_kernel.py  whole-trial AMP with in-kernel encode and Philox
-                     noise: CUDA kernel (csrc/amp_split.cu) and its plain
-                     PyTorch version
+                     noise: CUDA kernels of the split form
+                     (csrc/amp_split.cu, L <= 4096) and the mono form
+                     (csrc/amp_mono.cu, L <= 1024; both share
+                     csrc/amp_common.cuh) and their plain PyTorch version
   ops/bp.py          LDPC BP on padded edge tables (flooding)
   ops/bp_qc.py       QC-LDPC BP on circulant tensors (flooding, layered)
   ops/bp_qc_kernel.py  layered QC-LDPC min-sum: CUDA kernel
@@ -31,14 +33,22 @@ find:
   models/ldpc.py     LdpcModel: encode, decode, extract_message
   models/concat.py   ConcatModel: SPARC + LDPC with decision feedback
 
-The port imports `torch`, never `jax`.  The configuration and the
-host-side design code (power allocation, state evolution, operator plans)
-are NumPy-only and shared with the reference: they define the code itself.
+  config.py          SparcConfig, LdpcConfig, ConcatConfig, PRESETS
+  design/            power allocation, state evolution, operator plans,
+                     LDPC construction (NumPy; data/*.qc base matrices)
+
+The port imports `torch`, never `jax`, and nothing of the reference
+package.  The configuration and the host-side design code define the code
+itself, so config.py, design/ and data/ are the port's own copies of the
+reference's, identical in classes, defaults and numerics (a config's repr
+and hash are the reference's, and a campaign journal written by one
+resumes in the other).  The entry points run on the first CUDA device
+unless the caller passes a device (the CPU routes are for tests).
 """
 
 import torch
 
-from sparc_ldpc_tpu.config import (  # noqa: F401
+from .config import (  # noqa: F401
     PRESETS, ConcatConfig, LdpcConfig, SparcConfig)
 
 __version__ = "0.1.0"
@@ -57,7 +67,10 @@ def default_device() -> torch.device:
 
 
 def check_device(device) -> torch.device:
-    """Normalize `device`; a CUDA device without CUDA raises."""
+    """Normalize `device` (None: `default_device()`); a CUDA device
+    without CUDA raises."""
+    if device is None:
+        return default_device()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "

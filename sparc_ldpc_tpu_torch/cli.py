@@ -1,6 +1,6 @@
 """Campaign CLI of the PyTorch/CUDA port (port of sparc_ldpc_tpu/cli.py).
 
-Presets are the reference's (sparc_ldpc_tpu.config.PRESETS).  Examples:
+Presets are the reference's (the port's copy, config.PRESETS).  Examples:
 
   # BER sweep on the power-allocated L=1024 config, scan AMP through the
   # hand-written FWHT and denoiser kernels
@@ -85,18 +85,11 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def _unported(cfg) -> str | None:
     """Why the port cannot run this config's AMP route, or None."""
-    from sparc_ldpc_tpu.config import ConcatConfig
+    from .config import ConcatConfig
 
     sp = cfg.sparc if isinstance(cfg, ConcatConfig) else cfg
-    if sp.amp_kernel == "fused":
-        return ("amp_kernel='fused' is not ported: it routes to K1's split "
-                "form above L = 1024 (ROADMAP K1 (f)) and to the monolithic "
-                "kernel K6 at or below it (ROADMAP K6)")
     if sp.amp_kernel == "fused_slab":
         return "amp_kernel='fused_slab' (K7) is not ported (ROADMAP K7)"
-    if sp.amp_kernel == "fused_split" and sp.L > 1024:
-        return (f"the fused kernel takes L <= 1024, this config has "
-                f"L = {sp.L} (ROADMAP K1 (f))")
     return None
 
 
@@ -108,7 +101,7 @@ def cmd_campaign(args) -> int:
         raise SystemExit("--section-shards > 1: section-sharded AMP is not "
                          "ported (ROADMAP A10)")
 
-    from sparc_ldpc_tpu.config import (
+    from .config import (
         PRESETS, CampaignConfig, ConcatConfig, SparcConfig)
 
     cfg = PRESETS[args.preset]
@@ -207,9 +200,9 @@ def cmd_campaign(args) -> int:
 
 
 def cmd_se(args) -> int:
-    from sparc_ldpc_tpu.config import PRESETS, ConcatConfig
-    from sparc_ldpc_tpu.design.power import power_allocation
-    from sparc_ldpc_tpu.design.se import se_trajectory
+    from .config import PRESETS, ConcatConfig
+    from .design.power import power_allocation
+    from .design.se import se_trajectory
 
     cfg = PRESETS[args.preset]
     if isinstance(cfg, ConcatConfig):

@@ -41,7 +41,8 @@
 // here the state lives in device memory and each iteration is two launches
 // over the batch:
 //   column stage: one block per (codeword, 32-column strip) holds the
-//     (L, 32) strip (128 KB at L = 1024) in registers and shared memory:
+//     (L, 32) strip (128 KB at L = 1024) in registers and shared memory
+//     (a cluster of L / 1024 blocks above L = 1024):
 //     H_L of the forward transform, the residual and Onsager term, the
 //     strip's |z|^2, then H_L of the adjoint transform;
 //   row stage: one thread group per section row: H_M of the adjoint, the
@@ -64,7 +65,7 @@
 // In-kernel channel noise: with per-codeword seeds the encode launch draws
 // the masked AWGN itself, so no (B, L, M) noise tensor is written or read.
 // The generator is Philox4x32-10 (Salmon et al., SC'11), a counter-based
-// generator written out below, so the plain PyTorch version
+// generator written out in amp_common.cuh, so the plain PyTorch version
 // (ops/amp_kernel.py, philox4x32) reproduces every draw.  Layout: element
 // (l, m) of codeword b uses
 //   key (seed[b][0], seed[b][1]), counter (m, l / 4, 0, 0) -> words x0..x3,
@@ -72,193 +73,32 @@
 //                         theta = 2 pi (x_{2p+1} >> 8) 2^-24,
 //   normal = sqrt(-2 ln u1) * (l even ? cos theta : sin theta).
 // Each thread of the encode launch owns R >= 8 consecutive rows of one
-// column, so one Philox block feeds four of its rows.  The transcendentals
+// column (R = 32 at L >= 1024, where block a of a cluster starts at row
+// 1024 a), so one Philox block feeds four of its rows.  The transcendentals
 // are the precise logf/sincosf/sqrtf (no fast-math).
 //
 // The transform stages (reg_fwht, col_fwht_ab / col_fwht_ba, row_fwht) are
 // device functions, so the standalone tile transform (amp_fwht_tile) and the
 // plain length-N FWHT of the operator route (fwht2_run, the counterpart of
-// sparc_ldpc_tpu/ops/fwht.py::_fwht2_kernel) reuse them.
+// sparc_ldpc_tpu/ops/fwht.py::_fwht2_kernel) reuse them.  The column stage,
+// the encode and the noise live in amp_common.cuh, which the monolithic
+// form (amp_mono.cu) shares.
+//
+// L = 2048 and 4096 (the fast_l4096 preset): the column stage's H_L runs
+// on a thread-block cluster of L / 1024 blocks per strip that exchange
+// through distributed shared memory (amp_common.cuh states why); the row
+// stage is the same at every L.  The |z|^2 partials are one per
+// column-stage block, (L / 1024) * M / 32 per codeword above L = 1024.
 //
 // Built by sparc_ldpc_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (plain C interface below).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "amp_common.cuh"
 
 namespace {
 
-constexpr int kStrip = 32;         // columns per column-stage block
 constexpr int kRowThreads = 256;   // threads per row-stage block
-constexpr int kBadShape = -1;      // return code for an unsupported shape
-
-__device__ __forceinline__ float maybe_round(float x, int round_bf16) {
-  return round_bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-// Storage type of the work tile (w = H_M beta', u = H_L z): float, or
-// bfloat16 when the transforms round their operands to bf16.  Both stages
-// round the work tile when they read it, so rounding it when it is stored
-// gives the same values and moves half the bytes.
-template <typename WT>
-struct IsBf16 {
-  static constexpr int value = 0;
-};
-template <>
-struct IsBf16<__nv_bfloat16> {
-  static constexpr int value = 1;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename WT>
-__device__ __forceinline__ WT from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Butterflies over the register index bits with stride < H: the Hadamard
-// factor H_H acting on the low log2(H) bits of the index into v.
-template <int R, int H>
-__device__ __forceinline__ void reg_fwht(float (&v)[R]) {
-#pragma unroll
-  for (int h = 1; h < H; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if ((i & h) == 0) {
-        const float a = v[i], b = v[i + h];
-        v[i] = a + b;
-        v[i + h] = a - b;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  // xor tree: partners add the same two values, so every lane ends with the
-  // same bits
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
-// Sum over a block of NW warps in a fixed order; every thread gets it.
-template <int NW>
-__device__ __forceinline__ float block_sum(float x, float* red) {
-  x = warp_sum(x);
-  __syncthreads();  // earlier readers of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) s += red[i];
-  return s;
-}
-
-// ---------------------------------------------------------------- columns
-//
-// A column-stage block owns an (L, 32) strip, L = W * R, with 32 * W
-// threads.  Thread (w = warp, c = lane) holds R values of column c:
-//   layout A: rows w + W * k   (k, the register index, holds the high
-//                               log2(R) bits of the row)
-//   layout B: rows R * w + k   (k holds the low log2(R) bits)
-// H_L is the butterflies over all bits of k in layout A, a transpose
-// through shared memory, and the butterflies over the low log2(W) bits of
-// k in layout B.  W <= R, so every row bit is transformed exactly once.
-// Shared-memory rows are 32 floats wide: a warp touches one row, one bank
-// per lane.
-
-template <int W, int R>
-__device__ __forceinline__ void a_to_b(float (&v)[R], float* sm, int w,
-                                       int c) {
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < R; ++k) sm[(w + W * k) * kStrip + c] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < R; ++k) v[k] = sm[(R * w + k) * kStrip + c];
-}
-
-template <int W, int R>
-__device__ __forceinline__ void b_to_a(float (&v)[R], float* sm, int w,
-                                       int c) {
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < R; ++k) sm[(R * w + k) * kStrip + c] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < R; ++k) v[k] = sm[(w + W * k) * kStrip + c];
-}
-
-// H_L on a strip held in layout A; the result is in layout B.
-template <int W, int R>
-__device__ __forceinline__ void col_fwht_ab(float (&v)[R], float* sm, int w,
-                                            int c) {
-  reg_fwht<R, R>(v);
-  a_to_b<W, R>(v, sm, w, c);
-  reg_fwht<R, W>(v);
-}
-
-// H_L on a strip held in layout B; the result is in layout A.
-template <int W, int R>
-__device__ __forceinline__ void col_fwht_ba(float (&v)[R], float* sm, int w,
-                                            int c) {
-  reg_fwht<R, W>(v);
-  b_to_a<W, R>(v, sm, w, c);
-  reg_fwht<R, R>(v);
-}
-
-// ------------------------------------------------------------------ noise
-
-// Philox4x32-10: ten rounds, the key bumped between rounds.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-// The reference's 24-bit uniforms (ops/amp_kernel.py boxmuller_pair_f32):
-// u1 in (0, 1), floored at 2^-25 so the log never sees 0, and the angle.
-// Explicit roundings keep nvcc from contracting them into an FMA.
-__device__ __forceinline__ float bm_u1(uint32_t bits) {
-  return __fadd_rn(__fmul_rn((float)(bits >> 8), 0x1p-24f), 0x1p-25f);
-}
-__device__ __forceinline__ float bm_theta(uint32_t bits) {
-  return __fmul_rn(__fmul_rn(6.28318548f, (float)(bits >> 8)), 0x1p-24f);
-}
-
-// The four standard normals of rows 4q .. 4q + 3 in column m (layout above).
-__device__ __forceinline__ void normal4(uint2 key, int m, int q, float (&e)[4]) {
-  const uint4 x = philox4x32_10(make_uint4((uint32_t)m, (uint32_t)q, 0u, 0u),
-                                key);
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const float r = sqrtf(-2.f * logf(bm_u1(w[2 * p])));
-    float s, c;
-    sincosf(bm_theta(w[2 * p + 1]), &s, &c);
-    e[2 * p] = r * c;
-    e[2 * p + 1] = r * s;
-  }
-}
 
 // The uniforms behind every draw: u1 and theta of element (l, m) of every
 // codeword (rows 2j and 2j + 1 share their pair's).  For checking the
@@ -278,132 +118,6 @@ __global__ void noise_draws_kernel(const uint32_t* __restrict__ seeds,
     u1[off] = bm_u1(w[2 * (r / 2)]);
     theta[off] = bm_theta(w[2 * (r / 2) + 1]);
   }
-}
-
-// In-kernel encode: y = where(mask > 0, noise, 0) + mask/n * H(sqo one_hot).
-// The one-hot row's H_M is closed-form, (e_idx H_M)[m] = (-1)^popc(idx & m),
-// exact in float32; H_L then runs in float32.  enc_idx == nullptr only
-// applies the mask.  The noise is y_n, or with seeds != nullptr sigma times
-// the Philox normals (y_n is then not read).
-template <int W, int R>
-__global__ void __launch_bounds__(32 * W, 1)
-amp_encode_kernel(const float* __restrict__ y_n,
-                  const float* __restrict__ mask_n,
-                  const float* __restrict__ sqo,
-                  const int32_t* __restrict__ enc_idx,
-                  const uint32_t* __restrict__ seeds, float sigma,
-                  float* __restrict__ y, int M) {
-  extern __shared__ float sm[];
-  constexpr int L = W * R;
-  static_assert(R % 4 == 0, "a Philox block feeds four rows of a thread");
-  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int m = blockIdx.x * kStrip + c;
-  const size_t base = (size_t)b * L * M;
-  float v[R];
-  if (enc_idx != nullptr) {
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int l = w + W * k;
-      const float s = sqo[l];
-      v[k] = (__popc(enc_idx[(size_t)b * L + l] & m) & 1) ? -s : s;
-    }
-    col_fwht_ab<W, R>(v, sm, w, c);
-  } else {
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = 0.f;
-  }
-  uint2 key = make_uint2(0u, 0u);
-  if (seeds != nullptr) key = make_uint2(seeds[2 * b], seeds[2 * b + 1]);
-#pragma unroll
-  for (int g = 0; g < R / 4; ++g) {
-    float e[4];
-    if (seeds != nullptr) normal4(key, m, (R * w) / 4 + g, e);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 4 * g + i;
-      const int l = R * w + k;
-      const size_t off = base + (size_t)l * M + m;
-      const float mk = mask_n[(size_t)l * M + m];
-      const float noise =
-          mk > 0.f ? (seeds != nullptr ? __fmul_rn(sigma, e[i]) : y_n[off])
-                   : 0.f;
-      y[off] = noise + mk * v[k];
-    }
-  }
-}
-
-// Column stage of iteration t.  work holds H_M beta' (from the row stage)
-// on entry and H_L z on exit.
-template <int W, int R, typename WT>
-__global__ void __launch_bounds__(32 * W, 1)
-amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
-               float* __restrict__ z, const float* __restrict__ mask_n,
-               float* __restrict__ zpart,        // (B, M / 32)
-               const float* __restrict__ bpart,  // (B, L) row |beta'|^2
-               const float* __restrict__ trace,  // (T, B)
-               const int32_t* __restrict__ active,  // (T + 1, B)
-               int B, int M, int t, float P, float nn) {
-  extern __shared__ float sm[];
-  __shared__ float red[W];
-  constexpr int kRound = IsBf16<WT>::value;
-  constexpr int L = W * R;
-  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const int b = blockIdx.y, s = blockIdx.x;
-  if (!active[(size_t)t * B + b]) return;  // frozen: uniform per block
-  const int m = s * kStrip + c;
-  const size_t base = (size_t)b * L * M;
-  float v[R];
-  float coef = 0.f;  // beta' = 0 and z = 0 before the first iteration
-  if (t > 0) {
-    float acc = 0.f;
-    for (int l = threadIdx.x; l < L; l += 32 * W) acc += bpart[(size_t)b * L + l];
-    const float bnorm2 = block_sum<W>(acc, red);
-    coef = (P - bnorm2 / nn) / trace[(size_t)(t - 1) * B + b];
-#pragma unroll
-    for (int k = 0; k < R; ++k)
-      v[k] = to_f32(work[base + (size_t)(w + W * k) * M + m]);
-    col_fwht_ab<W, R>(v, sm, w, c);
-  } else {
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = 0.f;
-  }
-  float zz = 0.f;
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int l = R * w + k;
-    const size_t off = base + (size_t)l * M + m;
-    float zk = y[off] - mask_n[(size_t)l * M + m] * v[k];
-    if (t > 0) zk += coef * z[off];
-    z[off] = zk;
-    zz += zk * zk;
-    v[k] = maybe_round(zk, kRound);
-  }
-  const float zsum = block_sum<W>(zz, red);
-  if (threadIdx.x == 0) zpart[(size_t)b * gridDim.x + s] = zsum;
-  col_fwht_ba<W, R>(v, sm, w, c);
-#pragma unroll
-  for (int k = 0; k < R; ++k)
-    work[base + (size_t)(w + W * k) * M + m] = from_f32<WT>(v[k]);
-}
-
-// Standalone H_L of every strip (in place), data rounded to bf16 first when
-// round_bf16 is set.
-template <int W, int R>
-__global__ void __launch_bounds__(32 * W, 1)
-fwht_cols_kernel(float* __restrict__ x, int M, int round_bf16) {
-  extern __shared__ float sm[];
-  constexpr int L = W * R;
-  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const int m = blockIdx.x * kStrip + c;
-  const size_t base = (size_t)blockIdx.y * L * M;
-  float v[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k)
-    v[k] = maybe_round(x[base + (size_t)(w + W * k) * M + m], round_bf16);
-  col_fwht_ab<W, R>(v, sm, w, c);
-#pragma unroll
-  for (int k = 0; k < R; ++k) x[base + (size_t)(R * w + k) * M + m] = v[k];
 }
 
 // ------------------------------------------------------------------- rows
@@ -519,10 +233,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
 // the codeword's last iteration, H_M beta'_new (the next forward
 // transform) on exit.  beta holds beta' and, after the codeword's last
 // iteration, the true-scale beta.
-template <int M, typename WT>
+template <int M, typename WT, int FA>
 __global__ void __launch_bounds__(kRowThreads)
 amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
-               const float* __restrict__ zpart,  // (B, M / 32)
+               const float* __restrict__ zpart,  // (B, FA * M / 32)
                float* __restrict__ bpart,        // (B, L)
                float* __restrict__ trace,        // (T, B)
                int32_t* __restrict__ iters,      // (B,)
@@ -532,7 +246,8 @@ amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
                const float* __restrict__ sqi, const float* __restrict__ sqo,
                int B, int L, int t, int last, float n, float inv_sqrt_n,
                float tol) {
-  constexpr int TPR = M / 4, RPB = kRowThreads / TPR, NS = M / kStrip;
+  // NS |z|^2 partials, one per column-stage block of the codeword
+  constexpr int TPR = M / 4, RPB = kRowThreads / TPR, NS = FA * M / kStrip;
   constexpr int kRound = IsBf16<WT>::value;
   __shared__ __align__(16) float srows[RPB * M];
   __shared__ float red[kRowThreads / 32];
@@ -639,47 +354,6 @@ fwht_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 // ------------------------------------------------------------- launchers
 
-template <int W, int R, typename K>
-int set_col_smem(K kernel) {
-  const int bytes = W * R * kStrip * (int)sizeof(float);
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <int W, int R>
-struct Cols {
-  static int encode(const float* y_n, const float* mask_n, const float* sqo,
-                    const int32_t* enc_idx, const uint32_t* seeds,
-                    float sigma, float* y, int B, int M, cudaStream_t st) {
-    int rc = set_col_smem<W, R>(amp_encode_kernel<W, R>);
-    if (rc) return rc;
-    amp_encode_kernel<W, R><<<dim3(M / kStrip, B), 32 * W,
-                              W * R * kStrip * sizeof(float), st>>>(
-        y_n, mask_n, sqo, enc_idx, seeds, sigma, y, M);
-    return (int)cudaGetLastError();
-  }
-  template <typename WT>
-  static int step(WT* work, const float* y, float* z, const float* mask_n,
-                  float* zpart, const float* bpart, const float* trace,
-                  const int32_t* active, int B, int M, int t, float P,
-                  float nn, cudaStream_t st) {
-    int rc = set_col_smem<W, R>(amp_col_kernel<W, R, WT>);
-    if (rc) return rc;
-    amp_col_kernel<W, R, WT><<<dim3(M / kStrip, B), 32 * W,
-                               W * R * kStrip * sizeof(float), st>>>(
-        work, y, z, mask_n, zpart, bpart, trace, active, B, M, t, P, nn);
-    return (int)cudaGetLastError();
-  }
-  static int fwht(float* x, int B, int M, int round_bf16, cudaStream_t st) {
-    int rc = set_col_smem<W, R>(fwht_cols_kernel<W, R>);
-    if (rc) return rc;
-    fwht_cols_kernel<W, R><<<dim3(M / kStrip, B), 32 * W,
-                             W * R * kStrip * sizeof(float), st>>>(
-        x, M, round_bf16);
-    return (int)cudaGetLastError();
-  }
-};
-
 template <int M>
 struct Rows {
   static constexpr int RPB = kRowThreads / (M / 4);
@@ -689,7 +363,27 @@ struct Rows {
                   const int32_t* pin, const float* sched, const float* sqi,
                   const float* sqo, int B, int L, int t, int last, float n,
                   float inv_sqrt_n, float tol, cudaStream_t st) {
-    amp_row_kernel<M, WT><<<dim3(L / RPB, B), kRowThreads, 0, st>>>(
+    // the partials' count is a template argument: a loop with a run-time
+    // trip count here cost the row stage 2 % at L = 1024 on an H100
+    switch (L / kBlockRows) {
+      case 2: return launch<WT, 2>(work, beta, zpart, bpart, trace, iters,
+                                   active, pin, sched, sqi, sqo, B, L, t,
+                                   last, n, inv_sqrt_n, tol, st);
+      case 4: return launch<WT, 4>(work, beta, zpart, bpart, trace, iters,
+                                   active, pin, sched, sqi, sqo, B, L, t,
+                                   last, n, inv_sqrt_n, tol, st);
+      default: return launch<WT, 1>(work, beta, zpart, bpart, trace, iters,
+                                    active, pin, sched, sqi, sqo, B, L, t,
+                                    last, n, inv_sqrt_n, tol, st);
+    }
+  }
+  template <typename WT, int FA>
+  static int launch(WT* work, float* beta, const float* zpart, float* bpart,
+                    float* trace, int32_t* iters, int32_t* active,
+                    const int32_t* pin, const float* sched, const float* sqi,
+                    const float* sqo, int B, int L, int t, int last, float n,
+                    float inv_sqrt_n, float tol, cudaStream_t st) {
+    amp_row_kernel<M, WT, FA><<<dim3(L / RPB, B), kRowThreads, 0, st>>>(
         work, beta, zpart, bpart, trace, iters, active, pin, sched, sqi,
         sqo, B, L, t, last, n, inv_sqrt_n, tol);
     return (int)cudaGetLastError();
@@ -702,19 +396,7 @@ struct Rows {
   }
 };
 
-// Returns CALL with C = Cols<W, R> for the supported L = W * R (W <= R),
-// and with Q = Rows<M> for the supported M.
-#define DISPATCH_L(L, CALL)                             \
-  switch (L) {                                          \
-    case 32: { using C = Cols<4, 8>; return CALL; }     \
-    case 64: { using C = Cols<8, 8>; return CALL; }     \
-    case 128: { using C = Cols<8, 16>; return CALL; }   \
-    case 256: { using C = Cols<16, 16>; return CALL; }  \
-    case 512: { using C = Cols<16, 32>; return CALL; }  \
-    case 1024: { using C = Cols<32, 32>; return CALL; } \
-    default: return kBadShape;                          \
-  }
-
+// Returns CALL with Q = Rows<M> for the supported M.
 #define DISPATCH_M(M, CALL)                          \
   switch (M) {                                       \
     case 32: { using Q = Rows<32>; return CALL; }    \
@@ -738,8 +420,9 @@ int col_step(WT* work, const float* y, float* z, const float* mask_n,
              float* zpart, const float* bpart, const float* trace,
              const int32_t* active, int B, int L, int M, int t, float P,
              float nn, cudaStream_t st) {
-  DISPATCH_L(L, C::step(work, y, z, mask_n, zpart, bpart, trace, active, B,
-                        M, t, P, nn, st))
+  DISPATCH_L(L, (C::template step<WT, true>(work, y, z, mask_n, zpart, bpart,
+                                             trace, active, B, M, t, P, nn,
+                                             st)))
 }
 
 template <typename WT>
@@ -780,7 +463,7 @@ int amp_iterations(const AmpArgs& a, WT* work, cudaStream_t st) {
 
 int cols_fwht(float* x, int B, int L, int M, int round_bf16,
               cudaStream_t st) {
-  DISPATCH_L(L, C::fwht(x, B, M, round_bf16, st))
+  DISPATCH_L(L, C::fwht(x, B, M, round_bf16, nullptr, 0, st))
 }
 
 int rows_fwht(const float* x, float* out, int rows, int M, int round_bf16,
@@ -788,10 +471,10 @@ int rows_fwht(const float* x, float* out, int rows, int M, int round_bf16,
   DISPATCH_M(M, Q::fwht(x, out, rows, round_bf16, st))
 }
 
+// L up to 4096, the reference's gate for the fused route
+// (sparc_ldpc_tpu/models/amp.py:116); M up to 1024.
 bool supported(int B, int L, int M) {
-  const bool pow2_l = L >= 32 && L <= 1024 && (L & (L - 1)) == 0;
-  const bool pow2_m = M >= 32 && M <= 1024 && (M & (M - 1)) == 0;
-  return B >= 1 && B <= 65535 && pow2_l && pow2_m;
+  return B >= 1 && B <= 65535 && pow2_in(L, 32, 4096) && pow2_in(M, 32, 1024);
 }
 
 }  // namespace
@@ -809,7 +492,7 @@ extern "C" {
 // int32.  active (T + 1, B) int32 holds the freeze flags and must arrive
 // with row 0 all ones.  Scratch: y, z (B, L, M) float; work (B, L, M),
 // bfloat16 when round_bf16 (transform operands rounded to bf16) and float
-// otherwise; zpart (B, M / 32); bpart (B, L).
+// otherwise; zpart (B, max(1, L / 1024) * M / 32); bpart (B, L).
 // Returns 0, a cudaError_t, or -1 for an unsupported shape.
 int amp_split_run(const float* y_n, const float* mask_n, const float* sqi,
                   const float* sqo, const int32_t* enc_idx,
@@ -887,10 +570,10 @@ int amp_noise_draws(const uint32_t* seeds, float* u1, float* theta, int B,
 // Length-N FWHT of B rows, N = f1 * f2, each row viewed as an (f1, f2)
 // row-major tile: H_f2 along the tile's rows (the input rounded to
 // bfloat16 first when round_input is set), then H_f1 down its columns, in
-// float32 and natural order.
+// float32 and natural order.  f1, f2 powers of two in [32, 1024].
 int fwht2_run(const float* x, float* out, int B, int f1, int f2,
               int round_input, void* stream) {
-  if (!supported(B, f1, f2)) return kBadShape;
+  if (!supported(B, f1, f2) || f1 > 1024) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = rows_fwht(x, out, B * f1, f2, round_input, st);
   if (rc) return rc;

@@ -9,8 +9,9 @@ Onsager correction and online tau tracking:
     beta_{t+1} = eta(s_t; tau2_t)             (ops.denoiser)
 
 Two routes: the fused whole-trial route (ops.amp_kernel.amp_fused: the CUDA
-kernel on a GPU, its plain version on the CPU; with noise seeds it also
-draws the channel noise) and the scan route, a Python loop, whose
+kernel of the split or the mono form on a GPU, its plain version on the
+CPU; with noise seeds the split form also draws the channel noise) and the
+scan route, a Python loop, whose
 denoiser is `denoise` or, with use_pallas_denoiser, the CUDA kernel
 `denoise_kernel` (the reference's `denoise_pallas`).  Both have the
 reference's per-codeword freeze: once
@@ -61,6 +62,8 @@ def amp_decode(
                                                     # (instead of onehot)
     residual_space: str = "n",
     fused: bool = False,
+    fused_split: Optional[bool] = None,             # amp_fused's split (None:
+                                                    # route by L)
     encode_idx: Optional[torch.Tensor] = None,      # (B, L) int32: y IS the
                                                     # noise, the fused route
                                                     # synthesizes the codeword
@@ -89,7 +92,7 @@ def amp_decode(
             y_n, op.mask.reshape(L, M), sq_npl, P, n, T,
             encode_idx=encode_idx, tol=k_tol, pin_idx=pin_idx,
             tau2_schedule=tau2_schedule, noise_seed=noise_seed,
-            noise_sigma=noise_sigma)
+            noise_sigma=noise_sigma, split=fused_split)
         return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
                          sq_npl=sq_npl)
     if encode_idx is not None or noise_seed is not None:
@@ -158,9 +161,11 @@ def decision_flips(beta_a, beta_b, rel_margin: float = 2e-2
     Returns (flips, decisive): the sections whose argmax differs, and those
     of them where both sides' top-2 relative margin exceeds rel_margin
     (the rule of the reference's tests/test_precision.py
-    assert_decisions_match: bf16 rounding noise may flip near-ties only)."""
-    a = torch.as_tensor(beta_a).detach().cpu().to(torch.float64)
-    b = torch.as_tensor(beta_b).detach().cpu().to(torch.float64)
+    assert_decisions_match: bf16 rounding noise may flip near-ties only).
+    Computed on beta_a's device."""
+    a = torch.as_tensor(beta_a).detach()
+    a = a.to(torch.float64)
+    b = torch.as_tensor(beta_b).detach().to(a.device, torch.float64)
     mm = a.argmax(-1) != b.argmax(-1)
 
     def margin(x):

@@ -35,8 +35,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from sparc_ldpc_tpu.config import ConcatConfig
-
+from .. import check_device
+from ..config import ConcatConfig
 from ..utils.bits import bits_to_indices, indices_to_bits
 from .amp import hard_indices
 from .ldpc import LdpcModel
@@ -80,7 +80,7 @@ class ConcatModel:
                    device) -> "ConcatModel":
         """A model whose inner code takes constants computed elsewhere
         (SparcModel.from_numpy); the LDPC code is built from the config by
-        the shared design code."""
+        the design code (design/ldpc_codes.py)."""
         return ConcatModel._make(cfg, SparcModel.from_numpy(
             cfg.sparc, ebno_db, sparc_params, device))
 
@@ -281,10 +281,10 @@ class ConcatSweep:
     eagerly, so each point builds its own model)."""
 
     def __init__(self, cfg: ConcatConfig, use_pallas: bool = False,
-                 device="cpu"):
+                 device=None):
         self.cfg = cfg
         self.use_pallas = use_pallas
-        self.device = device
+        self.device = check_device(device)
 
     def model_for_point(self, ebno_db: float) -> ConcatModel:
         return ConcatModel.build(self.cfg, ebno_db, self.device,

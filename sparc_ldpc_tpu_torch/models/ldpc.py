@@ -1,11 +1,11 @@
 """LDPC code on a device: encoder and BP tables (port of
 sparc_ldpc_tpu/models/ldpc.py `LdpcModel`).
 
-Construction and GF(2) systematization are host-side and shared with the
-reference (design.ldpc_codes); this module puts the results on a device:
-the generator for the encode product, the padded edge tables (ops.bp) and,
-for quasi-cyclic codes, the circulant tables (ops.bp_qc) and base matrix
-(ops.bp_qc_kernel).
+Construction and GF(2) systematization are host-side (design/ldpc_codes.py,
+the port's copy of the reference's); this module puts the results on a
+device: the generator for the encode product, the padded edge tables
+(ops.bp) and, for quasi-cyclic codes, the circulant tables (ops.bp_qc) and
+base matrix (ops.bp_qc_kernel).
 """
 
 from __future__ import annotations
@@ -15,10 +15,9 @@ from typing import Optional
 
 import torch
 
-from sparc_ldpc_tpu.config import LdpcConfig
-from sparc_ldpc_tpu.design.ldpc_codes import LdpcCode, build_code, qc_structure
-
 from .. import check_device
+from ..config import LdpcConfig
+from ..design.ldpc_codes import LdpcCode, build_code, qc_structure
 from ..ops.bp import BpResult, BpTables, bp_decode
 from ..ops.bp_qc import QcBpTables, bp_decode_qc
 from ..ops.bp_qc_kernel import bp_decode_qc_kernel
@@ -37,7 +36,8 @@ class LdpcModel:
     qc_shifts: Optional[tuple] = None   # (J, K) base matrix as tuples
 
     @staticmethod
-    def build(cfg: LdpcConfig, device="cpu") -> "LdpcModel":
+    def build(cfg: LdpcConfig, device=None) -> "LdpcModel":
+        """The code on `device` (None: `default_device()`)."""
         device = check_device(device)
         code = build_code(cfg)
         qc = qc_structure(cfg)

@@ -3,9 +3,10 @@
 
 A model is one SPARC codebook at one operating point, with its constants
 on an explicit device.  The design constants (power allocation, the
-SE-derived iteration budget, the operator's row set) come from the shared
-NumPy design code, or from `from_numpy`, which takes them as arrays so that
-the reference and the port compute with the same constants.
+SE-derived iteration budget, the operator's row set) come from the
+port's copy of the reference's NumPy design code (design/), or from
+`from_numpy`, which takes them as arrays so that the reference and the
+port compute with the same constants.
 
 A block draws its message bits and then either the channel noise
 (torch.randn) or, with the config's in-kernel noise, one Philox key per
@@ -24,12 +25,11 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from sparc_ldpc_tpu.config import SparcConfig
-from sparc_ldpc_tpu.design.codebook import HadamardPlan
-from sparc_ldpc_tpu.design.power import power_allocation
-from sparc_ldpc_tpu.design.se import se_converged_iters, se_trajectory
-
 from .. import check_device
+from ..config import SparcConfig
+from ..design.codebook import HadamardPlan
+from ..design.power import power_allocation
+from ..design.se import se_converged_iters, se_trajectory
 from ..ops.operators import BatchedOperator, make_operator
 from ..utils.bits import bits_to_indices, indices_to_bits
 from .amp import AmpResult, amp_decode, hard_indices
@@ -88,10 +88,11 @@ class SparcModel:
     def _make(cfg, ebno_db, sigma2, p, sq, plan, device,
               use_pallas=False) -> "SparcModel":
         device = check_device(device)
-        if cfg.amp_kernel in ("fused", "fused_slab"):
+        if cfg.amp_kernel == "fused_slab":
             raise NotImplementedError(
-                f"amp_kernel={cfg.amp_kernel!r} is not ported yet; the port "
-                "has the 'fused_split' kernel and the 'xla' scan route")
+                "amp_kernel='fused_slab' (the slab kernel) is not ported yet "
+                "(ROADMAP K7); the port has 'fused' (mono form at L <= 1024, "
+                "split form above), 'fused_split' and the 'xla' scan route")
         sched = None
         if cfg.tau_mode == "se":
             tr = se_trajectory(p, cfg.n, cfg.M, sigma2, T=cfg.amp_iters)
@@ -106,7 +107,15 @@ class SparcModel:
 
     @property
     def fused(self) -> bool:
-        return self.cfg.amp_kernel == "fused_split"
+        return self.cfg.amp_kernel.startswith("fused")
+
+    @property
+    def fused_kw(self) -> dict:
+        """amp_decode's fused_split for this config, as the reference
+        passes it: "fused_split" forces the split form, "fused" routes by L
+        (mono at L <= 1024, split above)."""
+        return dict(fused_split=True if self.cfg.amp_kernel == "fused_split"
+                    else None)
 
     @property
     def enc_in_kernel(self) -> bool:
@@ -169,7 +178,8 @@ class SparcModel:
             pinned_mask=pinned_mask, pinned_idx=pinned_idx,
             residual_space=self.cfg.amp_residual_space, fused=self.fused,
             encode_idx=encode_idx, noise_seed=noise_seed,
-            noise_sigma=noise_sigma, use_pallas_denoiser=self.use_pallas)
+            noise_sigma=noise_sigma, use_pallas_denoiser=self.use_pallas,
+            **self.fused_kw)
 
     def decode_bits(self, y: torch.Tensor) -> torch.Tensor:
         return indices_to_bits(hard_indices(self.decode(y).beta),
@@ -233,7 +243,7 @@ class SparcModel:
             tol=cfg.amp_tol, tau2_schedule=self.tau2_schedule,
             residual_space=cfg.amp_residual_space, fused=self.fused,
             encode_idx=enc_idx, use_pallas_denoiser=self.use_pallas,
-            **noise_kw)
+            **self.fused_kw, **noise_kw)
         idx_hat = hard_indices(res.beta)
         bits_hat = indices_to_bits(idx_hat, cfg.logM)
         bit_errors = (bits != bits_hat).sum(-1)              # (B,)
@@ -262,10 +272,10 @@ class SparcSweep:
     model (design constants and operator)."""
 
     def __init__(self, cfg: SparcConfig, use_pallas: bool = False,
-                 device="cpu"):
+                 device=None):
         self.cfg = cfg
         self.use_pallas = use_pallas
-        self.device = device
+        self.device = check_device(device)
 
     def model_for_point(self, ebno_db: float) -> SparcModel:
         return SparcModel.build(self.cfg, ebno_db, self.device,

@@ -6,12 +6,13 @@ Each `csrc/<name>.cu` becomes its own shared library, compiled with
          -Xcompiler -fPIC -Xptxas -v
 
 into `sparc_ldpc_tpu_torch/build/` under a content-addressed file name (an
-edited source is rebuilt).  `build()` starts one nvcc per missing library,
-all at once, and waits for them; `load_library(name)` builds if needed and
-loads one library.  The sources have a plain C interface and include no
-PyTorch header, which keeps a build to seconds.  Each compiler's output,
-with ptxas's register and spill report, is kept in `build/nvcc_<name>.log`.
-A missing compiler or a failed build raises.
+edited source, or an edited shared header `csrc/*.cuh`, is rebuilt).
+`build()` starts one nvcc per missing library, all at once, and waits for
+them; `load_library(name)` builds if needed and loads one library.  The
+sources have a plain C interface and include no PyTorch header, which
+keeps a build to seconds.  Each compiler's output, with ptxas's register
+and spill report, is kept in `build/nvcc_<name>.log`.  A missing compiler
+or a failed build raises.
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ _SIGNATURES = {
         "amp_noise_run": ((_P, _P, _F, _P, _I, _I, _I, _P), _I),
         "amp_noise_draws": ((_P, _P, _P, _I, _I, _I, _P), _I),
         "fwht2_run": ((_P, _P, _I, _I, _I, _I, _P), _I),
+    },
+    "amp_mono": {
+        "amp_mono_run": ((_P,) * 16 + (_I,) * 4 + (_F,) * 4 + (_P,), _I),
+        "amp_mono_tile": ((_P, _P, _I, _I, _I, _P), _I),
     },
     "bp_qc_layered": {
         "bp_qc_layered_run": ((_P,) * 5 + (_I,) * 8 + (_F,) * 3 + (_P,), _I),
@@ -77,6 +82,8 @@ def library_path(name: str) -> Path:
     src = source_path(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(src.read_bytes())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

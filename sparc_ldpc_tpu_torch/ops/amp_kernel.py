@@ -1,7 +1,14 @@
 """Whole-trial AMP decode on the (L, M) section tile (port of
-sparc_ldpc_tpu/ops/amp_kernel.py `amp_fused` with the split kernel
-`_amp_kernel_split`: optional in-kernel encode, per-codeword early stop,
-decision-feedback pinning and an SE tau2 schedule).
+sparc_ldpc_tpu/ops/amp_kernel.py `amp_fused` with its split kernel
+`_amp_kernel_split` and its monolithic kernel `_amp_kernel`: optional
+in-kernel encode, per-codeword early stop, decision-feedback pinning and an
+SE tau2 schedule; in-kernel noise on the split form).
+
+Forms, routed as the reference routes them: "split" (csrc/amp_split.cu,
+L up to 4096) and "mono" (csrc/amp_mono.cu, L <= 1024).  With neither
+`split` nor `form` given, L > 1024 takes the split form and L <= 1024 the
+mono form; `split=True` (amp_kernel="fused_split") forces the split form.
+The two differ in where their transforms round (below).
 
 With the Kronecker split N = L * M and ML == N, the transform of a
 codeword is H_L @ X @ H_M on its (L, M) tile, the same tile the sectionwise
@@ -15,15 +22,20 @@ softmax works on.  `amp_fused` runs all T iterations:
 the softmax; a codeword frozen once its tau2 plateaus within tol; the
 channel noise drawn inside the kernel from per-codeword seeds) in the
 reference's scale-free form (beta' = beta * sqrt(n), sqi = sq /
-sqrt(n), sqo = sq * sqrt(n)).  As in the reference kernel, the data operand
-of each transform stage is rounded to bfloat16 and the sums are float32;
-the encode transform is float32, so codeword power is exact to float32.
+sqrt(n), sqo = sq * sqrt(n)).  As in the reference's split kernel, the data
+operand of each transform stage is rounded to bfloat16 and the sums are
+float32.  The reference's mono kernel computes bf16(x) @ H_M and then
+H_L @ (that) with the float32 intermediate as it is, so its transforms
+round each operand once, before H_M, and apply H_L in float32
+(`mono_tile_reference`).  The encode transform is float32 on both forms,
+so codeword power is exact to float32 (the reference's mono and split
+kernels encode in two bf16 passes, hi and lo, which reach about 2^-16).
 
-On a CUDA tensor `amp_fused` launches the hand-written kernel
-(csrc/amp_split.cu) or raises; on a CPU tensor it runs
-`amp_fused_reference`, the plain PyTorch version of the same function.
-The plain version rounds where the reference kernel does: before the H_M
-stage and before the H_L stage of both transforms.  The CUDA kernel's
+On a CUDA tensor `amp_fused` launches the hand-written kernel of its form
+or raises; on a CPU tensor it runs `amp_fused_reference`, the plain
+PyTorch version of the same function.  The split form's plain version
+rounds where the reference kernel does: before the H_M stage and before
+the H_L stage of both transforms.  The split form's CUDA kernel's
 adjoint transform applies H_L first (its column stage feeds the row-wise
 softmax), so its second rounding falls after H_L instead.  In float32
 (precision="highest") the two agree to summation order; with bf16
@@ -79,15 +91,48 @@ def _check_cuda_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _supported_dim(d: int) -> bool:
-    return 32 <= d <= 1024 and d & (d - 1) == 0
+def _supported_dim(d: int, hi: int = 1024) -> bool:
+    return 32 <= d <= hi and d & (d - 1) == 0
 
 
-def _check_cuda_shape(B: int, L: int, M: int):
-    if not (_supported_dim(L) and _supported_dim(M) and 1 <= B <= 65535):
-        raise ValueError(f"the CUDA kernel takes L, M powers of two in "
-                         f"[32, 1024] and B <= 65535; got B={B}, L={L}, "
-                         f"M={M}")
+def _check_cuda_shape(B: int, L: int, M: int, max_l: int = 4096):
+    """The kernels take L, M powers of two, L in [32, max_l] (4096, the
+    reference's gate for the fused route; 1024 on the mono form) and M in
+    [32, 1024]."""
+    if not (_supported_dim(L, max_l) and _supported_dim(M)
+            and 1 <= B <= 65535):
+        raise ValueError(f"the CUDA kernel takes L, M powers of two, L in "
+                         f"[32, {max_l}], M in [32, 1024], and B <= 65535; "
+                         f"got B={B}, L={L}, M={M}")
+
+
+def mono_tile_reference(x: torch.Tensor, precision: str = "bf16"
+                        ) -> torch.Tensor:
+    """Plain version of the mono form's transform of each tile of x
+    (..., L, M): H_L @ (bf16(x) @ H_M), i.e. the data rounded once, before
+    H_M, and H_L applied in float32 ("bf16"); any other precision keeps
+    float32 throughout."""
+    return _axis_stage(_axis_stage(x, -1, precision == "bf16"), -2, False)
+
+
+def mono_tile(x: torch.Tensor) -> torch.Tensor:
+    """The mono form's transform of each tile of x (B, L, M) float32,
+    H_L (bf16(x) H_M): on a CUDA tensor the kernel's tensor-core H_M and
+    float32 H_L stages, on a CPU tensor `mono_tile_reference`."""
+    if x.device.type == "cpu":
+        return mono_tile_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"mono_tile runs on cpu or cuda, not {x.device}")
+    from ._build import check, load_library
+
+    B, L, M = x.shape
+    _check_cuda_shape(B, L, M, max_l=1024)
+    _check_cuda_tensor("x", x, torch.float32, (B, L, M), x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    check("amp_mono", load_library("amp_mono").amp_mono_tile(
+        x.data_ptr(), out.data_ptr(), B, L, M, stream), "amp_mono_tile")
+    return out
 
 
 def fwht_tile(x: torch.Tensor, precision: str = "highest") -> torch.Tensor:
@@ -290,6 +335,29 @@ def _pin_rows(beta, pin_idx, sqo):
     return torch.where(pin >= 0, pinned, beta)
 
 
+def fused_form(L: int, split: Optional[bool] = None,
+               form: Optional[str] = None, noise: bool = False) -> str:
+    """The kernel form `amp_fused` runs, "split" or "mono", routed as the
+    reference's amp_fused routes (sparc_ldpc_tpu/ops/amp_kernel.py:891-909):
+    form=None takes "split" when split is true, or when split is None and
+    L > 1024, and "mono" otherwise; "mono" needs L <= 1024; "slab" (K7) is
+    not ported; the in-kernel noise needs the split form."""
+    if form is None:
+        form = "split" if ((L > 1024) if split is None else split) else "mono"
+    if form == "slab":
+        raise NotImplementedError("form='slab' (amp_kernel='fused_slab', the "
+                                  "slab kernel) is not ported yet (ROADMAP "
+                                  "K7)")
+    if form not in ("split", "mono"):
+        raise ValueError(f"unknown form {form!r}")
+    if form == "mono" and L > 1024:
+        raise ValueError(f"the mono form takes L <= 1024, got L = {L}")
+    if noise and form != "split":
+        raise ValueError("the in-kernel noise is implemented on the split "
+                         "form only, as in the reference")
+    return form
+
+
 def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
                         sq_npl: torch.Tensor, P: float, n: int, T: int,
                         encode_idx: Optional[torch.Tensor] = None,
@@ -299,8 +367,20 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
                         tau2_schedule: Optional[torch.Tensor] = None,
                         noise_seed: Optional[torch.Tensor] = None,
                         noise_sigma: Optional[float] = None,
+                        split: Optional[bool] = None,
+                        form: Optional[str] = None,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `amp_fused` (same arguments and results)."""
+    """Plain PyTorch version of `amp_fused` (same arguments and results).
+
+    The mono form is the reference's `_amp_kernel` (K6): each transform is
+    `mono_tile_reference`, H_L @ (bf16(x) @ H_M); the split form's is
+    `fwht_tile_reference`, rounding before both stages.  Everything else
+    is shared: |beta'|^2 from the state at the top of the iteration, tau2
+    over the whole tile, the adjoint plus beta', the row softmax, the pin,
+    the schedule and the tol freeze with the iterations count."""
+    L = mask.shape[0]
+    f = fused_form(L, split, form, noise_seed is not None)
+    transform = mono_tile_reference if f == "mono" else fwht_tile_reference
     if noise_seed is not None:
         y_n = channel_noise_reference(noise_seed, mask, noise_sigma)
     B, L, M = y_n.shape
@@ -322,13 +402,13 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
         if t > 0:
             bnorm2 = (beta * beta).sum((1, 2))
             coef = (P - bnorm2 / (n * n)) / tau2_prev
-            w = fwht_tile_reference(beta, precision)
+            w = transform(beta, precision)
             z_new = y - mask_n * w + coef[:, None, None] * z
         if tau2_schedule is None:
             tau2 = (z_new * z_new).sum((1, 2)) / n
         else:
             tau2 = tau2_schedule[t].to(torch.float32).expand(B)
-        s = fwht_tile_reference(z_new, precision) + beta
+        s = transform(z_new, precision) + beta
         a = (sqi / tau2[:, None, None]) * s
         a = a - a.amax(-1, keepdim=True)
         e = torch.exp(a)
@@ -360,18 +440,23 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
               tau2_schedule: Optional[torch.Tensor] = None,  # (T,) f32
               noise_seed: Optional[torch.Tensor] = None,   # (B, 2) int32
               noise_sigma: Optional[float] = None,
+              split: Optional[bool] = None,
+              form: Optional[str] = None,  # None = auto | "split" | "mono"
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-trial AMP: returns (beta (B, L, M), tau2 trace (T, B),
     iterations used (B,) int32).
+
+    split and form route as the reference's amp_fused does (`fused_form`):
+    with neither, the mono form at L <= 1024 and the split form above.
 
     encode_idx (B, L) turns on the in-kernel encode: y_n then holds the
     channel noise on the row support, and the codeword
     mask o (A beta0) is synthesized from the true section indices.
 
-    precision "bf16" is the reference kernel's arithmetic (each transform
-    stage's operand rounded to bf16, float32 sums); the other modes keep
-    float32 operands, in which the kernel and its plain version differ
-    only in summation order.
+    precision "bf16" is the reference kernels' arithmetic (module
+    docstring); the other modes keep float32 operands, in which the split
+    kernel and its plain version differ only in summation order.  The mono
+    kernel computes H_M on the tensor cores in bf16 and takes "bf16" only.
 
     tol > 0 is the reference's per-codeword early stop: once
     |tau2_t - tau2_{t-1}| < tol * tau2_t a codeword is frozen from
@@ -385,9 +470,10 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     noise_seed (B, 2) int32 (the uint32 bit patterns of each codeword's
     Philox key) with noise_sigma turns on the in-kernel noise: y_n is then
     None, and the kernel draws the masked AWGN noise_sigma * N(0, 1) on the
-    row support itself (module docstring).  It needs encode_idx, as in the
-    reference.  Equal seeds give identical noise, which is how the concat
-    chain's pinned feedback pass sees its main pass's channel."""
+    row support itself (module docstring).  It needs encode_idx and the
+    split form, as in the reference.  Equal seeds give identical noise,
+    which is how the concat chain's pinned feedback pass sees its main
+    pass's channel."""
     if noise_seed is not None:
         if encode_idx is None or y_n is not None or noise_sigma is None:
             raise ValueError("the in-kernel noise needs encode_idx and "
@@ -400,18 +486,22 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
         raise ValueError(f"unknown precision {precision!r}")
     if tol < 0:
         raise ValueError(f"tol must be >= 0, got {tol}")
+    L, M = mask.shape
+    f = fused_form(L, split, form, noise_seed is not None)
     dev = (y_n if y_n is not None else noise_seed).device
     if dev.type == "cpu":
         return amp_fused_reference(y_n, mask, sq_npl, P, n, T, encode_idx,
                                    precision, tol, pin_idx, tau2_schedule,
-                                   noise_seed, noise_sigma)
+                                   noise_seed, noise_sigma, form=f)
     if dev.type != "cuda":
         raise ValueError(f"amp_fused runs on cpu or cuda, not {dev}")
     from ._build import check, load_library
 
-    L, M = mask.shape
     B = encode_idx.shape[0] if y_n is None else y_n.shape[0]
-    _check_cuda_shape(B, L, M)
+    _check_cuda_shape(B, L, M, max_l=1024 if f == "mono" else 4096)
+    if f == "mono" and precision != "bf16":
+        raise ValueError("the mono kernel computes H_M on the tensor cores "
+                         "in bf16: precision must be 'bf16'")
     if y_n is None:
         _check_seed(noise_seed, B, dev)
     else:
@@ -425,7 +515,6 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
         _check_cuda_tensor("tau2_schedule", tau2_schedule, torch.float32,
                            (T,), dev)
     mask_n, sqi, sqo = _constants(mask, sq_npl, n)
-    lib = load_library("amp_split")
     beta = torch.empty((B, L, M), dtype=torch.float32, device=dev)
     trace = torch.empty((T, B), dtype=torch.float32, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -435,18 +524,35 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
     y = torch.empty_like(beta)
     z = torch.empty_like(beta)
-    # the transform stages round the work tile to bf16 when they read it:
-    # in bf16 mode it is stored in bf16 (same values, half the bytes)
-    bf16 = precision == "bf16"
-    work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
-    zpart = torch.empty((B, M // 32), dtype=torch.float32, device=dev)
+    # one |z|^2 partial per column-stage block: a cluster of L / 1024
+    # blocks per 32-column strip above L = 1024
+    zpart = torch.empty((B, max(1, L // 1024) * (M // 32)),
+                        dtype=torch.float32, device=dev)
     bpart = torch.empty((B, L), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    rc = lib.amp_split_run(
+    if f == "mono":
+        # the mono form's work tile holds float32 products (bf16(x) H_M
+        # and its H_L), so it is float32
+        work = torch.empty_like(beta)
+        rc = load_library("amp_mono").amp_mono_run(
+            y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
+            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+            beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+            active.data_ptr(), y.data_ptr(), z.data_ptr(), work.data_ptr(),
+            zpart.data_ptr(), bpart.data_ptr(), B, L, M, T, float(P),
+            float(n), 1.0 / math.sqrt(n), float(tol), stream)
+        check("amp_mono", rc, "amp_mono_run")
+        amp_fused.mono_launches += 1
+        return beta, trace, iters
+    # the split stages round the work tile to bf16 when they read it: in
+    # bf16 mode it is stored in bf16 (same values, half the bytes)
+    bf16 = precision == "bf16"
+    work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
+    rc = load_library("amp_split").amp_split_run(
         ptr(y_n), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
         ptr(encode_idx), ptr(noise_seed), ptr(pin_idx), ptr(tau2_schedule),
         beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
@@ -461,8 +567,11 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     return beta, trace, iters
 
 
-# kernel runs (one per amp_fused call on a CUDA tensor: the encode launch
-# plus 2 T iteration launches), and those of them that drew the channel
-# noise in the kernel; never counted on the CPU route
+# kernel runs, one per amp_fused call on a CUDA tensor, never counted on the
+# CPU route: `launches` of the split kernel (its encode launch plus 2 T
+# iteration launches), `noise_launches` those of them that drew the channel
+# noise in the kernel, and `mono_launches` of the mono kernel (its encode
+# launch plus 4 T iteration launches)
 amp_fused.launches = 0
 amp_fused.noise_launches = 0
+amp_fused.mono_launches = 0

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sparc_ldpc_tpu.design.ldpc_codes import Adjacency, adjacency
+from ..design.ldpc_codes import Adjacency, adjacency
 
 
 class BpTables(NamedTuple):

@@ -4,8 +4,8 @@ sparc_ldpc_tpu/ops/operators.py: `BatchedOperator`, `dense_operator`,
 
     Ax: (B, ML) -> (B, n)       Ay: (B, n) -> (B, ML)
 
-Operators are built from the shared host-side plans
-(sparc_ldpc_tpu.design.codebook), so the reference and the port use
+Operators are built from the host-side plans (design/codebook.py, the
+port's copy of the reference's), so the reference and the port use
 identical index sets.  The reference's "rev" transform scheme computes the
 same transform in another TPU layout; here both schemes run `fwht_kron`.
 With use_pallas (the reference's --pallas route) the Hadamard operator's
@@ -23,9 +23,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from sparc_ldpc_tpu.config import SparcConfig
-from sparc_ldpc_tpu.design.codebook import HadamardPlan, hadamard_plan
-
+from ..config import SparcConfig
+from ..design.codebook import HadamardPlan, hadamard_plan
 from .fwht import fwht_kron
 from .fwht_kernel import fwht2
 

@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from .. import check_device
 from ..utils import io as iou
 from ..utils.rng import block_generator
 
@@ -69,7 +70,7 @@ def run_point(
     max_trials: int,
     state: Optional[iou.CampaignState] = None,
     point_idx: int = 0,
-    device="cpu",
+    device=None,
     policy=None,
     pipelined: bool = True,
 ) -> Dict[str, float]:
@@ -84,9 +85,15 @@ def run_point(
     journal reproduces the original block set and counters bit for bit.
     pipelined=False harvests each block before the next is launched (the
     check then sees block b - 1); its block set can differ from the
-    pipelined one by the trailing block.
+    pipelined one by the trailing block.  The generators live on `device`;
+    None takes the device of the model whose bound run_block this is, and
+    otherwise `default_device()`.
     """
     _check_policy(policy)
+    if device is None:
+        device = getattr(getattr(run_block, "__self__", None), "device",
+                         None)
+    device = check_device(device)
     totals: Dict[str, float] = {}
     block = 0
     exec_blocks = 0

@@ -63,7 +63,8 @@ def test_amp_fused_reference_matches_jax_split_kernel(L, M):
                          jnp.asarray(d.sq), cfg.P, cfg.n, T, interpret=True,
                          split=True, encode_idx=jnp.asarray(d.idx))
     bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), cfg.P,
-                                     cfg.n, T, encode_idx=_t(d.idx))
+                                     cfg.n, T, encode_idx=_t(d.idx),
+                                     split=True)
     bj, tj = np.asarray(bj), np.asarray(tj)
     assert bt.shape == bj.shape and tt.shape == tj.shape == (T, 2)
     assert it.tolist() == [T, T]
@@ -104,7 +105,7 @@ def test_amp_fused_noise_route_is_the_explicit_noise_route():
     seeds = torch.tensor([[1, 2], [-3, 2 ** 31 - 1]], dtype=torch.int32)
     sigma = math.sqrt(d.model.sigma2)
     args = (_t(d.mask), _t(d.sq), d.cfg.P, d.cfg.n, 8)
-    kw = dict(encode_idx=_t(d.idx), precision="highest")
+    kw = dict(encode_idx=_t(d.idx), precision="highest", split=True)
     b1, t1, i1 = amp_fused(None, *args, noise_seed=seeds, noise_sigma=sigma,
                            **kw)
     y_n = channel_noise_reference(seeds, _t(d.mask), sigma)
@@ -124,8 +125,9 @@ def test_amp_fused_encode_matches_explicit_codeword():
     x_n = op.embed_y(op.Ax(beta0)).reshape(2, cfg.L, cfg.M)
     args = (_t(d.mask), _t(d.sq), cfg.P, cfg.n, cfg.amp_iters)
     b1, t1, _ = amp_fused(_t(d.y_n), *args, encode_idx=_t(d.idx),
-                          precision="highest")
-    b2, t2, _ = amp_fused(_t(d.y_n) + x_n, *args, precision="highest")
+                          precision="highest", split=True)
+    b2, t2, _ = amp_fused(_t(d.y_n) + x_n, *args, precision="highest",
+                          split=True)
     np.testing.assert_allclose(t1.numpy(), t2.numpy(), rtol=1e-5)
     np.testing.assert_allclose(b1.numpy(), b2.numpy(), atol=1e-4)
 
@@ -175,7 +177,7 @@ def test_fused_amp_decode_matches_jax_fused_route():
                       fused_interpret=True, fused_split=True,
                       encode_idx=jnp.asarray(d.idx))
     rt = amp_decode(_t(d.y), hadamard_operator(cfg), _t(d.sq), cfg.P, cfg.n,
-                    T=cfg.amp_iters, tol=0.0, fused=True,
+                    T=cfg.amp_iters, tol=0.0, fused=True, fused_split=True,
                     encode_idx=_t(d.idx))
     assert_decisions_match(np.asarray(rj.beta), rt.beta.numpy())
     np.testing.assert_allclose(rt.tau2_trace.numpy(),
@@ -255,7 +257,7 @@ def test_amp_fused_reference_early_stop_matches_jax_split_kernel():
     bj, tj, ij = j_amp_fused(jnp.asarray(d.y_n), *map(jnp.asarray, args[:2]),
                              *args[2:], interpret=True, split=True, tol=1e-4)
     bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq),
-                                     *args[2:], tol=1e-4)
+                                     *args[2:], tol=1e-4, split=True)
     ij = np.asarray(ij)
     assert int(ij.max()) < cfg.amp_iters, "the point must stop early"
     np.testing.assert_array_equal(it.numpy(), ij)
@@ -283,7 +285,8 @@ def test_amp_fused_reference_pinning_with_tol_matches_jax():
                              split=True, tol=1e-4,
                              pin_idx=jnp.asarray(pin_idx))
     bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), *args,
-                                     tol=1e-4, pin_idx=_t(pin_idx))
+                                     tol=1e-4, pin_idx=_t(pin_idx),
+                                     split=True)
     assert int(np.max(np.abs(it.numpy() - np.asarray(ij)))) <= 4
     np.testing.assert_array_equal(bt.numpy().argmax(-1),
                                   np.asarray(bj).argmax(-1))
@@ -308,7 +311,7 @@ def test_amp_fused_reference_se_schedule_matches_jax():
                          jnp.asarray(d.sq), *args, interpret=True,
                          split=True, tau2_schedule=jnp.asarray(sched))
     bt, tt, it = amp_fused(_t(d.y_n), _t(d.mask), _t(d.sq), *args,
-                           tau2_schedule=_t(sched))
+                           tau2_schedule=_t(sched), split=True)
     assert torch.equal(tt, _t(sched)[:, None].expand(-1, 2))
     np.testing.assert_array_equal(np.asarray(tj), tt.numpy())
     assert it.tolist() == [cfg.amp_iters] * 2
@@ -379,3 +382,143 @@ def test_pallas_scan_route_matches_jax_pallas_route(monkeypatch):
                                np.asarray(rj.tau2_trace), rtol=1e-4)
     assert decision_flips(rt.beta, np.array(rj.beta))[1] == 0
     np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
+
+
+# -------------------------------------------- the mono form (K6), L > 1024
+
+MONO_SHAPES = [(64, 64), (128, 64)]
+
+
+@pytest.mark.parametrize("L,M", MONO_SHAPES)
+def test_amp_fused_reference_mono_matches_jax_mono_kernel(L, M):
+    """K6's plain version against the reference's `_amp_kernel`
+    (split=False, interpret mode) at fixed T: both round each transform's
+    data to bf16 once, before H_M, and apply H_L in float32, so only
+    summation order differs: tau2 agrees to about 1e-6 over the first
+    iterations, and a value that crosses a bf16 rounding boundary grows
+    that to about 2e-3 by T=8 (hence rtol 5e-3, against the split form's
+    2e-2 above)."""
+    d = _stop_inputs(5.0, 8, 3, seed=2, L=L, M=M)
+    args = (d.cfg.P, d.cfg.n, d.cfg.amp_iters)
+    bj, tj = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                         jnp.asarray(d.sq), *args, interpret=True,
+                         split=False)
+    bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), *args,
+                                     form="mono")
+    assert it.tolist() == [d.cfg.amp_iters] * 3
+    assert_decisions_match(np.asarray(bj), bt.numpy())
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=5e-3)
+
+
+@pytest.mark.parametrize("L,M", MONO_SHAPES)
+def test_amp_fused_reference_mono_early_stop_matches_jax(L, M):
+    """The mono form's per-codeword freeze with tol 1e-2 (the reference's
+    own cross-route tolerance, tests/test_precision.py): equal iteration
+    counts, equal decisions, frozen trace entries repeated."""
+    d = _stop_inputs(6.0, 12, 4, seed=0, L=L, M=M)
+    args = (d.cfg.P, d.cfg.n, d.cfg.amp_iters)
+    bj, tj, ij = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                             jnp.asarray(d.sq), *args, interpret=True,
+                             split=False, tol=1e-2)
+    bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), *args,
+                                     tol=1e-2, form="mono")
+    ij = np.asarray(ij)
+    assert int(ij.max()) < d.cfg.amp_iters, "the point must stop early"
+    np.testing.assert_array_equal(it.numpy(), ij)
+    np.testing.assert_array_equal(bt.numpy().argmax(-1),
+                                  np.asarray(bj).argmax(-1))
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=5e-3)
+    tr = tt.numpy()
+    for b, used in enumerate(it.tolist()):
+        assert np.all(tr[used:, b] == tr[used - 1, b])
+
+
+@pytest.mark.parametrize("L,M", MONO_SHAPES)
+def test_amp_fused_reference_mono_pins_and_schedule_match_jax(L, M):
+    """Pinning (random targets on 40 % of the rows) and an SE schedule on
+    the mono form against the reference's: equal decisions, pinned rows
+    exactly sq * one_hot, the trace the schedule."""
+    d = _stop_inputs(6.0, 10, 3, seed=7, L=L, M=M)
+    cfg, B = d.cfg, 3
+    pin_mask = d.rng.random((B, L)) < 0.4
+    pin_idx = np.where(pin_mask, d.rng.integers(0, M, (B, L)),
+                       -1).astype(np.int32)
+    sched = np.linspace(0.5, 0.05, cfg.amp_iters).astype(np.float32)
+    args = (cfg.P, cfg.n, cfg.amp_iters)
+    for kw in (dict(pin_idx=pin_idx), dict(tau2_schedule=sched)):
+        bj, tj = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                             jnp.asarray(d.sq), *args, interpret=True,
+                             split=False,
+                             **{k: jnp.asarray(v) for k, v in kw.items()})
+        bt, tt, _ = amp_fused_reference(
+            _t(d.y_n), _t(d.mask), _t(d.sq), *args, form="mono",
+            **{k: _t(v) for k, v in kw.items()})
+        assert_decisions_match(np.asarray(bj), bt.numpy())
+        np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=5e-3)
+    np.testing.assert_array_equal(tt.numpy(),
+                                  np.broadcast_to(sched[:, None], (10, B)))
+    bt, _, _ = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), *args,
+                                   form="mono", pin_idx=_t(pin_idx))
+    sqo = _t(d.sq).reshape(1, L, 1) * math.sqrt(cfg.n)
+    want = torch.where(torch.arange(M) == _t(pin_idx)[..., None].long(),
+                       sqo, 0.0) * (1.0 / math.sqrt(cfg.n))
+    pinned = _t(pin_mask)
+    assert torch.equal(bt[pinned], want[pinned])
+
+
+@pytest.mark.parametrize("L,M", MONO_SHAPES)
+def test_amp_fused_reference_mono_encode_matches_jax(L, M):
+    """The in-kernel encode on the mono form: the port encodes in float32,
+    the reference in two bf16 passes (hi, lo) good to about 2^-16, so the
+    decodes agree as at fixed T."""
+    d = _fused_inputs(L, M, B=3, seed=4)
+    cfg, T = d.cfg, d.cfg.amp_iters
+    bj, tj = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                         jnp.asarray(d.sq), cfg.P, cfg.n, T, interpret=True,
+                         split=False, encode_idx=jnp.asarray(d.idx))
+    bt, tt, _ = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), cfg.P,
+                                    cfg.n, T, encode_idx=_t(d.idx))
+    assert_decisions_match(np.asarray(bj), bt.numpy())
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=5e-3)
+
+
+def test_amp_fused_routes_as_the_reference():
+    """form=None: mono at L <= 1024, split above; split=True forces the
+    split form; mono refuses L > 1024 and the in-kernel noise; the slab
+    form is not ported."""
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import fused_form
+
+    assert fused_form(1024) == "mono" and fused_form(2048) == "split"
+    assert fused_form(64, split=True) == "split"
+    assert fused_form(64, split=False) == fused_form(64, form="mono")
+    assert fused_form(64, split=True, noise=True) == "split"
+    assert fused_form(4096, noise=True) == "split"
+    with pytest.raises(ValueError):
+        fused_form(2048, form="mono")
+    with pytest.raises(ValueError):
+        fused_form(64, noise=True)
+    with pytest.raises(ValueError):
+        fused_form(64, form="dense")
+    with pytest.raises(NotImplementedError, match="K7"):
+        fused_form(64, form="slab")
+
+
+def test_amp_fused_reference_split_matches_jax_at_l2048():
+    """K1 (f): the split form's plain version against the reference's
+    split kernel (interpret mode) above L = 1024, where "fused" routes to
+    it by itself: L=2048, M=32, B=2, T=4.  Both round before H_M and
+    before H_L (the reference's H_fa butterflies follow its bf16 H_fb
+    product, which is the same rounding), so only the encode (float32
+    against hi/lo bf16) and summation order differ: tau2 to rtol 2e-3;
+    decisions with chip_smoke.py's bf16 rule, at most 1 % flipped, since
+    a near-tie section still early in the decode can flip either way."""
+    d = _fused_inputs(2048, 32, B=2, ebno_db=8.0, seed=5)
+    cfg, T = d.cfg, 4
+    bj, tj = j_amp_fused(jnp.asarray(d.y_n), jnp.asarray(d.mask),
+                         jnp.asarray(d.sq), cfg.P, cfg.n, T, interpret=True,
+                         encode_idx=jnp.asarray(d.idx))
+    bt, tt, it = amp_fused_reference(_t(d.y_n), _t(d.mask), _t(d.sq), cfg.P,
+                                     cfg.n, T, encode_idx=_t(d.idx))
+    assert it.tolist() == [T, T]
+    assert decision_flips(np.array(bj), bt)[0] <= 0.01 * 2 * cfg.L
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=2e-3)

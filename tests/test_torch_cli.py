@@ -1,7 +1,8 @@
 """The port's CLI (sparc_ldpc_tpu_torch.cli) on the CPU: `se` prints what
 the reference's prints, a tiny `campaign --cpu` writes a record with the
-reference's keys plus backend and device, and what the port cannot run
-exits with a message that names the ROADMAP item.
+reference's keys plus backend and device, `fast_l4096` (amp_kernel
+"fused" at L=4096) runs as shipped, and what the port cannot run exits
+with a message that names the ROADMAP item.
 """
 
 import json
@@ -11,6 +12,8 @@ import pytest
 from sparc_ldpc_tpu import cli as jcli
 
 from sparc_ldpc_tpu_torch import cli as tcli
+from sparc_ldpc_tpu_torch.config import PRESETS
+from sparc_ldpc_tpu_torch.utils.provenance import config_hash
 
 
 @pytest.mark.parametrize("preset,ebno", [("plain_small", 2.0),
@@ -62,8 +65,8 @@ def test_fused_rewrites_the_config_with_the_reference_message(tmp_path,
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--preset", "fast_l4096"], "K1 (f)"),
-    (["--preset", "fast_l4096"], "K6"),
+    (["--preset", "fast_l4096", "--section-shards", "4"], "A10"),
+    (["--preset", "fast_l4096", "--distributed"], "A10"),
     (["--preset", "concat", "--section-shards", "2"], "A10"),
     (["--preset", "concat", "--distributed"], "A10"),
     (["--preset", "campaign"], "not a code configuration"),
@@ -72,6 +75,46 @@ def test_unported_requests_exit_with_their_message(argv, needle):
     with pytest.raises(SystemExit) as exc:
         tcli.main(["campaign", *argv])
     assert needle in str(exc.value)
+
+
+@pytest.mark.parametrize("preset,kernel", [
+    ("fast_l4096", "fused"), ("fast_l4096", "fused_split"),
+    ("pa_l1024", "fused"), ("pa_l1024", "fused_split")])
+def test_fused_routes_are_not_refused(preset, kernel):
+    """amp_kernel="fused" (mono at L <= 1024, split above) and
+    "fused_split" at any L up to 4096 run; only the slab kernel is refused
+    (ROADMAP K7)."""
+    cfg = PRESETS[preset].replace(amp_kernel=kernel)
+    assert tcli._unported(cfg) is None
+    assert "K7" in tcli._unported(cfg.replace(amp_kernel="fused_slab"))
+    concat = PRESETS["concat"]
+    assert "K7" in tcli._unported(concat.replace(
+        sparc=concat.sparc.replace(amp_kernel="fused_slab")))
+
+
+@pytest.mark.parametrize("extra,kernel,tol", [
+    ([], "fused", 1e-4), (["--fused"], "fused_split", 0.0)])
+def test_fast_l4096_campaign_runs_as_shipped(tmp_path, capsys, extra,
+                                             kernel, tol):
+    """`campaign --preset fast_l4096` as shipped (the split form at
+    L=4096 with its in-kernel noise; here the plain version), and with
+    --fused, fused_split at fixed T as in the reference; two AMP
+    iterations keep it short."""
+    out = tmp_path / "r.jsonl"
+    argv = ["campaign", "--preset", "fast_l4096", "--cpu", "--ebno", "6.5",
+            "--batch", "1", "--max-trials", "1", "--amp-iters", "2",
+            "--out", str(out), *extra]
+    assert tcli.main(argv) == 0
+    said = capsys.readouterr().out
+    assert ("--fused: fixed-T route replaces the preset's adaptive "
+            "amp_tol=0.0001 with 0.0" in said) == bool(extra)
+    rec = json.loads(out.read_text().splitlines()[-1])
+    want = PRESETS["fast_l4096"].replace(amp_kernel=kernel, amp_tol=tol,
+                                         amp_iters=2)
+    assert rec["config_hash"] == config_hash(want)
+    # the pipelined campaign may run one block past the budget
+    assert rec["trials"] in (1, 2) and rec["preset"] == "fast_l4096"
+    assert 0 <= rec["ber"] <= 1 and rec["mean_iters"] <= 2
 
 
 def test_plot_without_matplotlib_says_so(tmp_path, capsys, monkeypatch):

@@ -1,6 +1,7 @@
 """The CUDA kernels (sparc_ldpc_tpu_torch/csrc/amp_split.cu, with its
-in-kernel noise and the fwht2 entry, csrc/bp_qc_layered.cu and
-csrc/denoise.cu) against their plain PyTorch versions, on an NVIDIA GPU.
+in-kernel noise, L up to 4096 and the fwht2 entry, csrc/amp_mono.cu,
+csrc/bp_qc_layered.cu and csrc/denoise.cu) against their plain PyTorch
+versions, on an NVIDIA GPU.
 
 Every test here is marked `cuda` and skips where no GPU is visible.  The
 file imports no JAX, so it also runs where the JAX reference is not
@@ -18,7 +19,9 @@ bitwise equal to its plain version.  The in-kernel noise draws the same
 uniforms as its plain version bit for bit and normals within 1e-5 (log,
 sin and cos differ in their last bits); the FWHT within 1e-5 of the
 output scale; the denoiser to rtol 1e-5 (beta: atol 1e-6 max sq, post:
-atol 1e-7).
+atol 1e-7).  The mono form (amp_mono.cu) rounds where its plain version
+does, once per transform before H_M, so its transform alone agrees to
+1e-5 of the output scale and its decode to the bf16 tolerances above.
 """
 
 import math
@@ -27,14 +30,15 @@ import numpy as np
 import pytest
 import torch
 
-from sparc_ldpc_tpu.config import ConcatConfig, LdpcConfig, SparcConfig
-from sparc_ldpc_tpu.design.ldpc_codes import build_code, qc_structure
+from sparc_ldpc_tpu_torch.config import ConcatConfig, LdpcConfig, SparcConfig
+from sparc_ldpc_tpu_torch.design.ldpc_codes import build_code, qc_structure
 from sparc_ldpc_tpu_torch.models.amp import decision_flips
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
-    fwht_tile, fwht_tile_reference, noise_uniforms, noise_uniforms_reference)
+    fwht_tile, fwht_tile_reference, mono_tile, mono_tile_reference,
+    noise_uniforms, noise_uniforms_reference)
 from sparc_ldpc_tpu_torch.ops.denoiser import denoise, denoise_kernel
 from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2, fwht2_reference
 from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
@@ -72,7 +76,8 @@ def _inputs(L, M, B, device, ebno_db=5.0, seed=0):
             model.sq_npl.to(device), bits_to_indices(bits, c.logM).to(device))
 
 
-@pytest.mark.parametrize("L,M", [(64, 128), (256, 512), (1024, 512)])
+@pytest.mark.parametrize("L,M", [(64, 128), (256, 512), (1024, 512),
+                                 (2048, 64), (4096, 512)])
 def test_cuda_fwht_tile_matches_plain(cuda_device, L, M):
     x = torch.randn((2, L, M), device=cuda_device)
     launches = fwht_tile.launches
@@ -89,24 +94,122 @@ def test_cuda_amp_fused_matches_plain(cuda_device, L, M):
     c = model.cfg
     args = (y_n, mask, sq, c.P, c.n, c.amp_iters)
     launches = amp_fused.launches
-    bk, tk, ik = amp_fused(*args, encode_idx=idx, precision="highest")
+    bk, tk, ik = amp_fused(*args, encode_idx=idx, precision="highest",
+                           split=True)
     assert amp_fused.launches == launches + 1
     bp, tp, ip = amp_fused_reference(*args, encode_idx=idx,
-                                     precision="highest")
+                                     precision="highest", split=True)
     assert torch.equal(ik.cpu(), ip.cpu())
     flips, decisive = decision_flips(bp, bk)
     assert decisive == 0 and flips <= 0.01 * idx.numel()
     np.testing.assert_allclose(tk.cpu().numpy(), tp.cpu().numpy(), rtol=1e-4)
     assert float((bk - bp).abs().max()) <= 1e-3
-    bk, tk, _ = amp_fused(*args, encode_idx=idx)
-    bp, tp, _ = amp_fused_reference(*args, encode_idx=idx)
+    bk, tk, _ = amp_fused(*args, encode_idx=idx, split=True)
+    bp, tp, _ = amp_fused_reference(*args, encode_idx=idx, split=True)
     assert decision_flips(bp, bk)[1] == 0
     np.testing.assert_allclose(tk.cpu().numpy(), tp.cpu().numpy(), rtol=2e-2)
     # without encode_idx, y_n is the whole observation: only masked
-    bk, tk, _ = amp_fused(*args, precision="highest")
-    bp, tp, _ = amp_fused_reference(*args, precision="highest")
+    bk, tk, _ = amp_fused(*args, precision="highest", split=True)
+    bp, tp, _ = amp_fused_reference(*args, precision="highest", split=True)
     np.testing.assert_allclose(tk.cpu().numpy(), tp.cpu().numpy(), rtol=1e-4)
     assert float((bk - bp).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("L", [2048, 4096])
+def test_cuda_amp_split_large_l_matches_plain(cuda_device, L):
+    """K1 (f): the split form at L = 2048 and 4096 (a cluster of L / 1024
+    column-stage blocks per strip), fixed T and with the early stop, in
+    float32 and with bf16 rounding; "fused" routes there by itself."""
+    model, y_n, mask, sq, idx = _inputs(L, 64, 2, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    args = (y_n, mask, sq, c.P, c.n, 8)
+    launches = (amp_fused.launches, amp_fused.mono_launches)
+    for kw, rtol in ((dict(precision="highest"), 1e-4),
+                     (dict(precision="highest", tol=1e-4), 1e-4),
+                     (dict(), 2e-2)):
+        bk, tk, ik = amp_fused(*args, encode_idx=idx, **kw)
+        bp, tp, ip = amp_fused_reference(*args, encode_idx=idx, **kw)
+        ik, ip = ik.cpu().numpy(), ip.cpu().numpy()
+        assert np.abs(ik - ip).max() <= 4, (kw, ik, ip)
+        t_min = int(min(ik.min(), ip.min()))
+        np.testing.assert_allclose(tk[:t_min].cpu().numpy(),
+                                   tp[:t_min].cpu().numpy(), rtol=rtol)
+        assert decision_flips(bp, bk)[1] == 0
+        if rtol == 1e-4 and (ik == ip).all():
+            assert float((bk - bp).abs().max()) <= 1e-3
+    assert amp_fused.launches == launches[0] + 3
+    assert amp_fused.mono_launches == launches[1]
+
+
+@pytest.mark.parametrize("L,M", [(64, 128), (256, 512), (1024, 512)])
+def test_cuda_mono_tile_matches_plain(cuda_device, L, M):
+    """K6's transform alone: bf16(x) H_M on the tensor cores, then H_L in
+    float32; the plain version rounds at the same place."""
+    x = torch.randn((3, L, M), device=cuda_device)
+    ref = mono_tile_reference(x)
+    err = (mono_tile(x) - ref).abs().max() / ref.abs().max()
+    assert float(err) <= 1e-5, float(err)
+
+
+@pytest.mark.parametrize("L,M", [(64, 128), (256, 256), (1024, 512)])
+def test_cuda_amp_mono_matches_plain(cuda_device, L, M):
+    """K6 (the mono form, "fused" at L <= 1024) against its plain version:
+    fixed T, early stop, pinning and an SE schedule.  The mono form
+    computes in bf16 only, so with tol the iteration counts are held to
+    the bf16 rule of chip_smoke.py's phase 6 (their means within 2: one
+    codeword stopped 6 iterations apart on an H100); without tol each
+    codeword runs all T on both sides."""
+    model, y_n, mask, sq, idx = _inputs(L, M, 4, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    T = 16
+    args = (y_n, mask, sq, c.P, c.n, T)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    pin = torch.randint(0, M, (4, L), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    keep = torch.rand((4, L), generator=gen, device=cuda_device) < 0.4
+    pin = torch.where(keep, pin, -1).to(torch.int32)
+    sched = torch.linspace(0.5, 0.05, T, device=cuda_device)
+    launches = (amp_fused.launches, amp_fused.mono_launches)
+    opts = (dict(), dict(tol=1e-4), dict(tol=1e-4, pin_idx=pin),
+            dict(tau2_schedule=sched), dict(encode_idx=None))
+    for opt in opts:
+        kw = dict(dict(encode_idx=idx), **opt)
+        bk, tk, ik = amp_fused(*args, **kw)
+        bp, tp, ip = amp_fused_reference(*args, **kw)
+        assert bool(torch.isfinite(bk).all() & torch.isfinite(tk).all())
+        ik, ip = ik.cpu().numpy(), ip.cpu().numpy()
+        if "tol" in opt:    # a bf16 near-tie may set one codeword's stop
+            assert abs(float(np.mean(ik - ip))) <= 2, (opt.keys(), ik, ip)
+        else:
+            np.testing.assert_array_equal(ik, ip)
+        t_min = int(min(ik.min(), ip.min()))
+        np.testing.assert_allclose(tk[:t_min].cpu().numpy(),
+                                   tp[:t_min].cpu().numpy(), rtol=2e-2)
+        assert decision_flips(bp, bk)[1] == 0
+        if "pin_idx" in opt:
+            rows = pin >= 0
+            assert torch.equal(bk[rows], bp[rows])
+            assert torch.equal(bk[rows].argmax(-1), pin[rows].long())
+        if "tau2_schedule" in opt:
+            assert torch.equal(tk, sched[:, None].expand(T, 4))
+            assert (ik == T).all()
+        if "tol" in opt:
+            assert ik.max() < T, "the point must stop early"
+    assert amp_fused.mono_launches == launches[1] + len(opts)
+    assert amp_fused.launches == launches[0]
+
+
+def test_cuda_amp_mono_rejects_what_it_cannot_take(cuda_device):
+    model, y_n, mask, sq, idx = _inputs(64, 128, 2, cuda_device)
+    c = model.cfg
+    args = (y_n, mask, sq, c.P, c.n, 4)
+    with pytest.raises(ValueError):         # H_M runs on bf16 tensor cores
+        amp_fused(*args, encode_idx=idx, precision="highest")
+    with pytest.raises(ValueError):         # the noise is the split form's
+        amp_fused(None, *args[1:], encode_idx=idx, form="mono",
+                  noise_seed=_seeds(2, cuda_device), noise_sigma=0.5)
+    with pytest.raises(NotImplementedError):
+        amp_fused(*args, encode_idx=idx, form="slab")
 
 
 def test_cuda_amp_fused_rejects_what_it_cannot_take(cuda_device):
@@ -153,7 +256,7 @@ def test_cuda_amp_fused_options_match_plain(cuda_device, L, M):
     c = model.cfg
     T = 16
     args = (y_n, mask, sq, c.P, c.n, T)
-    kw = dict(encode_idx=idx, precision="highest")
+    kw = dict(encode_idx=idx, precision="highest", split=True)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     pin = torch.randint(0, M, (4, L), generator=gen, device=cuda_device,
                         dtype=torch.int32)
@@ -262,7 +365,7 @@ def _seeds(B, device, seed=0):
                          dtype=torch.int32, device=device)
 
 
-@pytest.mark.parametrize("L,M", [(64, 128), (1024, 512)])
+@pytest.mark.parametrize("L,M", [(64, 128), (1024, 512), (4096, 512)])
 def test_cuda_noise_matches_plain(cuda_device, L, M):
     """K1 (e): the kernel's Philox uniforms equal the plain version's, its
     masked normals agree within 1e-5 and are zero off the row support."""
@@ -287,7 +390,7 @@ def test_cuda_noise_route_matches_plain(cuda_device):
     model, _, mask, sq, idx = _inputs(64, 128, 4, cuda_device, ebno_db=6.0)
     c = model.cfg
     seeds = _seeds(4, cuda_device, 1)
-    kw = dict(encode_idx=idx, precision="highest", tol=1e-4,
+    kw = dict(encode_idx=idx, precision="highest", tol=1e-4, split=True,
               noise_seed=seeds, noise_sigma=math.sqrt(model.sigma2))
     bk, tk, ik = amp_fused(None, mask, sq, c.P, c.n, 16, **kw)
     bp, tp, ip = amp_fused_reference(None, mask, sq, c.P, c.n, 16, **kw)

@@ -1,14 +1,18 @@
 """The port's SparcModel (the whole decode slice) against the JAX reference
-on the CPU, and the guards around it: the port imports no JAX, a CUDA
-request without CUDA raises, unported options raise.
+on the CPU, and the guards around it: the port imports no JAX and nothing
+of the reference package, a CUDA request without CUDA raises, unported
+options raise, and amp_kernel="fused" routes to the mono form at L <= 1024
+and to the split form above, as in the reference.
 
 Both packages get the same NumPy draws (torch and JAX random streams
-differ).  Contracts: exact for the design constants; for decodes with
-bf16 transforms, margin-aware decisions (tests/test_precision.py
-assert_decisions_match), equal trial and iteration counts, tau2 to rtol
-2e-2.
+differ), and each its own config class: the port's twin of a reference
+config has the same fields and repr.  Contracts: exact for the design
+constants; for decodes with bf16 transforms, margin-aware decisions
+(tests/test_precision.py assert_decisions_match), equal trial and
+iteration counts, tau2 to rtol 2e-2.
 """
 
+import dataclasses
 import math
 import subprocess
 import sys
@@ -19,19 +23,23 @@ import numpy as np
 import pytest
 import torch
 
-from sparc_ldpc_tpu.config import SparcConfig
+from sparc_ldpc_tpu.config import SparcConfig as JSparcConfig
 from sparc_ldpc_tpu.models.amp import amp_decode as j_amp_decode
 from sparc_ldpc_tpu.models.sparc import SparcModel as JModel
 from sparc_ldpc_tpu.utils.bits import np_bits_to_indices, np_indices_to_bits
 from test_precision import assert_decisions_match
+from test_torch_config import twin
 
 import sparc_ldpc_tpu_torch as slt
+from sparc_ldpc_tpu_torch.config import SparcConfig
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
-from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
+from sparc_ldpc_tpu_torch.ops.amp_kernel import (
+    amp_fused, amp_fused_reference, fused_form)
 from sparc_ldpc_tpu_torch.utils.rng import block_generator
 
 EBNO = 4.0
-# the headline configuration's options at a CPU-test size
+# the headline configuration's options at a CPU-test size (the port's
+# configs; J() gives the reference's twin)
 FUSED = SparcConfig(L=64, M=128, R=1.0, power_alloc="iterative",
                     op_kind="hadamard", amp_kernel="fused_split",
                     transform_precision="bf16", amp_iters=16, amp_tol=0.0,
@@ -39,6 +47,11 @@ FUSED = SparcConfig(L=64, M=128, R=1.0, power_alloc="iterative",
 XLA = SparcConfig(L=64, M=128, R=1.0, power_alloc="iterative",
                   op_kind="hadamard", transform_precision="highest",
                   amp_iters=16, amp_tol=1e-4)
+
+
+def J(cfg):
+    """The reference's SparcConfig equal to the port's cfg."""
+    return JSparcConfig(**dataclasses.asdict(cfg))
 
 
 def _params(mj):
@@ -70,9 +83,10 @@ def _counters(idx_true, idx_hat, logM):
 @pytest.mark.parametrize("cfg", [FUSED, XLA, XLA.replace(tau_mode="se"),
                                  XLA.replace(power_alloc="flat")])
 def test_build_constants_match_jax_exactly(cfg):
-    mj = JModel.build(cfg, EBNO)
+    mj = JModel.build(J(cfg), EBNO)
     mt = SparcModel.build(cfg, EBNO, "cpu")
-    assert mt.cfg == mj.cfg                      # incl. the SE-derived T
+    assert repr(mt.cfg) == repr(mj.cfg)          # incl. the SE-derived T
+    assert mt.cfg == twin(mj.cfg)
     assert mt.sigma2 == mj.sigma2
     np.testing.assert_array_equal(mt.p_alloc, mj.p_alloc)
     np.testing.assert_array_equal(mt.sq_npl.numpy(), np.asarray(mj.sq_npl))
@@ -85,10 +99,10 @@ def test_build_constants_match_jax_exactly(cfg):
 
 
 def test_from_numpy_takes_the_reference_constants():
-    mj = JModel.build(FUSED, EBNO)
+    mj = JModel.build(J(FUSED), EBNO)
     mt = SparcModel.from_numpy(FUSED, EBNO, _params(mj), "cpu")
     mb = SparcModel.build(FUSED, EBNO, "cpu")
-    assert mt.cfg == mj.cfg
+    assert mt.cfg == twin(mj.cfg)
     np.testing.assert_array_equal(mt.sq_npl.numpy(), np.asarray(mj.sq_npl))
     np.testing.assert_array_equal(mt.op.mask.numpy(), np.asarray(mj.op.mask))
     bits, noise = _draws(FUSED, 2)
@@ -105,7 +119,7 @@ def test_from_numpy_takes_the_reference_constants():
 def test_run_block_from_matches_jax_in_kernel_encode_route():
     """The headline route: fused AMP with in-kernel encode, the noise drawn
     outside (the reference's CPU route, models/sparc.py:188-193)."""
-    mj = JModel.build(FUSED, EBNO)
+    mj = JModel.build(J(FUSED), EBNO)
     mt = SparcModel.build(FUSED, EBNO, "cpu")
     c, B = mj.cfg, 4
     bits, noise = _draws(c, B)
@@ -137,7 +151,7 @@ def test_run_block_from_matches_jax_in_kernel_encode_route():
 
 def test_run_block_from_matches_jax_xla_route():
     """The scan route with the encode outside the decoder and early stop."""
-    mj = JModel.build(XLA, EBNO)
+    mj = JModel.build(J(XLA), EBNO)
     mt = SparcModel.build(XLA, EBNO, "cpu")
     c, B = mj.cfg, 3
     bits, noise = _draws(c, B, seed=1)
@@ -204,9 +218,9 @@ def test_port_imports_no_jax():
         "assert cli.main(['se', '--preset', 'plain_small']) == 0\n"
         "jax = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]\n"
         "assert not jax, jax\n"
-        "ref = [k for k in sys.modules if k.startswith('sparc_ldpc_tpu.')]\n"
-        "shared = ('sparc_ldpc_tpu.config', 'sparc_ldpc_tpu.design')\n"
-        "assert all(k.startswith(shared) for k in ref), ref\n")
+        "ref = [k for k in sys.modules\n"
+        "       if k == 'sparc_ldpc_tpu' or k.startswith('sparc_ldpc_tpu.')]\n"
+        "assert not ref, ref\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=Path(__file__).resolve().parents[1],
                           timeout=300)
@@ -221,16 +235,67 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError):
         SparcModel.build(FUSED, EBNO, "cuda")
     with pytest.raises(RuntimeError):
-        SparcModel.from_numpy(FUSED, EBNO, _params(JModel.build(FUSED, EBNO)),
-                              "cuda")
+        SparcModel.from_numpy(FUSED, EBNO,
+                              _params(JModel.build(J(FUSED), EBNO)), "cuda")
 
 
 @pytest.mark.parametrize("change", [
-    dict(amp_kernel="fused"), dict(amp_kernel="fused_slab"),
-    dict(col_signs=True), dict(op_kind="dct")])
+    dict(amp_kernel="fused_slab", amp_noise_in_kernel=True),
+    dict(amp_kernel="fused_slab"), dict(col_signs=True),
+    dict(op_kind="dct")])
 def test_unported_configs_raise_at_build(change):
+    """amp_kernel="fused" is ported (mono form at L <= 1024, split above);
+    the slab kernel is not (ROADMAP K7)."""
     with pytest.raises(NotImplementedError):
         SparcModel.build(FUSED.replace(**change), EBNO, "cpu")
+
+
+@pytest.mark.parametrize("kernel,L,form", [
+    ("fused", 64, "mono"), ("fused", 2048, "split"),
+    ("fused_split", 64, "split")])
+def test_fused_kernel_choice_routes_as_the_reference(kernel, L, form):
+    """amp_kernel="fused" reaches the mono form at L <= 1024 and the split
+    form above it; "fused_split" forces the split form: the model's decode
+    is the plain version of that form, bit for bit."""
+    cfg = SparcConfig(L=L, M=32, R=1.0, op_kind="hadamard",
+                      amp_kernel=kernel, amp_iters=4, amp_tol=0.0)
+    mt = SparcModel.build(cfg, 6.0, "cpu")
+    assert mt.fused and fused_form(L, mt.fused_kw["fused_split"]) == form
+    bits, noise = _draws(cfg, 2, seed=3)
+    y = torch.tensor(noise) * math.sqrt(mt.sigma2)
+    idx = torch.tensor(np_bits_to_indices(bits, cfg.logM), dtype=torch.int32)
+    got = mt.decode(y, encode_idx=idx)
+    y_n = mt.op.embed_y(y).reshape(2, L, cfg.M)
+    want = amp_fused_reference(y_n, mt.op.mask.reshape(L, cfg.M), mt.sq_npl,
+                               cfg.P, cfg.n, 4, encode_idx=idx, form=form)
+    assert torch.equal(got.beta, want[0])
+    assert torch.equal(got.tau2_trace, want[1])
+    if form == "mono":
+        split = amp_fused_reference(y_n, mt.op.mask.reshape(L, cfg.M),
+                                    mt.sq_npl, cfg.P, cfg.n, 4,
+                                    encode_idx=idx, form="split")
+        assert not torch.equal(got.beta, split[0])
+
+
+def test_fast_l4096_shaped_config_runs_the_noise_route():
+    """PRESETS["fast_l4096"] cut to L=2048, M=32 (R=1.5, iterative power,
+    tol 1e-4, the noise drawn in the kernel): "fused" takes the split
+    form with the in-kernel noise, and run_block gives the same counters
+    for the same generator seed."""
+    cfg = slt.PRESETS["fast_l4096"].replace(L=2048, M=32)
+    mt = SparcModel.build(cfg, 6.5, "cpu")
+    assert mt.noise_in_kernel and mt.enc_in_kernel
+    assert fused_form(cfg.L) == "split"
+
+    def run(block):
+        out = mt.run_block(block_generator(7, 0, block), 2)
+        return {k: v.item() for k, v in out.items()}
+
+    first = run(0)
+    assert first == run(0)
+    assert first["trials"] == 2
+    assert 2 <= first["iters_sum"] <= 2 * cfg.amp_iters
+    assert first != run(1)
 
 
 def test_in_kernel_noise_is_not_ported():
