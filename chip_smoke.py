@@ -98,10 +98,43 @@ the concat preset.  Each phase prints one line with its seconds:
      6.5 dB, batch 512, 2048 trials: K1 with its noise launched, K6 not;
      FER within [0.47, 0.64] and BER within 0.7x-1.4x of the float64
      oracle's 1.102e-4 (results/ber_parity_fast_l4096.jsonl, kind
-     oracle, 300 trials: FER 0.553 +- 2.5 joint standard errors).
+     oracle, 300 trials: FER 0.553 +- 2.5 joint standard errors);
+ 18. K3 (`fwht_tile`, the local transform of section-sharded AMP, with
+     its 1/sqrt(n) scale) against its plain version at (B, l, M) = (64,
+     512, 512), (64, 2048, 512) and the main paths' shapes (1024, 512,
+     512), (1024, 256, 512) (phase 20) and (512, 1024, 512) (phase 21):
+     float32 to 1e-5 of the output scale; bf16 on integer inputs bit for
+     bit (every sum exact) and on normals to 1e-4 (where the two sum in
+     other orders a bf16 rounding of the intermediate may fall the other
+     way); ms per call of both at (512, 1024, 512) and (512, 2048, 512)
+     with their bounds, the timed calls' results held to the bf16 limit;
+ 19. data parallel on a virtual (4 x 1) mesh of the card: phase 4's block
+     (the headline configuration as shipped, B=2048, the same generator)
+     with each quarter on K1: counters and tau2_final bit for bit, K1
+     launched 4 times with its noise; ms per block beside phase 5's;
+ 20. section-sharded AMP on virtual (1 x 2) and (1 x 4) meshes: the
+     headline model at B=1024, draws from one generator (bits, torch.randn
+     noise) through the single-device K1 decode (noise outside) and
+     through the sharded loop (K3, hypercube, K4): at most 1 % flipped
+     decisions, mean final tau2 within 2e-2 of each other and both within
+     3 % of SE, K3 launched 2 T S times a decode; ms per decode of each;
+ 21. campaigns under a policy, in process: `fast_l4096` at 6.5 dB, B=512,
+     2048 trials on a virtual (1 x 4) mesh (l = 1024 a shard): FER and BER
+     inside phase 17's windows, bits/s; `concat` as phase 13b runs it on a
+     virtual (2 x 1) mesh: counters equal to phase 13b's record;
+ 22. `--distributed`: `python -m torch.distributed.run --nproc_per_node 2
+     -m sparc_ldpc_tpu_torch.cli campaign --distributed --preset concat`
+     as phase 13b, two processes on the card, each a (1 x 1) mesh, gloo
+     for the counters: one record, written by rank 0 alone, with phase
+     13b's counters;
+ 23. only where two cards or more are visible: phase 4's block on a real
+     (n x 1) mesh of all n cards, equal to one card's, and the phase-20
+     decode on real (n/2 x 2) and (1 x n) meshes, bit for bit the same
+     meshes made virtual on cuda:0; host ms of each.  There the CLI
+     phases run on the mesh of every card that the CLI builds.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
-13a, 13b, 15, 17) and read after it.  Then a JSON line with the kernels'
+13a, 13b, 15, 17, 19, 20, 21) and read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
 operations over the H100's peak for their type, 67 TFLOP/s float32 and
@@ -161,6 +194,10 @@ L4096_BATCH, L4096_T = 4, 8                # phase 16's comparison
 # 0.553 (results/ber_parity_fast_l4096.jsonl, kind "oracle"); the FER
 # window is +-2.5 joint standard errors around it
 FAST_ORACLE_BER, FAST_FER_WINDOW = 1.102e-4, (0.47, 0.64)
+SHARD_BATCH = 1024    # phase 20's codewords
+SHARD_STAGES = ("fwht_rows_kernel", "fwht_cols_kernel", "denoise_kernel",
+                "elementwise_kernel", "reduce_kernel", "CatArrayBatchedCopy")
+DIST_TIMEOUT_S = 300  # phase 22's two processes
 # the H100 SXM's published peak rates, for bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12}
@@ -211,25 +248,26 @@ def call_ms(fn, reps: int, inner: int = 1) -> float:
     return statistics.median(ms)
 
 
-def timed_result(fn, reps: int):
-    """call_ms(fn, reps) and fn's last result; each call drops the one
-    before it first, so at most one is held."""
+def timed_result(fn, reps: int, inner: int = 1):
+    """call_ms(fn, reps, inner) and fn's last result; each call drops the
+    one before it first, so at most one is held."""
     box = []
 
     def run():
         box.clear()
         box.append(fn())
 
-    return call_ms(run, reps), box[0]
+    return call_ms(run, reps, inner), box[0]
 
 
 def reset_counts() -> None:
-    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, fwht_tile
     from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
     from sparc_ldpc_tpu_torch.ops.denoiser import denoise_kernel
     from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2
 
-    for fn in (amp_fused, bp_decode_qc_kernel, denoise_kernel, fwht2):
+    for fn in (amp_fused, bp_decode_qc_kernel, denoise_kernel, fwht2,
+               fwht_tile):
         fn.launches = 0
     amp_fused.noise_launches = 0
     amp_fused.mono_launches = 0
@@ -238,7 +276,7 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     import torch
 
-    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, fwht_tile
     from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
     from sparc_ldpc_tpu_torch.ops.denoiser import denoise_kernel
     from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2
@@ -248,7 +286,8 @@ def read_counts() -> dict:
                 amp_split_noise=amp_fused.noise_launches,
                 amp_mono=amp_fused.mono_launches,
                 bp_qc_layered=bp_decode_qc_kernel.launches,
-                fwht2=fwht2.launches, denoise=denoise_kernel.launches)
+                fwht2=fwht2.launches, denoise=denoise_kernel.launches,
+                fwht_tile=fwht_tile.launches)
 
 
 def bound(nbytes: float, ops: dict) -> dict:
@@ -917,7 +956,7 @@ def cli_phase(dev, card: str, cp: dict, clock: Clock) -> dict:
         require(concat_windows(rec["fer"], rec["ber"], bp_ok) == [],
                 f"concat campaign off: "
                 f"{concat_windows(rec['fer'], rec['ber'], bp_ok)}")
-        return dict(cli_pallas=la, cli_concat=lb)
+        return dict(cli_pallas=la, cli_concat=lb), rec
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1251,6 +1290,399 @@ def fast_cli_phase(card: str, clock: Clock) -> dict:
     return dict(launches=launches, rec=rec)
 
 
+def k3_phase(dev, card: str, clock: Clock) -> dict:
+    """Phase 18: K3 (`fwht_tile` with its scale) against its plain
+    version, and its time beside its bound."""
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import (
+        fwht_tile, fwht_tile_reference)
+    from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, round_bf16
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    def flip_limit(x, scale) -> float:
+        """In bf16 both round the H_M stage's values before H_l, but they
+        sum in other orders, so a value's rounding may fall to the other
+        neighbour: that moves the outputs of its column by one bf16 ulp
+        of it, times the scale.  The limit is one ulp of the largest."""
+        v = float(fwht_kron(round_bf16(x), "highest", -1).abs().max())
+        return scale * 2.0 ** (math.floor(math.log2(v)) - 7)
+
+    def compare(kout, pout, x, scale) -> dict:
+        """Max |kernel - plain| and the flip limit, both over max |plain|,
+        and whether the error is within the limit."""
+        err, top = float((kout - pout).abs().max()), float(pout.abs().max())
+        lim = flip_limit(x, scale)
+        return dict(err=err / top, limit=lim / top, ok=err <= lim), err
+
+    # (B, l) with the 1/sqrt(n) of its configuration: l = L / 2 of the
+    # headline configuration and of fast_l4096 at B=64, and the shapes the
+    # main paths give K3: phase 20's slabs (B=1024, l = 1024 / S) and
+    # phase 21's (the campaign's B, l = 4096 / 4)
+    n_head = slt.SparcConfig(**HEADLINE).n
+    n_fast = slt.PRESETS["fast_l4096"].n
+    shapes = {(KERNEL_BATCH, 512): n_head, (KERNEL_BATCH, 2048): n_fast,
+              (SHARD_BATCH, 512): n_head, (SHARD_BATCH, 256): n_head,
+              (FAST_BATCH, 1024): n_fast}
+    gen = block_generator(SEED, 14, 0, dev)
+    res, err_abs = {}, 0.0
+    M = HEADLINE["M"]
+    for (B, l), n in shapes.items():
+        scale = 1.0 / math.sqrt(n)
+        x = torch.randn((B, l, M), generator=gen, device=dev)
+        ref = fwht_tile_reference(x, "highest") * scale
+        err = float((fwht_tile(x, "highest", scale) - ref).abs().max())
+        r = dict(f32=err / float(ref.abs().max()))
+        err_abs = max(err_abs, err)
+        del ref
+        r["bf16"], err = compare(fwht_tile(x, "bf16", scale),
+                                 fwht_tile_reference(x, "bf16") * scale,
+                                 x, scale)
+        err_abs = max(err_abs, err)
+        ints = torch.randint(-8, 9, (B, l, M), generator=gen,
+                             device=dev).float()
+        r["bf16 integers equal"] = bool(torch.equal(
+            fwht_tile(ints, "bf16", scale),
+            fwht_tile_reference(ints, "bf16") * scale))
+        res[(B, l)] = r
+        del x, ints
+        torch.cuda.empty_cache()
+    # timed at the campaign's B, l = 4096 / 4 (phase 21) and / 2; the
+    # results of the timed calls are held to the plain version's
+    ms, bounds, timed = {}, {}, {}
+    scale = 1.0 / math.sqrt(n_fast)
+    for l in (1024, 2048):
+        x = torch.randn((FAST_BATCH, l, M), generator=gen, device=dev)
+        k_ms, kout = timed_result(lambda: fwht_tile(x, "bf16", scale), REPS,
+                                  inner=5)
+        p_ms, pout = timed_result(
+            lambda: fwht_tile_reference(x, "bf16") * scale, REPS)
+        ms[l] = (k_ms, p_ms)
+        timed[l], err = compare(kout, pout, x, scale)
+        err_abs = max(err_abs, err)
+        # x read and the result written once; log2(l M) adds an element
+        bounds[l] = bound(2 * tensor_bytes(x),
+                          {"fp32": math.log2(l * M) * x.numel()})
+        del x, kout, pout
+        torch.cuda.empty_cache()
+    print(f"[18 K3 fwht_tile vs plain] M={M}, scale 1/sqrt(n), errors over "
+          f"max |plain| by (B, l): {res}; ms per call, bf16 (kernel, plain) "
+          f"at B={FAST_BATCH}: {ms}, their results' bf16 errors {timed}, "
+          f"bounds {bounds} on {card} ({clock.lap():.1f} s)", flush=True)
+    for s, r in res.items():
+        require(r["f32"] <= 1e-5, f"K3 at {s}: f32 error {r['f32']}")
+        require(r["bf16"]["ok"], f"K3 at {s}: bf16 error {r['bf16']}")
+        require(r["bf16 integers equal"], f"K3 at {s}: integer inputs "
+                "differ in bf16")
+    for l, r in timed.items():
+        require(r["ok"], f"K3's timed call at l={l}: bf16 error {r}")
+    return {"name": "fwht_tile", "route": "cuda",
+            "source": "sparc_ldpc_tpu_torch/csrc/amp_split.cu",
+            "replaces": "sparc_ldpc_tpu/ops/amp_kernel.py:672",
+            "max_abs_err": err_abs, "ms": ms[1024][0],
+            "plain_ms": ms[1024][1], **bounds[1024], "library_ms": None,
+            "ms_l2048": ms[2048][0], "plain_ms_l2048": ms[2048][1],
+            "bound_ms_l2048": bounds[2048]["bound_ms"]}
+
+
+def virtual_policy(dev, D: int, S: int):
+    """A (D, S) virtual mesh of the one card."""
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    return ShardingPolicy(make_mesh(S, [dev] * (D * S)))
+
+
+def dp_phase(dev, card: str, sp: dict, clock: Clock) -> dict:
+    """Phase 19: phase 4's block on a virtual (4 x 1) mesh."""
+    import dataclasses
+
+    import torch
+
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    model = dataclasses.replace(sp["model"], policy=virtual_policy(dev, 4, 1))
+    c = model.cfg
+    reset_counts()
+    out = model.run_block(block_generator(SEED, 0, 0, dev), BATCH)
+    launches = read_counts()
+    cnt = {k: v.item() for k, v in out.items()}
+    times = []
+    for r in range(REPS):
+        gen = block_generator(SEED, 0, 1 + r, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _ = int(model.run_block(gen, BATCH)["bit_errors"])
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    # the block's device ms by kernel: K1's stages and the gather
+    stages = device_ms_by_kernel(
+        lambda: model.run_block(block_generator(SEED, 0, 9, dev), BATCH),
+        ("amp_encode_kernel", "amp_col_kernel", "amp_row_kernel",
+         "CatArrayBatchedCopy"))
+    ref = sp["cnt"]
+    same = {k: cnt[k] == ref[k] for k in ref}
+    tau_rel = abs(cnt["tau2_final"] / ref["tau2_final"] - 1.0)
+    print(f"[19 data parallel, virtual (4 x 1)] run_block B={BATCH}: "
+          f"launches {launches}; counters {cnt}; equal to phase 4's: "
+          f"{all(same.values())} (tau2_final relative difference "
+          f"{tau_rel:.3e}); {1e3 * dt:.2f} ms per block (median of "
+          f"{[round(1e3 * t, 2) for t in times]}), "
+          f"{BATCH * c.k_bits / dt:.1f} bits/s, against phase 5's "
+          f"{sp['block_ms']:.2f} ms; one block's device ms by kernel "
+          f"(torch.profiler): {stages} on {card} ({clock.lap():.1f} s)",
+          flush=True)
+    require(launches["amp_split"] == 4 and launches["amp_split_noise"] == 4,
+            "the DP block must launch K1 once a shard, with its noise")
+    require(all(v for k, v in same.items() if k != "tau2_final"),
+            f"DP counters differ from the single device's: {same}")
+    require(tau_rel <= 1e-6, f"DP tau2_final off by {tau_rel}")
+    return dict(launches=launches, block_ms=1e3 * dt)
+
+
+def sharded_phase(dev, card: str, sp: dict, clock: Clock) -> dict:
+    """Phase 20: section-sharded decodes of the headline model against the
+    single-device K1 decode of the same draws."""
+    import dataclasses
+
+    import torch
+
+    from sparc_ldpc_tpu_torch.models.amp import decision_flips
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    torch.cuda.empty_cache()
+    model = sp["model"]
+    c = model.cfg
+    T, L, B = c.amp_iters, c.L, SHARD_BATCH
+    gen = block_generator(SEED, 15, 0, dev)
+    bits = torch.randint(0, 2, (B, c.k_bits), generator=gen,
+                         dtype=torch.int32, device=dev)
+    noise = torch.randn((B, c.n), generator=gen, device=dev) * math.sqrt(
+        model.sigma2)
+    idx = bits_to_indices(bits, c.logM)
+    y = model.encode(bits) + noise
+    ref = model.decode(noise, encode_idx=idx)
+    ref_ms = call_ms(lambda: model.decode(noise, encode_idx=idx), REPS)
+    tau_ref = float(ref.tau2_trace[-1].mean())
+    res, launches = {}, {}
+    for S in (2, 4):
+        sharded = dataclasses.replace(model,
+                                      policy=virtual_policy(dev, 1, S))
+        reset_counts()
+        got = sharded.decode(y)
+        launches[S] = read_counts()
+        flips, decisive = decision_flips(got.beta, ref.beta)
+        tau = float(got.tau2_trace[-1].mean())
+        res[S] = dict(
+            flips=flips, decisive=decisive,
+            ser=float((got.beta.argmax(-1) != idx).float().mean()),
+            tau2_final=tau, tau2_rel_diff=abs(tau / tau_ref - 1.0),
+            tau2_vs_se=tau / sp["se_fp"] - 1.0,
+            ms=call_ms(lambda: sharded.decode(y), 2))
+        del got
+        # where a decode's device time goes, and the device's idle share
+        res[S]["device_ms"] = device_ms_by_kernel(
+            lambda: sharded.decode(y), SHARD_STAGES)
+        res[S]["idle_share"] = 1.0 - sum(
+            res[S]["device_ms"].values()) / res[S]["ms"]
+    print(f"[20 section-sharded AMP, virtual (1 x S)] headline model, B={B},"
+          f" T={T}: single-device K1 {ref_ms:.2f} ms per decode, section "
+          f"error rate {float((ref.beta.argmax(-1) != idx).float().mean()):.4e}"
+          f", mean final tau2 {tau_ref:.5f} ({100 * (tau_ref / sp['se_fp'] - 1):+.2f}"
+          f" % off SE {sp['se_fp']:.4f}); sharded {res}; launches {launches} "
+          f"on {card} ({clock.lap():.1f} s)", flush=True)
+    require(abs(tau_ref / sp["se_fp"] - 1.0) <= 0.03,
+            "the single-device decode is off SE")
+    for S, r in res.items():
+        require(r["flips"] <= 0.01 * B * L, f"S={S}: flips > 1 %")
+        require(r["tau2_rel_diff"] <= 2e-2, f"S={S}: tau2 differs by "
+                f"{r['tau2_rel_diff']}")
+        require(abs(r["tau2_vs_se"]) <= 0.03, f"S={S}: tau2 off SE")
+        require(launches[S]["fwht_tile"] == 2 * T * S,
+                f"S={S}: K3 launched {launches[S]['fwht_tile']} times, not "
+                f"2 T S")
+        require(launches[S]["amp_split"] == 0, f"S={S}: K1 was launched")
+    return dict(launches=launches, res=res, ref_ms=ref_ms)
+
+
+def policy_campaign_phase(dev, card: str, concat_rec: dict,
+                          clock: Clock) -> dict:
+    """Phase 21: campaigns under a policy, in process."""
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+    from sparc_ldpc_tpu_torch.config import CampaignConfig
+    from sparc_ldpc_tpu_torch.models.concat import ConcatSweep
+    from sparc_ldpc_tpu_torch.models.sparc import SparcSweep
+    from sparc_ldpc_tpu_torch.parallel.campaign import run_campaign
+
+    torch.cuda.empty_cache()
+    pol = virtual_policy(dev, 1, 4)
+    sweep = SparcSweep(slt.PRESETS["fast_l4096"], device=dev, policy=pol)
+    ccfg = CampaignConfig(ebno_grid_db=(FAST_EBNO_DB,), batch=FAST_BATCH,
+                          min_frame_errors=1_000_000, max_trials=FAST_TRIALS,
+                          base_seed=1234, section_shards=4)
+    reset_counts()
+    rec = run_campaign(sweep.model_for_point, ccfg, lambda m: m.cfg.k_bits,
+                       policy=pol, verbose=False)[0]
+    launches = read_counts()
+    # phase 13b's campaign (the CLI's defaults) on a virtual (2 x 1) mesh
+    pol2 = virtual_policy(dev, 2, 1)
+    csweep = ConcatSweep(slt.PRESETS["concat"], device=dev, policy=pol2)
+    cc = CampaignConfig(ebno_grid_db=(CONCAT_EBNO_DB,), batch=BATCH,
+                        min_frame_errors=100, max_trials=4096,
+                        base_seed=1234)
+    reset_counts()
+    crec = run_campaign(csweep.model_for_point, cc, lambda m: m.k_user,
+                        policy=pol2, verbose=False)[0]
+    claunches = read_counts()
+    keys = ("bit_errors", "frame_errors", "trials", "bit_errors_sq",
+            "blocks")
+    same = {k: crec[k] == concat_rec[k] for k in keys}
+    got = {k: crec[k] for k in keys}
+    want = {k: concat_rec[k] for k in keys}
+    lo, hi = FAST_FER_WINDOW
+    print(f"[21 campaigns under a policy] fast_l4096 on a virtual (1 x 4) "
+          f"mesh: launches {launches}; FER {rec['fer']:.4f} (window [{lo}, "
+          f"{hi}]), BER {rec['ber']:.4e} (oracle {FAST_ORACLE_BER}), trials "
+          f"{rec['trials']} in {rec['blocks']} blocks, mean iterations "
+          f"{rec['mean_iters']:.2f}; bits_per_s {rec['bits_per_s']}; concat "
+          f"on a virtual (2 x 1) mesh: launches {claunches}; {got} vs phase "
+          f"13b's {want}; bits_per_s {crec['bits_per_s']} on {card} "
+          f"({clock.lap():.1f} s)", flush=True)
+    require(launches["fwht_tile"] > 0 and launches["amp_split"] == 0,
+            "the sharded fast_l4096 campaign must run K3, not K1")
+    require(rec["trials"] >= FAST_TRIALS, "too few trials")
+    require(lo <= rec["fer"] <= hi, f"sharded fast_l4096 FER {rec['fer']}")
+    require(0.7 * FAST_ORACLE_BER <= rec["ber"] <= 1.4 * FAST_ORACLE_BER,
+            f"sharded fast_l4096 BER {rec['ber']}")
+    require(claunches["amp_split"] == 2 * 2 * crec["blocks"],
+            "the DP concat campaign must launch K1 twice a block a shard")
+    require(all(same.values()), f"DP concat counters differ: {same}")
+    return dict(launches=launches, rec=rec, crec=crec)
+
+
+def distributed_phase(card: str, concat_rec: dict, clock: Clock) -> dict:
+    """Phase 22: the concat campaign in two processes with --distributed."""
+    import socket
+
+    import torch
+
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        out = os.path.join(tmp, "dist.jsonl")
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+               "--master_port", str(port), "-m", "sparc_ldpc_tpu_torch.cli",
+               "campaign", "--distributed", "--preset", "concat", "--ebno",
+               str(CONCAT_EBNO_DB), "--batch", str(BATCH), "--max-trials",
+               "4096", "--out", out]
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=DIST_TIMEOUT_S)
+        require(proc.returncode == 0, f"the two-process campaign failed "
+                f"({proc.returncode}):\n{proc.stderr[-3000:]}")
+        with open(out) as f:
+            recs = [json.loads(x) for x in f if x.strip()]
+        with open(out + ".journal") as f:
+            journal = [x for x in f if x.strip()]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ("bit_errors", "frame_errors", "trials", "bit_errors_sq",
+            "blocks")
+    rec = recs[-1]
+    same = {k: rec[k] == concat_rec[k] for k in keys}
+    got = {k: rec[k] for k in keys}
+    want = {k: concat_rec[k] for k in keys}
+    print(f"[22 --distributed, 2 processes on one card] records {len(recs)},"
+          f" journal lines {len(journal)}; processes {rec.get('processes')},"
+          f" mesh {rec.get('mesh')}; {got} vs phase 13b's {want}; "
+          f"bits_per_s {rec['bits_per_s']} on {card} ({clock.lap():.1f} s)",
+          flush=True)
+    require(len(recs) == 1, "more than one process wrote a record")
+    require(len(journal) == rec["exec_blocks"], "the journal was written "
+            "by more than one process")
+    require(rec.get("processes") == 2, "the record is not two processes'")
+    require(all(same.values()), f"two-process counters differ: {same}")
+    return dict(rec=rec)
+
+
+def multicard_phase(card: str, clock: Clock) -> dict:
+    """Phase 23, with two GPUs or more: the headline block and the
+    section-sharded decode on real meshes of every card, against one card
+    and against the same meshes made virtual on cuda:0, and their times."""
+    import dataclasses
+
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+    from sparc_ldpc_tpu_torch.models.sparc import SparcModel
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    n = torch.cuda.device_count()
+    gpus = [torch.device("cuda", i) for i in range(n)]
+    dev = gpus[0]
+
+    def host_ms(fn) -> float:
+        """Median host ms of fn() over REPS calls after a warm-up, every
+        card synchronized around each."""
+        fn()
+        times = []
+        for _ in range(REPS):
+            for g in gpus:
+                torch.cuda.synchronize(g)
+            t0 = time.perf_counter()
+            fn()
+            for g in gpus:
+                torch.cuda.synchronize(g)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def on(mesh):
+        return dataclasses.replace(model, policy=ShardingPolicy(mesh))
+
+    model = SparcModel.build(slt.SparcConfig(**HEADLINE), EBNO_DB, dev)
+
+    def block(m):
+        out = m.run_block(block_generator(SEED, 0, 0, dev), BATCH)
+        return {k: v.item() for k, v in out.items()}
+
+    dp = on(make_mesh(1, gpus))
+    res = {f"DP ({n} x 1)": dict(
+        equal=block(dp) == block(model), ms=host_ms(lambda: block(dp)),
+        ms_one_card=host_ms(lambda: block(model)))}
+    c = model.cfg
+    gen = block_generator(SEED, 15, 0, dev)
+    bits = torch.randint(0, 2, (SHARD_BATCH, c.k_bits), generator=gen,
+                         dtype=torch.int32, device=dev)
+    y = model.encode(bits) + math.sqrt(model.sigma2) * torch.randn(
+        (SHARD_BATCH, c.n), generator=gen, device=dev)
+    for S in sorted({2, n}):
+        if n % S or S & (S - 1):
+            continue
+        real, virtual = on(make_mesh(S, gpus)), on(make_mesh(S, [dev] * n))
+        a, b = real.decode(y), virtual.decode(y)
+        res[f"section-sharded ({n // S} x {S})"] = dict(
+            equal=all(torch.equal(getattr(a, f), getattr(b, f))
+                      for f in ("beta", "tau2_trace", "iters")),
+            ms=host_ms(lambda: real.decode(y)),
+            ms_virtual=host_ms(lambda: virtual.decode(y)))
+        del a, b
+        torch.cuda.empty_cache()
+    print(f"[23 real meshes of {n} cards] headline model, run_block B={BATCH}"
+          f" and decode B={SHARD_BATCH}, T={c.amp_iters}, ms: {res} on "
+          f"{card} ({clock.lap():.1f} s)", flush=True)
+    for k, r in res.items():
+        require(r["equal"], f"{k}: the real mesh differs")
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -1289,10 +1721,19 @@ def main() -> None:
     noise_err = noise_phase(dev, sp, cp, clock)
     fw_rec = fwht_phase(dev, card, clock)
     dn_rec = denoise_phase(dev, sp["model"].sq_npl, card, clock)
-    cl = cli_phase(dev, card, cp, clock)
+    cl, concat_rec = cli_phase(dev, card, cp, clock)
     mp = mono_path(dev, card, sp, clock)
     lp = l4096_path(dev, card, clock)
     fc = fast_cli_phase(card, clock)
+    k3_rec = k3_phase(dev, card, clock)
+    dp_phase(dev, card, sp, clock)
+    sh = sharded_phase(dev, card, sp, clock)
+    pc = policy_campaign_phase(dev, card, concat_rec, clock)
+    distributed_phase(card, concat_rec, clock)
+    if torch.cuda.device_count() > 1:
+        multicard_phase(card, clock)
+    else:
+        print("[23 real meshes] one card visible: nothing to run", flush=True)
 
     require("jax" not in sys.modules, "jax was imported")
     ref = [k for k in sys.modules
@@ -1340,7 +1781,11 @@ def main() -> None:
         "max_abs_err": lp["max_abs_err"], "ms": lp["kernel_ms"],
         "plain_ms": lp["plain_ms"], **lp["bound"], "library_ms": None,
         "noise_ms": lp["noise_ms"]}
-    records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec]
+    # K3's main path: the section-sharded fast_l4096 campaign (phase 21)
+    k3_rec["launches"] = pc["launches"]["fwht_tile"]
+    k3_rec["launches_by_path"] = {
+        f"decode S={S}": c["fwht_tile"] for S, c in sh["launches"].items()}
+    records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec, k3_rec]
     for rec in records:
         require(rec["launches"] > 0, f"{rec['name']} was never launched")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)

@@ -20,11 +20,24 @@ Presets are the reference's (the port's copy, config.PRESETS).  Examples:
   # state-evolution design report (host only)
   python -m sparc_ldpc_tpu_torch.cli se --preset pa_l1024 --ebno 2.0
 
-Without --cpu the campaign runs on the first CUDA device and fails where
-there is none.  One device only: --distributed, --section-shards > 1 and
-several visible GPUs exit (ROADMAP A10).  Results are jsonl, one record per
-sweep point with the reference's keys plus backend and device, and a
-per-block journal for restart; --profile writes a torch.profiler trace.
+  # two processes (here on the GPUs of one node), counters summed over
+  # them by gloo; only rank 0 writes
+  python -m torch.distributed.run --nproc_per_node 2 \
+      -m sparc_ldpc_tpu_torch.cli campaign --distributed --preset concat \
+      --ebno 3.0 --batch 2048 --out results/concat_torch.jsonl
+
+Without --cpu the campaign runs on the GPUs and fails where there is none.
+Its mesh (parallel/mesh.py) spans every GPU the process drives, D x S with
+S = --section-shards; with --cpu it is S copies of the CPU.  Under
+--distributed (torch.distributed with gloo, from the environment that
+`python -m torch.distributed.run` sets) each process drives its share of
+the node's GPUs (LOCAL_RANK of LOCAL_WORLD_SIZE; processes share a GPU
+when they outnumber them) and decodes its share of every block.  The
+section axis stays inside a process: S must divide its GPUs (a section
+axis across processes is ROADMAP A10).  Results are jsonl, one record per
+sweep point with the reference's keys plus backend and device (and the
+mesh and process count under a mesh), and a per-block journal for
+restart; --profile writes a torch.profiler trace (one per process).
 """
 
 from __future__ import annotations
@@ -71,7 +84,8 @@ def _build_parser() -> argparse.ArgumentParser:
     c.add_argument("--profile", default=None,
                    help="torch.profiler trace output dir")
     c.add_argument("--distributed", action="store_true",
-                   help="multi-host campaign (not ported: ROADMAP A10)")
+                   help="several processes (torch.distributed, gloo), "
+                        "started by python -m torch.distributed.run")
 
     s = sub.add_parser("se", help="state-evolution design report")
     s.add_argument("--preset", default="pa_l1024")
@@ -93,13 +107,49 @@ def _unported(cfg) -> str | None:
     return None
 
 
+def _process_gpus(distributed: bool) -> list:
+    """The CUDA devices this process drives: every visible GPU, or under
+    --distributed its share of them (LOCAL_RANK of LOCAL_WORLD_SIZE, as
+    `python -m torch.distributed.run` sets them), one shared GPU when the
+    processes outnumber the GPUs.  Exits when the processes would leave
+    some of the GPUs idle."""
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+
+    slt.default_device()                   # raises without a GPU
+    n = torch.cuda.device_count()
+    rank, local = 0, 1
+    if distributed:
+        rank = int(os.environ.get("LOCAL_RANK", "0"))
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    if n < local:
+        return [torch.device("cuda", rank % n)]
+    if n % local:
+        raise SystemExit(
+            f"{local} processes cannot share {n} GPUs evenly: start a "
+            f"number of processes that divides the GPUs, or set "
+            f"CUDA_VISIBLE_DEVICES")
+    k = n // local
+    return [torch.device("cuda", i) for i in range(rank * k, (rank + 1) * k)]
+
+
+def _init_distributed() -> None:
+    import torch.distributed as dist
+
+    need = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    missing = [k for k in need if k not in os.environ]
+    if missing:
+        raise SystemExit(f"--distributed needs {', '.join(missing)} in the "
+                         f"environment: start it with python -m "
+                         f"torch.distributed.run")
+    dist.init_process_group("gloo", init_method="env://")
+
+
 def cmd_campaign(args) -> int:
-    if args.distributed:
-        raise SystemExit("--distributed: multi-host campaigns are not "
-                         "ported (ROADMAP A10)")
-    if args.section_shards > 1:
-        raise SystemExit("--section-shards > 1: section-sharded AMP is not "
-                         "ported (ROADMAP A10)")
+    S = args.section_shards
+    if S < 1 or S & (S - 1):
+        raise SystemExit(f"--section-shards must be a power of two, got {S}")
 
     from .config import (
         PRESETS, CampaignConfig, ConcatConfig, SparcConfig)
@@ -147,32 +197,57 @@ def cmd_campaign(args) -> int:
 
     import torch
 
-    import sparc_ldpc_tpu_torch as slt
+    from .parallel.mesh import make_mesh
+
+    if args.cpu:
+        devices = [torch.device("cpu")] * S
+    else:
+        devices = _process_gpus(args.distributed)
+        if len(devices) % S:
+            raise SystemExit(
+                f"--section-shards {S} does not divide the {len(devices)} "
+                f"GPU(s) of this process: a section axis across processes "
+                f"is not ported (ROADMAP A10)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if args.distributed:
+        _init_distributed()
+    try:
+        _run_campaign(args, cfg, ccfg, make_mesh(S, devices))
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_campaign(args, cfg, ccfg, mesh) -> None:
+    """The campaign of cmd_campaign on `mesh` (a policy unless it is one
+    device in one process)."""
+    import torch
+
+    from .config import ConcatConfig
     from .parallel.campaign import run_campaign
+    from .parallel.mesh import ShardingPolicy
     from .utils.profiling import trace
     from .utils.provenance import artifact_meta
 
-    if args.cpu:
-        device = torch.device("cpu")
-    else:
-        device = slt.default_device()
-        if torch.cuda.device_count() > 1:
-            raise SystemExit(
-                f"{torch.cuda.device_count()} GPUs are visible: the port "
-                f"runs a campaign on one (ROADMAP A10); make one visible "
-                f"with CUDA_VISIBLE_DEVICES")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
+    policy = ShardingPolicy.for_process(mesh)
+    if mesh.shape == (1, 1) and policy.world == 1:
+        policy = None
+    device = mesh.home
+    if device.type == "cuda":
+        torch.cuda.set_device(device)      # this process's first GPU
     if isinstance(cfg, ConcatConfig):
         from .models.concat import ConcatSweep
-        sweep = ConcatSweep(cfg, use_pallas=args.pallas, device=device)
+        sweep = ConcatSweep(cfg, use_pallas=args.pallas, device=device,
+                            policy=policy)
 
         def k_bits(m):
             return m.k_user
     else:
         from .models.sparc import SparcSweep
-        sweep = SparcSweep(cfg, use_pallas=args.pallas, device=device)
+        sweep = SparcSweep(cfg, use_pallas=args.pallas, device=device,
+                           policy=policy)
 
         def k_bits(m):
             return m.cfg.k_bits
@@ -181,22 +256,30 @@ def cmd_campaign(args) -> int:
     journal = args.journal or (out + ".journal" if out else None)
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
-    print(f"campaign: preset={args.preset} grid={grid} "
-          f"batch={args.batch} device={dev_name} "
-          f"section_shards={args.section_shards}")
+    meta = artifact_meta(args.preset, cfg, device)
+    if policy is not None:
+        meta.update(mesh=list(mesh.shape), processes=policy.world)
+    if policy is None or policy.is_writer:
+        print(f"campaign: preset={args.preset} grid={ccfg.ebno_grid_db} "
+              f"batch={args.batch} device={dev_name} "
+              f"section_shards={args.section_shards} mesh="
+              f"{meta.get('mesh', [1, 1])} processes="
+              f"{meta.get('processes', 1)}")
 
     def go():
         return run_campaign(sweep.model_for_point, ccfg, k_bits,
                             journal_path=journal, results_path=out,
-                            meta=artifact_meta(args.preset, cfg, device))
+                            policy=policy, meta=meta)
 
     if args.profile:
-        with trace(args.profile):
+        where = args.profile
+        if policy is not None and policy.world > 1:
+            where = os.path.join(where, f"rank{policy.rank}")
+        with trace(where):
             go()
-        print(f"profile trace written to {args.profile}")
+        print(f"profile trace written to {where}")
     else:
         go()
-    return 0
 
 
 def cmd_se(args) -> int:

@@ -356,12 +356,13 @@ amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
 }
 
 // Standalone H_L of every strip of x (B, L, M), in place, the data rounded
-// to bf16 first when round_bf16 is set.  With active != nullptr, the blocks
-// of a codeword that is frozen at iteration t return at once (the mono
-// form's second transform stage).
+// to bf16 first when round_bf16 is set and the result multiplied by scale
+// as it is stored (scale = 1 stores it as it is: x * 1 is exact).  With
+// active != nullptr, the blocks of a codeword that is frozen at iteration t
+// return at once (the mono form's second transform stage).
 template <int W, int R, int FA>
 __global__ void __launch_bounds__(32 * W, 1)
-fwht_cols_kernel(float* __restrict__ x, int M, int round_bf16,
+fwht_cols_kernel(float* __restrict__ x, int M, int round_bf16, float scale,
                  const int32_t* __restrict__ active, int B, int t) {
   extern __shared__ float sm[];
   constexpr int L = FA * W * R;
@@ -378,7 +379,7 @@ fwht_cols_kernel(float* __restrict__ x, int M, int round_bf16,
   col_fwht_ab<W, R, FA>(v, sm, w, c, a);
 #pragma unroll
   for (int k = 0; k < R; ++k)
-    x[base + (size_t)(l0 + R * w + k) * M + m] = v[k];
+    x[base + (size_t)(l0 + R * w + k) * M + m] = v[k] * scale;
 }
 
 // ------------------------------------------------------------- launchers
@@ -432,10 +433,10 @@ struct Cols {
                                  st, work, y, z, mask_n, zpart, bpart, trace,
                                  active, B, M, t, P, nn);
   }
-  static int fwht(float* x, int B, int M, int round_bf16,
+  static int fwht(float* x, int B, int M, int round_bf16, float scale,
                   const int32_t* active, int t, cudaStream_t st) {
     return launch_cols<W, R, FA>(fwht_cols_kernel<W, R, FA>, B, M, st, x, M,
-                                 round_bf16, active, B, t);
+                                 round_bf16, scale, active, B, t);
   }
 };
 

@@ -307,7 +307,7 @@ int col_step(float* work, const float* y, float* z, const float* mask_n,
 
 int cols_fwht(float* x, int B, int L, int M, const int32_t* active, int t,
               cudaStream_t st) {
-  DISPATCH_L1024(L, C::fwht(x, B, M, 0, active, t, st))
+  DISPATCH_L1024(L, C::fwht(x, B, M, 0, 1.f, active, t, st))
 }
 
 int rows_hm(const float* x, float* out, const int32_t* active, int B, int L,

@@ -461,9 +461,9 @@ int amp_iterations(const AmpArgs& a, WT* work, cudaStream_t st) {
   return 0;
 }
 
-int cols_fwht(float* x, int B, int L, int M, int round_bf16,
+int cols_fwht(float* x, int B, int L, int M, int round_bf16, float scale,
               cudaStream_t st) {
-  DISPATCH_L(L, C::fwht(x, B, M, round_bf16, nullptr, 0, st))
+  DISPATCH_L(L, C::fwht(x, B, M, round_bf16, scale, nullptr, 0, st))
 }
 
 int rows_fwht(const float* x, float* out, int rows, int M, int round_bf16,
@@ -534,16 +534,28 @@ int amp_split_run(const float* y_n, const float* mask_n, const float* sqi,
   return amp_iterations(a, static_cast<float*>(work), st);
 }
 
-// H_L (x) H_M of each (L, M) tile of x (B, L, M) into out: H_M along the
-// rows, then H_L down the columns, each stage's input rounded to bfloat16
-// when round_bf16 is set.
+// K3: scale * (H_L (x) H_M) of each (L, M) tile of x (B, L, M) into out:
+// H_M along the rows, then H_L down the columns, each stage's input rounded
+// to bfloat16 when round_bf16 is set, the scale applied once, in float32,
+// as the column stage stores its result.
+//
+// Replaces the TPU kernel sparc_ldpc_tpu/ops/amp_kernel.py::_fwht_tile_kernel
+// (fwht_tile_pallas), the local stage of section-sharded AMP: each device
+// transforms its (L/S, M) slab, L/S in [32, 4096] (a cluster of L/1024
+// column blocks per strip above 1024), and the cross-shard H_S runs outside
+// (parallel/amp_sharded.py).  What bounds it: device-memory bytes.  The
+// function reads x and writes out once (8 bytes an element) and does
+// log2(L M) adds an element, about 2.4 adds a byte where the card's
+// float32 rate over its memory rate is 20; the design moves 16 bytes an
+// element (the row stage reads x and writes out, the column stage reads and
+// rewrites out in place), both stages on K1's device functions.
 int amp_fwht_tile(const float* x, float* out, int B, int L, int M,
-                  int round_bf16, void* stream) {
+                  int round_bf16, float scale, void* stream) {
   if (!supported(B, L, M)) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = rows_fwht(x, out, B * L, M, round_bf16, st);
   if (rc) return rc;
-  return cols_fwht(out, B, L, M, round_bf16, st);
+  return cols_fwht(out, B, L, M, round_bf16, scale, st);
 }
 
 // The masked channel noise alone: y = where(mask_n > 0, sigma * normal, 0)
@@ -577,7 +589,7 @@ int fwht2_run(const float* x, float* out, int B, int f1, int f2,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = rows_fwht(x, out, B * f1, f2, round_input, st);
   if (rc) return rc;
-  return cols_fwht(out, B, f1, f2, 0, st);
+  return cols_fwht(out, B, f1, f2, 0, 1.f, st);
 }
 
 const char* amp_split_error_string(int code) {

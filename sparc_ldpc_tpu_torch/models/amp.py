@@ -19,6 +19,13 @@ reference's per-codeword freeze: once
 `iters` counts the iterations it really ran.  Decision-feedback pinning
 overrides the pinned sections with sqrt(n P_l) * one_hot after every
 denoise (the fused route takes the pins as indices, -1 = unpinned).
+
+Under a ShardingPolicy (parallel/mesh.py) the fused route runs
+`amp_fused_sharded` (parallel/amp_sharded.py: the fused kernel per data
+shard, or the section-sharded loop on K3).  The scan route with one
+section shard runs each data shard's slice of the batch on its device;
+with several, its operator's transforms are the collective `dist_fwht`
+and the rest of the loop runs on the home device.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import torch
 from ..ops.amp_kernel import amp_fused
 from ..ops.denoiser import denoise, denoise_kernel
 from ..ops.operators import BatchedOperator
+from ..parallel.amp_sharded import amp_fused_sharded
+from ..parallel.mesh import ShardingPolicy
 
 
 @dataclass(frozen=True)
@@ -72,6 +81,7 @@ def amp_decode(
                                                     # too; y is None
     noise_sigma: Optional[float] = None,
     use_pallas_denoiser: bool = False,
+    policy: Optional[ShardingPolicy] = None,
 ) -> AmpResult:
     B = y.shape[0] if noise_seed is None else noise_seed.shape[0]
     L = sq_npl.shape[0]
@@ -88,17 +98,38 @@ def amp_decode(
             pin_idx = torch.where(pinned_mask, src.to(torch.int32), -1)
         y_n = None if noise_seed is not None else op.embed_y(y).reshape(
             B, L, M)
-        beta3, trace, iters = amp_fused(
-            y_n, op.mask.reshape(L, M), sq_npl, P, n, T,
-            encode_idx=encode_idx, tol=k_tol, pin_idx=pin_idx,
-            tau2_schedule=tau2_schedule, noise_seed=noise_seed,
-            noise_sigma=noise_sigma, split=fused_split)
+        kw = dict(encode_idx=encode_idx, tol=k_tol, pin_idx=pin_idx,
+                  tau2_schedule=tau2_schedule, noise_seed=noise_seed,
+                  noise_sigma=noise_sigma, split=fused_split)
+        if policy is None:
+            beta3, trace, iters = amp_fused(
+                y_n, op.mask.reshape(L, M), sq_npl, P, n, T, **kw)
+        else:
+            beta3, trace, iters = amp_fused_sharded(
+                y_n, op.mask.reshape(L, M), sq_npl, P, n, T, policy, **kw)
         return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
                          sq_npl=sq_npl)
     if encode_idx is not None or noise_seed is not None:
         raise ValueError("encode_idx/noise_seed need the fused route (op.mask "
                          "present, L <= 4096, M <= 1024); encode outside "
                          "amp_decode")
+    if (policy is not None and policy.section_shards == 1
+            and policy.data_shards > 1):
+        # data-parallel scan: each data shard's slice on its device
+        parts = []
+        pins = [policy.split_data(p) for p in
+                (pinned_onehot, pinned_mask, pinned_idx)]
+        for d, (dev, y_d) in enumerate(zip(policy.data_devices,
+                                           policy.split_data(y))):
+            parts.append(amp_decode(
+                y_d, op, sq_npl.to(dev), P, n, T, tol,
+                None if tau2_schedule is None else tau2_schedule.to(dev),
+                *(p[d] for p in pins), residual_space=residual_space,
+                use_pallas_denoiser=use_pallas_denoiser))
+        return AmpResult(
+            beta=policy.gather([r.beta for r in parts], 0),
+            tau2_trace=policy.gather([r.tau2_trace for r in parts], 1),
+            iters=policy.gather([r.iters for r in parts], 0), sq_npl=sq_npl)
     dn = denoise_kernel if use_pallas_denoiser else denoise
 
     def apply_pin(beta3):

@@ -24,6 +24,13 @@ re-synthesizes the same codeword from the same true indices).
 `ConcatSweep` builds a model per Eb/N0 point; the reference's staged
 s1/s2/s3 runner exists for its JIT compile times and has no counterpart
 here (the campaign takes `run_block`).
+
+Under a ShardingPolicy the inner SPARC model carries it: both AMP passes
+run over the mesh (per data shard, or section-sharded with the pins cut
+by section), each process decodes its rows of the block (the inner
+model's `process_rows`), and the fold and BP run on the gathered beta on
+the home device (sections are whole on every shard, so the fold is the
+same function per slab or gathered).
 """
 
 from __future__ import annotations
@@ -70,9 +77,10 @@ class ConcatModel:
 
     @staticmethod
     def build(cfg: ConcatConfig, ebno_db: float, device,
-              use_pallas: bool = False) -> "ConcatModel":
+              use_pallas: bool = False, policy=None) -> "ConcatModel":
         return ConcatModel._make(cfg, SparcModel.build(
-            cfg.sparc, ebno_db, device, use_pallas=use_pallas))
+            cfg.sparc, ebno_db, device, use_pallas=use_pallas,
+            policy=policy))
 
     @staticmethod
     def from_numpy(cfg: ConcatConfig, ebno_db: float,
@@ -244,7 +252,11 @@ class ConcatModel:
     def _block(self, bits, noise, noise_seed=None
                ) -> Dict[str, torch.Tensor]:
         """One block on given draws: noise (B, n) standard normal, or None
-        with noise_seed (B, 2) for the in-kernel noise."""
+        with noise_seed (B, 2) for the in-kernel noise.  Under a policy,
+        this process's rows of them."""
+        if self.sparc.policy is not None:
+            bits, noise, noise_seed = self.sparc.policy.own_rows(
+                bits, noise, noise_seed)
         sigma = math.sqrt(self.sparc.sigma2)
         if noise_seed is not None or self.sparc.enc_in_kernel:
             # both AMP passes add mask o (A beta0) from the true indices, and
@@ -281,11 +293,14 @@ class ConcatSweep:
     eagerly, so each point builds its own model)."""
 
     def __init__(self, cfg: ConcatConfig, use_pallas: bool = False,
-                 device=None):
+                 device=None, policy=None):
         self.cfg = cfg
         self.use_pallas = use_pallas
-        self.device = check_device(device)
+        self.policy = policy
+        self.device = check_device(policy.home if device is None
+                                   and policy is not None else device)
 
     def model_for_point(self, ebno_db: float) -> ConcatModel:
         return ConcatModel.build(self.cfg, ebno_db, self.device,
-                                 use_pallas=self.use_pallas)
+                                 use_pallas=self.use_pallas,
+                                 policy=self.policy)

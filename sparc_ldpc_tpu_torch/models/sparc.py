@@ -14,6 +14,16 @@ codeword, from which the fused AMP draws the noise itself.  The gate is
 the reference's, without its backend test: on the CPU the plain version
 draws the same noise.  `use_pallas` is the reference's --pallas route
 (ops/operators.py).
+
+With a ShardingPolicy (parallel/mesh.py) the model's constants and draws
+live on the mesh's home device.  A block's draws are the same whatever the
+mesh and the number of processes: every process draws the whole block
+from the block's generator and decodes its own rows (`process_rows`),
+which `amp_decode` cuts over the data shards of the mesh; the counters are
+this process's, which the campaign sums over the processes.  In-kernel
+encode and noise need one section shard (a codeword whole on one device),
+as in the reference; a section-sharded model encodes with `op.Ax` and
+draws its noise with torch.randn.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from ..design.codebook import HadamardPlan
 from ..design.power import power_allocation
 from ..design.se import se_converged_iters, se_trajectory
 from ..ops.operators import BatchedOperator, make_operator
+from ..parallel.mesh import ShardingPolicy
 from ..utils.bits import bits_to_indices, indices_to_bits
 from .amp import AmpResult, amp_decode, hard_indices
 
@@ -44,13 +55,16 @@ class SparcModel:
     sq_npl: torch.Tensor                 # (L,) sqrt(n P_l), float32
     op: BatchedOperator
     tau2_schedule: Optional[torch.Tensor]  # (T,) when cfg.tau_mode == "se"
-    device: torch.device
+    device: torch.device                 # the policy's home device
     use_pallas: bool = False
+    policy: Optional[ShardingPolicy] = None
 
     @staticmethod
     def build(cfg: SparcConfig, ebno_db: float, device,
-              use_pallas: bool = False) -> "SparcModel":
-        """Design the code at `ebno_db` (as the reference's build does)."""
+              use_pallas: bool = False,
+              policy: Optional[ShardingPolicy] = None) -> "SparcModel":
+        """Design the code at `ebno_db` (as the reference's build does).
+        With a policy, device may be None (the policy's home device)."""
         sigma2 = cfg.sigma2(ebno_db)
         p = power_allocation(cfg.power_alloc, cfg.L, cfg.P, sigma2, cfg.n,
                              cfg.M, cfg.pa_a, cfg.pa_f)
@@ -60,11 +74,12 @@ class SparcModel:
                 T_max=cfg.amp_iters, margin=cfg.amp_auto_margin))
         sq = np.sqrt(cfg.n * p).astype(np.float32)
         return SparcModel._make(cfg, ebno_db, sigma2, p, sq, None, device,
-                                use_pallas)
+                                use_pallas, policy)
 
     @staticmethod
     def from_numpy(cfg: SparcConfig, ebno_db: float,
-                   params: Mapping[str, np.ndarray], device) -> "SparcModel":
+                   params: Mapping[str, np.ndarray], device,
+                   policy: Optional[ShardingPolicy] = None) -> "SparcModel":
         """A model from constants computed elsewhere.
 
         params: p_alloc (L,), sq_npl (L,), rows (n,) and mask (N,) of the
@@ -82,11 +97,18 @@ class SparcModel:
         return SparcModel._make(
             cfg, ebno_db, float(params["sigma2"]),
             np.asarray(params["p_alloc"], dtype=np.float64),
-            np.asarray(params["sq_npl"], dtype=np.float32), plan, device)
+            np.asarray(params["sq_npl"], dtype=np.float32), plan, device,
+            policy=policy)
 
     @staticmethod
     def _make(cfg, ebno_db, sigma2, p, sq, plan, device,
-              use_pallas=False) -> "SparcModel":
+              use_pallas=False, policy=None) -> "SparcModel":
+        if policy is not None:
+            if device is None:
+                device = policy.home
+            if torch.device(device) != policy.home:
+                raise ValueError(f"device {device} is not the policy's home "
+                                 f"device {policy.home}")
         device = check_device(device)
         if cfg.amp_kernel == "fused_slab":
             raise NotImplementedError(
@@ -102,8 +124,9 @@ class SparcModel:
         return SparcModel(
             cfg=cfg, ebno_db=ebno_db, sigma2=sigma2, p_alloc=p,
             sq_npl=torch.tensor(sq, device=device),
-            op=make_operator(cfg, device, plan, use_pallas),
-            tau2_schedule=sched, device=device, use_pallas=use_pallas)
+            op=make_operator(cfg, device, plan, use_pallas, policy),
+            tau2_schedule=sched, device=device, use_pallas=use_pallas,
+            policy=policy)
 
     @property
     def fused(self) -> bool:
@@ -119,9 +142,11 @@ class SparcModel:
 
     @property
     def enc_in_kernel(self) -> bool:
-        """The trial paths encode inside the fused AMP."""
+        """The trial paths encode inside the fused AMP (one section shard
+        at most)."""
         c = self.cfg
         return (self.fused and c.amp_encode_in_kernel
+                and (self.policy is None or self.policy.section_shards == 1)
                 and self.op.mask is not None and c.L <= 4096
                 and c.M <= 1024)
 
@@ -179,7 +204,7 @@ class SparcModel:
             residual_space=self.cfg.amp_residual_space, fused=self.fused,
             encode_idx=encode_idx, noise_seed=noise_seed,
             noise_sigma=noise_sigma, use_pallas_denoiser=self.use_pallas,
-            **self.fused_kw)
+            policy=self.policy, **self.fused_kw)
 
     def decode_bits(self, y: torch.Tensor) -> torch.Tensor:
         return indices_to_bits(hard_indices(self.decode(y).beta),
@@ -217,8 +242,12 @@ class SparcModel:
     def _block(self, bits, noise, sq_npl, sigma, noise_seed=None
                ) -> Dict[str, torch.Tensor]:
         """One block on given draws: noise (B, n) standard normal, or None
-        with noise_seed (B, 2) for the in-kernel noise."""
+        with noise_seed (B, 2) for the in-kernel noise.  Under a policy,
+        this process's rows of them."""
         cfg = self.cfg
+        if self.policy is not None:
+            bits, noise, noise_seed = self.policy.own_rows(
+                bits, noise, noise_seed)
         batch = bits.shape[0]
         idx_true = bits_to_indices(bits, cfg.logM)
         # In-kernel encode: the fused route synthesizes x = A beta0 from the
@@ -243,7 +272,7 @@ class SparcModel:
             tol=cfg.amp_tol, tau2_schedule=self.tau2_schedule,
             residual_space=cfg.amp_residual_space, fused=self.fused,
             encode_idx=enc_idx, use_pallas_denoiser=self.use_pallas,
-            **self.fused_kw, **noise_kw)
+            policy=self.policy, **self.fused_kw, **noise_kw)
         idx_hat = hard_indices(res.beta)
         bits_hat = indices_to_bits(idx_hat, cfg.logM)
         bit_errors = (bits != bits_hat).sum(-1)              # (B,)
@@ -272,11 +301,14 @@ class SparcSweep:
     model (design constants and operator)."""
 
     def __init__(self, cfg: SparcConfig, use_pallas: bool = False,
-                 device=None):
+                 device=None, policy: Optional[ShardingPolicy] = None):
         self.cfg = cfg
         self.use_pallas = use_pallas
-        self.device = check_device(device)
+        self.policy = policy
+        self.device = check_device(policy.home if device is None
+                                   and policy is not None else device)
 
     def model_for_point(self, ebno_db: float) -> SparcModel:
         return SparcModel.build(self.cfg, ebno_db, self.device,
-                                use_pallas=self.use_pallas)
+                                use_pallas=self.use_pallas,
+                                policy=self.policy)

@@ -8,7 +8,8 @@ Each `csrc/<name>.cu` becomes its own shared library, compiled with
 into `sparc_ldpc_tpu_torch/build/` under a content-addressed file name (an
 edited source, or an edited shared header `csrc/*.cuh`, is rebuilt).
 `build()` starts one nvcc per missing library, all at once, and waits for
-them; `load_library(name)` builds if needed and loads one library.  The
+them; `load_library(name)` builds if needed and loads one library; `run`
+calls an entry point on a given device.  The
 sources have a plain C interface and include no PyTorch header, which
 keeps a build to seconds.  Each compiler's output, with ptxas's register
 and spill report, is kept in `build/nvcc_<name>.log`.  A missing compiler
@@ -40,7 +41,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "amp_split": {
         "amp_split_run": ((_P,) * 17 + (_I,) * 4 + (_F,) * 5 + (_I, _P), _I),
-        "amp_fwht_tile": ((_P, _P, _I, _I, _I, _I, _P), _I),
+        "amp_fwht_tile": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
         "amp_noise_run": ((_P, _P, _F, _P, _I, _I, _I, _P), _I),
         "amp_noise_draws": ((_P, _P, _P, _I, _I, _I, _P), _I),
         "fwht2_run": ((_P, _P, _I, _I, _I, _I, _P), _I),
@@ -140,3 +141,16 @@ def check(name: str, rc: int, what: str) -> None:
     if rc != 0:
         msg = getattr(load_library(name), f"{name}_error_string")(rc)
         raise RuntimeError(f"{what} failed: {msg.decode()} (code {rc})")
+
+
+def run(name: str, entry: str, device, *args) -> None:
+    """Call entry point `entry` of library `name` with args and the current
+    stream of `device` (a CUDA device), which is the current CUDA device
+    for the call: a kernel launches on the current device, whatever stream
+    it is given.  Raises on an error code."""
+    import torch
+
+    with torch.cuda.device(device):
+        rc = getattr(load_library(name), entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(name, rc, entry)

@@ -123,41 +123,42 @@ def mono_tile(x: torch.Tensor) -> torch.Tensor:
         return mono_tile_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"mono_tile runs on cpu or cuda, not {x.device}")
-    from ._build import check, load_library
+    from ._build import run
 
     B, L, M = x.shape
     _check_cuda_shape(B, L, M, max_l=1024)
     _check_cuda_tensor("x", x, torch.float32, (B, L, M), x.device)
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check("amp_mono", load_library("amp_mono").amp_mono_tile(
-        x.data_ptr(), out.data_ptr(), B, L, M, stream), "amp_mono_tile")
+    run("amp_mono", "amp_mono_tile", x.device, x.data_ptr(), out.data_ptr(),
+        B, L, M)
     return out
 
 
-def fwht_tile(x: torch.Tensor, precision: str = "highest") -> torch.Tensor:
-    """H_L (x) H_M of each tile of x (B, L, M) float32 (H_M first).
+def fwht_tile(x: torch.Tensor, precision: str = "highest",
+              scale: float = 1.0) -> torch.Tensor:
+    """scale * (H_L (x) H_M) of each tile of x (B, L, M) float32 (H_M
+    first; the scale applied once, in float32, to the result).
 
-    The transform stage of the AMP kernel, alone: on a CUDA tensor it runs
-    the kernel's row and column stages, on a CPU tensor
-    `fwht_tile_reference`."""
+    K3, the reference's `fwht_tile_pallas` (the local transform of
+    section-sharded AMP, scale 1/sqrt(n) there, always "bf16"): on a CUDA
+    tensor it runs the AMP kernel's row and column stages
+    (csrc/amp_split.cu `amp_fwht_tile`), on a CPU tensor
+    `fwht_tile_reference(x, precision) * scale`."""
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     if x.device.type == "cpu":
-        return fwht_tile_reference(x, precision)
+        out = fwht_tile_reference(x, precision)
+        return out if scale == 1.0 else out * scale
     if x.device.type != "cuda":
         raise ValueError(f"fwht_tile runs on cpu or cuda, not {x.device}")
-    from ._build import check, load_library
+    from ._build import run
 
     B, L, M = x.shape
     _check_cuda_shape(B, L, M)
     _check_cuda_tensor("x", x, torch.float32, (B, L, M), x.device)
-    lib = load_library("amp_split")
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check("amp_split", lib.amp_fwht_tile(x.data_ptr(), out.data_ptr(), B, L, M,
-                                 int(precision == "bf16"), stream),
-          "amp_fwht_tile")
+    run("amp_split", "amp_fwht_tile", x.device, x.data_ptr(), out.data_ptr(),
+        B, L, M, int(precision == "bf16"), float(scale))
     fwht_tile.launches += 1
     return out
 
@@ -273,7 +274,7 @@ def channel_noise(noise_seed: torch.Tensor, mask: torch.Tensor,
     with no codeword, on a CPU tensor `channel_noise_reference`."""
     if mask.device.type == "cpu":
         return channel_noise_reference(noise_seed, mask, sigma)
-    from ._build import check, load_library
+    from ._build import run
 
     dev = mask.device
     L, M = mask.shape
@@ -282,10 +283,8 @@ def channel_noise(noise_seed: torch.Tensor, mask: torch.Tensor,
     _check_cuda_tensor("mask", mask, torch.float32, (L, M), dev)
     _check_seed(noise_seed, B, dev)
     y = torch.empty((B, L, M), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check("amp_split", load_library("amp_split").amp_noise_run(
-        noise_seed.data_ptr(), mask.data_ptr(), float(sigma), y.data_ptr(),
-        B, L, M, stream), "amp_noise_run")
+    run("amp_split", "amp_noise_run", dev, noise_seed.data_ptr(),
+        mask.data_ptr(), float(sigma), y.data_ptr(), B, L, M)
     channel_noise.launches += 1
     return y
 
@@ -300,7 +299,7 @@ def noise_uniforms(noise_seed: torch.Tensor, L: int, M: int
     `noise_uniforms_reference`."""
     if noise_seed.device.type == "cpu":
         return noise_uniforms_reference(noise_seed, L, M)
-    from ._build import check, load_library
+    from ._build import run
 
     dev = noise_seed.device
     B = noise_seed.shape[0]
@@ -308,10 +307,8 @@ def noise_uniforms(noise_seed: torch.Tensor, L: int, M: int
     _check_seed(noise_seed, B, dev)
     u1 = torch.empty((B, L, M), dtype=torch.float32, device=dev)
     theta = torch.empty_like(u1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check("amp_split", load_library("amp_split").amp_noise_draws(
-        noise_seed.data_ptr(), u1.data_ptr(), theta.data_ptr(), B, L, M,
-        stream), "amp_noise_draws")
+    run("amp_split", "amp_noise_draws", dev, noise_seed.data_ptr(),
+        u1.data_ptr(), theta.data_ptr(), B, L, M)
     return u1, theta
 
 
@@ -495,7 +492,7 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
                                    noise_seed, noise_sigma, form=f)
     if dev.type != "cuda":
         raise ValueError(f"amp_fused runs on cpu or cuda, not {dev}")
-    from ._build import check, load_library
+    from ._build import run
 
     B = encode_idx.shape[0] if y_n is None else y_n.shape[0]
     _check_cuda_shape(B, L, M, max_l=1024 if f == "mono" else 4096)
@@ -529,7 +526,6 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     zpart = torch.empty((B, max(1, L // 1024) * (M // 32)),
                         dtype=torch.float32, device=dev)
     bpart = torch.empty((B, L), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -538,29 +534,27 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
         # the mono form's work tile holds float32 products (bf16(x) H_M
         # and its H_L), so it is float32
         work = torch.empty_like(beta)
-        rc = load_library("amp_mono").amp_mono_run(
+        run("amp_mono", "amp_mono_run", dev,
             y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
             ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
             beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
             active.data_ptr(), y.data_ptr(), z.data_ptr(), work.data_ptr(),
             zpart.data_ptr(), bpart.data_ptr(), B, L, M, T, float(P),
-            float(n), 1.0 / math.sqrt(n), float(tol), stream)
-        check("amp_mono", rc, "amp_mono_run")
+            float(n), 1.0 / math.sqrt(n), float(tol))
         amp_fused.mono_launches += 1
         return beta, trace, iters
     # the split stages round the work tile to bf16 when they read it: in
     # bf16 mode it is stored in bf16 (same values, half the bytes)
     bf16 = precision == "bf16"
     work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
-    rc = load_library("amp_split").amp_split_run(
+    run("amp_split", "amp_split_run", dev,
         ptr(y_n), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
         ptr(encode_idx), ptr(noise_seed), ptr(pin_idx), ptr(tau2_schedule),
         beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
         active.data_ptr(), y.data_ptr(), z.data_ptr(),
         work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(),
         B, L, M, T, float(P), float(n), 1.0 / math.sqrt(n), float(tol),
-        float(noise_sigma or 0.0), int(bf16), stream)
-    check("amp_split", rc, "amp_split_run")
+        float(noise_sigma or 0.0), int(bf16))
     amp_fused.launches += 1
     if noise_seed is not None:
         amp_fused.noise_launches += 1

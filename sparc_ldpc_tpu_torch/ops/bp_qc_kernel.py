@@ -81,21 +81,17 @@ def bp_decode_qc_kernel(
                          f"{llr.device}")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
-    from ._build import check, load_library
+    from ._build import run
 
     B = llr.shape[0]
     table, n_act, n_zero = _device_table(shifts, llr.device)
-    lib = load_library("bp_qc_layered")
     tot = torch.empty_like(llr)
     it = torch.empty((B,), dtype=torch.int32, device=llr.device)
     ok = torch.empty((B,), dtype=torch.int32, device=llr.device)
-    stream = torch.cuda.current_stream(llr.device).cuda_stream
-    rc = lib.bp_qc_layered_run(
+    run("bp_qc_layered", "bp_qc_layered_run", llr.device,
         llr.data_ptr(), table.data_ptr(), tot.data_ptr(), it.data_ptr(),
         ok.data_ptr(), B, J, K, Z, n_act, n_zero, iters,
-        _METHODS.index(method), float(alpha), float(beta), float(clip),
-        stream)
-    check("bp_qc_layered", rc, "bp_qc_layered_run")
+        _METHODS.index(method), float(alpha), float(beta), float(clip))
     bp_decode_qc_kernel.launches += 1
     return BpResult(hard=(tot < 0).to(torch.uint8), posterior=tot, iters=it,
                     ok=ok.to(torch.bool))

@@ -37,7 +37,7 @@ def denoise_kernel(s: torch.Tensor, tau2: torch.Tensor, sq_npl: torch.Tensor
         return denoise(s, tau2, sq_npl)
     if s.device.type != "cuda":
         raise ValueError(f"denoise_kernel runs on cpu or cuda, not {s.device}")
-    from ._build import check, load_library
+    from ._build import run
 
     B, L, M = s.shape
     for name, t, shape in (("s", s, (B, L, M)), ("tau2", tau2, (B,)),
@@ -52,10 +52,8 @@ def denoise_kernel(s: torch.Tensor, tau2: torch.Tensor, sq_npl: torch.Tensor
                          f"[32, 1024], got {M}")
     beta = torch.empty_like(s)
     post = torch.empty_like(s)
-    stream = torch.cuda.current_stream(s.device).cuda_stream
-    check("denoise", load_library("denoise").denoise_run(
-        s.data_ptr(), tau2.data_ptr(), sq_npl.data_ptr(), beta.data_ptr(),
-        post.data_ptr(), B, L, M, stream), "denoise_run")
+    run("denoise", "denoise_run", s.device, s.data_ptr(), tau2.data_ptr(),
+        sq_npl.data_ptr(), beta.data_ptr(), post.data_ptr(), B, L, M)
     denoise_kernel.launches += 1
     return beta, post
 

@@ -58,7 +58,7 @@ def fwht2(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
         return fwht2_reference(x, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"fwht2 runs on cpu or cuda, not {x.device}")
-    from ._build import check, load_library
+    from ._build import run
 
     f1, f2 = fs
     B = x.numel() // x.shape[-1]
@@ -68,10 +68,8 @@ def fwht2(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
                          f"most 65535 of them; got {x.dtype} "
                          f"{tuple(x.shape)}, contiguous={x.is_contiguous()}")
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check("amp_split", load_library("amp_split").fwht2_run(
-        x.data_ptr(), out.data_ptr(), B, f1, f2, int(bf16), stream),
-        "fwht2_run")
+    run("amp_split", "fwht2_run", x.device, x.data_ptr(), out.data_ptr(), B,
+        f1, f2, int(bf16))
     fwht2.launches += 1
     return out
 

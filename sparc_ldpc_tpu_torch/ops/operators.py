@@ -13,6 +13,13 @@ transforms are `fwht2` (ops/fwht_kernel.py, the counterpart of
 `fwht_pallas`) in float32 whatever the config's transform precision, and,
 as in the reference, the operator has no N-space members, so the AMP takes
 the scan route with the encode and the noise outside the decoder.
+
+Under a section-sharded policy (parallel/mesh.py) the transforms are the
+collective `dist_fwht` (parallel/dist_fwht.py) whatever the config's
+`fwht_dist`: the reference's "gspmd" leaves the sharding of the same
+transform to XLA's partitioner, which PyTorch does not have.  An
+operator's constants follow the device of the data they are applied to
+(copied once per device), so one operator serves every device of a mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +34,18 @@ from ..config import SparcConfig
 from ..design.codebook import HadamardPlan, hadamard_plan
 from .fwht import fwht_kron
 from .fwht_kernel import fwht2
+
+
+def _follow(t: torch.Tensor) -> Callable[[torch.device], torch.Tensor]:
+    """t on the device asked for, copied there once."""
+    copies = {t.device: t}
+
+    def on(device: torch.device) -> torch.Tensor:
+        if device not in copies:
+            copies[device] = t.to(device)
+        return copies[device]
+
+    return on
 
 
 class BatchedOperator(NamedTuple):
@@ -54,29 +73,32 @@ def dense_operator(cfg: SparcConfig, device="cpu") -> BatchedOperator:
     """Explicit iid N(0, 1/n) matrix with the reference's seed chain."""
     n, ML = cfg.n, cfg.ML
     rng = np.random.default_rng(np.random.SeedSequence([0xDE45E, cfg.op_seed]))
-    A = torch.as_tensor(rng.standard_normal((n, ML)) / math.sqrt(n),
-                        dtype=torch.float32, device=device)
-    return BatchedOperator(Ax=lambda beta: beta @ A.T, Ay=lambda z: z @ A,
-                           n=n, ML=ML, N=ML)
+    A = _follow(torch.as_tensor(rng.standard_normal((n, ML)) / math.sqrt(n),
+                                dtype=torch.float32, device=device))
+    return BatchedOperator(Ax=lambda beta: beta @ A(beta.device).T,
+                           Ay=lambda z: z @ A(z.device), n=n, ML=ML, N=ML)
 
 
 def hadamard_operator(cfg: SparcConfig, device="cpu",
                       plan: Optional[HadamardPlan] = None,
-                      use_pallas: bool = False) -> BatchedOperator:
+                      use_pallas: bool = False,
+                      policy=None) -> BatchedOperator:
     """Matrix-free partial-Hadamard operator A = H_N[rows, :ML] / sqrt(n).
 
     `plan` defaults to the config's own `hadamard_plan`; passing one lets a
     caller reuse constants taken from another implementation.  use_pallas
     gives the reference's `fwht_pallas` operator: Ax and Ay on `fwht2`,
-    no N-space members."""
+    no N-space members.  policy (a ShardingPolicy) with more than one
+    section shard makes the transforms `dist_fwht`."""
     if cfg.col_signs:
         raise NotImplementedError("col_signs=True is not ported yet")
     if plan is None:
         plan = hadamard_plan(cfg.n, cfg.ML, cfg.op_seed, cfg.col_signs)
     N, n, ML = plan.N, plan.n, plan.ML
-    rows = torch.as_tensor(plan.rows, dtype=torch.int64, device=device)
+    rows_t = torch.as_tensor(plan.rows, dtype=torch.int64, device=device)
     mask = torch.zeros(N, dtype=torch.float32, device=device)
-    mask[rows] = 1.0
+    mask[rows_t] = 1.0
+    rows, mask_on = _follow(rows_t), _follow(mask)
     inv_sqrt_n = 1.0 / math.sqrt(n)
     prec = cfg.transform_precision
 
@@ -85,33 +107,43 @@ def hadamard_operator(cfg: SparcConfig, device="cpu",
 
     if use_pallas:
         def Ax_k(beta):
-            return fwht2(pad(beta).contiguous())[..., rows] * inv_sqrt_n
+            return (fwht2(pad(beta).contiguous())[..., rows(beta.device)]
+                    * inv_sqrt_n)
 
         def Ay_k(z):
             u = torch.zeros(z.shape[:-1] + (N,), dtype=z.dtype,
                             device=z.device)
-            u[..., rows] = z
+            u[..., rows(z.device)] = z
             return fwht2(u)[..., :ML] * inv_sqrt_n
 
         return BatchedOperator(Ax=Ax_k, Ay=Ay_k, n=n, ML=ML, N=N)
 
+    if policy is not None and policy.section_shards > 1:
+        from ..parallel.dist_fwht import dist_fwht
+
+        def txf(u):
+            return dist_fwht(u, policy, prec)
+    else:
+        def txf(u):
+            return fwht_kron(u, prec)
+
     def embed_y(y):
         u = torch.zeros(y.shape[:-1] + (N,), dtype=y.dtype, device=y.device)
-        u[..., rows] = y
+        u[..., rows(y.device)] = y
         return u
 
     def Ax(beta):
-        return fwht_kron(pad(beta), prec)[..., rows] * inv_sqrt_n
+        return txf(pad(beta))[..., rows(beta.device)] * inv_sqrt_n
 
     def Ay(z):
-        return fwht_kron(embed_y(z), prec)[..., :ML] * inv_sqrt_n
+        return txf(embed_y(z))[..., :ML] * inv_sqrt_n
 
     def resid_n(yN, beta, zN, coef):
-        w = fwht_kron(pad(beta), prec)
-        return mask * (yN - w * inv_sqrt_n) + zN * coef
+        w = txf(pad(beta))
+        return mask_on(yN.device) * (yN - w * inv_sqrt_n) + zN * coef
 
     def adj_n(zN):
-        return fwht_kron(zN, prec)[..., :ML] * inv_sqrt_n
+        return txf(zN)[..., :ML] * inv_sqrt_n
 
     return BatchedOperator(Ax=Ax, Ay=Ay, n=n, ML=ML, N=N, embed_y=embed_y,
                            resid_n=resid_n, adj_n=adj_n,
@@ -120,9 +152,10 @@ def hadamard_operator(cfg: SparcConfig, device="cpu",
 
 def make_operator(cfg: SparcConfig, device="cpu",
                   plan: Optional[HadamardPlan] = None,
-                  use_pallas: bool = False) -> BatchedOperator:
+                  use_pallas: bool = False,
+                  policy=None) -> BatchedOperator:
     if cfg.op_kind == "dense":
         return dense_operator(cfg, device)
     if cfg.op_kind == "hadamard":
-        return hadamard_operator(cfg, device, plan, use_pallas)
+        return hadamard_operator(cfg, device, plan, use_pallas, policy)
     raise NotImplementedError(f"op_kind={cfg.op_kind!r} is not ported yet")

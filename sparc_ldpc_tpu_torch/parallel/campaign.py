@@ -1,5 +1,5 @@
 """Monte-Carlo BER/FER campaign driver (port of
-sparc_ldpc_tpu/parallel/campaign.py, on one device).
+sparc_ldpc_tpu/parallel/campaign.py).
 
 Per Eb/N0 point: run trial blocks until the frame-error budget or the
 trial cap is met.  Block b of point p draws everything from
@@ -19,8 +19,17 @@ only on its coordinates, and:
 Throughput comes from the blocks this process executed: journal-replayed
 blocks add counters but no time, and the first executed block, which
 carries the kernels' nvcc build at first use and the CUDA warm-up, is
-excluded (`first_block_s` is kept in the record).  Only one device: a
-sharding policy raises (ROADMAP A10).
+excluded (`first_block_s` is kept in the record).
+
+Under a ShardingPolicy (parallel/mesh.py) the generators live on the
+mesh's home device and the model cuts each block over the mesh.  With
+several processes (torch.distributed), every rank runs the same blocks
+and decodes its rows of each; at each harvest the block's counters are
+summed over the ranks before anything reads them, so every rank takes the
+same budget decisions.  Only rank 0 (`is_writer`) writes the journal and
+the results; on resume, rank 0's journal is broadcast, so every rank
+replays the same blocks.  A journal of another section axis is refused
+(utils.io.CampaignState.check_resume): S > 1 draws and decodes otherwise.
 """
 
 from __future__ import annotations
@@ -33,16 +42,10 @@ import torch
 from .. import check_device
 from ..utils import io as iou
 from ..utils.rng import block_generator
+from .mesh import ShardingPolicy
 
 _COUNTER_KEYS = ("bit_errors", "frame_errors", "section_errors", "trials",
                  "iters_sum", "bp_ok", "bit_errors_sq")
-
-
-def _check_policy(policy) -> None:
-    if policy is not None:
-        raise NotImplementedError(
-            "sharding policies (several devices, section sharding) are not "
-            "ported yet: ROADMAP A10")
 
 
 def _stage(out: Dict[str, torch.Tensor]):
@@ -56,9 +59,9 @@ def _stage(out: Dict[str, torch.Tensor]):
     if not vals.is_cuda:
         return keys, vals, None
     host = torch.empty(vals.shape, dtype=torch.float64, pin_memory=True)
-    host.copy_(vals, non_blocking=True)
+    host.copy_(vals, non_blocking=True)       # on vals' device's stream
     event = torch.cuda.Event()
-    event.record()
+    event.record(torch.cuda.current_stream(vals.device))
     return keys, host, event
 
 
@@ -71,7 +74,7 @@ def run_point(
     state: Optional[iou.CampaignState] = None,
     point_idx: int = 0,
     device=None,
-    policy=None,
+    policy: Optional[ShardingPolicy] = None,
     pipelined: bool = True,
 ) -> Dict[str, float]:
     """Run blocks until the error budget of one sweep point is met.
@@ -86,10 +89,15 @@ def run_point(
     pipelined=False harvests each block before the next is launched (the
     check then sees block b - 1); its block set can differ from the
     pipelined one by the trailing block.  The generators live on `device`;
-    None takes the device of the model whose bound run_block this is, and
-    otherwise `default_device()`.
+    None takes the policy's home device, the device of the model whose
+    bound run_block this is, and otherwise `default_device()`.  With a
+    policy, batch is the whole block's (every process's rows) and must
+    divide by its processes times its data shards.
     """
-    _check_policy(policy)
+    if policy is not None:
+        policy.check_batch(batch)
+        if device is None:
+            device = policy.home
     if device is None:
         device = getattr(getattr(run_block, "__self__", None), "device",
                          None)
@@ -119,6 +127,8 @@ def run_point(
         keys, vals, event = payload
         if event is not None:
             event.synchronize()
+        if policy is not None:
+            vals = policy.all_reduce(vals)
         out = {k: int(v) for k, v in zip(keys, vals.tolist())}
         now = time.perf_counter()
         blk_s = now - t_last
@@ -184,7 +194,7 @@ def run_campaign(
     k_bits_fn: Callable[[object], int],
     journal_path: Optional[str] = None,
     results_path: Optional[str] = None,
-    policy=None,
+    policy: Optional[ShardingPolicy] = None,
     verbose: bool = True,
     meta: Optional[Dict[str, object]] = None,
     pipelined: bool = True,
@@ -199,9 +209,18 @@ def run_campaign(
       k_bits_fn: model -> payload bits per trial (the BER denominator).
       meta: provenance fields merged into every record
         (utils.provenance.artifact_meta).
+      policy: the ShardingPolicy the models were built with; only its
+        writer writes the journal and the results.
     """
-    _check_policy(policy)
-    state = iou.CampaignState(journal_path) if journal_path else None
+    writer = policy is None or policy.is_writer
+    state = None
+    if journal_path:
+        state = iou.CampaignState(
+            journal_path if writer else None,
+            1 if policy is None else policy.section_shards)
+        if policy is not None:
+            state.done = policy.broadcast(state.done)
+        state.check_resume()        # after the broadcast: every rank alike
     results = []
     for pi, ebno in enumerate(cfg.ebno_grid_db):
         model = model_for_point(ebno)
@@ -209,7 +228,7 @@ def run_campaign(
         # the port's models have none (ROADMAP A7)
         tot = run_point(model.run_block, cfg.base_seed, cfg.batch,
                         cfg.min_frame_errors, cfg.max_trials, state=state,
-                        point_idx=pi, device=model.device,
+                        point_idx=pi, device=model.device, policy=policy,
                         pipelined=pipelined)
         kb = k_bits_fn(model)
         trials = max(1, int(tot.get("trials", 0)))
@@ -230,9 +249,9 @@ def run_campaign(
             **(meta or {}),
         )
         results.append(rec)
-        if results_path:
+        if results_path and writer:
             iou.append_jsonl(results_path, rec)
-        if verbose:
+        if verbose and writer:
             bps = rec["bits_per_s"]
             bps_s = f"{bps:,.0f} bits/s" if bps else "bits/s: n/a (<2 blocks)"
             print(f"  ebno={ebno:5.2f} dB  ber={rec['ber']:.3e}  "

@@ -36,15 +36,34 @@ class CampaignState:
     The journal is append-only jsonl; on restart, completed blocks are
     replayed into counters and skipped by the driver, so a crash mid-block
     costs only that block.
+
+    A block run with a section axis (section_shards > 1) has its own draws
+    and decode (no in-kernel noise, the sharded loop), so its journal line
+    carries `section_shards`, and `check_resume` refuses to mix blocks of
+    another section axis into this run.  Lines of S = 1 are the
+    reference's.
     """
 
-    def __init__(self, journal_path: Optional[str]):
+    def __init__(self, journal_path: Optional[str], section_shards: int = 1):
         self.journal_path = journal_path
+        self.section_shards = section_shards
         self.done: Dict[tuple, Dict[str, Any]] = {}
         if journal_path:
             for rec in read_jsonl(journal_path):
                 if rec.get("kind") == "block":
                     self.done[(rec["point"], rec["block"])] = rec
+
+    def check_resume(self) -> None:
+        """Raise if a journaled block was run with another section axis."""
+        for (point, block), rec in sorted(self.done.items()):
+            s = rec.get("section_shards", 1)
+            if s != self.section_shards:
+                raise ValueError(
+                    f"journal {self.journal_path}: point {point} block "
+                    f"{block} ran with section_shards={s}, this run has "
+                    f"{self.section_shards}; its draws and decode differ, "
+                    f"so resume with the same section shards or start a "
+                    f"new journal")
 
     def is_done(self, point: int, block: int) -> bool:
         return (point, block) in self.done
@@ -55,6 +74,8 @@ class CampaignState:
     def record_block(self, point: int, block: int,
                      counters: Dict[str, Any]) -> None:
         rec = dict(kind="block", point=point, block=block, **counters)
+        if self.section_shards != 1:
+            rec["section_shards"] = self.section_shards
         self.done[(point, block)] = rec
         if self.journal_path:
             append_jsonl(self.journal_path, rec)

@@ -5,12 +5,13 @@ One explicit torch.Generator per (base, point, block): its seed is drawn
 from a NumPy SeedSequence of those three integers, so a block's draws
 depend only on its coordinates.  That is what the campaign's journal
 resume needs: a block executed again after a restart draws exactly what it
-drew the first time.  Within a block, draws depend on the batch size (the
-reference folds a key per trial, which makes its draws independent of how
-a block is split over devices); that per-trial fold invariance matters
-only for sharded runs and is queued with them (ROADMAP A10).  Torch and
-JAX streams differ: same-input tests make their draws with NumPy and hand
-them to both packages.
+drew the first time.  They do not depend on the mesh or on the number of
+processes either: every process draws the whole block from its generator
+and decodes its own rows of it (models/sparc.py, parallel/mesh.py
+`process_rows`), at the price of each process making every row's draws.
+They do depend on the block's batch size, which the reference's per-trial
+key fold avoids.  Torch and JAX streams differ: same-input tests make
+their draws with NumPy and hand them to both packages.
 """
 
 from __future__ import annotations

@@ -127,8 +127,14 @@ def test_steady_bits_per_s_excludes_the_first_block():
 
 
 def test_a_sharding_policy_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_point(lambda g, b: {}, 0, 8, 1, 8, policy=object())
+    """run_point takes a policy (tests/test_torch_parallel.py runs it); it
+    raises where the block's rows cannot be cut over its processes and
+    data shards."""
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    pol = ShardingPolicy(make_mesh(1, ["cpu"] * 4))
+    with pytest.raises(ValueError, match="not divisible"):
+        run_point(lambda g, b: {}, 0, 6, 1, 8, policy=pol)
 
 
 def test_sweep_builds_a_model_per_point():

@@ -8,6 +8,7 @@ with a message that names the ROADMAP item.
 import json
 
 import pytest
+import torch
 
 from sparc_ldpc_tpu import cli as jcli
 
@@ -66,12 +67,23 @@ def test_fused_rewrites_the_config_with_the_reference_message(tmp_path,
 
 @pytest.mark.parametrize("argv,needle", [
     (["--preset", "fast_l4096", "--section-shards", "4"], "A10"),
-    (["--preset", "fast_l4096", "--distributed"], "A10"),
+    (["--preset", "fast_l4096", "--distributed", "--section-shards", "2"],
+     "A10"),
     (["--preset", "concat", "--section-shards", "2"], "A10"),
-    (["--preset", "concat", "--distributed"], "A10"),
+    (["--preset", "concat", "--distributed", "--section-shards", "4"],
+     "A10"),
     (["--preset", "campaign"], "not a code configuration"),
 ])
-def test_unported_requests_exit_with_their_message(argv, needle):
+def test_unported_requests_exit_with_their_message(argv, needle,
+                                                   monkeypatch):
+    """On one GPU (stood in for here) a section axis wider than the
+    process's GPUs would cross processes, which is left (ROADMAP A10);
+    --distributed and --section-shards themselves run
+    (tests/test_torch_parallel.py, tests/test_torch_multihost.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit) as exc:
         tcli.main(["campaign", *argv])
     assert needle in str(exc.value)

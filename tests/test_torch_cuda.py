@@ -513,3 +513,237 @@ def test_cuda_run_block_returns_before_the_device_finishes(cuda_device):
     done = time.perf_counter() - t0
     assert out["trials"].item() == 256
     assert queued < 0.5 * done, (queued, done)
+
+
+# ------------------------------------------------ the multi-device path
+
+@pytest.mark.parametrize("L", [512, 2048])
+def test_cuda_fwht_tile_with_scale_matches_plain(cuda_device, L):
+    """K3: in bf16 on integer inputs bit for bit (every sum is exact, so
+    only the rounding points count, and they are the plain version's);
+    on normals in float32 to 1e-5 of the output scale."""
+    M = 512
+    scale = 1.0 / math.sqrt(L * M / 2)
+    ints = torch.randint(-8, 9, (2, L, M), device=cuda_device).float()
+    launches = fwht_tile.launches
+    assert torch.equal(fwht_tile(ints, "bf16", scale),
+                       fwht_tile_reference(ints, "bf16") * scale)
+    x = torch.randn((2, L, M), device=cuda_device)
+    ref = fwht_tile_reference(x, "highest") * scale
+    err = (fwht_tile(x, "highest", scale) - ref).abs().max() / ref.abs().max()
+    assert float(err) <= 1e-5
+    assert fwht_tile.launches == launches + 2
+
+
+def test_cuda_data_parallel_block_is_bitwise_the_single_device(cuda_device):
+    """K1 computes each codeword alone with fixed-order sums and its own
+    Philox key, so a virtual (4, 1) mesh of the card gives the single
+    device's block bit for bit, tau2_final included."""
+    import dataclasses
+
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    cfg = SparcConfig(L=256, M=256, R=1.0, op_kind="hadamard",
+                      amp_kernel="fused_split", transform_precision="bf16",
+                      amp_iters=8, amp_tol=0.0, amp_noise_in_kernel=True)
+    model = SparcModel.build(cfg, 5.0, cuda_device)
+
+    def run(m):
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        return {k: v.item() for k, v in m.run_block(gen, 64).items()}
+
+    want = run(model)
+    dp = dataclasses.replace(model, policy=ShardingPolicy(
+        make_mesh(1, [cuda_device] * 4)))
+    launches = amp_fused.noise_launches
+    assert run(dp) == want
+    assert amp_fused.noise_launches == launches + 4
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_cuda_section_sharded_amp_matches_plain(cuda_device, S):
+    """The section-sharded loop on a virtual (1, S) mesh of the card (K3
+    and K4) against the same loop on the CPU (their plain versions), same
+    inputs: margin-aware decisions, tau2 to rtol 2e-2 (bf16), K3 launched
+    twice an iteration on every slab."""
+    from sparc_ldpc_tpu_torch.parallel.amp_sharded import amp_fused_sharded
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    L, M, B = 256, 256, 8
+    model, y_n, mask, sq, idx = _inputs(L, M, B, "cpu")
+    c = model.cfg
+    beta0 = model.build_beta(idx).reshape(B, L, M)
+    y_n = y_n + mask * fwht_tile_reference(beta0) / math.sqrt(c.n)
+    args = (c.P, c.n, c.amp_iters)
+    bp, tp, _ = amp_fused_sharded(y_n, mask, sq, *args, ShardingPolicy(
+        make_mesh(S, ["cpu"] * S)))
+    launches = fwht_tile.launches
+    bk, tk, ik = amp_fused_sharded(
+        y_n.to(cuda_device), mask.to(cuda_device), sq.to(cuda_device), *args,
+        ShardingPolicy(make_mesh(S, [cuda_device] * S)))
+    assert fwht_tile.launches == launches + 2 * c.amp_iters * S
+    assert decision_flips(bp, bk)[1] == 0
+    np.testing.assert_allclose(tk.cpu().numpy(), tp.numpy(), rtol=2e-2)
+    assert torch.equal(ik.cpu(), torch.full((B,), c.amp_iters,
+                                            dtype=torch.int32))
+
+
+def test_cuda_kernels_launch_on_their_tensors_device(cuda_device):
+    """A wrapper launches on its tensors' device whatever device is
+    current (a process of a multi-GPU mesh holds tensors on several)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs; on one card the virtual meshes above "
+                    "run the same code")
+    dev = torch.device("cuda", 1)
+    x = torch.randn((2, 64, 128), device=dev)
+    tau2 = torch.full((2,), 0.5, device=dev)
+    sq = torch.ones(64, device=dev)
+    with torch.cuda.device(0):
+        got = fwht_tile(x, "highest", 0.5)
+        beta, _ = denoise_kernel(x, tau2, sq)
+    torch.cuda.synchronize(dev)
+    ref = fwht_tile_reference(x, "highest") * 0.5
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    torch.testing.assert_close(beta, denoise(x, tau2, sq)[0], rtol=1e-5,
+                               atol=1e-6)
+
+
+# ------------------------------------------ real meshes of several GPUs
+#
+# Every kernel computes each codeword, or each slab, alone and in a fixed
+# order, so a mesh of real GPUs gives exactly what the same mesh made
+# virtual on cuda:0 gives; a difference is a fault in the copies between
+# cards.  These skip on one card.
+
+@pytest.fixture
+def gpus(cuda_device):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two GPUs or more; on one card the virtual "
+                    "meshes above run the same code")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _mesh_model(device):
+    cfg = SparcConfig(L=256, M=256, R=1.0, op_kind="hadamard",
+                      amp_kernel="fused_split", transform_precision="bf16",
+                      amp_iters=8, amp_tol=0.0, amp_noise_in_kernel=True)
+    return SparcModel.build(cfg, 5.0, device)
+
+
+def _campaign_argv(n):
+    """A small fused campaign whose blocks divide over n GPUs."""
+    return ["campaign", "--preset", "plain_small", "--fused", "--ebno",
+            "5.0", "--batch", str(4 * n), "--max-trials", str(12 * n),
+            "--min-frame-errors", "1000000", "--amp-iters", "8"]
+
+
+CAMPAIGN_KEYS = ("bit_errors", "frame_errors", "trials", "bit_errors_sq",
+                 "blocks", "mean_iters")
+
+
+def test_cuda_real_mesh_data_parallel_is_bitwise_one_card(gpus):
+    """A data shard on every GPU (K1 with its noise on each, beta gathered
+    on cuda:0): the block of cuda:0 alone, tau2_final included."""
+    import dataclasses
+
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    model = _mesh_model(gpus[0])
+
+    def run(m):
+        gen = torch.Generator(device=gpus[0]).manual_seed(5)
+        out = m.run_block(gen, 16 * len(gpus))
+        return {k: v.item() for k, v in out.items()}
+
+    want = run(model)
+    real = dataclasses.replace(model, policy=ShardingPolicy(
+        make_mesh(1, gpus)))
+    assert run(real) == want
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_cuda_real_mesh_section_sharded_equals_virtual(gpus, S):
+    """The sharded loop on a real (n/S, S) mesh (K3 and K4 on every card,
+    the hypercube's slabs copied between cards) against the same mesh made
+    virtual on cuda:0: beta, trace and iterations bit for bit."""
+    import dataclasses
+
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    n = len(gpus)
+    if n % S:
+        pytest.skip(f"needs a multiple of {S} GPUs, {n} visible")
+    model = _mesh_model(gpus[0])
+    c = model.cfg
+    B = 4 * n
+    gen = torch.Generator(device=gpus[0]).manual_seed(7)
+    bits = torch.randint(0, 2, (B, c.k_bits), generator=gen,
+                         dtype=torch.int32, device=gpus[0])
+    y = model.encode(bits) + math.sqrt(model.sigma2) * torch.randn(
+        (B, c.n), generator=gen, device=gpus[0])
+    out = {name: dataclasses.replace(model, policy=ShardingPolicy(
+        make_mesh(S, devs))).decode(y)
+        for name, devs in (("real", gpus), ("virtual", [gpus[0]] * n))}
+    for f in ("beta", "tau2_trace", "iters"):
+        assert torch.equal(getattr(out["real"], f),
+                           getattr(out["virtual"], f)), f
+
+
+def test_cuda_cli_mesh_spans_every_gpu(gpus, tmp_path, monkeypatch):
+    """`campaign --section-shards 2` with n GPUs visible runs on an (n/2, 2)
+    mesh of them, with the counters of that mesh made virtual on cuda:0."""
+    import json
+
+    from sparc_ldpc_tpu_torch import cli
+
+    n = len(gpus)
+    recs = {}
+    for name in ("real", "virtual"):
+        if name == "virtual":
+            monkeypatch.setattr(cli, "_process_gpus",
+                                lambda distributed: [gpus[0]] * n)
+        out = tmp_path / f"{name}.jsonl"
+        assert cli.main([*_campaign_argv(n), "--section-shards", "2",
+                         "--out", str(out)]) == 0
+        recs[name] = json.loads(out.read_text().splitlines()[-1])
+    assert recs["real"]["mesh"] == recs["virtual"]["mesh"] == [n // 2, 2]
+    assert ({k: recs["real"][k] for k in CAMPAIGN_KEYS}
+            == {k: recs["virtual"][k] for k in CAMPAIGN_KEYS})
+
+
+def test_cuda_distributed_processes_share_the_gpus(gpus, tmp_path):
+    """Two `--distributed` processes started by torch.distributed.run, each
+    driving its half of the GPUs as an (n/2, 1) mesh, give the counters of
+    one process on cuda:0 alone; rank 0 alone writes."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    n = len(gpus)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def campaign(out, launcher, env):
+        proc = subprocess.run(
+            [sys.executable, *launcher, "-m", "sparc_ldpc_tpu_torch.cli",
+             *_campaign_argv(n), "--out", str(out)]
+            + (["--distributed"] if launcher else []),
+            cwd=repo, env=dict(os.environ, **env), capture_output=True,
+            text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        return [json.loads(x) for x in out.read_text().splitlines()]
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    one = campaign(tmp_path / "one.jsonl", [], {"CUDA_VISIBLE_DEVICES": "0"})
+    two = campaign(tmp_path / "two.jsonl",
+                   ["-m", "torch.distributed.run", "--nproc_per_node", "2",
+                    "--master_addr", "127.0.0.1", "--master_port",
+                    str(port)], {})
+    assert len(two) == 1
+    assert two[0]["processes"] == 2 and two[0]["mesh"] == [n // 2, 1]
+    assert ({k: two[0][k] for k in CAMPAIGN_KEYS}
+            == {k: one[-1][k] for k in CAMPAIGN_KEYS})

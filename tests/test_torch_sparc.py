@@ -107,8 +107,13 @@ def test_from_numpy_takes_the_reference_constants():
     np.testing.assert_array_equal(mt.op.mask.numpy(), np.asarray(mj.op.mask))
     bits, noise = _draws(FUSED, 2)
     a, b = mt.run_block_from(bits, noise), mb.run_block_from(bits, noise)
-    assert {k: v.item() for k, v in a.items()} == \
-        {k: v.item() for k, v in b.items()}
+    # the counters exactly; tau2_final, a float sum, to rtol 1e-5: CPU BLAS
+    # (fwht_kron's tensordot) may sum in another order for buffers of
+    # another alignment or with another thread count
+    ints = [k for k in a if k != "tau2_final"]
+    assert {k: a[k].item() for k in ints} == {k: b[k].item() for k in ints}
+    np.testing.assert_allclose(a["tau2_final"].item(),
+                               b["tau2_final"].item(), rtol=1e-5)
     bad = dict(_params(mj), rows=_params(mj)["rows"][1:])
     with pytest.raises(ValueError):
         SparcModel.from_numpy(FUSED, EBNO, bad, "cpu")
@@ -211,6 +216,13 @@ def test_port_imports_no_jax():
         "c = ConcatModel.build(ccfg, 6.0, 'cpu')\n"
         "assert int(c.run_block(block_generator(0, 0, 0), 2)['trials']) == 2\n"
         "import sparc_ldpc_tpu_torch.parallel.campaign\n"
+        "from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, "
+        "make_mesh\n"
+        "pol = ShardingPolicy(make_mesh(2, ['cpu'] * 4))\n"
+        "ms = SparcModel.build(cfg, 6.0, None, policy=pol)\n"
+        "assert int(ms.run_block(block_generator(0, 0, 0), 2)['trials']) == 2\n"
+        "import sparc_ldpc_tpu_torch.parallel.dist_fwht\n"
+        "import sparc_ldpc_tpu_torch.tools.dryrun_multichip\n"
         "import sparc_ldpc_tpu_torch.utils.io\n"
         "import sparc_ldpc_tpu_torch.utils.profiling\n"
         "import sparc_ldpc_tpu_torch.utils.provenance\n"
