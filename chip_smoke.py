@@ -131,10 +131,36 @@ the concat preset.  Each phase prints one line with its seconds:
      (n x 1) mesh of all n cards, equal to one card's, and the phase-20
      decode on real (n/2 x 2) and (1 x n) meshes, bit for bit the same
      meshes made virtual on cuda:0; host ms of each.  There the CLI
-     phases run on the mesh of every card that the CLI builds.
+     phases run on the mesh of every card that the CLI builds;
+ 24. the slab AMP kernel (K7, csrc/amp_slab.cu) against its plain version.
+     It computes in bf16 only (its 128-wide Hadamard factors run on the
+     bf16 tensor cores, and the reference's slab kernel has no float32
+     mode either), so every comparison takes the bf16 rules: tau2 to rtol
+     2e-2, at most 1 % flipped decisions, mean iteration counts within 2.
+     At the headline shape (B=8, T=22, fixed T); on the concat
+     configuration at B=32, T=32: tol 1e-4, tol with 40 % of the rows
+     pinned (pinned rows exactly sq * one_hot), an SE schedule designed at
+     1.1 sigma2 (the trace equal to it); at the fast_l4096 shape (B=4,
+     T=8, a cluster of four column blocks), fixed T and tol; at L = M = 64
+     (f_a = m_a = 1).  Its transform alone: integer inputs bit-equal to
+     the plain version (every sum exact, so within 1e-5 of the output
+     scale in float32), normals within one bf16 ulp of the largest H_M
+     value (the two sum in other orders);
+ 25. the slab main path: run_block on the headline configuration with
+     amp_kernel="fused_slab" (torch.randn noise, encode in the kernel),
+     B=2048: K7 launched, K1 and K6 not, mean final tau2 within 3 % of
+     SE, identical counters per seed; ms per block and bits/s beside
+     phases 5 and 15; K7's and the plain version's ms per decode call,
+     the timed results held to phase 24's rules, and the same draws
+     through K1: at most 1 % flipped decisions, mean final tau2 within
+     2e-2;
+ 26. a slab concat block: PRESETS["concat"] with sparc.amp_kernel=
+     "fused_slab", 3.0 dB, B=2048: K7 launched twice (main and pinned
+     feedback pass) and K2 once, phase 8's windows; ms per block and user
+     bits/s beside phase 9's.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
-13a, 13b, 15, 17, 19, 20, 21) and read after it.  Then a JSON line with the kernels'
+13a, 13b, 15, 17, 19, 20, 21, 25, 26) and read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
 operations over the H100's peak for their type, 67 TFLOP/s float32 and
@@ -271,6 +297,7 @@ def reset_counts() -> None:
         fn.launches = 0
     amp_fused.noise_launches = 0
     amp_fused.mono_launches = 0
+    amp_fused.slab_launches = 0
 
 
 def read_counts() -> dict:
@@ -285,6 +312,7 @@ def read_counts() -> dict:
     return dict(amp_split=amp_fused.launches,
                 amp_split_noise=amp_fused.noise_launches,
                 amp_mono=amp_fused.mono_launches,
+                amp_slab=amp_fused.slab_launches,
                 bp_qc_layered=bp_decode_qc_kernel.launches,
                 fwht2=fwht2.launches, denoise=denoise_kernel.launches,
                 fwht_tile=fwht_tile.launches)
@@ -1160,7 +1188,8 @@ def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
     require(abs(tau_gap) <= 0.03, f"tau2_final off SE by {tau_gap:+.3%}")
     require(cnt2 == cnt, "same seed gave different counters")
     return dict(launches=launches, tile_err=tile_err, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, bound=mono_b)
+                plain_ms=plain_ms, bound=mono_b, block_ms=1e3 * dt,
+                bits_per_s=bits_per_s)
 
 
 def l4096_path(dev, card: str, clock: Clock) -> dict:
@@ -1250,7 +1279,7 @@ def l4096_path(dev, card: str, clock: Clock) -> dict:
     return dict(max_abs_err=max(r["beta_abs_err"] for k, r in res.items()
                                 if k.endswith("highest")),
                 kernel_ms=kernel_ms, noise_ms=noise_ms, plain_ms=plain_ms,
-                bound=l_b)
+                bound=l_b, model=model)
 
 
 def fast_cli_phase(card: str, clock: Clock) -> dict:
@@ -1683,6 +1712,258 @@ def multicard_phase(card: str, clock: Clock) -> dict:
     return res
 
 
+def slab_check_phase(dev, card: str, sp: dict, cp: dict, lp: dict,
+                     clock: Clock) -> dict:
+    """Phase 24: K7 (the slab form) against its plain version, bf16 rules
+    (module docstring)."""
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+    from sparc_ldpc_tpu_torch.design.se import se_trajectory
+    from sparc_ldpc_tpu_torch.models.sparc import SparcModel
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import (
+        fwht_tile_reference, slab_tile)
+    from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, round_bf16
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    slab = dict(form="slab")
+
+    def draw(model, batch, stream):
+        """A model's decode arguments at T = None, its true indices and the
+        generator."""
+        c = model.cfg
+        gen = block_generator(SEED, stream, 0, dev)
+        bits = torch.randint(0, 2, (batch, c.k_bits), generator=gen,
+                             dtype=torch.int32, device=dev)
+        noise = torch.randn((batch, c.n), generator=gen, device=dev)
+        y_n = model.op.embed_y(noise * math.sqrt(model.sigma2)).reshape(
+            batch, c.L, c.M)
+        return ((y_n, model.op.mask.reshape(c.L, c.M), model.sq_npl, c.P,
+                 c.n), bits_to_indices(bits, c.logM), gen)
+
+    groups = []                  # (results, sections) for check_options
+    # the headline shape at fixed T, and the transform alone
+    hm = sp["model"]
+    T, L, M = hm.cfg.amp_iters, hm.cfg.L, hm.cfg.M
+    a, idx, gen = draw(hm, CHECK_BATCH, 18)
+    groups.append((option_runs(a + (T,), {"headline fixed T": slab}, idx, T),
+                   CHECK_BATCH * L))
+    x = torch.randn((CHECK_BATCH, L, M), generator=gen, device=dev)
+    ref = fwht_tile_reference(x, "bf16")
+    top = float(ref.abs().max())
+    h_m = float(fwht_kron(round_bf16(x), "highest", -1).abs().max())
+    tile_err = float((slab_tile(x) - ref).abs().max())
+    ints = torch.randint(-8, 9, (CHECK_BATCH, L, M), generator=gen,
+                         device=dev).float()
+    ri = fwht_tile_reference(ints, "bf16")
+    ki = slab_tile(ints)
+    tile = dict(normals=tile_err / top,
+                ulp_limit=2.0 ** (math.floor(math.log2(h_m)) - 7) / top,
+                integers=float((ki - ri).abs().max() / ri.abs().max()),
+                integers_equal=bool(torch.equal(ki, ri)))
+    del a, x, ref, ints, ri, ki
+    # the concat configuration at B=32: tol, tol with pins, SE schedule
+    sm = cp["model"].sparc
+    T = sm.cfg.amp_iters
+    a, idx, gen = draw(sm, OPTION_BATCH, 19)
+    rows = torch.rand((OPTION_BATCH, sm.cfg.L), generator=gen,
+                      device=dev) < 0.4
+    pin = torch.where(rows, idx, -1).to(torch.int32)
+    tr = se_trajectory(sm.p_alloc, sm.cfg.n, sm.cfg.M,
+                       SCHED_MARGIN * sm.sigma2, T=T)
+    sched = torch.as_tensor(np.pad(tr[1:], (0, max(0, T - len(tr) + 1)),
+                                   mode="edge")[:T], dtype=torch.float32,
+                            device=dev)
+    groups.append((option_runs(a + (T,), {
+        "concat tol": dict(slab, tol=1e-4),
+        "concat tol+pin": dict(slab, tol=1e-4, pin_idx=pin),
+        "concat schedule": dict(slab, tau2_schedule=sched)}, idx, T),
+        OPTION_BATCH * sm.cfg.L))
+    del a
+    # the fast_l4096 shape (a cluster of four column blocks a strip)
+    fm = lp["model"]
+    a, idx, _ = draw(fm, L4096_BATCH, 20)
+    groups.append((option_runs(a + (L4096_T,), {
+        "L=4096 fixed T": slab, "L=4096 tol": dict(slab, tol=1e-4)}, idx,
+        L4096_T), L4096_BATCH * fm.cfg.L))
+    del a
+    # L = M = 64: one slab, one column block (f_a = m_a = 1)
+    small = SparcModel.build(slt.SparcConfig(
+        L=64, M=64, R=1.0, power_alloc="iterative", op_kind="hadamard",
+        amp_kernel="fused_slab", transform_precision="bf16", amp_iters=16,
+        amp_tol=0.0), 6.0, dev)
+    a, idx, _ = draw(small, OPTION_BATCH, 21)
+    groups.append((option_runs(a + (16,), {
+        "L=M=64 fixed T": slab, "L=M=64 tol": dict(slab, tol=1e-4)}, idx,
+        16), OPTION_BATCH * 64))
+    res = {k: r for g, _ in groups for k, r in g.items()}
+    print(f"[24 slab kernel (K7) vs plain] bf16; transform alone at B="
+          f"{CHECK_BATCH} L={L} M={M}, errors over max |plain|: {tile}; "
+          f"decodes: {res} ({clock.lap():.1f} s)", flush=True)
+    for g, sections in groups:
+        check_options(g, sections)
+    require(res["concat tol"]["iters_min"] < OPTION_T,
+            "concat tol: no early stop")
+    require(tile["integers_equal"] and tile["integers"] <= 1e-5,
+            f"K7 transform on integers: {tile}")
+    require(tile["normals"] <= tile["ulp_limit"],
+            f"K7 transform on normals: {tile}")
+    return dict(tile_err=tile_err, res=res)
+
+
+def slab_path(dev, card: str, sp: dict, mp: dict, clock: Clock) -> dict:
+    """Phase 25: the slab main path (the headline configuration with
+    amp_kernel="fused_slab")."""
+    import dataclasses
+
+    import torch
+
+    from sparc_ldpc_tpu_torch.models.amp import decision_flips
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import (
+        amp_fused, amp_fused_reference)
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    torch.cuda.empty_cache()
+    hm = sp["model"]
+    model = dataclasses.replace(hm, cfg=hm.cfg.replace(
+        amp_kernel="fused_slab"))
+    c = model.cfg
+    T, L, M, n = c.amp_iters, c.L, c.M, c.n
+    require(model.fused_kw["fused_form"] == "slab" and model.enc_in_kernel
+            and not model.noise_in_kernel,
+            "amp_kernel='fused_slab' must reach the slab form with the "
+            "encode in the kernel and the noise drawn outside")
+    se_fp = sp["se_fp"]
+    reset_counts()
+    out = model.run_block(block_generator(SEED, 22, 0, dev), BATCH)
+    launches = read_counts()
+    cnt = {k: v.item() for k, v in out.items()}
+    cnt2 = {k: v.item() for k, v in model.run_block(
+        block_generator(SEED, 22, 0, dev), BATCH).items()}
+    tau_gap = cnt["tau2_final"] / se_fp - 1.0
+    times = []
+    for r in range(REPS):
+        gen = block_generator(SEED, 22, 1 + r, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _ = int(model.run_block(gen, BATCH)["bit_errors"])
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    bits_per_s = BATCH * c.k_bits / dt
+    gen = block_generator(SEED, 22, 9, dev)
+    bits = torch.randint(0, 2, (BATCH, c.k_bits), generator=gen,
+                         dtype=torch.int32, device=dev)
+    noise = torch.randn((BATCH, n), generator=gen, device=dev)
+    y_n = model.op.embed_y(noise * math.sqrt(model.sigma2)).reshape(
+        BATCH, L, M)
+    idx = bits_to_indices(bits, c.logM)
+    del bits, noise
+    args = (y_n, model.op.mask.reshape(L, M), model.sq_npl, c.P, n, T)
+    kw = dict(encode_idx=idx, form="slab")
+    kernel_ms, kout = timed_result(lambda: amp_fused(*args, **kw), REPS)
+    stages = device_ms_by_kernel(
+        lambda: amp_fused(*args, **kw),
+        ("amp_encode_kernel", "slab_col_kernel", "slab_hm_kernel",
+         "slab_row_kernel"))
+    plain_ms, pout = timed_result(lambda: amp_fused_reference(*args, **kw),
+                                  1)
+    slab_b = amp_bound(BATCH, L, M, T, kout[2], noise_drawn=False)
+    # the timed calls' results, held to phase 24's rules at this shape
+    res25 = {"main path": compare_runs("main path", kout, pout, args,
+                                       dict(form="slab"), idx, T)}
+    del pout
+    # the same draws through K1 (the noise as input)
+    k1_ms, k1out = timed_result(
+        lambda: amp_fused(*args, encode_idx=idx, split=True), REPS)
+    flips, decisive = decision_flips(kout[0], k1out[0])
+    tau_k7, tau_k1 = (float(o[1][-1].mean()) for o in (kout, k1out))
+    vs_k1 = dict(flips=flips, decisive=decisive,
+                 tau2_rel_diff=abs(tau_k7 / tau_k1 - 1.0))
+    del y_n, args, kout, k1out
+    print(f"[25 slab main path] run_block B={BATCH}: launches {launches}; "
+          f"counters {cnt}; tau2_final vs SE fixed point {se_fp:.4f}: "
+          f"{100 * tau_gap:+.2f} %; same seed again: "
+          f"{'identical' if cnt2 == cnt else cnt2}; {bits_per_s:.1f} bits/s "
+          f"({1e3 * dt:.2f} ms per block, median of "
+          f"{[round(1e3 * t, 2) for t in times]} ms) against phase 5's "
+          f"{sp['bits_per_s']:.1f} ({sp['block_ms']:.2f} ms, K1, noise in "
+          f"the kernel) and phase 15's {mp['bits_per_s']:.1f} "
+          f"({mp['block_ms']:.2f} ms, K6); decode call at B={BATCH}: K7 "
+          f"{kernel_ms:.2f} ms, plain {plain_ms:.2f} ms, bound {slab_b}, K1 "
+          f"on the same draws {k1_ms:.2f} ms; one call's device ms by launch "
+          f"(torch.profiler): {stages}; the timed calls, kernel vs plain: "
+          f"{res25}; K7 vs K1 on the same draws: {vs_k1} on {card} "
+          f"({clock.lap():.1f} s)", flush=True)
+    check_options(res25, BATCH * L)
+    require(launches["amp_slab"] > 0, "the slab path did not launch K7")
+    require(launches["amp_split"] == 0 and launches["amp_mono"] == 0,
+            "the slab path launched K1 or K6")
+    require(cnt["trials"] == BATCH and cnt["iters_sum"] == BATCH * T,
+            "trial or iteration count wrong")
+    require(abs(tau_gap) <= 0.03, f"tau2_final off SE by {tau_gap:+.3%}")
+    require(cnt2 == cnt, "same seed gave different counters")
+    require(vs_k1["flips"] <= 0.01 * BATCH * L, "K7 and K1 differ in more "
+            "than 1 % of the decisions")
+    require(vs_k1["tau2_rel_diff"] <= 2e-2, "K7's and K1's tau2 differ")
+    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound=slab_b, block_ms=1e3 * dt, bits_per_s=bits_per_s,
+                k1_ms=k1_ms)
+
+
+def slab_concat_phase(dev, card: str, cp: dict, clock: Clock) -> dict:
+    """Phase 26: a concat block with sparc.amp_kernel="fused_slab"."""
+    import dataclasses
+
+    import torch
+
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    torch.cuda.empty_cache()
+    cm0 = cp["model"]
+    scfg = cm0.sparc.cfg.replace(amp_kernel="fused_slab")
+    cm = dataclasses.replace(cm0, cfg=cm0.cfg.replace(sparc=scfg),
+                             sparc=dataclasses.replace(cm0.sparc, cfg=scfg))
+    require(cm.sparc.fused_kw["fused_form"] == "slab"
+            and not cm.sparc.noise_in_kernel,
+            "the slab concat block must reach the slab form, noise outside")
+    T = scfg.amp_iters
+    reset_counts()
+    out = cm.run_block(block_generator(SEED, 23, 0, dev), BATCH)
+    launches = read_counts()
+    cnt = {k: v.item() for k, v in out.items()}
+    fer = cnt["frame_errors"] / BATCH
+    ber = cnt["bit_errors"] / (BATCH * cm.k_user)
+    bp_ok = cnt["bp_ok"] / (BATCH * cm.num_cw)
+    times = []
+    for r in range(REPS):
+        gen = block_generator(SEED, 23, 1 + r, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _ = int(cm.run_block(gen, BATCH)["bit_errors"])
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    bits_per_s = BATCH * cm.k_user / dt
+    print(f"[26 slab concat block] run_block B={BATCH}: launches {launches}; "
+          f"counters {cnt}; FER {fer:.4f} (oracle {ORACLE_FER}), BER "
+          f"{ber:.4e} (oracle {ORACLE_BER}), bp_ok {bp_ok:.4f} (reference "
+          f"{REF_BP_OK}), mean AMP iterations {cnt['iters_sum'] / BATCH:.2f}"
+          f" of {T}; {bits_per_s:.1f} user bits/s ({1e3 * dt:.2f} ms per "
+          f"block, median of {[round(1e3 * t, 2) for t in times]} ms) "
+          f"against phase 9's {cp['bits_per_s']:.1f} (K1) on {card} "
+          f"({clock.lap():.1f} s)", flush=True)
+    require(launches["amp_slab"] == 2 and launches["bp_qc_layered"] == 1,
+            "the slab concat block must launch K7 twice and K2 once")
+    require(launches["amp_split"] == 0 and launches["amp_mono"] == 0,
+            "the slab concat block launched K1 or K6")
+    require(cnt["trials"] == BATCH, "trial count wrong")
+    require(concat_windows(fer, ber, bp_ok) == [],
+            f"slab concat quality off: {concat_windows(fer, ber, bp_ok)}")
+    require(cnt["iters_sum"] < BATCH * T, "the early stop did not engage")
+    return dict(launches=launches, block_ms=1e3 * dt, bits_per_s=bits_per_s)
+
+
 def main() -> None:
     import torch
 
@@ -1734,6 +2015,9 @@ def main() -> None:
         multicard_phase(card, clock)
     else:
         print("[23 real meshes] one card visible: nothing to run", flush=True)
+    k7 = slab_check_phase(dev, card, sp, cp, lp, clock)
+    sl = slab_path(dev, card, sp, mp, clock)
+    sc = slab_concat_phase(dev, card, cp, clock)
 
     require("jax" not in sys.modules, "jax was imported")
     ref = [k for k in sys.modules
@@ -1781,11 +2065,20 @@ def main() -> None:
         "max_abs_err": lp["max_abs_err"], "ms": lp["kernel_ms"],
         "plain_ms": lp["plain_ms"], **lp["bound"], "library_ms": None,
         "noise_ms": lp["noise_ms"]}
+    slab_rec = {
+        "name": "amp_slab", "route": "cuda",
+        "source": "sparc_ldpc_tpu_torch/csrc/amp_slab.cu",
+        "replaces": "sparc_ldpc_tpu/ops/amp_kernel.py:134",
+        "launches": sl["launches"]["amp_slab"],
+        "launches_by_path": {"concat": sc["launches"]["amp_slab"]},
+        "max_abs_err": k7["tile_err"], "ms": sl["kernel_ms"],
+        "plain_ms": sl["plain_ms"], **sl["bound"], "library_ms": None}
     # K3's main path: the section-sharded fast_l4096 campaign (phase 21)
     k3_rec["launches"] = pc["launches"]["fwht_tile"]
     k3_rec["launches_by_path"] = {
         f"decode S={S}": c["fwht_tile"] for S, c in sh["launches"].items()}
-    records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec, k3_rec]
+    records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec, k3_rec,
+               slab_rec]
     for rec in records:
         require(rec["launches"] > 0, f"{rec['name']} was never launched")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)

@@ -21,8 +21,9 @@ find:
                      kernel csrc/denoise.cu
   ops/amp_kernel.py  whole-trial AMP with in-kernel encode and Philox
                      noise: CUDA kernels of the split form
-                     (csrc/amp_split.cu, L <= 4096) and the mono form
-                     (csrc/amp_mono.cu, L <= 1024; both share
+                     (csrc/amp_split.cu, L <= 4096), the mono form
+                     (csrc/amp_mono.cu, L <= 1024) and the slab form
+                     (csrc/amp_slab.cu, L <= 4096; all share
                      csrc/amp_common.cuh) and their plain PyTorch version
   ops/bp.py          LDPC BP on padded edge tables (flooding)
   ops/bp_qc.py       QC-LDPC BP on circulant tensors (flooding, layered)

@@ -98,12 +98,14 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(cfg) -> str | None:
-    """Why the port cannot run this config's AMP route, or None."""
+    """Why the port cannot run this config's operator, or None."""
     from .config import ConcatConfig
 
     sp = cfg.sparc if isinstance(cfg, ConcatConfig) else cfg
-    if sp.amp_kernel == "fused_slab":
-        return "amp_kernel='fused_slab' (K7) is not ported (ROADMAP K7)"
+    if sp.op_kind == "hadamard" and sp.col_signs:
+        return "col_signs=True is not ported (ROADMAP A2)"
+    if sp.op_kind == "dct":
+        return "op_kind='dct' is not ported (ROADMAP A3)"
     return None
 
 

@@ -9,7 +9,7 @@ Onsager correction and online tau tracking:
     beta_{t+1} = eta(s_t; tau2_t)             (ops.denoiser)
 
 Two routes: the fused whole-trial route (ops.amp_kernel.amp_fused: the CUDA
-kernel of the split or the mono form on a GPU, its plain version on the
+kernel of the split, mono or slab form on a GPU, its plain version on the
 CPU; with noise seeds the split form also draws the channel noise) and the
 scan route, a Python loop, whose
 denoiser is `denoise` or, with use_pallas_denoiser, the CUDA kernel
@@ -22,7 +22,10 @@ denoise (the fused route takes the pins as indices, -1 = unpinned).
 
 Under a ShardingPolicy (parallel/mesh.py) the fused route runs
 `amp_fused_sharded` (parallel/amp_sharded.py: the fused kernel per data
-shard, or the section-sharded loop on K3).  The scan route with one
+shard, or the section-sharded loop on K3).  As in the reference, a policy
+takes fused_split but not fused_form: under a policy a "fused_slab" config
+runs the form that L routes to (mono at L <= 1024, split above) per data
+shard, or the section-sharded loop.  The scan route with one
 section shard runs each data shard's slice of the batch on its device;
 with several, its operator's transforms are the collective `dist_fwht`
 and the rest of the loop runs on the home device.
@@ -73,6 +76,8 @@ def amp_decode(
     fused: bool = False,
     fused_split: Optional[bool] = None,             # amp_fused's split (None:
                                                     # route by L)
+    fused_form: Optional[str] = None,               # amp_fused's form ("slab":
+                                                    # the slab kernel)
     encode_idx: Optional[torch.Tensor] = None,      # (B, L) int32: y IS the
                                                     # noise, the fused route
                                                     # synthesizes the codeword
@@ -103,7 +108,8 @@ def amp_decode(
                   noise_sigma=noise_sigma, split=fused_split)
         if policy is None:
             beta3, trace, iters = amp_fused(
-                y_n, op.mask.reshape(L, M), sq_npl, P, n, T, **kw)
+                y_n, op.mask.reshape(L, M), sq_npl, P, n, T, form=fused_form,
+                **kw)
         else:
             beta3, trace, iters = amp_fused_sharded(
                 y_n, op.mask.reshape(L, M), sq_npl, P, n, T, policy, **kw)

@@ -110,11 +110,6 @@ class SparcModel:
                 raise ValueError(f"device {device} is not the policy's home "
                                  f"device {policy.home}")
         device = check_device(device)
-        if cfg.amp_kernel == "fused_slab":
-            raise NotImplementedError(
-                "amp_kernel='fused_slab' (the slab kernel) is not ported yet "
-                "(ROADMAP K7); the port has 'fused' (mono form at L <= 1024, "
-                "split form above), 'fused_split' and the 'xla' scan route")
         sched = None
         if cfg.tau_mode == "se":
             tr = se_trajectory(p, cfg.n, cfg.M, sigma2, T=cfg.amp_iters)
@@ -134,11 +129,13 @@ class SparcModel:
 
     @property
     def fused_kw(self) -> dict:
-        """amp_decode's fused_split for this config, as the reference
-        passes it: "fused_split" forces the split form, "fused" routes by L
-        (mono at L <= 1024, split above)."""
-        return dict(fused_split=True if self.cfg.amp_kernel == "fused_split"
-                    else None)
+        """amp_decode's fused_split and fused_form for this config, as the
+        reference passes them (sparc_ldpc_tpu/models/sparc.py:111-112):
+        "fused_split" forces the split form, "fused_slab" asks for the slab
+        form, "fused" routes by L (mono at L <= 1024, split above)."""
+        k = self.cfg.amp_kernel
+        return dict(fused_split=True if k == "fused_split" else None,
+                    fused_form="slab" if k == "fused_slab" else None)
 
     @property
     def enc_in_kernel(self) -> bool:

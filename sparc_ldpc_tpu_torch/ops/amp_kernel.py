@@ -1,14 +1,18 @@
 """Whole-trial AMP decode on the (L, M) section tile (port of
 sparc_ldpc_tpu/ops/amp_kernel.py `amp_fused` with its split kernel
-`_amp_kernel_split` and its monolithic kernel `_amp_kernel`: optional
-in-kernel encode, per-codeword early stop, decision-feedback pinning and an
-SE tau2 schedule; in-kernel noise on the split form).
+`_amp_kernel_split`, its monolithic kernel `_amp_kernel` and its slab
+kernel `_amp_kernel_slab`: optional in-kernel encode, per-codeword early
+stop, decision-feedback pinning and an SE tau2 schedule; in-kernel noise
+on the split form).
 
 Forms, routed as the reference routes them: "split" (csrc/amp_split.cu,
-L up to 4096) and "mono" (csrc/amp_mono.cu, L <= 1024).  With neither
-`split` nor `form` given, L > 1024 takes the split form and L <= 1024 the
-mono form; `split=True` (amp_kernel="fused_split") forces the split form.
-The two differ in where their transforms round (below).
+L up to 4096), "mono" (csrc/amp_mono.cu, L <= 1024) and "slab"
+(csrc/amp_slab.cu, L up to 4096, only when asked for: amp_kernel=
+"fused_slab").  With neither `split` nor `form` given, L > 1024 takes the
+split form and L <= 1024 the mono form; `split=True` (amp_kernel=
+"fused_split") forces the split form.  The forms differ in where their
+transforms round and, for the slab form, in how tau2 and |beta'|^2 are
+summed (below).
 
 With the Kronecker split N = L * M and ML == N, the transform of a
 codeword is H_L @ X @ H_M on its (L, M) tile, the same tile the sectionwise
@@ -42,6 +46,15 @@ softmax), so its second rounding falls after H_L instead.  In float32
 rounding they draw different rounding noise, which T iterations amplify
 at near-tie sections, so they agree in distribution.
 
+The slab form (K7) computes the split form's transform, H_M first in both
+transforms with the data rounded to bf16 before the H_M stage and before
+the H_L stage, as the reference's slab kernel does (`_mm`, then `_mml`);
+its CUDA kernel keeps that order, so kernel and plain version round at the
+same places and differ in summation order only.  It computes in bf16 only
+(its two 128-wide factors run on the tensor cores).  Its tau2 and
+|beta'|^2 are the reference's per-slab partial sums: each slab of f_b rows
+summed, then the f_a slabs added in slab order (`slab_geometry`).
+
 In-kernel noise (`noise_seed`): Philox4x32-10 keyed by the codeword's two
 seed words, with the counter (m, l // 4, 0, 0) for element (l, m) of the
 (L, M) tile, and both outputs of Box-Muller on the reference's 24-bit
@@ -55,6 +68,7 @@ against JAX it agrees in distribution only.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -131,6 +145,27 @@ def mono_tile(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     run("amp_mono", "amp_mono_tile", x.device, x.data_ptr(), out.data_ptr(),
         B, L, M)
+    return out
+
+
+def slab_tile(x: torch.Tensor) -> torch.Tensor:
+    """The slab form's transform of each tile of x (B, L, M) float32,
+    H_L bf16(H_M bf16(x)): on a CUDA tensor K7's two stages (H_{m_b} and
+    H_{f_b} on the tensor cores, the radix factors in float32), on a CPU
+    tensor `fwht_tile_reference(x, "bf16")`."""
+    if x.device.type == "cpu":
+        return fwht_tile_reference(x, "bf16")
+    if x.device.type != "cuda":
+        raise ValueError(f"slab_tile runs on cpu or cuda, not {x.device}")
+    from ._build import run
+
+    B, L, M = x.shape
+    _check_cuda_shape(B, L, M)
+    _check_cuda_tensor("x", x, torch.float32, (B, L, M), x.device)
+    work = torch.empty_like(x, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    run("amp_slab", "amp_slab_tile", x.device, x.data_ptr(), work.data_ptr(),
+        out.data_ptr(), B, L, M)
     return out
 
 
@@ -334,25 +369,50 @@ def _pin_rows(beta, pin_idx, sqo):
 
 def fused_form(L: int, split: Optional[bool] = None,
                form: Optional[str] = None, noise: bool = False) -> str:
-    """The kernel form `amp_fused` runs, "split" or "mono", routed as the
-    reference's amp_fused routes (sparc_ldpc_tpu/ops/amp_kernel.py:891-909):
-    form=None takes "split" when split is true, or when split is None and
-    L > 1024, and "mono" otherwise; "mono" needs L <= 1024; "slab" (K7) is
-    not ported; the in-kernel noise needs the split form."""
+    """The kernel form `amp_fused` runs, "split", "mono" or "slab", routed
+    as the reference's amp_fused routes (sparc_ldpc_tpu/ops/
+    amp_kernel.py:891-909): form=None takes "split" when split is true, or
+    when split is None and L > 1024, and "mono" otherwise; "mono" needs
+    L <= 1024, "slab" L <= 4096; the in-kernel noise needs the split
+    form."""
     if form is None:
         form = "split" if ((L > 1024) if split is None else split) else "mono"
-    if form == "slab":
-        raise NotImplementedError("form='slab' (amp_kernel='fused_slab', the "
-                                  "slab kernel) is not ported yet (ROADMAP "
-                                  "K7)")
-    if form not in ("split", "mono"):
+    if form not in ("split", "mono", "slab"):
         raise ValueError(f"unknown form {form!r}")
     if form == "mono" and L > 1024:
         raise ValueError(f"the mono form takes L <= 1024, got L = {L}")
+    if form == "slab" and L > 4096:
+        raise ValueError(f"the slab form takes L <= 4096, got L = {L}")
     if noise and form != "split":
         raise ValueError("the in-kernel noise is implemented on the split "
                          "form only, as in the reference")
     return form
+
+
+def slab_geometry(L: int, M: int) -> Tuple[int, int, int, int]:
+    """(f_a, f_b, m_a, m_b) of the slab form, the reference's
+    (sparc_ldpc_tpu/ops/amp_kernel.py:910-917): slabs of f_b = min(128, L)
+    rows, f_a of them, and column blocks of m_b = 128 when 128 divides
+    M > 128, else m_b = M, m_a of them."""
+    f_b = min(128, L)
+    m_b = 128 if (M > 128 and M % 128 == 0) else M
+    return L // f_b, f_b, M // m_b, m_b
+
+
+def _tile_sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Per-codeword sum of squares of x (B, L, M) over the whole tile."""
+    return (x * x).sum((1, 2))
+
+
+def _slab_sq_sum(x: torch.Tensor, f_b: int) -> torch.Tensor:
+    """Per-codeword sum of squares of x (B, L, M) as the slab form takes
+    it: each slab of f_b rows summed, then the slabs added in slab
+    order."""
+    parts = (x * x).reshape(x.shape[0], -1, f_b * x.shape[-1]).sum(-1)
+    total = parts[:, 0]
+    for a in range(1, parts.shape[1]):
+        total = total + parts[:, a]
+    return total
 
 
 def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
@@ -370,14 +430,18 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
     """Plain PyTorch version of `amp_fused` (same arguments and results).
 
     The mono form is the reference's `_amp_kernel` (K6): each transform is
-    `mono_tile_reference`, H_L @ (bf16(x) @ H_M); the split form's is
-    `fwht_tile_reference`, rounding before both stages.  Everything else
-    is shared: |beta'|^2 from the state at the top of the iteration, tau2
-    over the whole tile, the adjoint plus beta', the row softmax, the pin,
-    the schedule and the tol freeze with the iterations count."""
-    L = mask.shape[0]
+    `mono_tile_reference`, H_L @ (bf16(x) @ H_M); the split form's (K1)
+    and the slab form's (K7) is `fwht_tile_reference`, rounding before
+    both stages.  |beta'|^2 (from the state at the top of the iteration)
+    and tau2 are sums over the whole tile, on the slab form per slab and
+    then over the slabs in order (`_slab_sq_sum`).  Everything else is
+    shared: the adjoint plus beta', the row softmax, the pin, the schedule
+    and the tol freeze with the iterations count."""
+    L, M = mask.shape
     f = fused_form(L, split, form, noise_seed is not None)
     transform = mono_tile_reference if f == "mono" else fwht_tile_reference
+    sq_sum = (functools.partial(_slab_sq_sum, f_b=slab_geometry(L, M)[1])
+              if f == "slab" else _tile_sq_sum)
     if noise_seed is not None:
         y_n = channel_noise_reference(noise_seed, mask, noise_sigma)
     B, L, M = y_n.shape
@@ -397,12 +461,12 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
     for t in range(T):
         z_new = y
         if t > 0:
-            bnorm2 = (beta * beta).sum((1, 2))
+            bnorm2 = sq_sum(beta)
             coef = (P - bnorm2 / (n * n)) / tau2_prev
             w = transform(beta, precision)
             z_new = y - mask_n * w + coef[:, None, None] * z
         if tau2_schedule is None:
-            tau2 = (z_new * z_new).sum((1, 2)) / n
+            tau2 = sq_sum(z_new) / n
         else:
             tau2 = tau2_schedule[t].to(torch.float32).expand(B)
         s = transform(z_new, precision) + beta
@@ -438,13 +502,14 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
               noise_seed: Optional[torch.Tensor] = None,   # (B, 2) int32
               noise_sigma: Optional[float] = None,
               split: Optional[bool] = None,
-              form: Optional[str] = None,  # None = auto | "split" | "mono"
+              form: Optional[str] = None,  # None = auto | split|mono|slab
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-trial AMP: returns (beta (B, L, M), tau2 trace (T, B),
     iterations used (B,) int32).
 
     split and form route as the reference's amp_fused does (`fused_form`):
-    with neither, the mono form at L <= 1024 and the split form above.
+    with neither, the mono form at L <= 1024 and the split form above;
+    form="slab" runs the slab kernel.
 
     encode_idx (B, L) turns on the in-kernel encode: y_n then holds the
     channel noise on the row support, and the codeword
@@ -453,7 +518,8 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     precision "bf16" is the reference kernels' arithmetic (module
     docstring); the other modes keep float32 operands, in which the split
     kernel and its plain version differ only in summation order.  The mono
-    kernel computes H_M on the tensor cores in bf16 and takes "bf16" only.
+    kernel computes H_M on the tensor cores in bf16, the slab kernel H_{m_b}
+    and H_{f_b}, so both take "bf16" only.
 
     tol > 0 is the reference's per-codeword early stop: once
     |tau2_t - tau2_{t-1}| < tol * tau2_t a codeword is frozen from
@@ -496,9 +562,10 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
 
     B = encode_idx.shape[0] if y_n is None else y_n.shape[0]
     _check_cuda_shape(B, L, M, max_l=1024 if f == "mono" else 4096)
-    if f == "mono" and precision != "bf16":
-        raise ValueError("the mono kernel computes H_M on the tensor cores "
-                         "in bf16: precision must be 'bf16'")
+    if f in ("mono", "slab") and precision != "bf16":
+        raise ValueError(f"the {f} kernel computes its Hadamard factors on "
+                         f"the tensor cores in bf16: precision must be "
+                         f"'bf16'")
     if y_n is None:
         _check_seed(noise_seed, B, dev)
     else:
@@ -521,15 +588,35 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
     y = torch.empty_like(beta)
     z = torch.empty_like(beta)
-    # one |z|^2 partial per column-stage block: a cluster of L / 1024
-    # blocks per 32-column strip above L = 1024
-    zpart = torch.empty((B, max(1, L // 1024) * (M // 32)),
-                        dtype=torch.float32, device=dev)
-    bpart = torch.empty((B, L), dtype=torch.float32, device=dev)
+    # the |z|^2 partials, one per column-stage block (a cluster of L / 1024
+    # blocks per 32-column strip above L = 1024), and the |beta'|^2
+    # partials, one per row; on the slab form one per (slab, 32-column
+    # strip) and one per slab
+    if f == "slab":
+        f_a = slab_geometry(L, M)[0]
+        nz, nb = f_a * (M // 32), f_a
+    else:
+        nz, nb = max(1, L // 1024) * (M // 32), L
+    zpart = torch.empty((B, nz), dtype=torch.float32, device=dev)
+    bpart = torch.empty((B, nb), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    if f == "slab":
+        # the work tile holds the H_M stage's results rounded to bf16, as
+        # the H_L stage reads them; u the adjoint's float32 result
+        work = torch.empty_like(beta, dtype=torch.bfloat16)
+        u = torch.empty_like(beta)
+        run("amp_slab", "amp_slab_run", dev,
+            y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
+            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+            beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+            active.data_ptr(), y.data_ptr(), z.data_ptr(), u.data_ptr(),
+            work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(), B, L, M, T,
+            float(P), float(n), 1.0 / math.sqrt(n), float(tol))
+        amp_fused.slab_launches += 1
+        return beta, trace, iters
     if f == "mono":
         # the mono form's work tile holds float32 products (bf16(x) H_M
         # and its H_L), so it is float32
@@ -564,8 +651,10 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
 # kernel runs, one per amp_fused call on a CUDA tensor, never counted on the
 # CPU route: `launches` of the split kernel (its encode launch plus 2 T
 # iteration launches), `noise_launches` those of them that drew the channel
-# noise in the kernel, and `mono_launches` of the mono kernel (its encode
-# launch plus 4 T iteration launches)
+# noise in the kernel, `mono_launches` of the mono kernel and
+# `slab_launches` of the slab kernel (each its encode launch plus 4 T
+# iteration launches)
 amp_fused.launches = 0
 amp_fused.noise_launches = 0
 amp_fused.mono_launches = 0
+amp_fused.slab_launches = 0

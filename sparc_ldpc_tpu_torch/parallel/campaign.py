@@ -30,6 +30,9 @@ same budget decisions.  Only rank 0 (`is_writer`) writes the journal and
 the results; on resume, rank 0's journal is broadcast, so every rank
 replays the same blocks.  A journal of another section axis is refused
 (utils.io.CampaignState.check_resume): S > 1 draws and decodes otherwise.
+So is one whose blocks drew on another device type: the journal lines
+record the device type of the generators (`draw_device`), and a CUDA and a
+CPU generator draw differently from one seed.
 """
 
 from __future__ import annotations
@@ -214,16 +217,19 @@ def run_campaign(
     """
     writer = policy is None or policy.is_writer
     state = None
-    if journal_path:
-        state = iou.CampaignState(
-            journal_path if writer else None,
-            1 if policy is None else policy.section_shards)
-        if policy is not None:
-            state.done = policy.broadcast(state.done)
-        state.check_resume()        # after the broadcast: every rank alike
     results = []
     for pi, ebno in enumerate(cfg.ebno_grid_db):
         model = model_for_point(ebno)
+        if journal_path and state is None:
+            # the blocks draw on the models' device (run_point), which the
+            # first model names
+            state = iou.CampaignState(
+                journal_path if writer else None,
+                1 if policy is None else policy.section_shards,
+                model.device.type)
+            if policy is not None:
+                state.done = policy.broadcast(state.done)
+            state.check_resume()    # after the broadcast: every rank alike
         # the reference prefers a model's staged runner where it has one;
         # the port's models have none (ROADMAP A7)
         tot = run_point(model.run_block, cfg.base_seed, cfg.batch,

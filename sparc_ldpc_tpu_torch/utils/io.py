@@ -42,11 +42,20 @@ class CampaignState:
     carries `section_shards`, and `check_resume` refuses to mix blocks of
     another section axis into this run.  Lines of S = 1 are the
     reference's.
+
+    A block's draws also depend on the device type of its generator: a CUDA
+    and a CPU torch.Generator seeded alike draw different bits and noise
+    (utils/rng.py).  With draw_device given ("cuda" or "cpu"), each line
+    records it as `draw_device`, and `check_resume` refuses a line of
+    another device type.  Lines without the field (the reference's, and
+    the port's before it recorded one) resume as before.
     """
 
-    def __init__(self, journal_path: Optional[str], section_shards: int = 1):
+    def __init__(self, journal_path: Optional[str], section_shards: int = 1,
+                 draw_device: Optional[str] = None):
         self.journal_path = journal_path
         self.section_shards = section_shards
+        self.draw_device = draw_device
         self.done: Dict[tuple, Dict[str, Any]] = {}
         if journal_path:
             for rec in read_jsonl(journal_path):
@@ -54,16 +63,26 @@ class CampaignState:
                     self.done[(rec["point"], rec["block"])] = rec
 
     def check_resume(self) -> None:
-        """Raise if a journaled block was run with another section axis."""
+        """Raise if a journaled block was run with another section axis or
+        drew on another device type than this run."""
         for (point, block), rec in sorted(self.done.items()):
+            where = f"journal {self.journal_path}: point {point} block {block}"
             s = rec.get("section_shards", 1)
             if s != self.section_shards:
                 raise ValueError(
-                    f"journal {self.journal_path}: point {point} block "
-                    f"{block} ran with section_shards={s}, this run has "
+                    f"{where} ran with section_shards={s}, this run has "
                     f"{self.section_shards}; its draws and decode differ, "
                     f"so resume with the same section shards or start a "
                     f"new journal")
+            d = rec.get("draw_device")
+            if (d is not None and self.draw_device is not None
+                    and d != self.draw_device):
+                raise ValueError(
+                    f"{where} drew on draw_device={d!r}, this run draws on "
+                    f"{self.draw_device!r}; a {d} and a {self.draw_device} "
+                    f"generator draw different bits and noise from one "
+                    f"seed, so resume on a {d} device or start a new "
+                    f"journal")
 
     def is_done(self, point: int, block: int) -> bool:
         return (point, block) in self.done
@@ -76,6 +95,8 @@ class CampaignState:
         rec = dict(kind="block", point=point, block=block, **counters)
         if self.section_shards != 1:
             rec["section_shards"] = self.section_shards
+        if self.draw_device is not None:
+            rec["draw_device"] = self.draw_device
         self.done[(point, block)] = rec
         if self.journal_path:
             append_jsonl(self.journal_path, rec)

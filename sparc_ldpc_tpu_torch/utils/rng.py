@@ -3,9 +3,12 @@ sparc_ldpc_tpu/utils/rng.py).
 
 One explicit torch.Generator per (base, point, block): its seed is drawn
 from a NumPy SeedSequence of those three integers, so a block's draws
-depend only on its coordinates.  That is what the campaign's journal
-resume needs: a block executed again after a restart draws exactly what it
-drew the first time.  They do not depend on the mesh or on the number of
+depend on its coordinates and on the generator's device type, since a
+CUDA and a CPU torch.Generator seeded alike draw different numbers.  That
+is what the campaign's journal resume needs: a block executed again after
+a restart on the same device type draws exactly what it drew the first
+time (the journal records the device type, utils/io.py, and refuses a
+resume on another).  They do not depend on the mesh or on the number of
 processes either: every process draws the whole block from its generator
 and decodes its own rows of it (models/sparc.py, parallel/mesh.py
 `process_rows`), at the price of each process making every row's draws.

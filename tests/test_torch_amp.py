@@ -485,7 +485,7 @@ def test_amp_fused_reference_mono_encode_matches_jax(L, M):
 def test_amp_fused_routes_as_the_reference():
     """form=None: mono at L <= 1024, split above; split=True forces the
     split form; mono refuses L > 1024 and the in-kernel noise; the slab
-    form is not ported."""
+    form runs when asked for, up to L = 4096, without the noise."""
     from sparc_ldpc_tpu_torch.ops.amp_kernel import fused_form
 
     assert fused_form(1024) == "mono" and fused_form(2048) == "split"
@@ -499,8 +499,12 @@ def test_amp_fused_routes_as_the_reference():
         fused_form(64, noise=True)
     with pytest.raises(ValueError):
         fused_form(64, form="dense")
-    with pytest.raises(NotImplementedError, match="K7"):
-        fused_form(64, form="slab")
+    assert fused_form(64, form="slab") == "slab"
+    assert fused_form(4096, split=True, form="slab") == "slab"
+    with pytest.raises(ValueError, match="L <= 4096"):
+        fused_form(8192, form="slab")
+    with pytest.raises(ValueError, match="split form only"):
+        fused_form(64, form="slab", noise=True)
 
 
 def test_amp_fused_reference_split_matches_jax_at_l2048():

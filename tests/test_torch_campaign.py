@@ -62,6 +62,39 @@ def test_campaign_runs_and_resumes(tmp_path):
     assert res2[0]["exec_blocks"] == 1 and res2[0]["bits_per_s"] is None
 
 
+def test_campaign_refuses_a_journal_of_another_draw_device(tmp_path):
+    """A CUDA and a CPU generator seeded alike draw different bits and
+    noise, so every journal line records the device type of its draws and
+    a resume on another device type is refused, with both named; a line
+    without the field (the reference's, or an older port journal's)
+    resumes as before."""
+    ccfg = CampaignConfig(ebno_grid_db=(5.0,), batch=8, min_frame_errors=2,
+                          max_trials=64, base_seed=11)
+    model = SparcModel.build(XLA, 5.0, "cpu")
+    journal = tmp_path / "journal.jsonl"
+    res1 = run_campaign(lambda e: model, ccfg, _kb, journal_path=str(journal),
+                        verbose=False)
+    lines = [json.loads(x) for x in journal.read_text().split("\n") if x]
+    assert lines and all(x["draw_device"] == "cpu" for x in lines)
+    # the same journal as if its blocks had drawn on a card
+    journal.write_text("".join(json.dumps(dict(x, draw_device="cuda")) + "\n"
+                               for x in lines))
+    with pytest.raises(ValueError, match="draw_device='cuda'.*'cpu'"):
+        run_campaign(lambda e: model, ccfg, _kb, journal_path=str(journal),
+                     verbose=False)
+    # lines without the field resume as before: every block replayed
+    journal.write_text("".join(json.dumps({k: v for k, v in x.items()
+                                           if k != "draw_device"}) + "\n"
+                               for x in lines))
+    res2 = run_campaign(lambda e: model, ccfg, _kb, journal_path=str(journal),
+                        verbose=False)
+    for k in ("bit_errors", "frame_errors", "trials", "blocks"):
+        assert res1[0][k] == res2[0][k], k
+    assert res2[0]["exec_blocks"] == 0
+    st = tio.CampaignState(str(journal), draw_device="cuda")
+    st.check_resume()
+
+
 def test_campaign_truthful_iters_and_throughput(tmp_path, split_model):
     ccfg = CampaignConfig(ebno_grid_db=(6.0,), batch=8, min_frame_errors=1,
                           max_trials=16, base_seed=11)

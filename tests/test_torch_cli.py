@@ -93,15 +93,19 @@ def test_unported_requests_exit_with_their_message(argv, needle,
     ("fast_l4096", "fused"), ("fast_l4096", "fused_split"),
     ("pa_l1024", "fused"), ("pa_l1024", "fused_split")])
 def test_fused_routes_are_not_refused(preset, kernel):
-    """amp_kernel="fused" (mono at L <= 1024, split above) and
-    "fused_split" at any L up to 4096 run; only the slab kernel is refused
-    (ROADMAP K7)."""
+    """Every AMP route runs at any L up to 4096: "fused" (mono at
+    L <= 1024, split above), "fused_split" and "fused_slab"; only the
+    column signs and the DCT operator are refused (ROADMAP A2, A3)."""
     cfg = PRESETS[preset].replace(amp_kernel=kernel)
     assert tcli._unported(cfg) is None
-    assert "K7" in tcli._unported(cfg.replace(amp_kernel="fused_slab"))
+    assert tcli._unported(cfg.replace(amp_kernel="fused_slab")) is None
     concat = PRESETS["concat"]
-    assert "K7" in tcli._unported(concat.replace(
-        sparc=concat.sparc.replace(amp_kernel="fused_slab")))
+    assert tcli._unported(concat.replace(
+        sparc=concat.sparc.replace(amp_kernel="fused_slab"))) is None
+    assert "A2" in tcli._unported(cfg.replace(col_signs=True))
+    assert "A3" in tcli._unported(cfg.replace(op_kind="dct"))
+    assert "A2" in tcli._unported(concat.replace(
+        sparc=concat.sparc.replace(col_signs=True)))
 
 
 @pytest.mark.parametrize("extra,kernel,tol", [

@@ -22,6 +22,11 @@ output scale; the denoiser to rtol 1e-5 (beta: atol 1e-6 max sq, post:
 atol 1e-7).  The mono form (amp_mono.cu) rounds where its plain version
 does, once per transform before H_M, so its transform alone agrees to
 1e-5 of the output scale and its decode to the bf16 tolerances above.
+The slab form (amp_slab.cu) also rounds where its plain version does,
+before H_M and before H_L; its transform is bit-equal on integer inputs
+(every sum exact) and within one bf16 ulp of the largest H_M value on
+normals (the two sum in other orders, so a rounding of the H_M stage may
+fall to the other neighbour), its decode held to the bf16 tolerances.
 """
 
 import math
@@ -38,8 +43,9 @@ from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
     fwht_tile, fwht_tile_reference, mono_tile, mono_tile_reference,
-    noise_uniforms, noise_uniforms_reference)
+    noise_uniforms, noise_uniforms_reference, slab_tile)
 from sparc_ldpc_tpu_torch.ops.denoiser import denoise, denoise_kernel
+from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, round_bf16
 from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2, fwht2_reference
 from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
 from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
@@ -208,8 +214,99 @@ def test_cuda_amp_mono_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):         # the noise is the split form's
         amp_fused(None, *args[1:], encode_idx=idx, form="mono",
                   noise_seed=_seeds(2, cuda_device), noise_sigma=0.5)
-    with pytest.raises(NotImplementedError):
-        amp_fused(*args, encode_idx=idx, form="slab")
+    with pytest.raises(ValueError):         # so is it on the slab form
+        amp_fused(None, *args[1:], encode_idx=idx, form="slab",
+                  noise_seed=_seeds(2, cuda_device), noise_sigma=0.5)
+    with pytest.raises(ValueError):         # H_{m_b}, H_{f_b} on bf16 cores
+        amp_fused(*args, encode_idx=idx, form="slab", precision="highest")
+
+
+@pytest.mark.parametrize("L,M", [(32, 32), (64, 256), (256, 512),
+                                 (1024, 512), (2048, 64), (4096, 128)])
+def test_cuda_slab_tile_matches_plain(cuda_device, L, M):
+    """K7's transform alone, H_L bf16(H_M bf16(x)), against its plain
+    version: integer inputs bit for bit, normals within one bf16 ulp of
+    the largest H_M value."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ints = torch.randint(-8, 9, (2, L, M), generator=gen,
+                         device=cuda_device).float()
+    assert torch.equal(slab_tile(ints), fwht_tile_reference(ints, "bf16"))
+    x = torch.randn((2, L, M), generator=gen, device=cuda_device)
+    ref = fwht_tile_reference(x, "bf16")
+    top = float(fwht_kron(round_bf16(x), "highest", -1).abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert float((slab_tile(x) - ref).abs().max()) <= ulp
+
+
+@pytest.mark.parametrize("L,M", [(32, 32), (64, 128), (256, 256),
+                                 (1024, 512), (2048, 64)])
+def test_cuda_amp_slab_matches_plain(cuda_device, L, M):
+    """K7 (the slab form, amp_kernel="fused_slab") against its plain
+    version, f_b = L below 128 and a cluster of two column blocks at
+    L = 2048: fixed T, early stop, pinning, an SE schedule and no encode,
+    to the mono form's bf16 rules; each call counted in slab_launches
+    alone."""
+    model, y_n, mask, sq, idx = _inputs(L, M, 4, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    T = 16
+    args = (y_n, mask, sq, c.P, c.n, T)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    keep = torch.rand((4, L), generator=gen, device=cuda_device) < 0.4
+    pin = torch.where(keep, idx, -1).to(torch.int32)   # decision feedback
+    sched = torch.linspace(1.0 + model.sigma2, model.sigma2, T,
+                           device=cuda_device)
+    launches = (amp_fused.launches, amp_fused.mono_launches,
+                amp_fused.slab_launches)
+    opts = (dict(), dict(tol=1e-4), dict(tol=1e-4, pin_idx=pin),
+            dict(tau2_schedule=sched), dict(encode_idx=None))
+    for opt in opts:
+        kw = dict(dict(encode_idx=idx, form="slab"), **opt)
+        bk, tk, ik = amp_fused(*args, **kw)
+        bp, tp, ip = amp_fused_reference(*args, **kw)
+        assert bool(torch.isfinite(bk).all() & torch.isfinite(tk).all())
+        ik, ip = ik.cpu().numpy(), ip.cpu().numpy()
+        if "tol" in opt:    # a bf16 near-tie may set one codeword's stop
+            assert abs(float(np.mean(ik - ip))) <= 2, (opt.keys(), ik, ip)
+        else:
+            np.testing.assert_array_equal(ik, ip)
+        t_min = int(min(ik.min(), ip.min()))
+        np.testing.assert_allclose(tk[:t_min].cpu().numpy(),
+                                   tp[:t_min].cpu().numpy(), rtol=2e-2)
+        flips, decisive = decision_flips(bp, bk)
+        assert decisive == 0
+        if kw["encode_idx"] is not None:
+            # without a codeword y_n is noise alone: every section is a
+            # near-tie there, and K1 flips as many as K7 does
+            assert flips <= 0.01 * idx.numel(), (opt.keys(), flips)
+        if "pin_idx" in opt:
+            rows = pin >= 0
+            assert torch.equal(bk[rows], bp[rows])
+            assert torch.equal(bk[rows].argmax(-1), pin[rows].long())
+        if "tau2_schedule" in opt:
+            assert torch.equal(tk, sched[:, None].expand(T, 4))
+            assert (ik == T).all()
+    assert amp_fused.slab_launches == launches[2] + len(opts)
+    assert (amp_fused.launches, amp_fused.mono_launches) == launches[:2]
+
+
+def test_cuda_slab_model_block_matches_cpu(cuda_device):
+    """A "fused_slab" SparcModel block on the card runs K7 once and agrees
+    with the CPU block of the same draws (the plain slab form)."""
+    cfg = _config(64, 128).replace(amp_kernel="fused_slab", amp_iters=16,
+                                   amp_tol=1e-4)
+    cpu = SparcModel.build(cfg, 6.0, "cpu")
+    gpu = SparcModel.build(cfg, 6.0, cuda_device)
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2, (8, cfg.k_bits)).astype(np.int32)
+    noise = rng.standard_normal((8, cfg.n)).astype(np.float32)
+    launches = amp_fused.slab_launches
+    a = gpu.run_block_from(bits, noise)
+    assert amp_fused.slab_launches == launches + 1
+    b = cpu.run_block_from(bits, noise)
+    assert a["trials"].item() == b["trials"].item() == 8
+    assert abs(a["iters_sum"].item() - b["iters_sum"].item()) <= 16
+    np.testing.assert_allclose(a["tau2_final"].item(),
+                               b["tau2_final"].item(), rtol=2e-2)
 
 
 def test_cuda_amp_fused_rejects_what_it_cannot_take(cuda_device):

@@ -253,11 +253,26 @@ def test_cuda_request_without_cuda_raises():
 
 @pytest.mark.parametrize("change", [
     dict(amp_kernel="fused_slab", amp_noise_in_kernel=True),
-    dict(amp_kernel="fused_slab"), dict(col_signs=True),
-    dict(op_kind="dct")])
+    dict(amp_kernel="fused_slab")])
+def test_slab_configs_build_and_decode(change):
+    """amp_kernel="fused_slab" builds and decodes on the slab form; the
+    in-kernel noise stays the split form's, so with amp_noise_in_kernel
+    the slab block draws torch.randn noise and encodes in the kernel, as
+    the reference's gate has it (sparc_ldpc_tpu/models/sparc.py:176-180)."""
+    m = SparcModel.build(FUSED.replace(**change), EBNO, "cpu")
+    assert m.fused_kw == dict(fused_split=None, fused_form="slab")
+    assert m.enc_in_kernel and not m.noise_in_kernel
+    out = m.run_block(torch.Generator().manual_seed(0), 2)
+    assert int(out["trials"]) == 2
+    assert int(out["iters_sum"]) == 2 * m.cfg.amp_iters
+    assert math.isfinite(float(out["tau2_final"]))
+
+
+@pytest.mark.parametrize("change", [dict(col_signs=True),
+                                    dict(op_kind="dct")])
 def test_unported_configs_raise_at_build(change):
-    """amp_kernel="fused" is ported (mono form at L <= 1024, split above);
-    the slab kernel is not (ROADMAP K7)."""
+    """Every amp_kernel is ported; the column signs and the DCT operator
+    are not (ROADMAP A2, A3)."""
     with pytest.raises(NotImplementedError):
         SparcModel.build(FUSED.replace(**change), EBNO, "cpu")
 
