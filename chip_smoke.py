@@ -157,10 +157,33 @@ the concat preset.  Each phase prints one line with its seconds:
  26. a slab concat block: PRESETS["concat"] with sparc.amp_kernel=
      "fused_slab", 3.0 dB, B=2048: K7 launched twice (main and pinned
      feedback pass) and K2 once, phase 8's windows; ms per block and user
-     bits/s beside phase 9's.
+     bits/s beside phase 9's;
+ 27. the split kernel's stage ablation (S2, csrc/amp_exp.cu, the tool
+     `python -m sparc_ldpc_tpu_torch.tools.kernel_ablation`) on the
+     headline model's code (L=1024, M=512, 2.0 dB; T=32 fixed, the
+     scripts'): each variant against its plain version at B=8 (full in
+     bf16 over T=32: at most 1 % flipped sections, tau2 to rtol 2e-2; in
+     float32 no decisive flip, tau2 to rtol 1e-4; the ablated variants,
+     garbage decodes, over T=2 in float32 within 1e-2 of the output scale
+     with NaN where the plain version has NaN, and in bf16 NaN positions
+     only); then the tool's blocks at B=512 (the main path: every variant
+     launched), each variant's decode call by CUDA events with its bound,
+     K1's own fixed-T call (amp_fused, split, y given) beside full's and
+     full's with a float32 mask, device ms by launch of those, full's
+     mean final tau2 within 3 % of SE, and the stage split full - each
+     ablated variant;
+ 28. the H_L factorings (S3, `tools.lstage_exp`): each variant against
+     its plain version at B=8 in bf16 (phase 27's decode rules), then the
+     tool's blocks and each decode call at B=512, T=32, the section
+     errors within 1 % of the sections of full's;
+ 29. two codewords per row-stage block (S1, `tools.pair_kernel_exp`):
+     against its plain version at B=8 (bf16 and float32, as full), then
+     timed beside full at B=512, T=32, section errors within 1 % of
+     full's.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
-13a, 13b, 15, 17, 19, 20, 21, 25, 26) and read after it.  Then a JSON line with the kernels'
+13a, 13b, 15, 17, 19, 20, 21, 25, 26, and the tools' blocks of 27-29) and
+read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
 operations over the H100's peak for their type, 67 TFLOP/s float32 and
@@ -889,18 +912,24 @@ def trace_stages(path: str, T: int) -> dict:
 def device_ms_by_kernel(fn, names) -> dict:
     """Device ms of one fn() call by kernel, from a torch.profiler Chrome
     trace: each of `names` sums the kernels whose name contains it, the
-    rest go to "other"."""
+    rest go to "other".  The trace is of a second call, after a warm-up
+    call in the same profiler (a one-call trace late in a long process
+    lost some of its first kernels' records)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
-        prof.export_chrome_trace(path)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
     finally:
@@ -1963,6 +1992,350 @@ def slab_concat_phase(dev, card: str, cp: dict, clock: Clock) -> dict:
     require(cnt["iters_sum"] < BATCH * T, "the early stop did not engage")
     return dict(launches=launches, block_ms=1e3 * dt, bits_per_s=bits_per_s)
 
+# the experiment tools' sizes (scripts/kernel_ablation.py main): B, T
+EXP_BATCH, EXP_T = 512, 32
+EXP_ABLATED_T = 2     # the ablated variants' comparison: garbage decodes
+# other operations an element and iteration besides the transforms, per
+# variant (AMP_ELEM_OPS less what the variant drops: no_softmax the max,
+# exp and two sums; no_max the max and its subtraction; no_norms |z|^2 and
+# |beta|^2)
+EXP_ELEM_OPS = {"no_softmax": 8, "no_max": 10, "no_norms": 10}
+
+
+def exp_bound(mode: str, B: int, L: int, M: int, T: int) -> dict:
+    """Bound of one experiment call (ops/amp_exp.py) at fixed T: y read
+    once, the bf16 mask and sq once, beta and the trace written once;
+    2 T - 1 transforms (the first forward one acts on beta = 0) at one
+    float32 add an element and radix-2 stage, plus EXP_ELEM_OPS.  Every
+    decoding variant (full, S3's, the pair) computes full's function, so
+    it gets full's bound, the least over the ways to compute H_L (the
+    butterflies); the ablated ones compute other functions, bounded by
+    the stages they keep.  exp_dense_flops gives what S3's products
+    compute."""
+    from sparc_ldpc_tpu_torch.ops.amp_exp import ABLATED
+
+    el, E = L * M, B * L * M
+    nbytes = 8 * E + 2 * el + 4 * L + 4 * T * B
+    n_tr = (2 * T - 1) * E
+    if mode not in ABLATED:
+        mode = "full"
+    stages = {"no_transform": 0, "m_stage_only": math.log2(M)}
+    f32 = n_tr * stages.get(mode, math.log2(el))
+    f32 += T * E * EXP_ELEM_OPS.get(mode, AMP_ELEM_OPS)
+    return bound(nbytes, {"fp32": f32})
+
+
+def exp_dense_flops(mode: str, L: int) -> int:
+    """bf16 tensor-core flops an element and transform that the S3 variant
+    computes for its dense products (2 f a product by H_f: H_{f_b}, and
+    H_{f_a} for slab_*, H_128 on the rows for l256_m128); 0 elsewhere."""
+    from sparc_ldpc_tpu_torch.ops.amp_exp import S3_MODES, mode_f_b
+
+    if mode not in S3_MODES:
+        return 0
+    f_b = mode_f_b(mode, L)
+    extra = {"slab_loop": L // f_b, "slab_unroll": L // f_b,
+             "slab_batched": L // f_b, "l256_m128": 128}
+    return 2 * (f_b + extra.get(mode, 0))
+
+
+def exp_compare(kout, pout, idx, decoding: bool) -> dict:
+    """An experiment kernel's (beta, trace) against its plain version's.
+    Decoding variants: flips (and decisive ones), section error rates and
+    the tau2 trace's largest relative error.  Ablated ones: NaN positions
+    equal, and the largest beta error where both are finite over the
+    plain version's largest finite |beta|."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.models.amp import decision_flips
+
+    (bk, tk), (bp, tp) = kout, pout
+    if decoding:
+        require(bool(torch.isfinite(bk).all() & torch.isfinite(tk).all()),
+                "kernel output is not finite")
+        flips, decisive = decision_flips(bk, bp)
+        return dict(flips=flips, decisive=decisive,
+                    ser_kernel=float((bk.argmax(-1) != idx).float().mean()),
+                    ser_plain=float((bp.argmax(-1) != idx).float().mean()),
+                    tau2_rel_err=float(((tk - tp).abs() / tp).max()),
+                    beta_abs_err=float((bk - bp).abs().max()))
+    nan_k, nan_p = torch.isnan(bk), torch.isnan(bp)
+    fin = ~(nan_k | nan_p)
+    scale = float(bp[fin].abs().max()) if bool(fin.any()) else 1.0
+    err = float((bk - bp)[fin].abs().max()) if bool(fin.any()) else 0.0
+    return dict(nan_equal=bool(torch.equal(nan_k, nan_p)),
+                nan_frac=float(nan_p.float().mean()),
+                err_over_scale=err / max(scale, 1e-30))
+
+
+def exp_plain(model, mode: str, y_n, T: int, prec: str = "bf16"):
+    """The plain version of variant `mode` on y_n, T iterations: the bf16
+    ablated variants rounded where the K1-style kernels round
+    (order="kernel", ops/amp_exp.py), the rest where the scripts round."""
+    from sparc_ldpc_tpu_torch.ops.amp_exp import (
+        ABLATED, amp_exp_reference, mode_f_b)
+
+    c = model.cfg
+    order = "kernel" if mode in ABLATED and prec == "bf16" else "script"
+    return amp_exp_reference(mode, y_n, model.op.mask.reshape(c.L, c.M),
+                             model.sq_npl, c.P, c.n, T, mode_f_b(mode, c.L),
+                             mode == "pair", prec, order)
+
+
+def exp_hold(key: str, r: dict, sections: int, prec: str = "bf16") -> None:
+    """An exp_compare result held to its contract: decoding variants at
+    most 1 % flipped sections and the tau2 trace to rtol 2e-2 (1e-4 and
+    no decisive flip in float32); ablated ones NaN positions equal and
+    beta within 1e-2 of the output scale."""
+    if "nan_equal" in r:
+        require(r["nan_equal"], f"{key}: NaN positions differ")
+        require(r["err_over_scale"] <= 1e-2,
+                f"{key}: beta err {r['err_over_scale']} of scale")
+        return
+    require(r["flips"] <= 0.01 * sections, f"{key}: flips > 1 %")
+    tol = 1e-4 if prec == "highest" else 2e-2
+    require(r["tau2_rel_err"] <= tol,
+            f"{key}: tau2 rel err {r['tau2_rel_err']}")
+    if prec == "highest":
+        require(r["decisive"] == 0, f"{key}: decisive flips")
+
+
+def exp_checks(dev, model, modes, clock, label: str) -> dict:
+    """Each variant's kernel against its plain version at B=CHECK_BATCH
+    on the same draws (exp_hold): decoding variants in bf16 over EXP_T
+    iterations, "full" and "pair" also in float32; ablated ones over
+    EXP_ABLATED_T iterations in float32 and in bf16 (against the plain
+    version rounded as the kernels round: their garbage decodes amplify
+    the scripts' other rounding order past the limit)."""
+    from sparc_ldpc_tpu_torch.ops.amp_exp import ABLATED
+    from sparc_ldpc_tpu_torch.tools.kernel_ablation import (
+        decode, draw_block)
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    L, M = model.cfg.L, model.cfg.M
+    y_n, idx = draw_block(model, block_generator(SEED, 27, 0, dev),
+                          CHECK_BATCH)
+    res = {}
+    for mode in modes:
+        ablated = mode in ABLATED
+        T = EXP_ABLATED_T if ablated else EXP_T
+        precs = (("highest", "bf16") if ablated or mode in ("full", "pair")
+                 else ("bf16",))
+        for prec in precs:
+            kout = decode(model, mode, y_n, T, prec)
+            pout = exp_plain(model, mode, y_n, T, prec)
+            res[f"{mode} {prec}"] = exp_compare(kout, pout, idx,
+                                                not ablated)
+    print(f"[{label} kernels vs plain] B={CHECK_BATCH} L={L} M={M}, T="
+          f"{EXP_T} (ablated T={EXP_ABLATED_T}): {res} "
+          f"({clock.lap():.1f} s)", flush=True)
+    for key, r in res.items():
+        exp_hold(key, r, CHECK_BATCH * L, key.split()[1])
+    return res
+
+
+def exp_timing(dev, model, modes, label: str, decodes: bool) -> dict:
+    """The tool's blocks (the main path: counts set to 0 before, read
+    after) and, per variant at B=EXP_BATCH, the kernel's call at T=EXP_T
+    by CUDA events and its bound; each decoding variant's call held to
+    the plain version's (timed) on the same draws, each ablated one's at
+    T=EXP_ABLATED_T (exp_hold)."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.amp_exp import (
+        ABLATED, amp_exp, reset_launches)
+    from sparc_ldpc_tpu_torch.tools import kernel_ablation as ka
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    L, M = model.cfg.L, model.cfg.M
+    torch.cuda.empty_cache()
+    reset_counts()
+    reset_launches()
+    blocks = ka.run(model, modes, EXP_BATCH, EXP_T, decodes)
+    torch.cuda.synchronize()
+    launches = {m: amp_exp.launches[m] for m in modes}
+    others = read_counts()
+    require(all(v > 0 for v in launches.values()),
+            f"phase {label}: a variant was never launched: {launches}")
+    require(not any(others.values()),
+            f"phase {label}: the experiments launched another kernel: "
+            f"{others}")
+    y_n, idx = ka.draw_block(model, block_generator(SEED, 27, 1, dev),
+                             EXP_BATCH)
+    calls, checks = {}, {}
+    for mode in modes:
+        ms, out = timed_result(lambda: ka.decode(model, mode, y_n, EXP_T),
+                               REPS)
+        rec = dict(ms=ms, **exp_bound(mode, EXP_BATCH, L, M, EXP_T),
+                   dense_bf16_flops_per_element=exp_dense_flops(mode, L),
+                   sec_err=int((out[0].argmax(-1) != idx).sum()),
+                   tau2_final=float(out[1][EXP_T - 1].mean()))
+        if mode in ABLATED:
+            del out
+            out = ka.decode(model, mode, y_n, EXP_ABLATED_T)
+            pout = exp_plain(model, mode, y_n, EXP_ABLATED_T)
+        else:
+            rec["plain_ms"], pout = timed_result(
+                lambda: exp_plain(model, mode, y_n, EXP_T), 1)
+        checks[mode] = exp_compare(out, pout, idx, mode not in ABLATED)
+        calls[mode] = rec
+        del out, pout
+        torch.cuda.empty_cache()
+    print(f"[{label} kernels vs plain] B={EXP_BATCH} L={L} M={M}, T={EXP_T} "
+          f"(ablated T={EXP_ABLATED_T}): {checks}", flush=True)
+    for mode, r in checks.items():
+        exp_hold(f"{mode} B={EXP_BATCH}", r, EXP_BATCH * L)
+    return dict(blocks={b["mode"]: b for b in blocks}, calls=calls,
+                launches=launches, y_n=y_n, idx=idx, checks=checks)
+
+
+def exp_record(name: str, script: str, mode: str, modes, checks: dict,
+               tm: dict) -> dict:
+    """The kernels line's record of one experiment: its headline variant's
+    numbers, every variant's ms and launches beside them.  max_abs_err is
+    the largest beta error against the plain version in float32 where
+    the experiment has a float32 mode (over the output scale for the
+    ablated variants), else in bf16 (where near-tie sections flip)."""
+    calls = tm["calls"]
+    errs = [r.get("err_over_scale", r.get("beta_abs_err"))
+            for k, r in checks.items() if k.endswith("highest")]
+    errs = errs or [r["beta_abs_err"] for r in checks.values()]
+    return {
+        "name": name, "route": "cuda",
+        "source": "sparc_ldpc_tpu_torch/csrc/amp_exp.cu", "replaces": script,
+        "variant": mode, "launches": sum(tm["launches"].values()),
+        "launches_by_variant": tm["launches"],
+        "max_abs_err": max(errs),
+        "ms": calls[mode]["ms"], "plain_ms": calls[mode]["plain_ms"],
+        "bound_ms": calls[mode]["bound_ms"],
+        "bound_by": calls[mode]["bound_by"], "library_ms": None,
+        "ms_by_variant": {m: round(calls[m]["ms"], 3) for m in modes},
+        "bound_ms_by_variant": {m: round(calls[m]["bound_ms"], 3)
+                                for m in modes}}
+
+
+def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
+    """Phase 27: S2, the stage ablation (tools/kernel_ablation.py), and K1's
+    own fixed-T call beside its "full" variant."""
+    from sparc_ldpc_tpu_torch.design.se import se_trajectory
+    from sparc_ldpc_tpu_torch.ops.amp_exp import S2_MODES, _full_runtime_m
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
+    from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
+
+    c = model.cfg
+    L, M = c.L, c.M
+    checks = exp_checks(dev, model, S2_MODES, clock, "27 S2")
+    tm = exp_timing(dev, model, S2_MODES, "27", False)
+    calls = tm["calls"]
+    args = (tm["y_n"], model.op.mask.reshape(L, M), model.sq_npl, c.P,
+            c.n, EXP_T)
+    k1_ms = call_ms(lambda: amp_fused(*args, split=True), REPS)
+    # full with K1's run-time row length M in its column stage
+    rtm_ms = call_ms(lambda: _full_runtime_m(*args), REPS)
+    stages = {
+        "full": device_ms_by_kernel(
+            lambda: decode(model, "full", tm["y_n"], EXP_T),
+            ("exp_col_kernel", "exp_row_kernel")),
+        "full, run-time M": device_ms_by_kernel(
+            lambda: _full_runtime_m(*args),
+            ("exp_col_kernel", "exp_row_kernel")),
+        "K1": device_ms_by_kernel(
+            lambda: amp_fused(*args, split=True),
+            ("amp_encode_kernel", "amp_col_kernel", "amp_row_kernel"))}
+    full = calls["full"]["ms"]
+    # the traced launches' share of the call's CUDA-event ms
+    call_of = {"full": full, "full, run-time M": rtm_ms, "K1": k1_ms}
+    cover = {k: round(sum(v.values()) / call_of[k], 3)
+             for k, v in stages.items()}
+    se_fp = float(se_trajectory(model.p_alloc, c.n, M, model.sigma2,
+                                T=EXP_T)[-1])
+    # full's time by stage: what each ablation saves, in ms and in % of
+    # full's call
+    split = {f"full - {m}": (round(full - calls[m]["ms"], 3),
+                             round(100 * (1 - calls[m]["ms"] / full), 2))
+             for m in S2_MODES if m != "full"}
+    print(f"[27 S2 stage ablation] B={EXP_BATCH} T={EXP_T} L={L} M={M}: "
+          f"launches {tm['launches']}; decode call ms (CUDA events) "
+          f"{ {m: round(r['ms'], 3) for m, r in calls.items()} }; K1's own "
+          f"fixed-T call (amp_fused split, y given) {k1_ms:.3f} ms beside "
+          f"full {full:.3f} ms ({100 * (full / k1_ms - 1):+.2f} %), K1 - "
+          f"full {k1_ms - full:.3f} ms; full with run-time M {rtm_ms:.3f} "
+          f"ms; full's stage split (ms, % of full's call) {split}; device "
+          f"ms by launch {stages} (their sum over the call's ms {cover}); "
+          f"plain full {calls['full']['plain_ms']:.1f} ms; bounds "
+          f"{ {m: round(r['bound_ms'], 3) for m, r in calls.items()} }; "
+          f"full's sections in error {calls['full']['sec_err']} of "
+          f"{EXP_BATCH * L}, mean final tau2 {calls['full']['tau2_final']:.4f}"
+          f" (SE {se_fp:.4f}) on {card} ({clock.lap():.1f} s)", flush=True)
+    require(abs(calls["full"]["tau2_final"] / se_fp - 1) <= 0.03,
+            "full: mean final tau2 off SE by more than 3 %")
+    rec = exp_record("amp_ablation", "scripts/kernel_ablation.py:23", "full",
+                     S2_MODES, checks, tm)
+    rec["k1_ms"] = k1_ms
+    rec["full_runtime_m_ms"] = rtm_ms
+    return dict(rec=rec, full_ms=full, sec_err=calls["full"]["sec_err"],
+                k1_ms=k1_ms)
+
+
+def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
+    """Phase 28: S3, the H_L factorings (tools/lstage_exp.py)."""
+    from sparc_ldpc_tpu_torch.ops.amp_exp import S3_MODES
+    from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
+
+    L = model.cfg.L
+    checks = exp_checks(dev, model, S3_MODES, clock, "28 S3")
+    tm = exp_timing(dev, model, S3_MODES, "28", True)
+    calls = tm["calls"]
+    sec = {m: r["sec_err"] for m, r in calls.items()}
+    stages = {m: device_ms_by_kernel(
+        lambda: decode(model, m, tm["y_n"], EXP_T),
+        ("lstage_col_kernel", "exp_row_kernel", "lstage_row_kernel"))
+        for m in S3_MODES}
+    print(f"[28 S3 H_L factorings] B={EXP_BATCH} T={EXP_T}: launches "
+          f"{tm['launches']}; decode call ms "
+          f"{ {m: round(r['ms'], 3) for m, r in calls.items()} } beside "
+          f"full's {ab['full_ms']:.3f}; sections in error {sec} (full: "
+          f"{ab['sec_err']}); final tau2 "
+          f"{ {m: round(r['tau2_final'], 4) for m, r in calls.items()} }; "
+          f"device ms by launch {stages}; plain ms "
+          f"{ {m: round(r['plain_ms'], 1) for m, r in calls.items()} }; "
+          f"bound (full's function) {calls['slab_loop']['bound_ms']:.3f} ms;"
+          f" dense bf16 flops an element and transform "
+          f"{ {m: r['dense_bf16_flops_per_element'] for m, r in calls.items()} }"
+          f" on {card} ({clock.lap():.1f} s)", flush=True)
+    for m, e in sec.items():
+        require(abs(e - ab["sec_err"]) <= 0.01 * EXP_BATCH * L,
+                f"{m}: section errors {e} against full's {ab['sec_err']}")
+    rec = exp_record("amp_lstage", "scripts/lstage_exp.py:34", "slab_loop",
+                     S3_MODES, checks, tm)
+    rec["dense_bf16_flops_per_element_by_variant"] = {
+        m: r["dense_bf16_flops_per_element"] for m, r in calls.items()}
+    return dict(rec=rec)
+
+
+def pair_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
+    """Phase 29: S1, two codewords per block (tools/pair_kernel_exp.py)."""
+    from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
+
+    modes = ("pair",)
+    checks = exp_checks(dev, model, modes, clock, "29 S1")
+    tm = exp_timing(dev, model, modes, "29", True)
+    r = tm["calls"]["pair"]
+    stages = device_ms_by_kernel(
+        lambda: decode(model, "pair", tm["y_n"], EXP_T),
+        ("exp_col_kernel", "exp_row_kernel"))
+    print(f"[29 S1 pair] B={EXP_BATCH} T={EXP_T}: launches {tm['launches']};"
+          f" decode call {r['ms']:.3f} ms beside full's {ab['full_ms']:.3f} "
+          f"({100 * (r['ms'] / ab['full_ms'] - 1):+.2f} %); sections in "
+          f"error {r['sec_err']} (full: {ab['sec_err']}); device ms by "
+          f"launch {stages}; plain "
+          f"{r['plain_ms']:.1f} ms; bound {r['bound_ms']:.3f} on {card} "
+          f"({clock.lap():.1f} s)", flush=True)
+    require(abs(r["sec_err"] - ab["sec_err"]) <= 0.01 * EXP_BATCH
+            * model.cfg.L, "pair: section errors off full's")
+    return dict(rec=exp_record("amp_pair", "scripts/pair_kernel_exp.py:28",
+                               "pair", modes, checks, tm))
+
 
 def main() -> None:
     import torch
@@ -2018,6 +2391,9 @@ def main() -> None:
     k7 = slab_check_phase(dev, card, sp, cp, lp, clock)
     sl = slab_path(dev, card, sp, mp, clock)
     sc = slab_concat_phase(dev, card, cp, clock)
+    ab = ablation_phase(dev, card, sp["model"], clock)
+    ls = lstage_phase(dev, card, sp["model"], ab, clock)
+    pr = pair_phase(dev, card, sp["model"], ab, clock)
 
     require("jax" not in sys.modules, "jax was imported")
     ref = [k for k in sys.modules
@@ -2078,7 +2454,7 @@ def main() -> None:
     k3_rec["launches_by_path"] = {
         f"decode S={S}": c["fwht_tile"] for S, c in sh["launches"].items()}
     records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec, k3_rec,
-               slab_rec]
+               slab_rec, ab["rec"], ls["rec"], pr["rec"]]
     for rec in records:
         require(rec["launches"] > 0, f"{rec['name']} was never launched")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)

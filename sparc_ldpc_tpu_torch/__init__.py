@@ -25,6 +25,12 @@ find:
                      (csrc/amp_mono.cu, L <= 1024) and the slab form
                      (csrc/amp_slab.cu, L <= 4096; all share
                      csrc/amp_common.cuh) and their plain PyTorch version
+  ops/amp_exp.py     the split form's experiments (stage ablation, other
+                     factorings of H_L, two codewords a block): CUDA
+                     variants (csrc/amp_exp.cu, csrc/amp_mma.cuh) and
+                     their plain version
+  tools/             kernel_ablation, lstage_exp, pair_kernel_exp (the
+                     experiments' entry points), amp_ab, dryrun_multichip
   ops/bp.py          LDPC BP on padded edge tables (flooding)
   ops/bp_qc.py       QC-LDPC BP on circulant tensors (flooding, layered)
   ops/bp_qc_kernel.py  layered QC-LDPC min-sum: CUDA kernel

@@ -71,63 +71,13 @@
 // and called through ctypes (plain C interface below).
 
 #include "amp_common.cuh"
+#include "amp_mma.cuh"
 
 namespace {
 
 constexpr int kSlabRows = 128;        // f_b at L >= 128
-constexpr int kTile = 16;             // rows of an mma tile
 constexpr int kColWarps = 8;          // warps of a column-stage block
 constexpr int kColThreads = 32 * kColWarps;
-constexpr int kLdX = kStrip + 8;      // padded bf16 row of a strip tile
-constexpr uint32_t kNeg = 0x80008000u;  // the sign bits of two bf16
-
-__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2,
-                                         float& d3, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// bf16 bits of H[r][k] and H[r][k + 1] (low half first), H[r][k] =
-// (-1)^popc(r & k).
-__device__ __forceinline__ uint32_t h_pair(int r, int k) {
-  const uint32_t lo = (__popc(r & k) & 1) ? 0xBF80u : 0x3F80u;
-  const uint32_t hi = (__popc(r & (k + 1)) & 1) ? 0xBF80u : 0x3F80u;
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 x) {
-  return __bfloat16_as_ushort(x);
-}
-
-// Butterflies over the first index of v[N][4] (stride 1 first): the
-// Hadamard factor H_N across N tiles held by one thread.
-template <int N>
-__device__ __forceinline__ void tile_fwht(float (&v)[N][4]) {
-#pragma unroll
-  for (int h = 1; h < N; h <<= 1) {
-#pragma unroll
-    for (int a = 0; a < N; ++a) {
-      if ((a & h) == 0) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = v[a][e], w = v[a + h][e];
-          v[a][e] = x + w;
-          v[a + h][e] = x - w;
-        }
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------- columns
 //
@@ -261,69 +211,7 @@ slab_col_kernel(const __nv_bfloat16* __restrict__ work,
 
 // ------------------------------------------------------------------- rows
 //
-// A row block holds 16 rows as bf16 in shared memory (M + 8 a row).  Warp w
-// computes the 8-column tiles n0 = 8 (w + NW s) of every column block jb:
-// for the mma the A operand is the data, X[g][jb m_b + 16 kk + 2 q ..], the
-// B operand H_{m_b}[16 kk + k][n0 + n], whose parity is popc(16 kk & n0) +
-// bit3(k) bit3(n0) + popc(k & n) (amp_mono.cu hm_mma): a base fragment with
-// two signs.
-
-template <int M>
-struct SlabRows {
-  static constexpr int MB = M > 128 ? 128 : M;  // m_b (128 divides M > 128)
-  static constexpr int MA = M / MB;             // m_a
-  static constexpr int NT = MB / 8;             // 8-column tiles of a block
-  static constexpr int NW = NT < 8 ? NT : 8;    // warps
-  static constexpr int NPW = NT / NW;           // tiles of a block per warp
-  static constexpr int THREADS = 32 * NW;
-  static constexpr int LDA = M + 8;             // padded bf16 row
-};
-
-// out (16 rows, row stride M) = bf16 of the H_M stage of the 16 bf16 rows
-// in sA: per column block X H_{m_b} on the tensor cores, then H_{m_a}
-// across the blocks in float32.
-template <int M>
-__device__ __forceinline__ void slab_hm(const __nv_bfloat16* sA,
-                                        __nv_bfloat16* __restrict__ out) {
-  using S = SlabRows<M>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const uint32_t b0 = h_pair(g, 2 * q), b1 = h_pair(g, 2 * q + 8);
-#pragma unroll
-  for (int s = 0; s < S::NPW; ++s) {
-    const int n0 = 8 * (warp + S::NW * s);
-    const uint32_t f = (n0 & 8) ? kNeg : 0u;
-    float acc[S::MA][4];
-#pragma unroll
-    for (int jb = 0; jb < S::MA; ++jb)
-      acc[jb][0] = acc[jb][1] = acc[jb][2] = acc[jb][3] = 0.f;
-#pragma unroll
-    for (int jb = 0; jb < S::MA; ++jb) {
-#pragma unroll
-      for (int k0 = 0; k0 < S::MB; k0 += kTile) {
-        const __nv_bfloat16* pa = sA + g * S::LDA + jb * S::MB + k0 + 2 * q;
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(pa);
-        const uint32_t a1 =
-            *reinterpret_cast<const uint32_t*>(pa + 8 * S::LDA);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(pa + 8);
-        const uint32_t a3 =
-            *reinterpret_cast<const uint32_t*>(pa + 8 * S::LDA + 8);
-        const uint32_t sg = (__popc(k0 & n0) & 1) ? kNeg : 0u;
-        mma_bf16(acc[jb][0], acc[jb][1], acc[jb][2], acc[jb][3], a0, a1, a2,
-                 a3, b0 ^ sg, b1 ^ sg ^ f);
-      }
-    }
-    tile_fwht<S::MA>(acc);  // H_{m_a} across the column blocks
-#pragma unroll
-    for (int jb = 0; jb < S::MA; ++jb) {
-      const int col = jb * S::MB + n0 + 2 * q;
-      *reinterpret_cast<uint32_t*>(out + (size_t)g * M + col) =
-          bf16_pair(acc[jb][0], acc[jb][1]);
-      *reinterpret_cast<uint32_t*>(out + (size_t)(g + 8) * M + col) =
-          bf16_pair(acc[jb][2], acc[jb][3]);
-    }
-  }
-}
+// The H_M stage of a row block is amp_mma.cuh's slab_hm.
 
 // R2: out = bf16(H_M bf16(x)) for every row of x (B, L, M), 16 rows per
 // block; the blocks of a codeword frozen at iteration t return at once

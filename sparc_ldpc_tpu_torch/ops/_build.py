@@ -50,6 +50,10 @@ _SIGNATURES = {
         "amp_mono_run": ((_P,) * 16 + (_I,) * 4 + (_F,) * 4 + (_P,), _I),
         "amp_mono_tile": ((_P, _P, _I, _I, _I, _P), _I),
     },
+    "amp_exp": {
+        "amp_exp_run": ((_I,) + (_P,) * 9 + (_I,) * 4 + (_F,) * 3
+                        + (_I, _I, _P), _I),
+    },
     "amp_slab": {
         "amp_slab_run": ((_P,) * 17 + (_I,) * 4 + (_F,) * 4 + (_P,), _I),
         "amp_slab_tile": ((_P,) * 3 + (_I,) * 3 + (_P,), _I),

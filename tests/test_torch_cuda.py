@@ -27,6 +27,16 @@ before H_M and before H_L; its transform is bit-equal on integer inputs
 (every sum exact) and within one bf16 ulp of the largest H_M value on
 normals (the two sum in other orders, so a rounding of the H_M stage may
 fall to the other neighbour), its decode held to the bf16 tolerances.
+The split kernel's experiments (amp_exp.cu: S2's stage ablation, S3's
+factorings of H_L, S1's two codewords a block) at the scripts' shape:
+the decoding variants (full, S3, pair) in bf16 over T = 32 (at most 1 %
+flipped sections, tau2 to rtol 2e-2), full and the pair also in float32
+(no decisive flip, tau2 to rtol 1e-4); the ablated variants, whose
+decodes are garbage, over T = 2 in float32 and in bf16 (beta within
+1e-2 of the output scale, NaN where the plain version has NaN; in bf16
+against the plain version rounded where the K1-style kernels round,
+order="kernel": the scripts round the adjoint at other places, which a
+garbage decode amplifies).
 """
 
 import math
@@ -40,6 +50,8 @@ from sparc_ldpc_tpu_torch.design.ldpc_codes import build_code, qc_structure
 from sparc_ldpc_tpu_torch.models.amp import decision_flips
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
+from sparc_ldpc_tpu_torch.ops.amp_exp import (
+    ABLATED, MODES, _full_runtime_m, amp_exp, amp_exp_reference, mode_f_b)
 from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
     fwht_tile, fwht_tile_reference, mono_tile, mono_tile_reference,
@@ -844,3 +856,82 @@ def test_cuda_distributed_processes_share_the_gpus(gpus, tmp_path):
     assert two[0]["processes"] == 2 and two[0]["mesh"] == [n // 2, 1]
     assert ({k: two[0][k] for k in CAMPAIGN_KEYS}
             == {k: one[-1][k] for k in CAMPAIGN_KEYS})
+
+
+# ------------------------------------- the split kernel's experiments
+
+@pytest.fixture(scope="module")
+def exp_draws():
+    """The scripts' model (L=1024, M=512, 2.0 dB) and 8 codewords' draws
+    from NumPy, on the CPU."""
+    from sparc_ldpc_tpu_torch.tools.kernel_ablation import script_config
+
+    model = SparcModel.build(script_config(), 2.0, "cpu")
+    c = model.cfg
+    rng = np.random.default_rng(0)
+    bits = torch.tensor(rng.integers(0, 2, (8, c.k_bits)), dtype=torch.int32)
+    noise = torch.tensor(rng.standard_normal((8, c.n)), dtype=torch.float32)
+    y = model.encode(bits) + noise * math.sqrt(model.sigma2)
+    return (model, model.op.embed_y(y).reshape(8, c.L, c.M),
+            bits_to_indices(bits, c.logM))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_amp_exp_matches_plain(cuda_device, exp_draws, mode):
+    model, y_n, idx = exp_draws
+    c = model.cfg
+    L, M = c.L, c.M
+    args = (y_n.to(cuda_device), model.op.mask.reshape(L, M).to(cuda_device),
+            model.sq_npl.to(cuda_device), c.P, c.n)
+    ablated = mode in ABLATED
+    T = 2 if ablated else 32
+    precs = (("highest", "bf16") if ablated or mode in ("full", "pair")
+             else ("bf16",))
+    for prec in precs:
+        bk, tk = amp_exp(mode, *args, T, prec)
+        order = "kernel" if ablated and prec == "bf16" else "script"
+        bp, tp = amp_exp_reference(mode, *args, T, mode_f_b(mode, L),
+                                   mode == "pair", prec, order)
+        torch.cuda.synchronize()
+        assert tk.shape == tp.shape == (T, 4 if mode == "pair" else 8)
+        if ablated:
+            assert torch.equal(torch.isnan(bk), torch.isnan(bp))
+            fin = ~torch.isnan(bp)
+            err = (bk - bp)[fin].abs().max() / bp[fin].abs().max()
+            assert float(err) <= 1e-2, (prec, float(err))
+            continue
+        assert bool(torch.isfinite(bk).all() & torch.isfinite(tk).all())
+        flips, decisive = decision_flips(bk, bp)
+        assert flips <= 0.01 * 8 * L, (prec, flips)
+        rel = float(((tk - tp).abs() / tp).max())
+        assert rel <= (1e-4 if prec == "highest" else 2e-2), (prec, rel)
+        if prec == "highest":
+            assert decisive == 0
+
+
+def test_cuda_amp_exp_runtime_m_is_full_bit_for_bit(cuda_device, exp_draws):
+    """full with K1's run-time row length reads the same values at the
+    same offsets: the same decode, bit for bit."""
+    model, y_n, _ = exp_draws
+    c = model.cfg
+    args = (y_n.to(cuda_device),
+            model.op.mask.reshape(c.L, c.M).to(cuda_device),
+            model.sq_npl.to(cuda_device), c.P, c.n, 4)
+    want = amp_exp("full", *args)
+    got = _full_runtime_m(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_cuda_amp_exp_rejects_what_it_cannot_take(cuda_device):
+    mask, sq = torch.ones((256, 64), device=cuda_device), torch.ones(
+        256, device=cuda_device)
+    with pytest.raises(ValueError, match="L = 1024"):
+        amp_exp("full", torch.zeros((2, 256, 64), device=cuda_device), mask,
+                sq, 1.0, 1536, 2)
+    y = torch.zeros((2, 1024, 512), device=cuda_device)
+    mask, sq = torch.ones((1024, 512), device=cuda_device), torch.ones(
+        1024, device=cuda_device)
+    with pytest.raises(ValueError, match="bf16"):
+        amp_exp("slab_loop", y, mask, sq, 1.0, 9216, 2, "highest")
+    with pytest.raises(TypeError):
+        amp_exp("full", y.double(), mask, sq, 1.0, 9216, 2)
