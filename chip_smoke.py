@@ -179,10 +179,30 @@ the concat preset.  Each phase prints one line with its seconds:
  29. two codewords per row-stage block (S1, `tools.pair_kernel_exp`):
      against its plain version at B=8 (bf16 and float32, as full), then
      timed beside full at B=512, T=32, section errors within 1 % of
-     full's.
+     full's;
+ 30. the slab kernel's stage ablation (S4, csrc/amp_slab_exp.cu, the tool
+     `python -m sparc_ldpc_tpu_torch.tools.slab_ablation`): make_kernel's
+     variants and the factorings fXmY on the headline model's code, each
+     against its plain version at B=8 on encoded draws (decoding variants
+     over T=32: at most 1 % flipped sections, tau2 to rtol 2e-2; ablated
+     ones over T=2: beta within 1e-2 of the output scale, no NaN;
+     no_consume, NaN throughout from beta = 0 as the script's, also from
+     the state one plain full iteration leaves); then the tool's blocks at
+     the script's B=1024, T=32 on its pure-noise draws (the main path:
+     every variant launched); each variant's decode call at B=1024 by CUDA
+     events with its bound, held to the plain version of the same call in
+     the same way (sched and fold_sched: at most a 1e-6 share of the
+     elements beyond 1e-2 of the scale and none beyond 5e-2, where the
+     float32 plain version is as far from a float64-sum one, and one
+     iteration from the same state stays within 1e-2); device ms by
+     launch (C1, R2, C2, R3) of full and each ablated variant; full's mean
+     final tau2 within 3 % of SE; the split full - each variant in % of
+     full's call;
+ 31. S4's compact layouts (compact, compact32) and the pair, in the same
+     way; the pair's kept state and trace bit for bit full's.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
-13a, 13b, 15, 17, 19, 20, 21, 25, 26, and the tools' blocks of 27-29) and
+13a, 13b, 15, 17, 19, 20, 21, 25, 26, and the tools' blocks of 27-31) and
 read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
@@ -205,6 +225,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -2100,118 +2121,173 @@ def exp_hold(key: str, r: dict, sections: int, prec: str = "bf16") -> None:
         require(r["decisive"] == 0, f"{key}: decisive flips")
 
 
-def exp_checks(dev, model, modes, clock, label: str) -> dict:
-    """Each variant's kernel against its plain version at B=CHECK_BATCH
-    on the same draws (exp_hold): decoding variants in bf16 over EXP_T
-    iterations, "full" and "pair" also in float32; ablated ones over
-    EXP_ABLATED_T iterations in float32 and in bf16 (against the plain
-    version rounded as the kernels round: their garbage decodes amplify
-    the scripts' other rounding order past the limit)."""
-    from sparc_ldpc_tpu_torch.ops.amp_exp import ABLATED
-    from sparc_ldpc_tpu_torch.tools.kernel_ablation import (
-        decode, draw_block)
+class Experiment(NamedTuple):
+    """One family of experiment kernels as the shared harness (exp_checks,
+    exp_timing, exp_record) drives it: S1-S3 (ops/amp_exp.py, amp_family)
+    or S4 (ops/amp_slab_exp.py, slab_family).  A variant is held in each
+    of its forms: precisions for S1-S3, starts for S4."""
+    model: object
+    phase: int          # its draws: block_generator(SEED, phase, 0 | 1)
+    batch: int          # the timed batch, the scripts'
+    ablated: tuple      # the variants held at EXP_ABLATED_T
+    forms: Callable     # (mode, timed) -> the forms it is held in
+    decode: Callable    # (mode, y_n, T, form) -> the kernel's (beta, trace)
+    plain: Callable     # (mode, y_n, T, form) -> the plain (beta, trace)
+    compare: Callable   # (mode, kout, pout, idx) -> dict
+    hold: Callable      # (key, r, sections, timed) -> None, or raises
+    tool: Callable      # modes -> the tool's block records
+    counts: Callable    # () -> kernel runs by variant
+    reset: Callable     # () -> None: those counts set to 0
+    bound: Callable     # mode -> its bound at (batch, EXP_T)
+    extra: Callable     # mode -> more fields of its timed record
+
+
+def amp_family(model, decodes: bool) -> Experiment:
+    """S1-S3 (tools/kernel_ablation.py and its siblings): decoding variants
+    in bf16, full and the pair in float32 too; ablated ones in float32 and
+    in bf16; the timed calls in bf16.  decodes: the tool's blocks read
+    back decisions (S1, S3) or not (S2)."""
+    from sparc_ldpc_tpu_torch.ops.amp_exp import (
+        ABLATED, amp_exp, reset_launches)
+    from sparc_ldpc_tpu_torch.tools import kernel_ablation as ka
+
+    c = model.cfg
+
+    def forms(mode, timed):
+        if timed:
+            return ("bf16",)
+        if mode in ABLATED or mode in ("full", "pair"):
+            return ("highest", "bf16")
+        return ("bf16",)
+
+    return Experiment(
+        model=model, phase=27, batch=EXP_BATCH, ablated=ABLATED, forms=forms,
+        decode=lambda mode, y_n, T, prec: ka.decode(model, mode, y_n, T,
+                                                    prec),
+        plain=lambda mode, y_n, T, prec: exp_plain(model, mode, y_n, T,
+                                                   prec),
+        compare=lambda mode, kout, pout, idx: exp_compare(
+            kout, pout, idx, mode not in ABLATED),
+        hold=lambda key, r, sections, timed: exp_hold(key, r, sections,
+                                                      key.split()[1]),
+        tool=lambda modes: ka.run(model, modes, EXP_BATCH, EXP_T, decodes),
+        counts=lambda: amp_exp.launches, reset=reset_launches,
+        bound=lambda mode: exp_bound(mode, EXP_BATCH, c.L, c.M, EXP_T),
+        extra=lambda mode: dict(
+            dense_bf16_flops_per_element=exp_dense_flops(mode, c.L)))
+
+
+def exp_checks(dev, ex: Experiment, modes, clock, label: str) -> dict:
+    """Each variant's kernel against its plain version at B=CHECK_BATCH on
+    the same draws, in each of its forms (ex.hold): decoding variants over
+    EXP_T iterations, ablated ones over EXP_ABLATED_T."""
+    from sparc_ldpc_tpu_torch.tools.kernel_ablation import draw_block
     from sparc_ldpc_tpu_torch.utils.rng import block_generator
 
-    L, M = model.cfg.L, model.cfg.M
-    y_n, idx = draw_block(model, block_generator(SEED, 27, 0, dev),
+    L, M = ex.model.cfg.L, ex.model.cfg.M
+    y_n, idx = draw_block(ex.model, block_generator(SEED, ex.phase, 0, dev),
                           CHECK_BATCH)
     res = {}
     for mode in modes:
-        ablated = mode in ABLATED
-        T = EXP_ABLATED_T if ablated else EXP_T
-        precs = (("highest", "bf16") if ablated or mode in ("full", "pair")
-                 else ("bf16",))
-        for prec in precs:
-            kout = decode(model, mode, y_n, T, prec)
-            pout = exp_plain(model, mode, y_n, T, prec)
-            res[f"{mode} {prec}"] = exp_compare(kout, pout, idx,
-                                                not ablated)
+        T = EXP_ABLATED_T if mode in ex.ablated else EXP_T
+        for form in ex.forms(mode, False):
+            res[f"{mode} {form}"] = ex.compare(
+                mode, ex.decode(mode, y_n, T, form),
+                ex.plain(mode, y_n, T, form), idx)
     print(f"[{label} kernels vs plain] B={CHECK_BATCH} L={L} M={M}, T="
           f"{EXP_T} (ablated T={EXP_ABLATED_T}): {res} "
           f"({clock.lap():.1f} s)", flush=True)
     for key, r in res.items():
-        exp_hold(key, r, CHECK_BATCH * L, key.split()[1])
+        ex.hold(key, r, CHECK_BATCH * L, False)
     return res
 
 
-def exp_timing(dev, model, modes, label: str, decodes: bool) -> dict:
+def exp_timing(dev, ex: Experiment, modes, label: str) -> dict:
     """The tool's blocks (the main path: counts set to 0 before, read
-    after) and, per variant at B=EXP_BATCH, the kernel's call at T=EXP_T
-    by CUDA events and its bound; each decoding variant's call held to
-    the plain version's (timed) on the same draws, each ablated one's at
-    T=EXP_ABLATED_T (exp_hold)."""
+    after) and, per variant at B=ex.batch, the kernel's call at T=EXP_T by
+    CUDA events and its bound; each decoding variant's call held to the
+    plain version's (timed) on the same draws, each ablated one's at
+    T=EXP_ABLATED_T in each of its timed forms (ex.hold)."""
     import torch
 
-    from sparc_ldpc_tpu_torch.ops.amp_exp import (
-        ABLATED, amp_exp, reset_launches)
-    from sparc_ldpc_tpu_torch.tools import kernel_ablation as ka
+    from sparc_ldpc_tpu_torch.tools.kernel_ablation import draw_block
     from sparc_ldpc_tpu_torch.utils.rng import block_generator
 
+    model, B = ex.model, ex.batch
     L, M = model.cfg.L, model.cfg.M
     torch.cuda.empty_cache()
     reset_counts()
-    reset_launches()
-    blocks = ka.run(model, modes, EXP_BATCH, EXP_T, decodes)
+    ex.reset()
+    blocks = ex.tool(modes)
     torch.cuda.synchronize()
-    launches = {m: amp_exp.launches[m] for m in modes}
+    launches = {m: ex.counts()[m] for m in modes}
     others = read_counts()
     require(all(v > 0 for v in launches.values()),
             f"phase {label}: a variant was never launched: {launches}")
     require(not any(others.values()),
             f"phase {label}: the experiments launched another kernel: "
             f"{others}")
-    y_n, idx = ka.draw_block(model, block_generator(SEED, 27, 1, dev),
-                             EXP_BATCH)
+    y_n, idx = draw_block(model, block_generator(SEED, ex.phase, 1, dev), B)
     calls, checks = {}, {}
     for mode in modes:
-        ms, out = timed_result(lambda: ka.decode(model, mode, y_n, EXP_T),
+        form, *more = ex.forms(mode, True)
+        ms, out = timed_result(lambda: ex.decode(mode, y_n, EXP_T, form),
                                REPS)
-        rec = dict(ms=ms, **exp_bound(mode, EXP_BATCH, L, M, EXP_T),
-                   dense_bf16_flops_per_element=exp_dense_flops(mode, L),
+        rec = dict(ms=ms, **ex.bound(mode), **ex.extra(mode),
                    sec_err=int((out[0].argmax(-1) != idx).sum()),
                    tau2_final=float(out[1][EXP_T - 1].mean()))
-        if mode in ABLATED:
+        if mode in ex.ablated:
             del out
-            out = ka.decode(model, mode, y_n, EXP_ABLATED_T)
-            pout = exp_plain(model, mode, y_n, EXP_ABLATED_T)
+            for f in (form, *more):
+                checks[f"{mode} {f}"] = ex.compare(
+                    mode, ex.decode(mode, y_n, EXP_ABLATED_T, f),
+                    ex.plain(mode, y_n, EXP_ABLATED_T, f), idx)
         else:
             rec["plain_ms"], pout = timed_result(
-                lambda: exp_plain(model, mode, y_n, EXP_T), 1)
-        checks[mode] = exp_compare(out, pout, idx, mode not in ABLATED)
+                lambda: ex.plain(mode, y_n, EXP_T, form), 1)
+            checks[f"{mode} {form}"] = ex.compare(mode, out, pout, idx)
+            del out, pout
         calls[mode] = rec
-        del out, pout
         torch.cuda.empty_cache()
-    print(f"[{label} kernels vs plain] B={EXP_BATCH} L={L} M={M}, T={EXP_T} "
+    print(f"[{label} kernels vs plain] B={B} L={L} M={M}, T={EXP_T} "
           f"(ablated T={EXP_ABLATED_T}): {checks}", flush=True)
-    for mode, r in checks.items():
-        exp_hold(f"{mode} B={EXP_BATCH}", r, EXP_BATCH * L)
+    for key, r in checks.items():
+        ex.hold(f"{key} B={B}", r, B * L, True)
     return dict(blocks={b["mode"]: b for b in blocks}, calls=calls,
                 launches=launches, y_n=y_n, idx=idx, checks=checks)
 
 
-def exp_record(name: str, script: str, mode: str, modes, checks: dict,
-               tm: dict) -> dict:
+def exp_record(name: str, source: str, script: str, mode: str,
+               checks: dict, tm: dict) -> dict:
     """The kernels line's record of one experiment: its headline variant's
-    numbers, every variant's ms and launches beside them.  max_abs_err is
-    the largest beta error against the plain version in float32 where
-    the experiment has a float32 mode (over the output scale for the
-    ablated variants), else in bf16 (where near-tie sections flip)."""
+    numbers, every variant's ms, bound, plain ms and launches beside them.
+    max_abs_err is the largest beta error against the plain version in
+    float32 where the experiment has a float32 form (over the output scale
+    for the ablated variants), else in bf16 (where near-tie sections
+    flip); the ablated variants' largest error over the scale beside it."""
     calls = tm["calls"]
     errs = [r.get("err_over_scale", r.get("beta_abs_err"))
             for k, r in checks.items() if k.endswith("highest")]
-    errs = errs or [r["beta_abs_err"] for r in checks.values()]
-    return {
-        "name": name, "route": "cuda",
-        "source": "sparc_ldpc_tpu_torch/csrc/amp_exp.cu", "replaces": script,
+    errs = errs or [r["beta_abs_err"] for r in checks.values()
+                    if "beta_abs_err" in r]
+    ablated = [r["err_over_scale"] for r in checks.values()
+               if "err_over_scale" in r]
+    rec = {
+        "name": name, "route": "cuda", "source": source, "replaces": script,
         "variant": mode, "launches": sum(tm["launches"].values()),
         "launches_by_variant": tm["launches"],
         "max_abs_err": max(errs),
         "ms": calls[mode]["ms"], "plain_ms": calls[mode]["plain_ms"],
         "bound_ms": calls[mode]["bound_ms"],
         "bound_by": calls[mode]["bound_by"], "library_ms": None,
-        "ms_by_variant": {m: round(calls[m]["ms"], 3) for m in modes},
-        "bound_ms_by_variant": {m: round(calls[m]["bound_ms"], 3)
-                                for m in modes}}
+        "ms_by_variant": {m: round(r["ms"], 3) for m, r in calls.items()},
+        "bound_ms_by_variant": {m: round(r["bound_ms"], 3)
+                                for m, r in calls.items()},
+        "plain_ms_by_variant": {m: round(r["plain_ms"], 1)
+                                for m, r in calls.items() if "plain_ms" in r}}
+    if ablated:
+        rec["max_err_over_scale_ablated"] = max(ablated)
+    return rec
 
 
 def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
@@ -2224,8 +2300,9 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
 
     c = model.cfg
     L, M = c.L, c.M
-    checks = exp_checks(dev, model, S2_MODES, clock, "27 S2")
-    tm = exp_timing(dev, model, S2_MODES, "27", False)
+    ex = amp_family(model, False)
+    checks = exp_checks(dev, ex, S2_MODES, clock, "27 S2")
+    tm = exp_timing(dev, ex, S2_MODES, "27")
     calls = tm["calls"]
     args = (tm["y_n"], model.op.mask.reshape(L, M), model.sq_npl, c.P,
             c.n, EXP_T)
@@ -2269,8 +2346,8 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
           f" (SE {se_fp:.4f}) on {card} ({clock.lap():.1f} s)", flush=True)
     require(abs(calls["full"]["tau2_final"] / se_fp - 1) <= 0.03,
             "full: mean final tau2 off SE by more than 3 %")
-    rec = exp_record("amp_ablation", "scripts/kernel_ablation.py:23", "full",
-                     S2_MODES, checks, tm)
+    rec = exp_record("amp_ablation", AMP_EXP_SOURCE,
+                     "scripts/kernel_ablation.py:23", "full", checks, tm)
     rec["k1_ms"] = k1_ms
     rec["full_runtime_m_ms"] = rtm_ms
     return dict(rec=rec, full_ms=full, sec_err=calls["full"]["sec_err"],
@@ -2283,8 +2360,9 @@ def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
     from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
 
     L = model.cfg.L
-    checks = exp_checks(dev, model, S3_MODES, clock, "28 S3")
-    tm = exp_timing(dev, model, S3_MODES, "28", True)
+    ex = amp_family(model, True)
+    checks = exp_checks(dev, ex, S3_MODES, clock, "28 S3")
+    tm = exp_timing(dev, ex, S3_MODES, "28")
     calls = tm["calls"]
     sec = {m: r["sec_err"] for m, r in calls.items()}
     stages = {m: device_ms_by_kernel(
@@ -2306,8 +2384,8 @@ def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
     for m, e in sec.items():
         require(abs(e - ab["sec_err"]) <= 0.01 * EXP_BATCH * L,
                 f"{m}: section errors {e} against full's {ab['sec_err']}")
-    rec = exp_record("amp_lstage", "scripts/lstage_exp.py:34", "slab_loop",
-                     S3_MODES, checks, tm)
+    rec = exp_record("amp_lstage", AMP_EXP_SOURCE, "scripts/lstage_exp.py:34",
+                     "slab_loop", checks, tm)
     rec["dense_bf16_flops_per_element_by_variant"] = {
         m: r["dense_bf16_flops_per_element"] for m, r in calls.items()}
     return dict(rec=rec)
@@ -2318,8 +2396,9 @@ def pair_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
     from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
 
     modes = ("pair",)
-    checks = exp_checks(dev, model, modes, clock, "29 S1")
-    tm = exp_timing(dev, model, modes, "29", True)
+    ex = amp_family(model, True)
+    checks = exp_checks(dev, ex, modes, clock, "29 S1")
+    tm = exp_timing(dev, ex, modes, "29")
     r = tm["calls"]["pair"]
     stages = device_ms_by_kernel(
         lambda: decode(model, "pair", tm["y_n"], EXP_T),
@@ -2333,8 +2412,353 @@ def pair_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
           f"({clock.lap():.1f} s)", flush=True)
     require(abs(r["sec_err"] - ab["sec_err"]) <= 0.01 * EXP_BATCH
             * model.cfg.L, "pair: section errors off full's")
-    return dict(rec=exp_record("amp_pair", "scripts/pair_kernel_exp.py:28",
-                               "pair", modes, checks, tm))
+    return dict(rec=exp_record("amp_pair", AMP_EXP_SOURCE,
+                               "scripts/pair_kernel_exp.py:28", "pair", checks,
+                               tm))
+
+
+# the slab ablation's timed batch (scripts/slab_ablation.py main; T is
+# EXP_T, the script's 32 too)
+SLAB_EXP_BATCH = 1024
+# other operations an element and iteration besides the transforms, per
+# S4 variant (AMP_ELEM_OPS less what it drops: no_softmax the max, exp and
+# two sums; no_consume those and the residual's mask multiply, subtract
+# and Onsager term; sched and fold_sched |z|^2)
+SLAB_ELEM_OPS = {"no_softmax": 8, "no_consume": 5, "sched": 10,
+                 "fold_sched": 10}
+SLAB_STAGES = ("slabx_c1", "slabx_r2", "slabx_c2", "slabx_r3")
+# the ablated variants whose timed hold takes the tail rule (slab_hold):
+# tau2 fixed at 0.36 sharpens the softmax, and slab_tail_witness shows
+# what puts their few elements off
+SLAB_TAIL = ("sched", "fold_sched")
+AMP_EXP_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_exp.cu"
+SLAB_EXP_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_slab_exp.cu"
+
+
+def slab_exp_bound(mode: str, B: int, L: int, M: int, T: int) -> dict:
+    """Bound of one S4 call (ops/amp_slab_exp.py) at fixed T: y read once,
+    the mask and sq once, beta and the trace written once; 2 T - 1
+    transforms (the first forward one acts on beta = 0) at one float32 add
+    an element and radix-2 stage, plus SLAB_ELEM_OPS.  Decoding variants
+    compute full's function and get full's bound; no_radix keeps the
+    stages of the 128-wide factors (log2 128 + log2 128), no_mm those of
+    the radix factors (log2 f_a + log2 m_a); the compact variants are
+    bounded by the rows they produce: per codeword and iteration H_M of
+    every row, the slab sum, H_{f_b} of one slab each way, H_M of the csub
+    rows, and AMP_ELEM_OPS an element."""
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import DECODING, parse_mode
+
+    el, E = L * M, B * L * M
+    nbytes = 8 * E + 2 * el + 4 * L + 4 * T * B
+    v = parse_mode(mode, L, M, 1)
+    if v.base == "compact":
+        per = (el * math.log2(M) + el + 2 * v.f_b * M * math.log2(v.f_b)
+               + v.csub * M * math.log2(M) + el * AMP_ELEM_OPS)
+        return bound(nbytes, {"fp32": B * T * per})
+    stages = math.log2(el)
+    if mode not in DECODING:
+        stages = {"no_radix": math.log2(v.f_b) + math.log2(v.m_b),
+                  "no_mm": math.log2(L // v.f_b) + math.log2(M // v.m_b)
+                  }.get(mode, stages)
+    f32 = (2 * T - 1) * E * stages
+    f32 += T * E * SLAB_ELEM_OPS.get(mode, AMP_ELEM_OPS)
+    return bound(nbytes, {"fp32": f32})
+
+
+def slab_compare(mode: str, kout, pout, idx) -> dict:
+    """exp_compare for an S4 variant; no_trace's traces must both be zero
+    (its decode is then compared as any decoding variant's).  An ablated
+    variant's result adds the count of elements off by more than 1e-2 of
+    the output scale (where both are finite) and the element count."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import DECODING
+
+    if mode == "no_trace":
+        require(not bool(kout[1].any()) and not bool(pout[1].any()),
+                "no_trace stored a trace")
+        one = torch.ones_like(kout[1])
+        kout, pout = (kout[0], one), (pout[0], one)
+    r = exp_compare(kout, pout, idx, mode in DECODING)
+    if mode not in DECODING:
+        bk, bp = kout[0], pout[0]
+        fin = ~(torch.isnan(bk) | torch.isnan(bp))
+        if bool(fin.any()):
+            scale = float(bp[fin].abs().max())
+            r["n_over"] = int(((bk - bp).abs() > 1e-2 * scale)[fin].sum())
+        else:
+            r["n_over"] = 0
+        r["numel"] = bk.numel()
+    return r
+
+
+def slab_hold(key: str, r: dict, sections: int, timed: bool) -> None:
+    """A slab_compare result held to its contract (exp_hold).  An ablated
+    variant is held only where it has values: NaN anywhere fails it, but
+    for no_consume from beta = 0, which must be NaN throughout on both
+    sides (the script's function: its first tau2 is 0).  At the timed
+    batch the SLAB_TAIL variants may exceed 1e-2 of the scale on at most a
+    1e-6 share of the elements, and 5e-2 nowhere, where slab_tail_witness
+    shows the float32 plain version as far from float64 sums
+    (witness_hold)."""
+    mode, form = key.split()[:2]
+    if "n_over" in r:
+        require(r["nan_equal"], f"{key}: NaN positions differ")
+        if (mode, form) == ("no_consume", "cold"):
+            require(r["nan_frac"] == 1.0,
+                    f"{key}: finite where the script's function is NaN")
+            return
+        require(r["nan_frac"] == 0.0, f"{key}: NaN in {r['nan_frac']} of "
+                f"beta, nothing to hold there")
+        if timed and mode in SLAB_TAIL:
+            require(r["n_over"] <= 1e-6 * r["numel"]
+                    and r["err_over_scale"] <= 5e-2,
+                    f"{key}: {r['n_over']} of {r['numel']} elements off by "
+                    f"more than 1e-2 of the scale, largest "
+                    f"{r['err_over_scale']}")
+            return
+    exp_hold(key, r, sections)
+
+
+def slab_family(model) -> Experiment:
+    """S4 (tools/slab_ablation.py): every variant from beta = 0 ("cold"),
+    the script's start, and no_consume also from the state one plain full
+    iteration leaves ("warm"): from beta = 0 its function is NaN
+    throughout, which holds its arithmetic to nothing."""
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
+        ABLATED, amp_slab_exp, amp_slab_exp_reference, reset_launches)
+    from sparc_ldpc_tpu_torch.tools import slab_ablation as sa
+
+    c = model.cfg
+    masks = {}
+
+    def args(mode, y_n, form):
+        if mode not in masks:
+            masks[mode] = sa.variant_mask(model, mode)
+        state = None
+        if form == "warm":
+            state = amp_slab_exp_reference(
+                "full", y_n, masks[mode], model.sq_npl, c.P, c.n, 1,
+                keep_state=True)[2]
+        return (mode, y_n, masks[mode], model.sq_npl, c.P, c.n), state
+
+    def decode(mode, y_n, T, form):
+        a, state = args(mode, y_n, form)
+        return amp_slab_exp(*a, T, state=state)
+
+    def plain(mode, y_n, T, form):
+        a, state = args(mode, y_n, form)
+        return amp_slab_exp_reference(*a, T, state=state)
+
+    return Experiment(
+        model=model, phase=30, batch=SLAB_EXP_BATCH, ablated=ABLATED,
+        forms=lambda mode, timed: (("cold", "warm") if mode == "no_consume"
+                                   else ("cold",)),
+        decode=decode, plain=plain, compare=slab_compare, hold=slab_hold,
+        tool=lambda modes: sa.run(model, modes, SLAB_EXP_BATCH, EXP_T, REPS),
+        counts=lambda: amp_slab_exp.launches, reset=reset_launches,
+        bound=lambda mode: slab_exp_bound(mode, SLAB_EXP_BATCH, model.cfg.L,
+                                          model.cfg.M, EXP_T),
+        extra=lambda mode: {})
+
+
+def _over(a, b, scale: float) -> dict:
+    """The largest |a - b| over scale, and the count above 1e-2 of it."""
+    d = (a - b).abs()
+    return dict(err=float(d.max()) / scale, n_over=int((d > 1e-2 * scale)
+                                                       .sum()))
+
+
+def slab_tail_witness(ex: Experiment, mode: str, y_n, T: int) -> dict:
+    """What puts an SLAB_TAIL variant's few elements off at the timed batch
+    (T iterations on y_n).  The kernel against two plain versions, in
+    float32 and in float64 sums with the same bf16 roundings (both the
+    script's function), and those two against each other; the elements off
+    by more than 1e-2 of the scale with the three values there.  Then the
+    state after one iteration, kernel against plain (beta, and the bf16
+    roundings of beta that the next H_M stage reads: how many differ, by
+    how many ulps), and the remaining T - 1 iterations run by each side
+    from the other side's state against the other's T iterations."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
+        amp_slab_exp, amp_slab_exp_reference)
+
+    model = ex.model
+    c = model.cfg
+    mask = model.op.mask.reshape(c.L, c.M)
+    args = (mode, y_n, mask, model.sq_npl, c.P, c.n)
+    kb = amp_slab_exp(*args, T)[0]
+    pb = amp_slab_exp_reference(*args, T)[0]
+    scale = float(pb.abs().max())
+    out = dict(kernel_vs_plain=_over(kb, pb, scale))
+    off = ((kb - pb).abs() > 1e-2 * scale).nonzero()[:16].tolist()
+    # float64 sums, 64 codewords at a time
+    args64 = (mask.double(), model.sq_npl.double(), c.P, c.n, T)
+    p64, k64, at = dict(err=0.0, n_over=0), dict(err=0.0, n_over=0), []
+    for b0 in range(0, y_n.shape[0], 64):
+        q = amp_slab_exp_reference(mode, y_n[b0:b0 + 64].double(),
+                                   *args64)[0]
+        for acc, x in ((p64, pb), (k64, kb)):
+            r = _over(x[b0:b0 + 64].double(), q, scale)
+            acc["err"] = max(acc["err"], r["err"])
+            acc["n_over"] += r["n_over"]
+        at += [dict(at=(b, l, m), kernel=float(kb[b, l, m]),
+                    plain=float(pb[b, l, m]),
+                    plain64=float(q[b - b0, l, m]))
+               for b, l, m in off if b0 <= b < b0 + 64]
+        del q
+    out.update(plain_vs_plain64=p64, kernel_vs_plain64=k64, off=at)
+    ks = amp_slab_exp(*args, 1, keep_state=True)[2]
+    ps = amp_slab_exp_reference(*args, 1, keep_state=True)[2]
+    bits = [x.beta.to(torch.bfloat16).view(torch.int16).int()
+            for x in (ks, ps)]
+    ulps = (bits[0] - bits[1]).abs()
+    out["after_one"] = dict(
+        beta=_over(ks.beta, ps.beta, float(ps.beta.abs().max())),
+        bf16_beta_differ=int((ulps > 0).sum()), max_ulps=int(ulps.max()),
+        tau2_rel_err=float(((ks.tau2 - ps.tau2).abs() / ps.tau2).max()))
+    del bits, ulps
+    if T > 1:
+        out["plain_from_kernel_state"] = _over(
+            amp_slab_exp_reference(*args, T - 1, state=ks)[0], kb, scale)
+        out["kernel_from_plain_state"] = _over(
+            amp_slab_exp(*args, T - 1, state=ps)[0], pb, scale)
+    return out
+
+
+def witness_hold(mode: str, w: dict) -> None:
+    """The conditions under which slab_hold's tail rule holds a SLAB_TAIL
+    variant: after one iteration the kernel's beta within 1e-4 of the
+    plain version's scale and its bf16 roundings at most one ulp apart;
+    one iteration from the same state, either way, within 1e-2 of the
+    scale everywhere; and the kernel no further from the float64-sum plain
+    version than the float32 one is (as few elements beyond 1e-2, the
+    largest error within 10 %)."""
+    a = w["after_one"]
+    require(a["beta"]["err"] <= 1e-4 and a["max_ulps"] <= 1,
+            f"{mode}: after one iteration {a}")
+    for k in ("plain_from_kernel_state", "kernel_from_plain_state"):
+        require(w[k]["n_over"] == 0, f"{mode}: {k} {w[k]}")
+    k64, p64 = w["kernel_vs_plain64"], w["plain_vs_plain64"]
+    require(k64["n_over"] <= p64["n_over"] and k64["err"] <= 1.1 * p64["err"],
+            f"{mode}: kernel against float64 sums {k64}, plain {p64}")
+
+
+def pair_vs_full(ex: Experiment, y_n) -> dict:
+    """The pair's kernel against full's over EXP_T iterations on y_n (their
+    plain versions are bit-identical; the kernels round every residual
+    and softmax-input operation on its own, so the two compilations must
+    agree too): per part of the kept state and for full's trace of the
+    first codeword of each pair, how many elements differ."""
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import SlabState, amp_slab_exp
+
+    model = ex.model
+    c = model.cfg
+    args = (y_n, model.op.mask.reshape(c.L, c.M), model.sq_npl, c.P, c.n,
+            EXP_T)
+    _, tf, sf = amp_slab_exp("full", *args, keep_state=True)
+    _, tp, sp = amp_slab_exp("pair", *args, keep_state=True)
+    out = {name: int((getattr(sf, name) != getattr(sp, name)).sum())
+           for name in SlabState._fields}
+    out["trace"] = int((tf[:, 0::2] != tp).sum())
+    return out
+
+
+def slab_report(label: str, title: str, tm: dict, stages: dict,
+                full: dict, card: str, clock: Clock) -> None:
+    calls, blocks = tm["calls"], tm["blocks"]
+    print(f"[{label} {title}] B={SLAB_EXP_BATCH} T={EXP_T}: launches "
+          f"{tm['launches']}; tool ms/block "
+          f"{ {m: round(b['ms'], 2) for m, b in blocks.items()} }; us/iter/cw "
+          f"{ {m: round(b['us_per_iter_cw'], 3) for m, b in blocks.items()} };"
+          f" decode call ms (CUDA events) "
+          f"{ {m: round(r['ms'], 3) for m, r in calls.items()} } beside "
+          f"full's {full['ms']:.3f}; device ms by launch {stages}; plain ms "
+          f"{ {m: round(r['plain_ms'], 1) for m, r in calls.items() if 'plain_ms' in r} };"
+          f" bound ms { {m: round(r['bound_ms'], 3) for m, r in calls.items()} }"
+          f"; sections in error "
+          f"{ {m: r['sec_err'] for m, r in calls.items()} } (full: "
+          f"{full['sec_err']}), mean final tau2 "
+          f"{ {m: round(r['tau2_final'], 4) for m, r in calls.items()} } on "
+          f"{card} ({clock.lap():.1f} s)", flush=True)
+
+
+def slab_stages(ex: Experiment, tm: dict, modes) -> dict:
+    """Device ms by launch (C1, R2, C2, R3) of each of `modes`' timed
+    calls."""
+    return {m: device_ms_by_kernel(
+        lambda: ex.decode(m, tm["y_n"], EXP_T, "cold"), SLAB_STAGES)
+        for m in modes}
+
+
+def slab_ablation_phase(dev, card: str, model, clock: Clock) -> dict:
+    """Phase 30: S4's make_kernel variants and factorings
+    (tools/slab_ablation.py)."""
+    from sparc_ldpc_tpu_torch.design.se import se_trajectory
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import ABLATED, DECODING, MODES
+
+    c = model.cfg
+    ex = slab_family(model)
+    modes = tuple(m for m in MODES if not m.startswith("compact")
+                  and m != "pair")
+    checks = exp_checks(dev, ex, modes, clock, "30 S4")
+    tm = exp_timing(dev, ex, modes, "30")
+    calls = tm["calls"]
+    full = calls["full"]
+    stages = slab_stages(ex, tm, ("full",) + tuple(m for m in modes
+                                                   if m in ABLATED))
+    slab_report("30", "S4 slab stage ablation", tm, stages, full, card,
+                clock)
+    witness = {m: slab_tail_witness(ex, m, tm["y_n"], EXP_ABLATED_T)
+               for m in SLAB_TAIL}
+    se_fp = float(se_trajectory(model.p_alloc, c.n, c.M, model.sigma2,
+                                T=EXP_T)[-1])
+    # full's time by stage: what each changed variant saves, in ms and in
+    # % of full's call
+    split = {f"full - {m}": (round(full["ms"] - calls[m]["ms"], 3),
+                             round(100 * (1 - calls[m]["ms"] / full["ms"]), 2))
+             for m in modes if m != "full"}
+    share = {k: round(100 * v / full["ms"], 1)
+             for k, v in stages["full"].items()}
+    print(f"[30 S4 split] full {full['ms']:.3f} ms a call, "
+          f"{full['ms'] / full['bound_ms']:.1f}x its {full['bound_ms']:.3f} "
+          f"ms bound; by launch, % of the call {share}; full - each variant "
+          f"(ms, % of full's call) {split}; full's mean final tau2 "
+          f"{full['tau2_final']:.4f} (SE {se_fp:.4f}); the tail rule's "
+          f"witness at B={SLAB_EXP_BATCH}, T={EXP_ABLATED_T} {witness} "
+          f"({clock.lap():.1f} s)", flush=True)
+    require(abs(full["tau2_final"] / se_fp - 1) <= 0.03,
+            "S4 full: mean final tau2 off SE by more than 3 %")
+    for m in modes:
+        if m in DECODING:
+            require(abs(calls[m]["sec_err"] - full["sec_err"])
+                    <= 0.01 * SLAB_EXP_BATCH * c.L,
+                    f"{m}: section errors {calls[m]['sec_err']} against "
+                    f"full's {full['sec_err']}")
+    for m, w in witness.items():
+        witness_hold(m, w)
+    return dict(ex=ex, checks=checks, tm=tm, full=full, stages=stages,
+                witness=witness)
+
+
+def slab_layout_phase(dev, card: str, model, sa: dict, clock: Clock) -> dict:
+    """Phase 31: S4's compact layouts and the pair."""
+    ex, full = sa["ex"], sa["full"]
+    modes = ("compact", "compact32", "pair")
+    checks = exp_checks(dev, ex, modes, clock, "31 S4")
+    tm = exp_timing(dev, ex, modes, "31")
+    stages = slab_stages(ex, tm, modes)
+    slab_report("31", "S4 compact and pair", tm, stages, full, card, clock)
+    pf = pair_vs_full(ex, tm["y_n"])
+    print(f"[31 S4 pair vs full kernels] B={SLAB_EXP_BATCH}, T={EXP_T}: "
+          f"elements that differ {pf}", flush=True)
+    require(not any(pf.values()), f"S4 pair: not full's bits: {pf}")
+    pair = tm["calls"]["pair"]
+    require(abs(pair["sec_err"] - full["sec_err"])
+            <= 0.01 * SLAB_EXP_BATCH * model.cfg.L,
+            "S4 pair: section errors off full's")
+    return dict(checks=checks, tm=tm, pair_vs_full=pf)
 
 
 def main() -> None:
@@ -2394,6 +2818,14 @@ def main() -> None:
     ab = ablation_phase(dev, card, sp["model"], clock)
     ls = lstage_phase(dev, card, sp["model"], ab, clock)
     pr = pair_phase(dev, card, sp["model"], ab, clock)
+    s4 = slab_ablation_phase(dev, card, sp["model"], clock)
+    s4l = slab_layout_phase(dev, card, sp["model"], s4, clock)
+    s4_tm = {k: {**s4["tm"][k], **s4l["tm"][k]} for k in ("calls",
+                                                          "launches")}
+    s4_rec = exp_record("slab_ablation", SLAB_EXP_SOURCE,
+                        "scripts/slab_ablation.py:130", "full",
+                        {**s4["checks"], **s4l["checks"]}, s4_tm)
+    s4_rec["stages_ms_full"] = s4["stages"]["full"]
 
     require("jax" not in sys.modules, "jax was imported")
     ref = [k for k in sys.modules
@@ -2454,7 +2886,7 @@ def main() -> None:
     k3_rec["launches_by_path"] = {
         f"decode S={S}": c["fwht_tile"] for S, c in sh["launches"].items()}
     records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec, k3_rec,
-               slab_rec, ab["rec"], ls["rec"], pr["rec"]]
+               slab_rec, ab["rec"], ls["rec"], pr["rec"], s4_rec]
     for rec in records:
         require(rec["launches"] > 0, f"{rec['name']} was never launched")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)

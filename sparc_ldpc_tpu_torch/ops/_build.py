@@ -54,6 +54,10 @@ _SIGNATURES = {
         "amp_exp_run": ((_I,) + (_P,) * 9 + (_I,) * 4 + (_F,) * 3
                         + (_I, _I, _P), _I),
     },
+    "amp_slab_exp": {
+        "amp_slab_exp_run": ((_I,) * 4 + (_P,) * 12 + (_I,) * 4 + (_F,) * 4
+                             + (_P,), _I),
+    },
     "amp_slab": {
         "amp_slab_run": ((_P,) * 17 + (_I,) * 4 + (_F,) * 4 + (_P,), _I),
         "amp_slab_tile": ((_P,) * 3 + (_I,) * 3 + (_P,), _I),

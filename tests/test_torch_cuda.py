@@ -37,6 +37,14 @@ decodes are garbage, over T = 2 in float32 and in bf16 (beta within
 against the plain version rounded where the K1-style kernels round,
 order="kernel": the scripts round the adjoint at other places, which a
 garbage decode amplifies).
+The slab kernel's stage ablation (amp_slab_exp.cu, S4) at the script's
+shape: it rounds where its plain version does, so every variant is held to
+it directly: the decoding variants over T = 32 (at most 1 % flipped
+sections, tau2 to rtol 2e-2), the ablated ones over T = 2 (beta within
+1e-2 of the output scale, no NaN but no_consume's from beta = 0, which is
+NaN throughout on both sides: its first tau2 is 0).  no_consume is held
+from a decoded state instead (the state one plain full iteration leaves);
+a run resumed from its own kept state gives the bits of an unbroken one.
 """
 
 import math
@@ -56,6 +64,9 @@ from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
     fwht_tile, fwht_tile_reference, mono_tile, mono_tile_reference,
     noise_uniforms, noise_uniforms_reference, slab_tile)
+from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
+    ABLATED as SLAB_ABLATED, MODES as SLAB_MODES, amp_slab_exp,
+    amp_slab_exp_reference, compact_mask, parse_mode)
 from sparc_ldpc_tpu_torch.ops.denoiser import denoise, denoise_kernel
 from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, round_bf16
 from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2, fwht2_reference
@@ -935,3 +946,108 @@ def test_cuda_amp_exp_rejects_what_it_cannot_take(cuda_device):
         amp_exp("slab_loop", y, mask, sq, 1.0, 9216, 2, "highest")
     with pytest.raises(TypeError):
         amp_exp("full", y.double(), mask, sq, 1.0, 9216, 2)
+
+
+# ------------------------------------- the slab kernel's stage ablation
+
+@pytest.mark.parametrize("mode", SLAB_MODES)
+def test_cuda_amp_slab_exp_matches_plain(cuda_device, exp_draws, mode):
+    """Each S4 variant against its plain version on 8 encoded codewords,
+    one kernel run counted per call."""
+    model, y_n, _ = exp_draws
+    c = model.cfg
+    L, M = c.L, c.M
+    mask = (compact_mask(L, M, c.n)
+            if parse_mode(mode, L, M, c.n).base == "compact"
+            else model.op.mask.reshape(L, M))
+    args = (y_n.to(cuda_device), mask.to(cuda_device),
+            model.sq_npl.to(cuda_device), c.P, c.n)
+    ablated = mode in SLAB_ABLATED
+    T = 2 if ablated else 32
+    before = amp_slab_exp.launches[mode]
+    bk, tk = amp_slab_exp(mode, *args, T)
+    assert amp_slab_exp.launches[mode] == before + 1
+    bp, tp = amp_slab_exp_reference(mode, *args, T)
+    torch.cuda.synchronize()
+    assert tk.shape == tp.shape == (T, 4 if mode == "pair" else 8)
+    if ablated:
+        assert torch.equal(torch.isnan(bk), torch.isnan(bp))
+        if mode == "no_consume":    # its first tau2 is 0: NaN throughout
+            assert bool(torch.isnan(bp).all())
+            return
+        assert not bool(torch.isnan(bp).any())
+        err = (bk - bp).abs().max() / bp.abs().max()
+        assert float(err) <= 1e-2, float(err)
+        return
+    assert bool(torch.isfinite(bk).all() & torch.isfinite(tk).all())
+    flips, _ = decision_flips(bk, bp)
+    assert flips <= 0.01 * 8 * L, flips
+    if mode == "no_trace":
+        assert not bool(tk.any())
+    else:
+        assert float(((tk - tp).abs() / tp).max()) <= 2e-2
+
+
+def _slab_args(model, y_n, dev):
+    c = model.cfg
+    return (y_n.to(dev), model.op.mask.reshape(c.L, c.M).to(dev),
+            model.sq_npl.to(dev), c.P, c.n)
+
+
+@pytest.mark.parametrize("mode", ["full", "pair", "sched", "fold",
+                                  "no_radix"])
+def test_cuda_amp_slab_exp_resumes_bit_for_bit(cuda_device, exp_draws, mode):
+    """One iteration, its state kept, then one more from that state: the
+    same bits as two iterations in one run (the resume rebuilds the work
+    tile with R2 and sums |beta|^2 in slab order, as the run does)."""
+    model, y_n, _ = exp_draws
+    args = _slab_args(model, y_n, cuda_device)
+    b2, t2 = amp_slab_exp(mode, *args, 2)
+    b1, t1, state = amp_slab_exp(mode, *args, 1, keep_state=True)
+    br, tr = amp_slab_exp(mode, *args, 1, state=state)
+    assert torch.equal(br, b2)
+    assert torch.equal(torch.cat([t1, tr]), t2)
+
+
+def test_cuda_amp_slab_exp_pair_is_full_bit_for_bit(cuda_device, exp_draws):
+    """Two codewords a block give full's bits: beta, the kept state, and
+    the trace of the first codeword of each pair."""
+    model, y_n, _ = exp_draws
+    args = _slab_args(model, y_n, cuda_device)
+    bf, tf, sf = amp_slab_exp("full", *args, 32, keep_state=True)
+    bp, tp, sp = amp_slab_exp("pair", *args, 32, keep_state=True)
+    assert torch.equal(bp, bf) and torch.equal(tp, tf[:, 0::2])
+    assert all(torch.equal(a, b) for a, b in zip(sf, sp))
+
+
+def test_cuda_amp_slab_exp_no_consume_from_a_decoded_state(cuda_device,
+                                                            exp_draws):
+    """no_consume's kernel held to its plain version from the state one
+    plain full iteration leaves (from beta = 0 both are NaN throughout):
+    every element finite, beta within 1e-2 of the output scale."""
+    model, y_n, _ = exp_draws
+    args = _slab_args(model, y_n, cuda_device)
+    state = amp_slab_exp_reference("full", *args, 1, keep_state=True)[2]
+    bk, tk = amp_slab_exp("no_consume", *args, 2, state=state)
+    bp, tp = amp_slab_exp_reference("no_consume", *args, 2, state=state)
+    assert bool(torch.isfinite(bk).all() & torch.isfinite(bp).all())
+    err = (bk - bp).abs().max() / bp.abs().max()
+    assert float(err) <= 1e-2, float(err)
+    torch.testing.assert_close(tk, tp, rtol=1e-4, atol=0)
+
+
+def test_cuda_amp_slab_exp_rejects_what_it_has_no_kernel_for(cuda_device):
+    y = torch.zeros((2, 1024, 512), device=cuda_device)
+    mask, sq = torch.ones((1024, 512), device=cuda_device), torch.ones(
+        1024, device=cuda_device)
+    for mode in ("f64m256", "compact64"):
+        with pytest.raises(ValueError, match="no kernel"):
+            amp_slab_exp(mode, y, mask, sq, 1.0, 9216, 2)
+    with pytest.raises(ValueError, match="even"):
+        amp_slab_exp("pair", y[:1], mask, sq, 1.0, 9216, 2)
+    with pytest.raises(ValueError, match="compact"):
+        amp_slab_exp("compact", y, mask, sq, 1.0, 9216, 2, keep_state=True)
+    with pytest.raises(ValueError, match="L = 1024"):
+        amp_slab_exp("full", y[:, :256], mask[:256], sq[:256], 1.0, 9216, 2)
+    with pytest.raises(TypeError):
+        amp_slab_exp("full", y.double(), mask, sq, 1.0, 9216, 2)

@@ -223,6 +223,8 @@ def test_port_imports_no_jax():
         "assert int(ms.run_block(block_generator(0, 0, 0), 2)['trials']) == 2\n"
         "import sparc_ldpc_tpu_torch.parallel.dist_fwht\n"
         "import sparc_ldpc_tpu_torch.tools.dryrun_multichip\n"
+        "import sparc_ldpc_tpu_torch.ops.amp_slab_exp\n"
+        "import sparc_ldpc_tpu_torch.tools.slab_ablation\n"
         "import sparc_ldpc_tpu_torch.utils.io\n"
         "import sparc_ldpc_tpu_torch.utils.profiling\n"
         "import sparc_ldpc_tpu_torch.utils.provenance\n"
