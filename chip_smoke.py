@@ -199,7 +199,18 @@ the concat preset.  Each phase prints one line with its seconds:
      final tau2 within 3 % of SE; the split full - each variant in % of
      full's call;
  31. S4's compact layouts (compact, compact32) and the pair, in the same
-     way; the pair's kept state and trace bit for bit full's.
+     way; the pair's kept state and trace bit for bit full's;
+ 32. K1 by launch: the headline call of the main path (B=2048, T=22, the
+     noise drawn in the kernel, the operator's support tables) and
+     fast_l4096's (B=512, T cap 32, tol 1e-4), each launch's device ms
+     (torch.profiler: the encode, then the column and the row stage of
+     every iteration) beside the bytes K1's design moves in it
+     (`k1_design_bytes`: 16 N + 12 ns a codeword and iteration) and that
+     over the time; the call's design bytes over 3.35 TB/s.  The amp_split
+     and amp_split_l4096 records carry `stages_ms` (measured),
+     `design_bytes` and `design_floor_ms` (a model of K1's design on this
+     run's iteration counts, not a measurement; `bound_ms` stays the
+     bound) from it.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
 13a, 13b, 15, 17, 19, 20, 21, 25, 26, and the tools' blocks of 27-31) and
@@ -265,6 +276,10 @@ L4096_BATCH, L4096_T = 4, 8                # phase 16's comparison
 # window is +-2.5 joint standard errors around it
 FAST_ORACLE_BER, FAST_FER_WINDOW = 1.102e-4, (0.47, 0.64)
 SHARD_BATCH = 1024    # phase 20's codewords
+K1_STAGES = ("k1_encode_kernel", "k1_col_kernel", "k1_row_kernel")
+# phase 32's fields on K1's records: stages_ms measured, the other two
+# computed by k1_design_bytes
+K1_DESIGN_KEYS = ("stages_ms", "design_bytes", "design_floor_ms")
 SHARD_STAGES = ("fwht_rows_kernel", "fwht_cols_kernel", "denoise_kernel",
                 "elementwise_kernel", "reduce_kernel", "CatArrayBatchedCopy")
 DIST_TIMEOUT_S = 300  # phase 22's two processes
@@ -505,14 +520,16 @@ def sparc_path(dev, card: str, clock: Clock) -> dict:
     y_n, idx = draw(BATCH, 1)
     args = (y_n, mask2d, model.sq_npl, c.P, n, T)
     seeds = model.draw_seeds(block_generator(SEED, 1, 2, dev), BATCH)
+    # K1's support tables, built once as the main path builds them
+    sup = model.op.split_support(L, M, dev)
     kernel_ms = call_ms(lambda: amp_fused(*args, encode_idx=idx,
-                                          split=True), REPS)
+                                          split=True, support=sup), REPS)
     noise_ms = call_ms(lambda: amp_fused(
         None, *args[1:], encode_idx=idx, noise_seed=seeds,
-        noise_sigma=sigma, split=True), REPS)
+        noise_sigma=sigma, split=True, support=sup), REPS)
     plain_ms = call_ms(lambda: amp_fused_reference(
         *args, encode_idx=idx, split=True), REPS)
-    iters = amp_fused(*args, encode_idx=idx, split=True)[2]
+    iters = amp_fused(*args, encode_idx=idx, split=True, support=sup)[2]
     amp_b = amp_bound(BATCH, L, M, T, iters)
     print(f"[5 timing] {METRIC} = {bits_per_s:.1f} bits/s "
           f"({1e3 * dt:.2f} ms per block of {BATCH}, median of "
@@ -933,9 +950,35 @@ def trace_stages(path: str, T: int) -> dict:
 def device_ms_by_kernel(fn, names) -> dict:
     """Device ms of one fn() call by kernel, from a torch.profiler Chrome
     trace: each of `names` sums the kernels whose name contains it, the
-    rest go to "other".  The trace is of a second call, after a warm-up
-    call in the same profiler (a one-call trace late in a long process
-    lost some of its first kernels' records)."""
+    rest go to "other"."""
+    us = dict.fromkeys((*names, "other"), 0.0)
+    for e in traced_kernels(fn):
+        key = next((k for k in names if k in e.get("name", "")), "other")
+        us[key] += float(e.get("dur", 0.0))
+    return {k: round(v / 1e3, 3) for k, v in us.items()}
+
+
+def launch_ms(fn, per_call: dict) -> dict:
+    """Device ms of each launch of one fn() call, in launch order, for each
+    name of per_call (the kernels whose name contains it), which gives the
+    launches a call makes.  Two calls are traced and the second one's
+    launches kept: a trace can lose the records of its first kernels."""
+    out = {k: [] for k in per_call}
+    for e in sorted(traced_kernels(fn, calls=2), key=lambda e: float(e["ts"])):
+        key = next((k for k in per_call if k in e.get("name", "")), None)
+        if key is not None:
+            out[key].append(float(e.get("dur", 0.0)) / 1e3)
+    for k, n in per_call.items():
+        require(len(out[k]) >= n, f"the trace holds {len(out[k])} {k} "
+                f"launches, fewer than one call's {n}")
+        out[k] = out[k][-n:]
+    return out
+
+
+def traced_kernels(fn, calls: int = 1) -> list:
+    """The kernel events of `calls` fn() calls from a torch.profiler Chrome
+    trace, after a warm-up call in the same profiler (a one-call trace late
+    in a long process lost some of its first kernels' records)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -944,10 +987,10 @@ def device_ms_by_kernel(fn, names) -> dict:
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
+                     schedule=schedule(wait=0, warmup=1, active=calls),
                      on_trace_ready=lambda p: p.export_chrome_trace(path)
                      ) as prof:
-            for _ in range(2):
+            for _ in range(1 + calls):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -955,12 +998,7 @@ def device_ms_by_kernel(fn, names) -> dict:
             events = json.load(f).get("traceEvents", [])
     finally:
         os.remove(path)
-    us = dict.fromkeys((*names, "other"), 0.0)
-    for e in events:
-        if e.get("cat") == "kernel":
-            key = next((k for k in names if k in e.get("name", "")), "other")
-            us[key] += float(e.get("dur", 0.0))
-    return {k: round(v / 1e3, 3) for k, v in us.items()}
+    return [e for e in events if e.get("cat") == "kernel"]
 
 
 def cli_phase(dev, card: str, cp: dict, clock: Clock) -> dict:
@@ -1303,14 +1341,16 @@ def l4096_path(dev, card: str, clock: Clock) -> dict:
     seeds = model.draw_seeds(gen, FAST_BATCH)
     args = (y_n, mask2d, model.sq_npl, c.P, n, c.amp_iters)
     kw = dict(encode_idx=idx, tol=c.amp_tol)
-    kernel_ms, kout = timed_result(lambda: amp_fused(*args, **kw), REPS)
+    sup = model.op.split_support(L, M, dev)
+    kernel_ms, kout = timed_result(
+        lambda: amp_fused(*args, support=sup, **kw), REPS)
     iters = kout[2]
     noise_ms = call_ms(lambda: amp_fused(
-        None, *args[1:], noise_seed=seeds, noise_sigma=sigma, **kw), REPS)
+        None, *args[1:], noise_seed=seeds, noise_sigma=sigma, support=sup,
+        **kw), REPS)
     stages = device_ms_by_kernel(
         lambda: amp_fused(None, *args[1:], noise_seed=seeds,
-                          noise_sigma=sigma, **kw),
-        ("amp_encode_kernel", "amp_col_kernel", "amp_row_kernel"))
+                          noise_sigma=sigma, support=sup, **kw), K1_STAGES)
     plain_ms, pout = timed_result(lambda: amp_fused_reference(*args, **kw),
                                   1)
     l_b = amp_bound(FAST_BATCH, L, M, c.amp_iters, iters)
@@ -1497,8 +1537,7 @@ def dp_phase(dev, card: str, sp: dict, clock: Clock) -> dict:
     # the block's device ms by kernel: K1's stages and the gather
     stages = device_ms_by_kernel(
         lambda: model.run_block(block_generator(SEED, 0, 9, dev), BATCH),
-        ("amp_encode_kernel", "amp_col_kernel", "amp_row_kernel",
-         "CatArrayBatchedCopy"))
+        (*K1_STAGES, "CatArrayBatchedCopy"))
     ref = sp["cnt"]
     same = {k: cnt[k] == ref[k] for k in ref}
     tau_rel = abs(cnt["tau2_final"] / ref["tau2_final"] - 1.0)
@@ -1926,7 +1965,8 @@ def slab_path(dev, card: str, sp: dict, mp: dict, clock: Clock) -> dict:
     del pout
     # the same draws through K1 (the noise as input)
     k1_ms, k1out = timed_result(
-        lambda: amp_fused(*args, encode_idx=idx, split=True), REPS)
+        lambda: amp_fused(*args, encode_idx=idx, split=True,
+                          support=model.op.split_support(L, M, dev)), REPS)
     flips, decisive = decision_flips(kout[0], k1out[0])
     tau_k7, tau_k1 = (float(o[1][-1].mean()) for o in (kout, k1out))
     vs_k1 = dict(flips=flips, decisive=decisive,
@@ -2306,8 +2346,11 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
     calls = tm["calls"]
     args = (tm["y_n"], model.op.mask.reshape(L, M), model.sq_npl, c.P,
             c.n, EXP_T)
-    k1_ms = call_ms(lambda: amp_fused(*args, split=True), REPS)
-    # full with K1's run-time row length M in its column stage
+    sup = model.op.split_support(L, M, dev)
+    k1_ms = call_ms(lambda: amp_fused(*args, split=True, support=sup), REPS)
+    # full with a run-time row length M in its column stage, as K1's
+    # earlier dense column stage took it (a diagnostic of that design; K1's
+    # column stage now takes M at compile time)
     rtm_ms = call_ms(lambda: _full_runtime_m(*args), REPS)
     stages = {
         "full": device_ms_by_kernel(
@@ -2317,8 +2360,7 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
             lambda: _full_runtime_m(*args),
             ("exp_col_kernel", "exp_row_kernel")),
         "K1": device_ms_by_kernel(
-            lambda: amp_fused(*args, split=True),
-            ("amp_encode_kernel", "amp_col_kernel", "amp_row_kernel"))}
+            lambda: amp_fused(*args, split=True, support=sup), K1_STAGES)}
     full = calls["full"]["ms"]
     # the traced launches' share of the call's CUDA-event ms
     call_of = {"full": full, "full, run-time M": rtm_ms, "K1": k1_ms}
@@ -2336,9 +2378,10 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
           f"{ {m: round(r['ms'], 3) for m, r in calls.items()} }; K1's own "
           f"fixed-T call (amp_fused split, y given) {k1_ms:.3f} ms beside "
           f"full {full:.3f} ms ({100 * (full / k1_ms - 1):+.2f} %), K1 - "
-          f"full {k1_ms - full:.3f} ms; full with run-time M {rtm_ms:.3f} "
-          f"ms; full's stage split (ms, % of full's call) {split}; device "
-          f"ms by launch {stages} (their sum over the call's ms {cover}); "
+          f"full {k1_ms - full:.3f} ms; full with the earlier dense K1's "
+          f"run-time M {rtm_ms:.3f} ms; full's stage split (ms, % of full's "
+          f"call) {split}; device ms by launch {stages} (their sum over the "
+          f"call's ms {cover}); "
           f"plain full {calls['full']['plain_ms']:.1f} ms; bounds "
           f"{ {m: round(r['bound_ms'], 3) for m, r in calls.items()} }; "
           f"full's sections in error {calls['full']['sec_err']} of "
@@ -2761,6 +2804,90 @@ def slab_layout_phase(dev, card: str, model, sa: dict, clock: Clock) -> dict:
     return dict(checks=checks, tm=tm, pair_vs_full=pf)
 
 
+def k1_design_bytes(iters, L: int, M: int, ns: int, T: int,
+                    noise_drawn: bool, work_bytes: int = 2) -> dict:
+    """The bytes K1's design moves in one call, by launch: the encode (the
+    indices read; y_n read on the support unless the noise is drawn; y
+    written on it), then per iteration t over the codewords still running
+    it: the column stage (the work tile read unless t = 0 and written, y,
+    z read and z written on the support (z not read at t = 0), the row
+    |beta'|^2 partials read), the row stage (the work tile read, beta' read
+    unless t = 0 and written, the work tile written unless it is the
+    codeword's last iteration).  iters (B,) the iterations each codeword
+    ran."""
+    N = L * M
+    it = iters.to("cpu").long()
+    B = it.numel()
+    enc = B * (4 * L + 4 * ns + (0 if noise_drawn else 4 * ns))
+    col, row = [], []
+    for t in range(T):
+        active = int((it > t).sum())
+        last = int((it == t + 1).sum())
+        col.append(active * ((work_bytes * N if t else 0) + work_bytes * N
+                             + (12 if t else 8) * ns + (4 * L if t else 0)))
+        row.append(active * (work_bytes * N + (8 if t else 4) * N)
+                   + (active - last) * work_bytes * N)
+    total = enc + sum(col) + sum(row)
+    return {"encode": enc, "col": col, "row": row, "total": total,
+            "floor_ms": 1e3 * total / HBM_BYTES_PER_S}
+
+
+def k1_stage_phase(dev, card: str, sp: dict, lp: dict,
+                   clock: Clock) -> dict:
+    """Phase 32: K1's encode, column and row launches, one by one, at the
+    headline (B=2048, T=22, the main path's call with the noise drawn) and
+    at fast_l4096 (B=512, T cap 32, tol 1e-4, the campaign's call), each
+    beside the bytes its design moves."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    out = {}
+    for key, model, batch, stream in (("headline", sp["model"], BATCH, 30),
+                                      ("l4096", lp["model"], FAST_BATCH, 31)):
+        c = model.cfg
+        L, M, n, T = c.L, c.M, c.n, c.amp_iters
+        gen = block_generator(SEED, stream, 0, dev)
+        bits = torch.randint(0, 2, (batch, c.k_bits), generator=gen,
+                             dtype=torch.int32, device=dev)
+        idx = bits_to_indices(bits, c.logM)
+        seeds = model.draw_seeds(gen, batch)
+        sup = model.op.split_support(L, M, dev)
+        args = (None, model.op.mask.reshape(L, M), model.sq_npl, c.P, n, T)
+        kw = dict(encode_idx=idx, noise_seed=seeds,
+                  noise_sigma=math.sqrt(model.sigma2), split=True,
+                  support=sup, tol=c.amp_tol)
+        ms, res = timed_result(lambda: amp_fused(*args, **kw), REPS)
+        per = launch_ms(lambda: amp_fused(*args, **kw),
+                        dict(zip(K1_STAGES, (1, T, T))))
+        enc, col, row = (per[k] for k in K1_STAGES)
+        db = k1_design_bytes(res[2], L, M, sup.ns, T, noise_drawn=True)
+        rate = {"encode": db["encode"] / enc[0] / 1e9,
+                "col": [b / t / 1e9 for b, t in zip(db["col"], col)],
+                "row": [b / t / 1e9 for b, t in zip(db["row"], row)]}
+        out[key] = dict(
+            ms=ms, design_bytes=db["total"], design_floor_ms=db["floor_ms"],
+            stages_ms={"encode": enc[0], "col": sum(col), "row": sum(row),
+                       "col_per_launch": col, "row_per_launch": row},
+            tb_per_s=rate, iters_mean=float(res[2].float().mean()))
+        print(f"[32 K1 by launch, {key}] B={batch} L={L} M={M} ns={sup.ns} "
+              f"T={T} tol={c.amp_tol} (mean {out[key]['iters_mean']:.2f} "
+              f"iterations): call {ms:.3f} ms (CUDA events), launches' sum "
+              f"{enc[0] + sum(col) + sum(row):.3f} ms; encode {enc[0]:.3f} "
+              f"ms ({rate['encode']:.3f} TB/s of design bytes); column "
+              f"stage ms by launch {[round(x, 3) for x in col]} (TB/s "
+              f"{[round(x, 3) for x in rate['col']]}); row stage ms by "
+              f"launch {[round(x, 3) for x in row]} (TB/s "
+              f"{[round(x, 3) for x in rate['row']]}); design bytes "
+              f"{db['total'] / 1e9:.3f} GB, over 3.35 TB/s "
+              f"{db['floor_ms']:.3f} ms on {card} ({clock.lap():.1f} s)",
+              flush=True)
+        del res
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2826,6 +2953,7 @@ def main() -> None:
                         "scripts/slab_ablation.py:130", "full",
                         {**s4["checks"], **s4l["checks"]}, s4_tm)
     s4_rec["stages_ms_full"] = s4["stages"]["full"]
+    k1s = k1_stage_phase(dev, card, sp, lp, clock)
 
     require("jax" not in sys.modules, "jax was imported")
     ref = [k for k in sys.modules
@@ -2856,7 +2984,8 @@ def main() -> None:
         "launches": total("amp_split"), "launches_by_path": amp_paths,
         "max_abs_err": max(sp["max_abs_err"], cp["max_abs_err"], noise_err),
         "ms": sp["kernel_ms"], "plain_ms": sp["plain_ms"], **sp["bound"],
-        "library_ms": None, "noise_ms": sp["noise_ms"]}
+        "library_ms": None, "noise_ms": sp["noise_ms"],
+        **{k: k1s["headline"][k] for k in K1_DESIGN_KEYS}}
     mono_rec = {
         "name": "amp_mono", "route": "cuda",
         "source": "sparc_ldpc_tpu_torch/csrc/amp_mono.cu",
@@ -2872,7 +3001,8 @@ def main() -> None:
         "launches_by_path": {"noise": fc["launches"]["amp_split_noise"]},
         "max_abs_err": lp["max_abs_err"], "ms": lp["kernel_ms"],
         "plain_ms": lp["plain_ms"], **lp["bound"], "library_ms": None,
-        "noise_ms": lp["noise_ms"]}
+        "noise_ms": lp["noise_ms"],
+        **{k: k1s["l4096"][k] for k in K1_DESIGN_KEYS}}
     slab_rec = {
         "name": "amp_slab", "route": "cuda",
         "source": "sparc_ldpc_tpu_torch/csrc/amp_slab.cu",

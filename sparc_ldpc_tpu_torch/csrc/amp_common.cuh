@@ -296,11 +296,9 @@ amp_encode_kernel(const float* __restrict__ y_n,
 // Column stage of iteration t.  work holds H_M beta' (the forward
 // transform's first stage, from the row stage) on entry.  The stage applies
 // H_L to it, forms z = y - mask/n * H(beta') + coef * z and the strip's
-// |z|^2 partial; with ADJOINT it then applies H_L to z, rounded to bf16 when
-// the work tile is bf16, and leaves that in work (the split form's
-// adjoint); without, work is left as it was (the mono form runs H_M of z
-// first, in its own launch).
-template <int W, int R, int FA, typename WT, bool ADJOINT>
+// |z|^2 partial; work is left as it was (the mono form runs H_M of z first,
+// in its own launch).
+template <int W, int R, int FA, typename WT>
 __global__ void __launch_bounds__(32 * W, 1)
 amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
                float* __restrict__ z, const float* __restrict__ mask_n,
@@ -311,7 +309,6 @@ amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
                int B, int M, int t, float P, float nn) {
   extern __shared__ float sm[];
   __shared__ float red[W];
-  constexpr int kRound = IsBf16<WT>::value;
   constexpr int L = FA * W * R;
   const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
   const int b = blockIdx.y, a = blockIdx.x % FA;
@@ -343,16 +340,9 @@ amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
     if (t > 0) zk += coef * z[off];
     z[off] = zk;
     zz += zk * zk;
-    v[k] = maybe_round(zk, kRound);
   }
   const float zsum = block_sum<W>(zz, red);
   if (threadIdx.x == 0) zpart[(size_t)b * gridDim.x + blockIdx.x] = zsum;
-  if constexpr (ADJOINT) {
-    col_fwht_ba<W, R, FA>(v, sm, w, c, a);
-#pragma unroll
-    for (int k = 0; k < R; ++k)
-      work[base + (size_t)(l0 + w + W * k) * M + m] = from_f32<WT>(v[k]);
-  }
 }
 
 // Standalone H_L of every strip of x (B, L, M), in place, the data rounded
@@ -424,12 +414,12 @@ struct Cols {
     return launch_cols<W, R, FA>(amp_encode_kernel<W, R, FA>, B, M, st, y_n,
                                  mask_n, sqo, enc_idx, seeds, sigma, y, M);
   }
-  template <typename WT, bool ADJOINT>
+  template <typename WT>
   static int step(WT* work, const float* y, float* z, const float* mask_n,
                   float* zpart, const float* bpart, const float* trace,
                   const int32_t* active, int B, int M, int t, float P,
                   float nn, cudaStream_t st) {
-    return launch_cols<W, R, FA>(amp_col_kernel<W, R, FA, WT, ADJOINT>, B, M,
+    return launch_cols<W, R, FA>(amp_col_kernel<W, R, FA, WT>, B, M,
                                  st, work, y, z, mask_n, zpart, bpart, trace,
                                  active, B, M, t, P, nn);
   }

@@ -300,9 +300,9 @@ int col_step(float* work, const float* y, float* z, const float* mask_n,
              float* zpart, const float* bpart, const float* trace,
              const int32_t* active, int B, int L, int M, int t, float P,
              float nn, cudaStream_t st) {
-  DISPATCH_L1024(L, (C::template step<float, false>(work, y, z, mask_n, zpart,
-                                                    bpart, trace, active, B,
-                                                    M, t, P, nn, st)))
+  DISPATCH_L1024(L, (C::template step<float>(work, y, z, mask_n, zpart,
+                                             bpart, trace, active, B, M, t,
+                                             P, nn, st)))
 }
 
 int cols_fwht(float* x, int B, int L, int M, const int32_t* active, int t,

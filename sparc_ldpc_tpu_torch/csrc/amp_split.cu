@@ -19,13 +19,13 @@
 // row t says which codewords run iteration t; the row stage of iteration
 // t writes row t + 1 and only the launches of iteration t + 1 read it, so
 // no launch reads a flag that another block of the same launch writes.
-// Every block of a frozen codeword returns at once in both stages (the
-// early stop saves real time); block 0 of its row stage copies tau2_prev
-// into the trace.  Every block of the row stage computes tau2 and the
-// convergence test itself, from the same partials in the same order, so
-// the block that finishes a codeword knows it: the codeword's last
-// iteration (converged, or t = T - 1) stores beta in true scale, and
-// block 0 writes its iteration count.
+// A frozen codeword costs nothing in either stage (the column stage skips
+// its items, the row stage's blocks return at once); block 0 of its row
+// stage copies tau2_prev into the trace.  Every block of the row stage
+// computes tau2 and the convergence test itself, from the same partials in
+// the same order, so the block that finishes a codeword knows it: the
+// codeword's last iteration (converged, or t = T - 1) stores beta in true
+// scale, and block 0 writes its iteration count.
 //
 // H = H_L (x) H_M is the unnormalized Kronecker Hadamard transform of the
 // tile (H_L down the columns, H_M along each section row).  The scale-free
@@ -35,28 +35,73 @@
 // sums are float32 (round_bf16 = 0 keeps every operand float32); the encode
 // transform is all float32, so codeword power is exact to float32.
 //
-// What bounds it: device-memory bytes.  The TPU kernel kept a codeword's
-// whole state (beta, z, y, a work tile: 4 x 2 MiB at 1024 x 512) in VMEM for
-// all T iterations.  A Hopper block has at most 227 KB of shared memory, so
-// here the state lives in device memory and each iteration is two launches
-// over the batch:
-//   column stage: one block per (codeword, 32-column strip) holds the
-//     (L, 32) strip (128 KB at L = 1024) in registers and shared memory
-//     (a cluster of L / 1024 blocks above L = 1024):
-//     H_L of the forward transform, the residual and Onsager term, the
-//     strip's |z|^2, then H_L of the adjoint transform;
-//   row stage: one thread group per section row: H_M of the adjoint, the
-//     max-subtracted softmax, the pin, the row's |beta'|^2, then H_M of
-//     the next iteration's forward transform.
-// That is about 9 (B, L, M) passes per iteration (column: read w, y, z,
-// write z, u; row: read u, beta', write beta', w), 7 float32-equivalent
-// passes with the work tile w/u in bf16; the (L, M) mask is shared by the
-// batch and stays in L2.  On an H100 (700 W) both stages move about
-// 2.1 TB/s of the 3.35: their in-block phases, not run concurrently with
-// the loads (one 1024-thread block per SM in the column stage), hold them
-// back as well (PERF.md).  The later design keeps the tile on chip: a
-// thread-block cluster per codeword (16 CTAs x 227 KB hold a 2 MiB tile)
-// with distributed shared memory in place of the two passes.
+// Layout.  A Hopper block has at most 227 KB of shared memory, so the state
+// lives in device memory and each iteration is two launches over the batch
+// (the TPU kernel kept a codeword's 8 MiB of state in VMEM):
+//   column stage: H_L of the forward transform, the residual and Onsager
+//     term, the strip's |z|^2, then H_L of the adjoint, on (L, 32) strips;
+//   row stage: H_M of the adjoint, the max-subtracted softmax, the pin, the
+//     row's |beta'|^2, then H_M of the next iteration's forward transform.
+// They exchange the work tile (B, L, M), bf16 when the operands round to
+// bf16.  beta' (B, L, M) float32 lives in the row stage.  y and z are kept
+// only on the row support mask: (B, ns) float32 in the column stage's own
+// order of the ns support entries (ops/split_support.py builds its tables:
+// each thread's entries consecutive, each block's too).  Off the support z
+// is 0 at every iteration, and the adjoint's input there is 0.
+//
+// Bytes per codeword and iteration: 16 N + 12 ns (N = L M; ns = n, 1.8 % of
+// N at the headline): the column stage reads and writes the bf16 work tile
+// (4 N) and reads y, z and writes z on the support (12 ns); the row stage
+// reads the work tile and beta' and writes both (12 N).  The earlier design
+// moved 28 N: y, the mask and z read and z written densely (16 N) in its
+// column stage.
+//
+// Column stage (k1_col_kernel): M is a template argument (a run-time M in
+// the address arithmetic cost the earlier column stage 27 % at L = 1024).
+// One 1024-thread block per SM (128 KB of float32 transpose buffer, the
+// layouts A and B of amp_common.cuh) walks (codeword, strip) items,
+// skipping frozen codewords; while it transforms one item, cp.async brings
+// the next item's bf16 strip (64 KB, 16 bytes a thread) and its support
+// data (y, z, mask/n, each thread's word and first entry) into shared
+// memory, so its loads overlap the in-block transposes, butterflies and
+// barriers that held the earlier design back.  The residual runs in layout
+// B on the thread's support rows only (its 32-bit word of rows), in the
+// earlier row order, so at L <= 1024 |z|^2 and every transformed value are
+// the earlier design's bit for bit.  What bounds it now: the two
+// shared-memory transposes (512 KB of shared traffic an item) and the
+// butterflies (20 float32 adds an element), not its 4 bytes an element of
+// device memory.  float32 work tiles (round_bf16 = 0) do not fit the
+// staging buffer beside the transpose buffer and are read directly.  On
+// an H100 (PERF.md) the walk took 3.5 ms a headline launch against 4.2 ms
+// for one item a block, and against 4.3 ms for 16-column strips with two
+// resident blocks an SM (which also changes the |z|^2 sums' order); a
+// quarter of the block sums' shared-memory reads, or warp 0 alone adding
+// them, moved nothing or lost.  The loads are 16 bytes a thread
+// (cp.async); the result is stored 2 bytes a thread, a warp a 64-byte row
+// segment: staging it through shared memory for 16-byte stores took 4.0
+// ms a launch.
+//
+// Above L = 1024 (FA = L / 1024 in {2, 4}) the strip is split over a
+// cluster of FA blocks, block a holding rows 1024 a + the same local rows,
+// and H_L = H_FA (x) H_1024 takes an exchange through distributed shared
+// memory (amp_common.cuh).  The walk and the prefetch are the same, one
+// resident cluster per walker.  The exchange runs on the support only: the
+// forward transform's H_FA (after each block's H_1024) is needed only at
+// the residual's rows, one remote read per other block there (the same
+// values as the dense exchange); the adjoint's input is 0 off the support,
+// so its H_FA runs first, reading the other blocks' z of the item (in
+// device memory, just written) where they have a support row, and H_1024
+// follows: the same function as the dense design's, which took H_1024
+// first, with its float32 sums in another order.  Two cluster barriers an
+// item instead of six, and about one remote value a thread per transform
+// instead of 3 R.
+//
+// Row stage (k1_row_kernel): one warp per section row, M / 32 values a lane
+// (chunks of 8 columns: 16-byte loads and stores of the bf16 work tile,
+// two of beta').  H_M's bits run in registers and shuffles in ascending
+// order, and the max, the exp-sum and |beta'|^2 are warp reductions that
+// add in the earlier design's order, with no shared memory and no block
+// barrier.  What bounds it: its 12 bytes an element of device memory.
 //
 // Determinism: no float atomics.  Per-codeword sums are fixed-order trees
 // inside a block plus a fixed-order second pass over the per-block partials,
@@ -72,23 +117,17 @@
 //   pair p = (l % 4) / 2: u1 = (x_{2p} >> 8) 2^-24 + 2^-25,
 //                         theta = 2 pi (x_{2p+1} >> 8) 2^-24,
 //   normal = sqrt(-2 ln u1) * (l even ? cos theta : sin theta).
-// Each thread of the encode launch owns R >= 8 consecutive rows of one
-// column (R = 32 at L >= 1024, where block a of a cluster starts at row
-// 1024 a), so one Philox block feeds four of its rows.  The transcendentals
-// are the precise logf/sincosf/sqrtf (no fast-math).
+// K1's encode launch (k1_encode_kernel) draws only the Philox blocks that
+// feed a support row of its thread's R >= 8 consecutive rows and writes
+// the compact y; the dense noise launch (amp_noise_run) is amp_common.cuh's
+// encode with no codeword.  The transcendentals are the precise
+// logf/sincosf/sqrtf (no fast-math).
 //
-// The transform stages (reg_fwht, col_fwht_ab / col_fwht_ba, row_fwht) are
-// device functions, so the standalone tile transform (amp_fwht_tile) and the
-// plain length-N FWHT of the operator route (fwht2_run, the counterpart of
-// sparc_ldpc_tpu/ops/fwht.py::_fwht2_kernel) reuse them.  The column stage,
-// the encode and the noise live in amp_common.cuh, which the monolithic
+// The transform stages of the standalone tile transform (amp_fwht_tile,
+// K3) and of the plain length-N FWHT of the operator route (fwht2_run, K5,
+// the counterpart of sparc_ldpc_tpu/ops/fwht.py::_fwht2_kernel) are
+// row_fwht below and amp_common.cuh's column code, which the monolithic
 // form (amp_mono.cu) shares.
-//
-// L = 2048 and 4096 (the fast_l4096 preset): the column stage's H_L runs
-// on a thread-block cluster of L / 1024 blocks per strip that exchange
-// through distributed shared memory (amp_common.cuh states why); the row
-// stage is the same at every L.  The |z|^2 partials are one per
-// column-stage block, (L / 1024) * M / 32 per codeword above L = 1024.
 //
 // Built by sparc_ldpc_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -97,6 +136,8 @@
 #include "amp_common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kRowThreads = 256;   // threads per row-stage block
 
@@ -122,7 +163,9 @@ __global__ void noise_draws_kernel(const uint32_t* __restrict__ seeds,
 
 // ------------------------------------------------------------------- rows
 //
-// A section row of M columns is handled by TPR = M / 4 threads, each with
+// The standalone row transform of K3 and K5 (fwht_rows_kernel), the
+// earlier design's row stage: a section row of M columns is handled by
+// TPR = M / 4 threads, each with
 // 4 adjacent columns (one float4); a block of 256 threads holds
 // RPB = 256 / TPR rows.  Row bits 0-1 are inside the thread, bits 2-6 go
 // through warp shuffles, and the bits above (M > 128: a row spans warps)
@@ -170,32 +213,6 @@ __device__ __forceinline__ void row_fwht(float (&v)[4], float* srow, int j) {
   }
 }
 
-// Max or sum over one row's TPR threads, fixed order; every thread of the
-// row gets the result.
-template <int M, bool IS_MAX>
-__device__ __forceinline__ float row_reduce(float x, float* red, int r) {
-  constexpr int TPR = M / 4;
-  constexpr int LANES = TPR < 32 ? TPR : 32;
-#pragma unroll
-  for (int mk = 1; mk < LANES; mk <<= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, x, mk);
-    x = IS_MAX ? fmaxf(x, o) : x + o;
-  }
-  if constexpr (TPR > 32) {
-    constexpr int WPR = TPR / 32;  // warps per row
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-    __syncthreads();
-    x = red[r * WPR];
-#pragma unroll
-    for (int i = 1; i < WPR; ++i) {
-      const float o = red[r * WPR + i];
-      x = IS_MAX ? fmaxf(x, o) : x + o;
-    }
-  }
-  return x;
-}
-
 __device__ __forceinline__ void load4(float (&v)[4], const float* p) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x;
@@ -208,54 +225,556 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void load4(float (&v)[4], const __nv_bfloat16* p) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
+// Standalone H_M of every row of x into out.
+template <int M>
+__global__ void __launch_bounds__(kRowThreads)
+fwht_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
+                 int round_bf16) {
+  constexpr int TPR = M / 4, RPB = kRowThreads / TPR;
+  __shared__ __align__(16) float srows[RPB * M];
+  const int r = threadIdx.x / TPR, j = threadIdx.x % TPR;
+  const size_t off = ((size_t)blockIdx.x * RPB + r) * M + 4 * j;
+  float v[4];
+  load4(v, x + off);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = maybe_round(v[i], round_bf16);
+  row_fwht<M>(v, srows + r * M, j);
+  store4(out + off, v);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<const unsigned int*>(&a);
-  q.y = *reinterpret_cast<const unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = q;
+// --------------------------------------------------------------------- K1
+
+// The support tables of the (L, M) tile (ops/split_support.py): entry e of
+// the kernel's order, of ns, has mask/n mask[e]; (row-range g, column m)
+// holds the rows R g + k whose bit k of word[g M + m] is set, entries
+// offset[g M + m] on; column-stage block ib = strip * FA + cluster rank
+// holds entries block[ib] .. block[ib + 1] - 1.
+struct Support {
+  const float* mask;
+  const int32_t* offset;
+  const uint32_t* word;
+  const int32_t* block;
+  int ns;
+};
+
+// Support entries of one column-stage block staged in shared memory; a
+// block with more (a dense mask) reads them from device memory.
+template <int W, int R>
+__host__ __device__ constexpr int entry_cap() {
+  return W * R * kStrip < 2048 ? W * R * kStrip : 2048;
+}
+
+// Dynamic shared memory of the column stage: the float32 transpose buffer,
+// the bf16 staging of the next strip (bf16 work tiles only), y, z and
+// mask/n of the next item's entries, and each thread's word and first
+// entry.
+template <int W, int R, typename WT>
+__host__ __device__ constexpr int col_smem_bytes() {
+  return W * R * kStrip * 4 + (IsBf16<WT>::value ? W * R * kStrip * 2 : 0) +
+         3 * entry_cap<W, R>() * 4 + 2 * 32 * W * 4;
+}
+
+// Sums of x and of y over a block of NW warps, each in block_sum's fixed
+// order; every thread gets both.
+template <int NW>
+__device__ __forceinline__ float2 block_sum2(float x, float y, float* red) {
+  x = warp_sum(x);
+  y = warp_sum(y);
+  __syncthreads();  // earlier readers of red are done
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5] = x;
+    red[NW + (threadIdx.x >> 5)] = y;
+  }
+  __syncthreads();
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    s.x += red[i];
+    s.y += red[NW + i];
+  }
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// H_FA across the FA blocks of a cluster (block a holds rows 1024 a + the
+// same local rows in the same layout), above L = 1024, on the support
+// only.  The forward transform's result is read on the thread's support
+// rows alone (its word): there v[k] = sum_a' (-1)^popc(a & a') x_a'[k] in
+// amp_common.cuh's cluster_fwht's order, so the same values, from one
+// remote read per other block and support row instead of all R values.
+// With TAIL the blocks wait until every remote read is done; without, the
+// caller's next cluster barrier must come before any block writes its sm.
+template <int FA, int R, bool TAIL>
+__device__ __forceinline__ void k1_cluster_on_support(float (&v)[R],
+                                                      float* sm, int a,
+                                                      uint32_t word) {
+  if constexpr (FA > 1) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int nt = blockDim.x;
+    __syncthreads();  // this block's earlier readers of sm are done
+#pragma unroll
+    for (int k = 0; k < R; ++k) sm[k * nt + threadIdx.x] = v[k];
+    cl.sync();
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if ((word >> k) & 1u) {
+        float s = 0.f;
+#pragma unroll
+        for (int a2 = 0; a2 < FA; ++a2) {
+          const float x = a2 == a
+                              ? v[k]
+                              : cl.map_shared_rank(sm, a2)[k * nt + threadIdx.x];
+          s = (__popc(a & a2) & 1) ? s - x : s + x;
+        }
+        v[k] = s;
+      }
+    }
+    if constexpr (TAIL) cl.sync();
+  }
+}
+
+// Encode: y on the support, compact.  As amp_common.cuh's amp_encode_kernel
+// (the one-hot row's H_M in closed form, H_L in float32), then in layout B
+// each thread draws the Philox blocks of its support rows only and writes
+// noise + mask/n * v there.  Grid (FA * M / 32, B).
+template <int W, int R, int FA>
+__global__ void __launch_bounds__(32 * W, 1)
+k1_encode_kernel(const float* __restrict__ y_n, Support sp,
+                 const float* __restrict__ sqo,
+                 const int32_t* __restrict__ enc_idx,
+                 const uint32_t* __restrict__ seeds, float sigma,
+                 float* __restrict__ yc, int M) {
+  extern __shared__ float sm[];
+  constexpr int L = FA * W * R;
+  static_assert(R % 4 == 0, "a Philox block feeds four rows of a thread");
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int b = blockIdx.y, a = blockIdx.x % FA;
+  const int m = (blockIdx.x / FA) * kStrip + c;
+  const int l0 = a * W * R;  // this block's first row
+  const size_t tab = (size_t)(a * W + w) * M + m;
+  const uint32_t word = sp.word[tab];
+  int e = sp.offset[tab];
+  float v[R];
+  if (enc_idx != nullptr) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int l = l0 + w + W * k;
+      const float s = sqo[l];
+      v[k] = (__popc(enc_idx[(size_t)b * L + l] & m) & 1) ? -s : s;
+    }
+    reg_fwht<R, R>(v);
+    a_to_b<W, R>(v, sm, w, c);
+    reg_fwht<R, W>(v);
+    k1_cluster_on_support<FA, R, true>(v, sm, a, word);
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = 0.f;
+  }
+  uint2 key = make_uint2(0u, 0u);
+  if (seeds != nullptr) key = make_uint2(seeds[2 * b], seeds[2 * b + 1]);
+  float* yb = yc + (size_t)b * sp.ns;
+#pragma unroll
+  for (int g = 0; g < R / 4; ++g) {
+    if (((word >> (4 * g)) & 0xFu) == 0u) continue;
+    float e4[4] = {0.f, 0.f, 0.f, 0.f};
+    if (seeds != nullptr) normal4(key, m, (l0 + R * w) / 4 + g, e4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * g + i;
+      if ((word >> k) & 1u) {
+        const float noise =
+            seeds != nullptr
+                ? __fmul_rn(sigma, e4[i])
+                : y_n[((size_t)b * L + l0 + R * w + k) * M + m];
+        yb[e] = noise + sp.mask[e] * v[k];
+        ++e;
+      }
+    }
+  }
+}
+
+// Column stage of iteration t.  work holds H_M beta' (the forward
+// transform's first stage, from the row stage) on entry and H_L z, rounded
+// to bf16 when the work tile is bf16, on exit; z (B, ns) is updated on the
+// support.  Grid (FA * walkers), as many walkers as are resident at once:
+// walker i (a block, or a cluster of FA blocks above L = 1024) takes the
+// items (codeword, strip) i, i + walkers, ... of the active codewords,
+// item it = b * M / 32 + strip.  While it transforms one item, cp.async brings the next one's bf16 strip and its
+// support data (y, z, mask/n, each thread's word and first entry) into
+// shared memory; every load on an item's critical path is from shared
+// memory but the row |beta'|^2 partials, whose sum for the next item is
+// taken in the same reduction as this item's |z|^2.
+template <int W, int R, int FA, int M, typename WT>
+__global__ void __launch_bounds__(32 * W, 1)
+k1_col_kernel(WT* __restrict__ work, const float* __restrict__ yc,
+              float* __restrict__ zc, Support sp,
+              float* __restrict__ zpart,        // (B, FA * M / 32)
+              const float* __restrict__ bpart,  // (B, L) row |beta'|^2
+              const float* __restrict__ trace,  // (T, B)
+              const int32_t* __restrict__ active,  // (T + 1, B)
+              int B, int t, float P, float nn) {
+  extern __shared__ __align__(16) float k1_sm[];
+  __shared__ float red[2 * W];
+  constexpr int kRound = IsBf16<WT>::value;
+  constexpr bool kStage = IsBf16<WT>::value != 0;
+  constexpr int L = FA * W * R, LB = W * R, NT = 32 * W, S = M / kStrip;
+  constexpr int CAP = entry_cap<W, R>();
+  // transpose buffer, bf16 stage, then the next item's support data
+  float* sm = k1_sm;
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(sm + LB * kStrip);
+  float* ys = sm + LB * kStrip + (kStage ? LB * kStrip / 2 : 0);
+  float* zs = ys + CAP;
+  float* ms = zs + CAP;
+  uint32_t* tword = reinterpret_cast<uint32_t*>(ms + CAP);
+  int32_t* toff = reinterpret_cast<int32_t*>(tword + NT);
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int a = blockIdx.x % FA, walkers = gridDim.x / FA;
+  const int l0 = a * LB;
+  const int items = B * S;
+  const int32_t* act = active + (size_t)t * B;
+  // the walker's next item of an active codeword from it on; the same in
+  // every block of a cluster
+  auto next = [&](int it) {
+    while (it < items && !act[it / S]) it += walkers;
+    return it;
+  };
+  // cp.async of an item's bf16 strip, 16 bytes a thread
+  auto fetch_work = [&](int it) {
+    const WT* src = work + ((size_t)(it / S) * L + l0) * M + (it % S) * kStrip;
+    for (int q = threadIdx.x; q < LB * 4; q += NT) {
+      const int r = q >> 2, p = q & 3;
+      cp_async16(stage + r * kStrip + 8 * p, src + (size_t)r * M + 8 * p);
+    }
+  };
+  // cp.async of an item's support data: the thread's word and first entry,
+  // and the block's entries of y, mask/n and z (iteration 0 reads no z),
+  // unless they exceed the shared buffers (then read where they are)
+  auto fetch_entries = [&](int it) {
+    const int s = it % S, ib = s * FA + a;
+    const size_t tab = (size_t)(a * W + w) * M + s * kStrip + c;
+    cp_async4(tword + threadIdx.x, sp.word + tab);
+    cp_async4(toff + threadIdx.x, sp.offset + tab);
+    const int first = sp.block[ib], count = sp.block[ib + 1] - first;
+    if (count > CAP) return;
+    const size_t off = (size_t)(it / S) * sp.ns + first;
+    for (int i = threadIdx.x; i < count; i += NT) {
+      cp_async4(ys + i, yc + off + i);
+      cp_async4(ms + i, sp.mask + first + i);
+      if (t > 0) cp_async4(zs + i, zc + off + i);
+    }
+  };
+  // this thread's terms of an item's |beta'|^2 (the row partials)
+  auto bterms = [&](int it) {
+    float acc = 0.f;
+    if (t > 0 && it < items) {
+      const float* bp = bpart + (size_t)(it / S) * L;
+      for (int l = threadIdx.x; l < L; l += NT) acc += bp[l];
+    }
+    return acc;
+  };
+
+  int it = next(blockIdx.x / FA);
+  if (it >= items) return;  // uniform per cluster
+  if constexpr (kStage) {
+    if (t > 0) fetch_work(it);
+  }
+  fetch_entries(it);
+  float bnorm2 = block_sum2<W>(bterms(it), 0.f, red).x;
+  while (it < items) {
+    const int nx = next(it + walkers);
+    const int b = it / S, s = it % S, ib = s * FA + a;
+    const int m = s * kStrip + c;
+    const int first = sp.block[ib];
+    const bool staged = sp.block[ib + 1] - first <= CAP;
+    const float tau2_prev = t > 0 ? trace[(size_t)(t - 1) * B + b] : 1.f;
+    const float bnext = bterms(nx);  // consumed after this item's residual
+    // every cluster block's support word and first entry of this thread's
+    // rows, for the adjoint's sparse H_FA (none at FA = 1)
+    uint32_t words[FA];
+    int offs[FA];
+#pragma unroll
+    for (int a2 = 0; a2 < FA; ++a2) {
+      const size_t tab2 = (size_t)(a2 * W + w) * M + m;
+      words[a2] = FA > 1 ? sp.word[tab2] : 0u;
+      offs[a2] = FA > 1 ? sp.offset[tab2] : 0;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // this item's staged data is visible
+    const uint32_t word = tword[threadIdx.x];
+    float v[R];
+    float coef = 0.f;  // beta' = 0 and z = 0 before the first iteration
+    if (t > 0) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int r = w + W * k;
+        if constexpr (kStage)
+          v[k] = to_f32(stage[r * kStrip + c]);
+        else
+          v[k] = to_f32(work[((size_t)b * L + l0 + r) * M + m]);
+      }
+      if constexpr (kStage) {
+        __syncthreads();  // every thread has read the stage
+        if (nx < items) fetch_work(nx);
+      }
+      coef = (P - bnorm2 / nn) / tau2_prev;
+      reg_fwht<R, R>(v);
+      a_to_b<W, R>(v, sm, w, c);
+      reg_fwht<R, W>(v);
+      k1_cluster_on_support<FA, R, false>(v, sm, a, word);
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = 0.f;
+    }
+    // the residual on the thread's support rows (layout B: rows R w + k),
+    // in the dense design's row order; off the support z and the adjoint's
+    // input are 0
+    const size_t cw = (size_t)b * sp.ns;
+    const float* ysrc = staged ? ys - first : yc + cw;
+    const float* zsrc = staged ? zs - first : zc + cw;
+    const float* msrc = staged ? ms - first : sp.mask;
+    const int e0 = toff[threadIdx.x];
+    float zz = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float zk = 0.f;
+      if ((word >> k) & 1u) {
+        const int e = e0 + __popc(word & ((1u << k) - 1u));
+        zk = ysrc[e] - msrc[e] * v[k];
+        if (t > 0) zk += coef * zsrc[e];
+        zc[cw + e] = zk;
+        zz += zk * zk;
+      }
+      v[k] = maybe_round(zk, kRound);
+    }
+    // this item's |z|^2 and the next item's |beta'|^2; the barriers also
+    // end every thread's reads of the support data
+    const float2 sums = block_sum2<W>(zz, bnext, red);
+    if (threadIdx.x == 0) zpart[(size_t)b * (FA * S) + ib] = sums.x;
+    if (nx < items) fetch_entries(nx);
+    if constexpr (FA > 1) {
+      // the adjoint's H_FA first, on its sparse input: the other blocks'
+      // values are their z of this item, rounded as they round them, read
+      // where they have a support row.  (The dense design took H_1024 first
+      // and H_FA of its dense results: the same sums in another order.)
+      cg::this_cluster().sync();  // every block's z of this item is written
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        float x = 0.f;
+#pragma unroll
+        for (int a2 = 0; a2 < FA; ++a2) {
+          float y = 0.f;
+          if (a2 == a) {
+            y = v[k];
+          } else if ((words[a2] >> k) & 1u) {
+            const int e = offs[a2] + __popc(words[a2] & ((1u << k) - 1u));
+            y = maybe_round(__ldcg(zc + cw + e), kRound);
+          }
+          x = (__popc(a & a2) & 1) ? x - y : x + y;
+        }
+        v[k] = x;
+      }
+    }
+    reg_fwht<R, W>(v);
+    b_to_a<W, R>(v, sm, w, c);
+    reg_fwht<R, R>(v);
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      work[((size_t)b * L + l0 + w + W * k) * M + m] = from_f32<WT>(v[k]);
+    bnorm2 = sums.y;
+    it = nx;
+  }
+}
+
+// Row stage, one warp per section row: lane j holds NCH chunks of C
+// adjacent columns, chunk i at columns C j + C TPR i (TPR lanes a row, 32
+// at M >= 128; at M < 128 a warp holds 32 / TPR rows), so column bits
+// 0 .. log2(C) - 1 are inside a chunk, the next log2(TPR) are the lane and
+// the rest the chunk.
+template <int M>
+struct RowShape {
+  static constexpr int VPL = M / 32 < 4 ? 4 : M / 32;  // values a lane
+  static constexpr int TPR = M / VPL;                  // lanes a row
+  static constexpr int C = VPL < 8 ? VPL : 8;          // columns a chunk
+  static constexpr int NCH = VPL / C;                  // chunks a lane
+  static constexpr int RPB = (kRowThreads / 32) * (32 / TPR);  // rows a block
+  __device__ static int col(int j, int i) { return C * j + C * TPR * (i / C) + i % C; }
+};
+
+// H_M of a row in registers and shuffles, bits in ascending order (the
+// butterflies of row_fwht, so the same values).
+template <int M>
+__device__ __forceinline__ void warp_row_fwht(float (&v)[RowShape<M>::VPL],
+                                              int j) {
+  using Sh = RowShape<M>;
+  constexpr int VPL = Sh::VPL;
+  reg_fwht<VPL, Sh::C>(v);
+#pragma unroll
+  for (int mk = 1; mk < Sh::TPR; mk <<= 1) {
+    const bool hi = (j & mk) != 0;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[i], mk);
+      v[i] = hi ? o - v[i] : v[i] + o;
+    }
+  }
+#pragma unroll
+  for (int h = Sh::C; h < VPL; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      if ((i & h) == 0) {
+        const float x = v[i], y = v[i + h];
+        v[i] = x + y;
+        v[i + h] = x - y;
+      }
+    }
+  }
+}
+
+// Max or sum over a row's values, in the order of the earlier 4-column
+// threads: each 4 adjacent columns in sequence (the caller's partials p, one
+// per group of 4), then an xor tree over the groups' index bits up to 32
+// groups, then those trees' results (one per 128 columns) in sequence.
+// Every lane of the row gets it.
+template <int M, bool IS_MAX>
+__device__ __forceinline__ float warp_row_reduce(
+    const float (&p)[RowShape<M>::VPL / 4]) {
+  using Sh = RowShape<M>;
+  auto op = [](float x, float y) { return IS_MAX ? fmaxf(x, y) : x + y; };
+  if constexpr (Sh::C == 4) {  // M <= 128: a group a lane, one tree
+    float x = p[0];
+#pragma unroll
+    for (int mk = 1; mk < Sh::TPR; mk <<= 1)
+      x = op(x, __shfl_xor_sync(0xffffffffu, x, mk));
+    return x;
+  } else {  // M >= 256: group bit 0 in the lane, bits 1-4 lane bits 0-3
+    float part[Sh::NCH];
+#pragma unroll
+    for (int i = 0; i < Sh::NCH; ++i) {
+      float x = op(p[2 * i], p[2 * i + 1]);
+#pragma unroll
+      for (int mk = 1; mk < 16; mk <<= 1)
+        x = op(x, __shfl_xor_sync(0xffffffffu, x, mk));
+      part[i] = x;
+    }
+    // the trees of 128 columns, in column order: (chunk i, lane half h)
+    const bool upper = (threadIdx.x & 16) != 0;
+    float x = 0.f;
+#pragma unroll
+    for (int i = 0; i < Sh::NCH; ++i) {
+      const float o = __shfl_xor_sync(0xffffffffu, part[i], 16);
+      const float lo = upper ? o : part[i], hi = upper ? part[i] : o;
+      x = i == 0 ? lo : op(x, lo);
+      x = op(x, hi);
+    }
+    return x;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void load_chunk(float* v, const float* p) {
+#pragma unroll
+  for (int q = 0; q < C; q += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + q);
+    v[q] = x.x;
+    v[q + 1] = x.y;
+    v[q + 2] = x.z;
+    v[q + 3] = x.w;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_chunk(float* p, const float* v) {
+#pragma unroll
+  for (int q = 0; q < C; q += 4)
+    *reinterpret_cast<float4*>(p + q) =
+        make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+}
+
+template <int C>
+__device__ __forceinline__ void load_chunk(float* v, const __nv_bfloat16* p) {
+  if constexpr (C == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const unsigned u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[q]));
+      v[2 * q] = f.x;
+      v[2 * q + 1] = f.y;
+    }
+  } else {
+    static_assert(C == 4, "chunks of 4 or 8 columns");
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    const unsigned u[2] = {x.x, x.y};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[q]));
+      v[2 * q] = f.x;
+      v[2 * q + 1] = f.y;
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float* v) {
+  unsigned u[C / 2];
+#pragma unroll
+  for (int q = 0; q < C / 2; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    u[q] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  if constexpr (C == 8)
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  else
+    *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
 }
 
 // Row stage of iteration t.  work holds H_L z on entry and, unless this is
 // the codeword's last iteration, H_M beta'_new (the next forward
 // transform) on exit.  beta holds beta' and, after the codeword's last
-// iteration, the true-scale beta.
+// iteration, the true-scale beta.  Grid (L / RPB, B).
 template <int M, typename WT, int FA>
 __global__ void __launch_bounds__(kRowThreads)
-amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
-               const float* __restrict__ zpart,  // (B, FA * M / 32)
-               float* __restrict__ bpart,        // (B, L)
-               float* __restrict__ trace,        // (T, B)
-               int32_t* __restrict__ iters,      // (B,)
-               int32_t* __restrict__ active,     // (T + 1, B)
-               const int32_t* __restrict__ pin,  // (B, L) or null
-               const float* __restrict__ sched,  // (T,) or null
-               const float* __restrict__ sqi, const float* __restrict__ sqo,
-               int B, int L, int t, int last, float n, float inv_sqrt_n,
-               float tol) {
+k1_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
+              const float* __restrict__ zpart,  // (B, FA * M / 32)
+              float* __restrict__ bpart,        // (B, L)
+              float* __restrict__ trace,        // (T, B)
+              int32_t* __restrict__ iters,      // (B,)
+              int32_t* __restrict__ active,     // (T + 1, B)
+              const int32_t* __restrict__ pin,  // (B, L) or null
+              const float* __restrict__ sched,  // (T,) or null
+              const float* __restrict__ sqi, const float* __restrict__ sqo,
+              int B, int L, int t, int last, float n, float inv_sqrt_n,
+              float tol) {
+  using Sh = RowShape<M>;
+  constexpr int VPL = Sh::VPL, C = Sh::C, NCH = Sh::NCH, NG = VPL / 4;
   // NS |z|^2 partials, one per column-stage block of the codeword
-  constexpr int TPR = M / 4, RPB = kRowThreads / TPR, NS = FA * M / kStrip;
+  constexpr int NS = FA * M / kStrip;
   constexpr int kRound = IsBf16<WT>::value;
-  __shared__ __align__(16) float srows[RPB * M];
-  __shared__ float red[kRowThreads / 32];
-  const int r = threadIdx.x / TPR, j = threadIdx.x % TPR;
+  const int lane = threadIdx.x & 31;
+  const int j = lane % Sh::TPR;
+  const int r = (threadIdx.x >> 5) * (32 / Sh::TPR) + lane / Sh::TPR;
   const int b = blockIdx.y;
-  const int l = blockIdx.x * RPB + r;
-  float* srow = srows + r * M;
-  const size_t off = ((size_t)b * L + l) * M + 4 * j;
+  const int l = blockIdx.x * Sh::RPB + r;
+  const size_t row = ((size_t)b * L + l) * M;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   const float tau2_prev = t > 0 ? trace[(size_t)(t - 1) * B + b] : INFINITY;
 
@@ -277,56 +796,80 @@ amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
   const bool conv = fabsf(tau2 - tau2_prev) < tol * tau2;
   const bool fin = last || conv;  // this codeword's last iteration
 
-  float v[4];
-  load4(v, work + off);
-  row_fwht<M>(v, srow, j);
+  float v[VPL];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+    load_chunk<C>(v + C * i, work + row + Sh::col(j, C * i));
+  warp_row_fwht<M>(v, j);
   if (t > 0) {
-    float bo[4];
-    load4(bo, beta + off);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] += bo[i];
-  }
-  const float ai = sqi[l] / tau2;
-  float mx = -INFINITY;
+    for (int i = 0; i < NCH; ++i) {
+      float bo[C];
+      load_chunk<C>(bo, beta + row + Sh::col(j, C * i));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[i] = ai * v[i];
-    mx = fmaxf(mx, v[i]);
-  }
-  mx = row_reduce<M, true>(mx, red, r);
-  float se = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[i] = expf(v[i] - mx);
-    se += v[i];
-  }
-  se = row_reduce<M, false>(se, red, r);
-  const float so = sqo[l] / se;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = so * v[i];
-  if (pin != nullptr) {
-    const int p = pin[(size_t)b * L + l];
-    if (p >= 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = (4 * j + i == p) ? sqo[l] : 0.f;
+      for (int q = 0; q < C; ++q) v[C * i + q] += bo[q];
     }
   }
-  float bb = 0.f;
+  const float ai = sqi[l] / tau2;
+  float p[NG];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) bb += v[i] * v[i];
+  for (int g = 0; g < NG; ++g) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[4 * g + q] = ai * v[4 * g + q];
+      mx = fmaxf(mx, v[4 * g + q]);
+    }
+    p[g] = mx;
+  }
+  const float mx = warp_row_reduce<M, true>(p);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    float se = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[4 * g + q] = expf(v[4 * g + q] - mx);
+      se += v[4 * g + q];
+    }
+    p[g] = se;
+  }
+  const float so = sqo[l] / warp_row_reduce<M, false>(p);
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) v[i] = so * v[i];
+  if (pin != nullptr) {
+    const int pc = pin[(size_t)b * L + l];
+    if (pc >= 0) {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) v[i] = (Sh::col(j, i) == pc) ? sqo[l] : 0.f;
+    }
+  }
   if (fin) {
-    float out[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) out[i] = v[i] * inv_sqrt_n;
-    store4(beta + off, out);
+    for (int i = 0; i < NCH; ++i) {
+      float out[C];
+#pragma unroll
+      for (int q = 0; q < C; ++q) out[q] = v[C * i + q] * inv_sqrt_n;
+      store_chunk<C>(beta + row + Sh::col(j, C * i), out);
+    }
   } else {
-    store4(beta + off, v);
-    bb = row_reduce<M, false>(bb, red, r);
+#pragma unroll
+    for (int i = 0; i < NCH; ++i)
+      store_chunk<C>(beta + row + Sh::col(j, C * i), v + C * i);
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      float bb = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bb += v[4 * g + q] * v[4 * g + q];
+      p[g] = bb;
+    }
+    const float bb = warp_row_reduce<M, false>(p);
     if (j == 0) bpart[(size_t)b * L + l] = bb;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = maybe_round(v[i], kRound);
-    row_fwht<M>(v, srow, j);
-    store4(work + off, v);
+    for (int i = 0; i < VPL; ++i) v[i] = maybe_round(v[i], kRound);
+    warp_row_fwht<M>(v, j);
+#pragma unroll
+    for (int i = 0; i < NCH; ++i)
+      store_chunk<C>(work + row + Sh::col(j, C * i), v + C * i);
   }
   if (lead) {
     trace[(size_t)t * B + b] = tau2;
@@ -335,63 +878,48 @@ amp_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
   }
 }
 
-// Standalone H_M of every row of x into out.
-template <int M>
-__global__ void __launch_bounds__(kRowThreads)
-fwht_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
-                 int round_bf16) {
-  constexpr int TPR = M / 4, RPB = kRowThreads / TPR;
-  __shared__ __align__(16) float srows[RPB * M];
-  const int r = threadIdx.x / TPR, j = threadIdx.x % TPR;
-  const size_t off = ((size_t)blockIdx.x * RPB + r) * M + 4 * j;
-  float v[4];
-  load4(v, x + off);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = maybe_round(v[i], round_bf16);
-  row_fwht<M>(v, srows + r * M, j);
-  store4(out + off, v);
-}
-
 // ------------------------------------------------------------- launchers
 
 template <int M>
 struct Rows {
   static constexpr int RPB = kRowThreads / (M / 4);
-  template <typename WT>
-  static int step(WT* work, float* beta, const float* zpart, float* bpart,
-                  float* trace, int32_t* iters, int32_t* active,
-                  const int32_t* pin, const float* sched, const float* sqi,
-                  const float* sqo, int B, int L, int t, int last, float n,
-                  float inv_sqrt_n, float tol, cudaStream_t st) {
-    // the partials' count is a template argument: a loop with a run-time
-    // trip count here cost the row stage 2 % at L = 1024 on an H100
-    switch (L / kBlockRows) {
-      case 2: return launch<WT, 2>(work, beta, zpart, bpart, trace, iters,
-                                   active, pin, sched, sqi, sqo, B, L, t,
-                                   last, n, inv_sqrt_n, tol, st);
-      case 4: return launch<WT, 4>(work, beta, zpart, bpart, trace, iters,
-                                   active, pin, sched, sqi, sqo, B, L, t,
-                                   last, n, inv_sqrt_n, tol, st);
-      default: return launch<WT, 1>(work, beta, zpart, bpart, trace, iters,
-                                    active, pin, sched, sqi, sqo, B, L, t,
-                                    last, n, inv_sqrt_n, tol, st);
-    }
-  }
-  template <typename WT, int FA>
-  static int launch(WT* work, float* beta, const float* zpart, float* bpart,
-                    float* trace, int32_t* iters, int32_t* active,
-                    const int32_t* pin, const float* sched, const float* sqi,
-                    const float* sqo, int B, int L, int t, int last, float n,
-                    float inv_sqrt_n, float tol, cudaStream_t st) {
-    amp_row_kernel<M, WT, FA><<<dim3(L / RPB, B), kRowThreads, 0, st>>>(
-        work, beta, zpart, bpart, trace, iters, active, pin, sched, sqi,
-        sqo, B, L, t, last, n, inv_sqrt_n, tol);
-    return (int)cudaGetLastError();
-  }
   static int fwht(const float* x, float* out, int rows, int round_bf16,
                   cudaStream_t st) {
     fwht_rows_kernel<M><<<rows / RPB, kRowThreads, 0, st>>>(x, out,
                                                             round_bf16);
+    return (int)cudaGetLastError();
+  }
+  template <typename WT>
+  static int k1_step(WT* work, float* beta, const float* zpart, float* bpart,
+                     float* trace, int32_t* iters, int32_t* active,
+                     const int32_t* pin, const float* sched, const float* sqi,
+                     const float* sqo, int B, int L, int t, int last, float n,
+                     float inv_sqrt_n, float tol, cudaStream_t st) {
+    // the partials' count is a template argument: a loop with a run-time
+    // trip count here cost the row stage 2 % at L = 1024 on an H100
+    switch (L / kBlockRows) {
+      case 2: return k1_launch<WT, 2>(work, beta, zpart, bpart, trace, iters,
+                                      active, pin, sched, sqi, sqo, B, L, t,
+                                      last, n, inv_sqrt_n, tol, st);
+      case 4: return k1_launch<WT, 4>(work, beta, zpart, bpart, trace, iters,
+                                      active, pin, sched, sqi, sqo, B, L, t,
+                                      last, n, inv_sqrt_n, tol, st);
+      default: return k1_launch<WT, 1>(work, beta, zpart, bpart, trace,
+                                       iters, active, pin, sched, sqi, sqo,
+                                       B, L, t, last, n, inv_sqrt_n, tol, st);
+    }
+  }
+  template <typename WT, int FA>
+  static int k1_launch(WT* work, float* beta, const float* zpart,
+                       float* bpart, float* trace, int32_t* iters,
+                       int32_t* active, const int32_t* pin,
+                       const float* sched, const float* sqi, const float* sqo,
+                       int B, int L, int t, int last, float n,
+                       float inv_sqrt_n, float tol, cudaStream_t st) {
+    k1_row_kernel<M, WT, FA>
+        <<<dim3(L / RowShape<M>::RPB, B), kRowThreads, 0, st>>>(
+            work, beta, zpart, bpart, trace, iters, active, pin, sched, sqi,
+            sqo, B, L, t, last, n, inv_sqrt_n, tol);
     return (int)cudaGetLastError();
   }
 };
@@ -408,6 +936,118 @@ struct Rows {
     default: return kBadShape;                       \
   }
 
+// Launch config of FA-block clusters along x (a plain launch at FA = 1).
+template <int FA>
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(dim3 grid, int threads, int bytes, cudaStream_t st) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = FA;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = FA > 1 ? 1 : 0;
+  }
+};
+
+// K1's encode and column stage for the column geometry (W, R, FA).
+template <int W, int R, int FA>
+struct K1Cols {
+  static int encode(const float* y_n, const Support& sp, const float* sqo,
+                    const int32_t* enc_idx, const uint32_t* seeds,
+                    float sigma, float* yc, int B, int M, cudaStream_t st) {
+    auto kernel = k1_encode_kernel<W, R, FA>;
+    const int bytes = W * R * kStrip * (int)sizeof(float);
+    int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc) return rc;
+    ClusterLaunch<FA> lc(dim3(FA * (M / kStrip), B), 32 * W, bytes, st);
+    rc = (int)cudaLaunchKernelEx(&lc.cfg, kernel, y_n, sp, sqo, enc_idx,
+                                 seeds, sigma, yc, M);
+    return rc ? rc : (int)cudaGetLastError();
+  }
+  template <typename WT>
+  static int step(WT* work, const float* yc, float* zc, const Support& sp,
+                  float* zpart, const float* bpart, const float* trace,
+                  const int32_t* active, int B, int M, int t, float P,
+                  float nn, cudaStream_t st) {
+    switch (M) {
+#define K1_COL_M(MM)                                                        \
+  case MM:                                                                  \
+    return col<MM, WT>(work, yc, zc, sp, zpart, bpart, trace, active, B, t, \
+                       P, nn, st);
+      K1_COL_M(32) K1_COL_M(64) K1_COL_M(128) K1_COL_M(256) K1_COL_M(512)
+      K1_COL_M(1024)
+#undef K1_COL_M
+      default: return kBadShape;
+    }
+  }
+  // As many walkers as can be resident at once (one block, or one cluster,
+  // per walker), at most one per item.
+  template <int M, typename WT>
+  static int col(WT* work, const float* yc, float* zc, const Support& sp,
+                 float* zpart, const float* bpart, const float* trace,
+                 const int32_t* active, int B, int t, float P, float nn,
+                 cudaStream_t st) {
+    auto kernel = k1_col_kernel<W, R, FA, M, WT>;
+    constexpr int bytes = col_smem_bytes<W, R, WT>();
+    int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc) return rc;
+    const int items = B * (M / kStrip);
+    int walkers = 0;
+    rc = resident(kernel, bytes, st, &walkers);
+    if (rc) return rc;
+    walkers = walkers < items ? walkers : items;
+    ClusterLaunch<FA> lc(dim3(FA * walkers), 32 * W, bytes, st);
+    rc = (int)cudaLaunchKernelEx(&lc.cfg, kernel, work, yc, zc, sp, zpart,
+                                 bpart, trace, active, B, t, P, nn);
+    return rc ? rc : (int)cudaGetLastError();
+  }
+  // Walkers that fit on the device at once, per device (queried once).
+  template <typename K>
+  static int resident(K kernel, int bytes, cudaStream_t st, int* out) {
+    static int cache[64] = {0};
+    int dev = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc) return rc;
+    if (dev < 64 && cache[dev] > 0) {
+      *out = cache[dev];
+      return 0;
+    }
+    int count = 0;
+    if constexpr (FA == 1) {
+      int per_sm = 0, sms = 0;
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, 32 * W, bytes);
+      if (!rc)
+        rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+      count = per_sm * sms;
+    } else {
+      ClusterLaunch<FA> lc(dim3(FA), 32 * W, bytes, st);
+      rc = (int)cudaOccupancyMaxActiveClusters(&count, kernel, &lc.cfg);
+    }
+    if (rc) return rc;
+    if (count < 1) count = 1;
+    if (dev < 64) cache[dev] = count;
+    *out = count;
+    return 0;
+  }
+};
+
+template <class C>
+struct K1Of;
+template <int W, int R, int FA>
+struct K1Of<Cols<W, R, FA>> {
+  using type = K1Cols<W, R, FA>;
+};
+
 int encode(const float* y_n, const float* mask_n, const float* sqo,
            const int32_t* enc_idx, const uint32_t* seeds, float sigma,
            float* y, int B, int L, int M, cudaStream_t st) {
@@ -415,32 +1055,41 @@ int encode(const float* y_n, const float* mask_n, const float* sqo,
                           st))
 }
 
-template <typename WT>
-int col_step(WT* work, const float* y, float* z, const float* mask_n,
-             float* zpart, const float* bpart, const float* trace,
-             const int32_t* active, int B, int L, int M, int t, float P,
-             float nn, cudaStream_t st) {
-  DISPATCH_L(L, (C::template step<WT, true>(work, y, z, mask_n, zpart, bpart,
-                                             trace, active, B, M, t, P, nn,
-                                             st)))
+int k1_encode(const float* y_n, const Support& sp, const float* sqo,
+              const int32_t* enc_idx, const uint32_t* seeds, float sigma,
+              float* yc, int B, int L, int M, cudaStream_t st) {
+  DISPATCH_L(L, K1Of<C>::type::encode(y_n, sp, sqo, enc_idx, seeds, sigma,
+                                      yc, B, M, st))
 }
 
 template <typename WT>
-int row_step(WT* work, float* beta, const float* zpart, float* bpart,
-             float* trace, int32_t* iters, int32_t* active, const int32_t* pin,
-             const float* sched, const float* sqi, const float* sqo, int B,
-             int L, int M, int t, int last, float n, float inv_sqrt_n,
-             float tol, cudaStream_t st) {
-  DISPATCH_M(M, Q::step(work, beta, zpart, bpart, trace, iters, active, pin,
-                        sched, sqi, sqo, B, L, t, last, n, inv_sqrt_n, tol,
-                        st))
+int k1_col_step(WT* work, const float* yc, float* zc, const Support& sp,
+                float* zpart, const float* bpart, const float* trace,
+                const int32_t* active, int B, int L, int M, int t, float P,
+                float nn, cudaStream_t st) {
+  DISPATCH_L(L, (K1Of<C>::type::template step<WT>(
+                    work, yc, zc, sp, zpart, bpart, trace, active, B, M, t, P,
+                    nn, st)))
+}
+
+template <typename WT>
+int k1_row_step(WT* work, float* beta, const float* zpart, float* bpart,
+                float* trace, int32_t* iters, int32_t* active,
+                const int32_t* pin, const float* sched, const float* sqi,
+                const float* sqo, int B, int L, int M, int t, int last,
+                float n, float inv_sqrt_n, float tol, cudaStream_t st) {
+  DISPATCH_M(M, (Q::template k1_step<WT>(work, beta, zpart, bpart, trace,
+                                         iters, active, pin, sched, sqi, sqo,
+                                         B, L, t, last, n, inv_sqrt_n, tol,
+                                         st)))
 }
 
 // Arguments of the iteration loop (see amp_split_run).
 struct AmpArgs {
-  const float *mask_n, *sqi, *sqo, *y, *sched;
+  Support sp;
+  const float *sqi, *sqo, *yc, *sched;
   const int32_t* pin;
-  float *beta, *trace, *z, *zpart, *bpart;
+  float *beta, *trace, *zc, *zpart, *bpart;
   int32_t *iters, *active;
   int B, L, M, T;
   float P, n, inv_sqrt_n, tol;
@@ -450,12 +1099,12 @@ template <typename WT>
 int amp_iterations(const AmpArgs& a, WT* work, cudaStream_t st) {
   const float nn = a.n * a.n;
   for (int t = 0; t < a.T; ++t) {
-    int rc = col_step(work, a.y, a.z, a.mask_n, a.zpart, a.bpart, a.trace,
-                      a.active, a.B, a.L, a.M, t, a.P, nn, st);
+    int rc = k1_col_step(work, a.yc, a.zc, a.sp, a.zpart, a.bpart, a.trace,
+                         a.active, a.B, a.L, a.M, t, a.P, nn, st);
     if (rc) return rc;
-    rc = row_step(work, a.beta, a.zpart, a.bpart, a.trace, a.iters, a.active,
-                  a.pin, a.sched, a.sqi, a.sqo, a.B, a.L, a.M, t,
-                  t == a.T - 1, a.n, a.inv_sqrt_n, a.tol, st);
+    rc = k1_row_step(work, a.beta, a.zpart, a.bpart, a.trace, a.iters,
+                     a.active, a.pin, a.sched, a.sqi, a.sqo, a.B, a.L, a.M, t,
+                     t == a.T - 1, a.n, a.inv_sqrt_n, a.tol, st);
     if (rc) return rc;
   }
   return 0;
@@ -482,41 +1131,50 @@ bool supported(int B, int L, int M) {
 extern "C" {
 
 // Whole-trial AMP for B codewords.  Inputs: y_n (B, L, M) the channel
-// noise (enc_idx given) or the whole observation (enc_idx null), embedded
-// on the row support, or null when seeds is given; seeds (B, 2) uint32
+// noise (enc_idx given) or the whole observation (enc_idx null), read on
+// the row support only, or null when seeds is given; seeds (B, 2) uint32
 // Philox keys or null: the kernel then draws the masked noise itself,
-// sigma times standard normals; mask_n (L, M) = mask / n; sqi, sqo (L,);
-// enc_idx (B, L) int32 or null; pin (B, L) int32 (-1 = unpinned) or null;
-// sched (T,) SE tau2 schedule or null; tol the early-stop threshold (0 =
-// fixed T).  Outputs: beta (B, L, M) true scale, trace (T, B), iters (B,)
-// int32.  active (T + 1, B) int32 holds the freeze flags and must arrive
-// with row 0 all ones.  Scratch: y, z (B, L, M) float; work (B, L, M),
-// bfloat16 when round_bf16 (transform operands rounded to bf16) and float
-// otherwise; zpart (B, max(1, L / 1024) * M / 32); bpart (B, L).
-// Returns 0, a cudaError_t, or -1 for an unsupported shape.
-int amp_split_run(const float* y_n, const float* mask_n, const float* sqi,
+// sigma times standard normals.  The row support, ns entries in the
+// kernel's order (ops/split_support.py): mask_c (ns,) mask/n of each entry,
+// offset and word (L / R, M) int32 / uint32, block (FA * M / 32 + 1,) int32.
+// sqi, sqo (L,); enc_idx (B, L) int32 or null; pin (B, L) int32 (-1 =
+// unpinned) or null; sched (T,) SE tau2 schedule or null; tol the
+// early-stop threshold (0 = fixed T).  Outputs: beta (B, L, M) true scale,
+// trace (T, B), iters (B,) int32.  active (T + 1, B) int32 holds the freeze
+// flags and must arrive with row 0 all ones.  Scratch: yc, zc (B, ns)
+// float; work (B, L, M), bfloat16 when round_bf16 (transform operands
+// rounded to bf16) and float otherwise; zpart (B, max(1, L / 1024) * M /
+// 32); bpart (B, L).  Returns 0, a cudaError_t, or -1 for an unsupported
+// shape.
+int amp_split_run(const float* y_n, const float* mask_c,
+                  const int32_t* offset, const uint32_t* word,
+                  const int32_t* block, int ns, const float* sqi,
                   const float* sqo, const int32_t* enc_idx,
                   const uint32_t* seeds, const int32_t* pin,
                   const float* sched, float* beta, float* trace,
-                  int32_t* iters, int32_t* active, float* y, float* z,
+                  int32_t* iters, int32_t* active, float* yc, float* zc,
                   void* work, float* zpart, float* bpart, int B, int L,
                   int M, int T, float P, float n, float inv_sqrt_n,
                   float tol, float sigma, int round_bf16, void* stream) {
-  if (!supported(B, L, M) || T < 1) return kBadShape;
+  if (!supported(B, L, M) || T < 1 || ns < 0) return kBadShape;
   if ((y_n == nullptr) == (seeds == nullptr)) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = encode(y_n, mask_n, sqo, enc_idx, seeds, sigma, y, B, L, M, st);
-  if (rc) return rc;
   AmpArgs a;
-  a.mask_n = mask_n;
+  a.sp.mask = mask_c;
+  a.sp.offset = offset;
+  a.sp.word = word;
+  a.sp.block = block;
+  a.sp.ns = ns;
+  int rc = k1_encode(y_n, a.sp, sqo, enc_idx, seeds, sigma, yc, B, L, M, st);
+  if (rc) return rc;
   a.sqi = sqi;
   a.sqo = sqo;
-  a.y = y;
+  a.yc = yc;
   a.sched = sched;
   a.pin = pin;
   a.beta = beta;
   a.trace = trace;
-  a.z = z;
+  a.zc = zc;
   a.zpart = zpart;
   a.bpart = bpart;
   a.iters = iters;

@@ -107,12 +107,16 @@ def amp_decode(
                   tau2_schedule=tau2_schedule, noise_seed=noise_seed,
                   noise_sigma=noise_sigma, split=fused_split)
         if policy is None:
+            data = y_n if y_n is not None else noise_seed
+            support = (op.split_support(L, M, data.device)
+                       if op.split_support is not None else None)
             beta3, trace, iters = amp_fused(
                 y_n, op.mask.reshape(L, M), sq_npl, P, n, T, form=fused_form,
-                **kw)
+                support=support, **kw)
         else:
             beta3, trace, iters = amp_fused_sharded(
-                y_n, op.mask.reshape(L, M), sq_npl, P, n, T, policy, **kw)
+                y_n, op.mask.reshape(L, M), sq_npl, P, n, T, policy,
+                split_support=op.split_support, **kw)
         return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
                          sq_npl=sq_npl)
     if encode_idx is not None or noise_seed is not None:

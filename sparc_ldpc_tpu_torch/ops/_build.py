@@ -40,7 +40,8 @@ _F = ctypes.c_float
 # exports `<name>_error_string(int) -> const char*` for its return codes
 _SIGNATURES = {
     "amp_split": {
-        "amp_split_run": ((_P,) * 17 + (_I,) * 4 + (_F,) * 5 + (_I, _P), _I),
+        "amp_split_run": ((_P,) * 5 + (_I,) + (_P,) * 15 + (_I,) * 4
+                          + (_F,) * 5 + (_I, _P), _I),
         "amp_fwht_tile": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
         "amp_noise_run": ((_P, _P, _F, _P, _I, _I, _I, _P), _I),
         "amp_noise_draws": ((_P, _P, _P, _I, _I, _I, _P), _I),

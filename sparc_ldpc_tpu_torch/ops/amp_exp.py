@@ -287,9 +287,12 @@ def _full_runtime_m(y_n: torch.Tensor, mask: torch.Tensor,
                     sq_npl: torch.Tensor, P: float, n: int, T: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """"full" in bf16 on the card with its column stage taking the row
-    length M at run time, as K1's does, in place of the compile-time 512:
-    the same decode bit for bit, a diagnostic of K1's column stage (its
-    time against full's) for chip_smoke.py's phase 27."""
+    length M at run time, as K1's dense column stage did before K1 was
+    redesigned on the row support, in place of the compile-time 512: the
+    same decode bit for bit, a diagnostic of what a compile-time M gives
+    this dense design (its time against full's) for chip_smoke.py's phase
+    27.  Nothing of K1 runs it now; it goes with its switch in amp_exp.cu
+    (ROADMAP.md, Queue B)."""
     if y_n.device.type != "cuda":
         raise ValueError(f"the diagnostic runs on cuda, not {y_n.device}")
     return _launch("full", y_n, mask, sq_npl, P, n, T, True, runtime_m=True)

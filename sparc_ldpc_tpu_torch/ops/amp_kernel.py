@@ -75,6 +75,8 @@ from typing import Optional, Tuple
 import torch
 
 from .fwht import fwht_kron, round_bf16
+from .split_support import (SplitSupport, split_geometry,
+                            split_support_from_mask)
 
 _PRECISIONS = ("highest", "high", "default", "bf16")
 
@@ -103,6 +105,22 @@ def _check_cuda_tensor(name, t, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_support(sp: SplitSupport, L: int, M: int, device) -> None:
+    """The split kernel's tables fit an (L, M) tile on device."""
+    if (sp.L, sp.M) != (L, M):
+        raise ValueError(f"the support tables are of an ({sp.L}, {sp.M}) "
+                         f"tile, not ({L}, {M})")
+    W, R, FA = split_geometry(L)
+    ns = sp.ns
+    for name, t, dtype, shape in (
+            ("offset", sp.offset, torch.int32, (L // R, M)),
+            ("word", sp.word, torch.int32, (L // R, M)),
+            ("block_offset", sp.block_offset, torch.int32,
+             (FA * M // 32 + 1,)),
+            ("flat", sp.flat, torch.int64, (ns,))):
+        _check_cuda_tensor(f"support.{name}", t, dtype, shape, device)
 
 
 def _supported_dim(d: int, hi: int = 1024) -> bool:
@@ -503,6 +521,8 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
               noise_sigma: Optional[float] = None,
               split: Optional[bool] = None,
               form: Optional[str] = None,  # None = auto | split|mono|slab
+              support: Optional[SplitSupport] = None,  # the split kernel's
+                                                       # tables of mask
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-trial AMP: returns (beta (B, L, M), tau2 trace (T, B),
     iterations used (B,) int32).
@@ -536,7 +556,14 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     row support itself (module docstring).  It needs encode_idx and the
     split form, as in the reference.  Equal seeds give identical noise,
     which is how the concat chain's pinned feedback pass sees its main
-    pass's channel."""
+    pass's channel.
+
+    support (ops/split_support.py) is the split kernel's layout of the row
+    support mask > 0, on the data's device: the split form keeps y and z
+    on it only.  A caller that decodes many blocks with one mask builds it
+    once (the operator's `split_support`); without it a CUDA call of the
+    split form builds it from mask, which waits for the device.  The other
+    forms and the CPU route do not read it."""
     if noise_seed is not None:
         if encode_idx is None or y_n is not None or noise_sigma is None:
             raise ValueError("the in-kernel noise needs encode_idx and "
@@ -586,8 +613,6 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     # row stage of iteration t writes row t + 1, which only the launches
     # of iteration t + 1 read.
     active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
-    y = torch.empty_like(beta)
-    z = torch.empty_like(beta)
     # the |z|^2 partials, one per column-stage block (a cluster of L / 1024
     # blocks per 32-column strip above L = 1024), and the |beta'|^2
     # partials, one per row; on the slab form one per (slab, 32-column
@@ -607,7 +632,7 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
         # the work tile holds the H_M stage's results rounded to bf16, as
         # the H_L stage reads them; u the adjoint's float32 result
         work = torch.empty_like(beta, dtype=torch.bfloat16)
-        u = torch.empty_like(beta)
+        y, z, u = (torch.empty_like(beta) for _ in range(3))
         run("amp_slab", "amp_slab_run", dev,
             y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
             ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
@@ -620,7 +645,7 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     if f == "mono":
         # the mono form's work tile holds float32 products (bf16(x) H_M
         # and its H_L), so it is float32
-        work = torch.empty_like(beta)
+        work, y, z = (torch.empty_like(beta) for _ in range(3))
         run("amp_mono", "amp_mono_run", dev,
             y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
             ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
@@ -631,14 +656,24 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
         amp_fused.mono_launches += 1
         return beta, trace, iters
     # the split stages round the work tile to bf16 when they read it: in
-    # bf16 mode it is stored in bf16 (same values, half the bytes)
+    # bf16 mode it is stored in bf16 (same values, half the bytes); y and z
+    # live on the row support only, in the kernel's order of its entries
+    if support is None:
+        support = split_support_from_mask(mask)
+    _check_support(support, L, M, dev)
+    ns = support.ns
+    mask_c = support.gather(mask_n)
+    yc = torch.empty((B, ns), dtype=torch.float32, device=dev)
+    zc = torch.empty_like(yc)
     bf16 = precision == "bf16"
     work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
     run("amp_split", "amp_split_run", dev,
-        ptr(y_n), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
+        ptr(y_n), mask_c.data_ptr(), support.offset.data_ptr(),
+        support.word.data_ptr(), support.block_offset.data_ptr(), ns,
+        sqi.data_ptr(), sqo.data_ptr(),
         ptr(encode_idx), ptr(noise_seed), ptr(pin_idx), ptr(tau2_schedule),
         beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
-        active.data_ptr(), y.data_ptr(), z.data_ptr(),
+        active.data_ptr(), yc.data_ptr(), zc.data_ptr(),
         work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(),
         B, L, M, T, float(P), float(n), 1.0 / math.sqrt(n), float(tol),
         float(noise_sigma or 0.0), int(bf16))

@@ -34,6 +34,7 @@ from ..config import SparcConfig
 from ..design.codebook import HadamardPlan, hadamard_plan
 from .fwht import fwht_kron
 from .fwht_kernel import fwht2
+from .split_support import SplitSupport, split_support
 
 
 def _follow(t: torch.Tensor) -> Callable[[torch.device], torch.Tensor]:
@@ -57,7 +58,10 @@ class BatchedOperator(NamedTuple):
       resid_n:  (yN, beta, zN, coef) -> mask*(yN - A_full beta) + coef*zN
       adj_n:    (B, N) -> (B, ML)  adjoint straight from the N-space residual
     `mask` is the (N,) 0/1 row support, present when the operator can run
-    the fused whole-trial AMP (ML == N, no column signs)."""
+    the fused whole-trial AMP (ML == N, no column signs); `split_support`
+    (L, M, device) gives the split AMP kernel's tables of that support for
+    an (L, M) tile (ops/split_support.py), built from the plan's rows once
+    per (L, M, device)."""
     Ax: Callable[[torch.Tensor], torch.Tensor]
     Ay: Callable[[torch.Tensor], torch.Tensor]
     n: int
@@ -67,6 +71,8 @@ class BatchedOperator(NamedTuple):
     resid_n: Optional[Callable] = None
     adj_n: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     mask: Optional[torch.Tensor] = None
+    split_support: Optional[Callable[[int, int, torch.device],
+                                     SplitSupport]] = None
 
 
 def dense_operator(cfg: SparcConfig, device="cpu") -> BatchedOperator:
@@ -145,9 +151,23 @@ def hadamard_operator(cfg: SparcConfig, device="cpu",
     def adj_n(zN):
         return txf(zN)[..., :ML] * inv_sqrt_n
 
+    tables = {}
+
+    def support(L, M, dev):
+        key = (L, M, torch.device(dev))
+        if key not in tables:
+            host = tables.get((L, M, torch.device("cpu")))
+            if host is None:
+                host = split_support(plan.rows, L, M)
+                tables[(L, M, torch.device("cpu"))] = host
+            tables[key] = host.to(dev)
+        return tables[key]
+
+    fused = ML == N
     return BatchedOperator(Ax=Ax, Ay=Ay, n=n, ML=ML, N=N, embed_y=embed_y,
                            resid_n=resid_n, adj_n=adj_n,
-                           mask=mask if ML == N else None)
+                           mask=mask if fused else None,
+                           split_support=support if fused else None)
 
 
 def make_operator(cfg: SparcConfig, device="cpu",

@@ -61,16 +61,20 @@ def amp_fused_sharded(
         encode_idx: Optional[torch.Tensor] = None,     # (B, L), pure DP only
         noise_seed: Optional[torch.Tensor] = None,     # (B, 2), pure DP only
         noise_sigma: Optional[float] = None,
+        split_support=None,                            # op.split_support
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`amp_fused` over the policy's mesh: returns (beta (B, L, M) true
     scale, tau2 trace (T, B), iterations used (B,) int32) on the home
-    device; iterations are T when tol == 0."""
+    device; iterations are T when tol == 0.  split_support, the operator's
+    cache of the split kernel's tables of mask (`amp_fused`'s support, per
+    device), gives each data shard the tables on its device; the
+    section-sharded loop does not read it."""
     if tol and tau2_schedule is not None:
         raise ValueError("a tau2 schedule has no online estimate for tol")
     if policy.section_shards == 1:
         return _data_parallel(y_n, mask, sq_npl, P, n, T, policy,
                               tau2_schedule, pin_idx, split, tol, encode_idx,
-                              noise_seed, noise_sigma)
+                              noise_seed, noise_sigma, split_support)
     if encode_idx is not None or noise_seed is not None:
         raise ValueError("the in-kernel encode and noise need each "
                          "codeword's whole (L, M) state on one device; "
@@ -94,7 +98,9 @@ def amp_fused_sharded(
 
 
 def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
-                   pin_idx, split, tol, encode_idx, noise_seed, noise_sigma):
+                   pin_idx, split, tol, encode_idx, noise_seed, noise_sigma,
+                   split_support):
+    L, M = mask.shape
     outs = []
     for dev, y_d, enc_d, seed_d, pin_d in zip(
             policy.data_devices, policy.split_data(y_n),
@@ -103,7 +109,9 @@ def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
         outs.append(amp_fused(
             y_d, mask.to(dev), sq_npl.to(dev), P, n, T, encode_idx=enc_d,
             tol=tol, pin_idx=pin_d, tau2_schedule=_to(tau2_schedule, dev),
-            noise_seed=seed_d, noise_sigma=noise_sigma, split=split))
+            noise_seed=seed_d, noise_sigma=noise_sigma, split=split,
+            support=(None if split_support is None
+                     else split_support(L, M, dev))))
     beta, trace, iters = zip(*outs)
     return (policy.gather(beta, 0), policy.gather(trace, 1),
             policy.gather(iters, 0))

@@ -27,6 +27,14 @@ before H_M and before H_L; its transform is bit-equal on integer inputs
 (every sum exact) and within one bf16 ulp of the largest H_M value on
 normals (the two sum in other orders, so a rounding of the H_M stage may
 fall to the other neighbour), its decode held to the bf16 tolerances.
+The split form keeps y and z on the row support only, found through its
+support tables (ops/split_support.py): hand-made masks (an empty column,
+a full thread range, a full column, a strip with more entries than it
+stages, also inside an L = 4096 cluster) hold to the same rules; its
+column stage's resident walkers each walk several (codeword, strip) items
+when the items outnumber them, frozen codewords skipped, and repeat bit
+for bit; a call without the tables builds them from the mask and gives
+the same bits.
 The split kernel's experiments (amp_exp.cu: S2's stage ablation, S3's
 factorings of H_L, S1's two codewords a block) at the scripts' shape:
 the decoding variants (full, S3, pair) in bf16 over T = 32 (at most 1 %
@@ -70,6 +78,7 @@ from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
 from sparc_ldpc_tpu_torch.ops.denoiser import denoise, denoise_kernel
 from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, round_bf16
 from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2, fwht2_reference
+from sparc_ldpc_tpu_torch.ops.split_support import split_support_from_mask
 from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
 from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
 from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
@@ -168,6 +177,153 @@ def test_cuda_amp_split_large_l_matches_plain(cuda_device, L):
             assert float((bk - bp).abs().max()) <= 1e-3
     assert amp_fused.launches == launches[0] + 3
     assert amp_fused.mono_launches == launches[1]
+
+
+def _support_inputs(mask, B, device, sigma=0.1, seed=0):
+    """Noise on mask's support, flat power, true indices: (args without T,
+    idx) for amp_fused on a mask of any support."""
+    L, M = mask.shape
+    n = int(mask.sum())
+    rng = np.random.default_rng(seed)
+    y_n = torch.tensor(rng.standard_normal((B, L, M)) * sigma,
+                       dtype=torch.float32) * mask
+    idx = torch.tensor(rng.integers(0, M, (B, L)), dtype=torch.int32)
+    sq = torch.full((L,), math.sqrt(n / L))
+    return ((y_n.to(device), mask.to(device), sq.to(device), 1.0, n),
+            idx.to(device))
+
+
+# support entries a column-stage block stages in shared memory
+# (entry_cap in csrc/amp_split.cu); a block with more reads them in place
+STAGED_ENTRIES = 2048
+
+
+def _hand_made_mask(kind, M=64):
+    """"hand": sparse random support with an empty column (5), a column
+    whose support is all 32 rows of one column-stage thread (9, rows
+    64-95) and a full column (33); "dense": a random support of density
+    0.1, about 3300 entries a column-stage block, more than it stages in
+    shared memory; "dense_l4096" the same at L = 4096, where each block
+    of a cluster holds 1024 of a strip's rows.  (Not a strip filled
+    densely: the rows of one 32-column strip share their index bits 5 and
+    up, so they cannot tell some columns apart, and the sections those
+    rows decide become near-ties.)"""
+    L = 4096 if kind == "dense_l4096" else 1024
+    rng = np.random.default_rng(7)
+    if kind == "hand":
+        mask = rng.random((L, M)) < 0.02
+        mask[:, 5] = False
+        mask[:, 9] = False
+        mask[64:96, 9] = True
+        mask[:, 33] = True
+    else:
+        mask = rng.random((L, M)) < 0.1
+    return torch.tensor(mask, dtype=torch.float32)
+
+
+def _hold_split(out_k, out_p, idx, f32: bool):
+    """K1's rules against its plain version (module docstring)."""
+    (bk, tk, ik), (bp, tp, ip) = out_k, out_p
+    ik, ip = ik.cpu().numpy(), ip.cpu().numpy()
+    assert np.abs(ik - ip).max() <= (4 if f32 else 32), (ik, ip)
+    t_min = int(min(ik.min(), ip.min()))
+    np.testing.assert_allclose(tk[:t_min].cpu().numpy(),
+                               tp[:t_min].cpu().numpy(),
+                               rtol=1e-4 if f32 else 2e-2)
+    flips, decisive = decision_flips(bp, bk)
+    assert decisive == 0 and flips <= 0.01 * idx.numel()
+    if f32 and (ik == ip).all():
+        assert float((bk - bp).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["hand", "dense", "dense_l4096"])
+def test_cuda_amp_split_hand_made_masks_match_plain(cuda_device, kind):
+    """The support layout's corner cases: an empty column, a thread whose
+    32 rows are all on the support, a full column, and a strip with more
+    entries than the column stage stages in shared memory (it reads them
+    from device memory), alone and in a cluster."""
+    mask = _hand_made_mask(kind)
+    if kind != "hand":
+        blocks = split_support_from_mask(mask).block_offset
+        assert int(blocks.diff().min()) > STAGED_ENTRIES
+    args, idx = _support_inputs(mask, 3, cuda_device)
+    for prec in ("highest", "bf16"):
+        kw = dict(encode_idx=idx, precision=prec, split=True)
+        _hold_split(amp_fused(*args, 8, **kw),
+                    amp_fused_reference(*args, 8, **kw), idx,
+                    prec == "highest")
+
+
+@pytest.mark.parametrize("L,M", [(32, 32), (128, 1024), (512, 64)])
+def test_cuda_amp_split_row_shapes_match_plain(cuda_device, L, M):
+    """The row stage's warp layouts: 4 rows a warp (M = 32), 2 (M = 64),
+    and 32 values a lane (M = 1024)."""
+    model, y_n, mask, sq, idx = _inputs(L, M, 3, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    args = (y_n, mask, sq, c.P, c.n, 6)
+    for prec in ("highest", "bf16"):
+        kw = dict(encode_idx=idx, precision=prec, split=True)
+        _hold_split(amp_fused(*args, **kw), amp_fused_reference(*args, **kw),
+                    idx, prec == "highest")
+
+
+@pytest.mark.parametrize("L,B", [(1024, 192), (4096, 64)])
+def test_cuda_amp_split_walker_skips_frozen_codewords(cuda_device, L, B):
+    """With the early stop codewords freeze at different iterations; the
+    column stage's walkers skip their items.  The (codeword, strip) items
+    outnumber the walkers (one resident block an SM, or one cluster of
+    L / 1024 blocks), so each walker walks several of them; the result
+    keeps the plain version's iteration counts and repeats bit for bit."""
+    M = 64
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert B * (M // 32) > sms // max(1, L // 1024)
+    model, y_n, mask, sq, idx = _inputs(L, M, B, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    # half the codewords at a quarter of the noise power settle sooner
+    y_n[:B // 2] *= 0.5
+    args = (y_n, mask, sq, c.P, c.n, 16)
+    kw = dict(encode_idx=idx, precision="highest", split=True, tol=1e-3)
+    out = amp_fused(*args, **kw)
+    again = amp_fused(*args, **kw)
+    ik = out[2].cpu().numpy()
+    assert ik.min() < ik.max(), ik   # frozen at different iterations
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    _hold_split(out, amp_fused_reference(*args, **kw), idx, True)
+
+
+@pytest.mark.parametrize("L,M", [(1024, 512), (4096, 512)])
+def test_cuda_amp_split_repeats_bit_for_bit(cuda_device, L, M):
+    """Two runs of the same inputs, and a run without the tables (built from
+    the mask) against one with the operator's, equal bit for bit."""
+    model, y_n, mask, sq, idx = _inputs(L, M, 2, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    args = (y_n, mask, sq, c.P, c.n, 6)
+    seeds = torch.tensor([[1, 2], [-3, 4]], dtype=torch.int32,
+                         device=cuda_device)
+    sup = model.op.split_support(L, M, cuda_device)
+    for kw in (dict(encode_idx=idx), dict(encode_idx=idx, tol=1e-3),
+               dict(encode_idx=idx, noise_seed=seeds, noise_sigma=0.5)):
+        a = args if "noise_seed" not in kw else (None,) + args[1:]
+        first = amp_fused(*a, split=True, support=sup, **kw)
+        again = amp_fused(*a, split=True, support=sup, **kw)
+        built = amp_fused(*a, split=True, **kw)
+        for x, y, z in zip(first, again, built):
+            assert torch.equal(x, y) and torch.equal(x, z), kw.keys()
+
+
+def test_cuda_amp_split_rejects_tables_of_another_tile(cuda_device):
+    model, y_n, mask, sq, idx = _inputs(64, 128, 2, cuda_device)
+    c = model.cfg
+    other = SparcModel.build(_config(128, 64), 5.0, "cpu").op.split_support(
+        128, 64, cuda_device)
+    with pytest.raises(ValueError, match="tile"):
+        amp_fused(y_n, mask, sq, c.P, c.n, 4, encode_idx=idx, split=True,
+                  support=other)
+    cpu = model.op.split_support(64, 128, "cpu")
+    with pytest.raises(ValueError, match="support"):
+        amp_fused(y_n, mask, sq, c.P, c.n, 4, encode_idx=idx, split=True,
+                  support=cpu)
 
 
 @pytest.mark.parametrize("L,M", [(64, 128), (256, 512), (1024, 512)])
@@ -921,8 +1077,9 @@ def test_cuda_amp_exp_matches_plain(cuda_device, exp_draws, mode):
 
 
 def test_cuda_amp_exp_runtime_m_is_full_bit_for_bit(cuda_device, exp_draws):
-    """full with K1's run-time row length reads the same values at the
-    same offsets: the same decode, bit for bit."""
+    """full with a run-time row length (as K1's earlier dense column stage
+    took it) reads the same values at the same offsets: the same decode,
+    bit for bit."""
     model, y_n, _ = exp_draws
     c = model.cfg
     args = (y_n.to(cuda_device),
