@@ -59,7 +59,11 @@ the concat preset.  Each phase prints one line with its seconds:
      windows asserted;
  11. the FWHT kernel (K5, fwht2) against its plain version at (B=64,
      N=2^19) and (B=64, N=2^17) to 1e-5 of the output scale, and ms per
-     call of both at B=64 and at the campaign's B=512;
+     call of both at B=64 and at the campaign's B=512, beside the library
+     calls (`library_fwht2` with dense bf16 Hadamard factors: one
+     torch.einsum, and two torch.matmul; each held to the plain version
+     within LIBRARY_TOL of the output scale, the faster one's ms the
+     record's library_ms);
  12. the denoiser kernel (K4) against its plain version at (B=64,
      L=1024, M=512) with tau2 from 1e-3 to 2 across the batch: finite,
      beta to rtol 1e-5 / atol 1e-6 max sq, post to atol 1e-7; ms per call
@@ -75,8 +79,10 @@ the concat preset.  Each phase prints one line with its seconds:
      batch 2048, 4096 trials: phase 8's windows, and its bits_per_s
      printed beside phase 9's;
  14. the monolithic AMP kernel (K6, csrc/amp_mono.cu) against its plain
-     version at full width (B=32, L=1024, M=512): its transform alone to
-     1e-5 of the output scale; the decode at fixed T, and at T=32 with
+     version at full width (B=32, L=1024, M=512): its adjoint launch from
+     a compact z on the operator's support, to 1e-5 of the output scale
+     (integer z bit for bit); the decode at fixed
+     T, and at T=32 with
      tol 1e-4, with tol and 40 % of the rows pinned, and with an SE
      schedule: tau2 to rtol 2e-2, at most 1 % flipped decisions, mean
      iteration counts within 2, pinned rows exactly sq * one_hot, the
@@ -86,7 +92,10 @@ the concat preset.  Each phase prints one line with its seconds:
      the reference's gate has it), B=2048: K6 launched and K1 not, mean
      final tau2 within 3 % of SE, identical counters per seed; ms per
      block and bits/s beside phase 5's, and K6's and the plain version's
-     ms per decode call, whose results are held to phase 14's rules;
+     ms per decode call, whose results are held to phase 14's rules; each
+     launch's device ms (the encode, C1, R2C2 and R3 of every iteration)
+     beside the bytes K6's design moves in it (`mono_design_bytes`: 24 N +
+     20 ns a codeword and iteration), and the call's over 3.35 TB/s;
  16. K1 at L=4096 (PRESETS["fast_l4096"] at 6.5 dB, a cluster of four
      column-stage blocks per strip) against its plain version: B=4, T=8,
      fixed T and tol 1e-4, in float32 and bf16 with phase 3's and phase
@@ -107,7 +116,10 @@ the concat preset.  Each phase prints one line with its seconds:
      bit (every sum exact) and on normals to 1e-4 (where the two sum in
      other orders a bf16 rounding of the intermediate may fall the other
      way); ms per call of both at (512, 1024, 512) and (512, 2048, 512)
-     with their bounds, the timed calls' results held to the bf16 limit;
+     with their bounds, the timed calls' results held to the bf16 limit,
+     each launch's device ms beside its design bytes (K3_DESIGN_BYTES), and
+     the library calls at (512, 1024, 512) (`library_tile`, einsum and
+     matmul, held and reported as phase 11's);
  19. data parallel on a virtual (4 x 1) mesh of the card: phase 4's block
      (the headline configuration as shipped, B=2048, the same generator)
      with each quarter on K1: counters and tau2_final bit for bit, K1
@@ -206,11 +218,10 @@ the concat preset.  Each phase prints one line with its seconds:
      (torch.profiler: the encode, then the column and the row stage of
      every iteration) beside the bytes K1's design moves in it
      (`k1_design_bytes`: 16 N + 12 ns a codeword and iteration) and that
-     over the time; the call's design bytes over 3.35 TB/s.  The amp_split
-     and amp_split_l4096 records carry `stages_ms` (measured),
-     `design_bytes` and `design_floor_ms` (a model of K1's design on this
-     run's iteration counts, not a measurement; `bound_ms` stays the
-     bound) from it.
+     over the time; the call's design bytes over 3.35 TB/s (a model of
+     K1's design on this run's iteration counts, printed on this phase's
+     line only).  The amp_split and amp_split_l4096 records carry its
+     measured `stages_ms`.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
 13a, 13b, 15, 17, 19, 20, 21, 25, 26, and the tools' blocks of 27-31) and
@@ -218,7 +229,8 @@ read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
 operations over the H100's peak for their type, 67 TFLOP/s float32 and
-989 TFLOP/s bf16), the card's `nvidia-smi` line, and last
+989 TFLOP/s bf16; K1, K3 and K6 with their launches' ms and design
+bytes), the card's `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises (exit code 1);
 without a GPU it exits with code 1 before printing any result.  The port
 imports no JAX and nothing of the reference package, nor does this
@@ -277,10 +289,17 @@ L4096_BATCH, L4096_T = 4, 8                # phase 16's comparison
 FAST_ORACLE_BER, FAST_FER_WINDOW = 1.102e-4, (0.47, 0.64)
 SHARD_BATCH = 1024    # phase 20's codewords
 K1_STAGES = ("k1_encode_kernel", "k1_col_kernel", "k1_row_kernel")
-# phase 32's fields on K1's records: stages_ms measured, the other two
-# computed by k1_design_bytes
-K1_DESIGN_KEYS = ("stages_ms", "design_bytes", "design_floor_ms")
-SHARD_STAGES = ("fwht_rows_kernel", "fwht_cols_kernel", "denoise_kernel",
+# K6's launches (encode, C1, R2C2, R3) and K3's (rows, columns)
+MONO_STAGES = ("k1_encode_kernel", "mono_col_kernel", "mono_adj_kernel",
+               "mono_row_kernel")
+K3_STAGES = ("k3_cluster_kernel", "k3_row_kernel", "k3_col_kernel")
+# the device-memory bytes an element each of K3's launches moves: the
+# cluster kernel reads x and writes out (8); the row launch reads x and
+# writes the bf16 intermediate (6), the column launch reads it and writes
+# out (6)
+K3_DESIGN_BYTES = dict(zip(K3_STAGES, (8, 6, 6)))
+SHARD_STAGES = ("k3_cluster_kernel", "k3_row_kernel", "k3_col_kernel",
+                "denoise_kernel",
                 "elementwise_kernel", "reduce_kernel", "CatArrayBatchedCopy")
 DIST_TIMEOUT_S = 300  # phase 22's two processes
 # the H100 SXM's published peak rates, for bounds
@@ -411,6 +430,76 @@ def amp_bound(B: int, L: int, M: int, T: int, iters,
     return bound(nbytes, {"fp32": transforms * math.log2(L * M)
                           + its * el * AMP_ELEM_OPS
                           + B * el * math.log2(L)})
+
+
+def library_tile(x, scale: float = 1.0, form: str = "einsum"):
+    """PyTorch's own computation of K3's function on x (B, l, M) float32,
+    the yardstick of phase 18 (the port never calls it): x in bf16 with
+    dense bf16 Hadamard factors, H_l x H_M, times scale.  form "einsum" is
+    one torch.einsum of the three (in the order einsum picks, with the
+    copies it makes); "matmul" is two batched products, H_l (x H_M), each
+    on the tensor cores with no copy.  Their rounding differs from K3's:
+    all round x to bf16 and sum in float32, but these round their
+    intermediate after the first factor applied, and their result, to
+    bf16."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.fwht import hadamard_factor
+
+    _, L, M = x.shape
+    hl = hadamard_factor(L, x.device, torch.bfloat16)
+    hm = hadamard_factor(M, x.device, torch.bfloat16)
+    return _library_pair(hl, x.to(torch.bfloat16), hm, form).float() * scale
+
+
+def library_fwht2(x, f1: int, f2: int, form: str = "einsum"):
+    """PyTorch's own computation of K5's function on x (B, f1 f2) float32,
+    the yardstick of phase 11: each row viewed as an (f1, f2) tile X,
+    H_f1 X H_f2 with dense bf16 factors, in library_tile's two forms.  K5
+    in float32 rounds nothing; these round x, their intermediate and
+    their result to bf16."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.fwht import hadamard_factor
+
+    B = x.shape[0]
+    h1 = hadamard_factor(f1, x.device, torch.bfloat16)
+    h2 = hadamard_factor(f2, x.device, torch.bfloat16)
+    return _library_pair(h1, x.to(torch.bfloat16).reshape(B, f1, f2), h2,
+                         form).float().reshape(B, f1 * f2)
+
+
+def _library_pair(h1, x, h2, form: str):
+    """h1 x h2 for each (f1, f2) tile of x (B, f1, f2), one library form."""
+    import torch
+
+    if form == "einsum":
+        return torch.einsum("ij,bjk,kl->bil", h1, x, h2)
+    if form == "matmul":
+        return torch.matmul(h1, torch.matmul(x, h2))
+    raise ValueError(f"unknown library form {form!r}")
+
+
+LIBRARY_FORMS = ("einsum", "matmul")
+
+
+def library_times(fn, ref, reps: int, inner: int):
+    """Each library form of fn(form) timed (ms per call) and held to ref:
+    ({form: ms}, {form: max err / max |ref|}).  The faster form's time is
+    the kernel record's library_ms."""
+    ms, err = {}, {}
+    top = float(ref.abs().max())
+    for form in LIBRARY_FORMS:
+        ms[form], out = timed_result(lambda: fn(form), reps, inner=inner)
+        err[form] = float((out - ref).abs().max()) / top
+        del out
+    return ms, err
+
+
+# the library calls round their results to bf16 (2^-9 of each value) and
+# their intermediates at other places than the plain versions: they are
+# held to them within this share of the output's largest magnitude
+LIBRARY_TOL = 1e-2
 
 
 def per_frame_z(err_a, err_b) -> float:
@@ -832,6 +921,7 @@ def fwht_phase(dev, card: str, clock: Clock) -> dict:
     """Phase 11: K5 (fwht2) against its plain version."""
     import torch
 
+    from sparc_ldpc_tpu_torch.ops.fwht import factorize_pow2
     from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2, fwht2_reference
     from sparc_ldpc_tpu_torch.utils.rng import block_generator
 
@@ -845,24 +935,34 @@ def fwht_phase(dev, card: str, clock: Clock) -> dict:
         res[f"2^{logn}"] = err / float(ref.abs().max())
         err_abs = max(err_abs, err)
     ms = {}
+    f1, f2 = factorize_pow2(1 << 19, max_log=10)
     for B in (KERNEL_BATCH, CLI_BATCH):
         x = torch.randn((B, 1 << 19), generator=gen, device=dev)
         ms[B] = (call_ms(lambda: fwht2(x), REPS, inner=10),
                  call_ms(lambda: fwht2_reference(x), REPS, inner=2))
+    # the library calls at the campaign's B, held to the plain version
+    ref = fwht2_reference(x)
+    lib_ms, lib_err = library_times(lambda f: library_fwht2(x, f1, f2, f),
+                                    ref, REPS, 10)
     # x read and the result written once; log2(N) adds per element
     fw_b = bound(2 * tensor_bytes(x), {"fp32": math.log2(x.shape[1]) * x.numel()})
     del x, ref
     print(f"[11 fwht2 vs plain] max err / max |out| at B={KERNEL_BATCH}: "
           f"{res}; ms per call at N=2^19 (kernel, plain): {ms}, bound at "
-          f"B={CLI_BATCH} {fw_b} on {card} ({clock.lap():.1f} s)",
-          flush=True)
+          f"B={CLI_BATCH} {fw_b}; library (bf16 factors {f1} x {f2}) ms "
+          f"{lib_ms}, max err / max |plain| {lib_err} on {card} "
+          f"({clock.lap():.1f} s)", flush=True)
     for k, v in res.items():
         require(v <= 1e-5, f"fwht2 at N={k}: error {v}")
+    for form, e in lib_err.items():
+        require(e <= LIBRARY_TOL, f"fwht2's library {form}: error {e}")
     return {"name": "fwht2", "route": "cuda",
             "source": "sparc_ldpc_tpu_torch/csrc/amp_split.cu",
             "replaces": "sparc_ldpc_tpu/ops/fwht.py:271",
             "max_abs_err": err_abs, "ms": ms[CLI_BATCH][0],
-            "plain_ms": ms[CLI_BATCH][1], **fw_b, "library_ms": None}
+            "plain_ms": ms[CLI_BATCH][1], **fw_b,
+            "library_ms": min(lib_ms.values()),
+            "library_ms_by_form": lib_ms}
 
 
 def denoise_phase(dev, sq_npl, card: str, clock: Clock) -> dict:
@@ -1159,6 +1259,33 @@ def check_options(res: dict, sections: int, f32_keys=()) -> None:
                 f"{key}: trace is not the schedule")
 
 
+def mono_design_bytes(iters, L: int, M: int, ns: int, T: int) -> dict:
+    """The bytes K6's design moves in one call, by launch (MONO_STAGES):
+    the encode (the indices read, y_n read on the support and y written
+    on it), then per iteration t over the codewords still running it: C1
+    (the float32 work tile read unless t = 0, y, z read (z not at t = 0)
+    and z and its packed bf16 copy written on the support, the row
+    |beta'|^2 partials read), R2C2 (the packed z read, the work tile
+    written), R3 (the work tile read, beta' read unless t = 0 and
+    written, the work tile written unless it is the codeword's last
+    iteration).  iters (B,) the iterations each codeword ran."""
+    N = L * M
+    it = iters.to("cpu").long()
+    B = it.numel()
+    out = {k: [] for k in MONO_STAGES}
+    out[MONO_STAGES[0]].append(B * (4 * L + 8 * ns))
+    for t in range(T):
+        active = int((it > t).sum())
+        last = int((it == t + 1).sum())
+        out[MONO_STAGES[1]].append(active * ((4 * N + 4 * L if t else 0)
+                                             + (16 if t else 12) * ns))
+        out[MONO_STAGES[2]].append(active * (4 * ns + 4 * N))
+        out[MONO_STAGES[3]].append(active * (4 * N + (8 if t else 4) * N)
+                                   + (active - last) * 4 * N)
+    total = sum(sum(v) for v in out.values())
+    return {**out, "total": total, "floor_ms": 1e3 * total / HBM_BYTES_PER_S}
+
+
 def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
     """Phases 14-15: K6 against its plain version, and the mono main path
     (amp_kernel="fused" on the headline configuration)."""
@@ -1168,7 +1295,7 @@ def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
 
     from sparc_ldpc_tpu_torch.design.se import se_trajectory
     from sparc_ldpc_tpu_torch.ops.amp_kernel import (
-        amp_fused, amp_fused_reference, fused_form, mono_tile,
+        amp_fused, amp_fused_reference, fused_form, mono_adjoint,
         mono_tile_reference)
     from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
     from sparc_ldpc_tpu_torch.utils.rng import block_generator
@@ -1196,11 +1323,22 @@ def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
     # 14. K6 against its plain version at full width
     B14 = OPTION_BATCH
     y_n, idx, gen = draw(B14, 11, 0)
-    x = torch.randn((B14, L, M), generator=gen, device=dev)
-    ref = mono_tile_reference(x)
-    tile_err = float((mono_tile(x) - ref).abs().max())
-    tile_rel = tile_err / float(ref.abs().max())
-    del x, ref
+    # the decode's adjoint launch alone, from a compact z on the operator's
+    # support: normals to 1e-5 of the scale, integers bit for bit
+    sup = model.op.split_support(L, M, dev)
+    adj, adj_err = {}, 0.0
+    for kind in ("normal", "integer"):
+        zc = (torch.randn((B14, sup.ns), generator=gen, device=dev)
+              if kind == "normal" else torch.randint(
+                  -8, 9, (B14, sup.ns), generator=gen, device=dev).float())
+        dense = torch.zeros((B14, L * M), device=dev)
+        dense[:, sup.flat] = zc
+        ref = mono_tile_reference(dense.reshape(B14, L, M))
+        got = mono_adjoint(zc, sup)
+        adj[kind] = (float((got - ref).abs().max() / ref.abs().max())
+                     if kind == "normal" else bool(torch.equal(got, ref)))
+        adj_err = max(adj_err, float((got - ref).abs().max()))
+    del ref, dense, got
     rows = torch.rand((B14, L), generator=gen, device=dev) < 0.4
     pin = torch.where(rows, idx, -1).to(torch.int32)
     tr = se_trajectory(model.p_alloc, n, M, SCHED_MARGIN * model.sigma2,
@@ -1215,10 +1353,12 @@ def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
         {"tol": dict(tol=1e-4), "tol+pin": dict(tol=1e-4, pin_idx=pin),
          "schedule": dict(tau2_schedule=sched)}, idx, OPTION_T))
     print(f"[14 mono kernel vs plain] B={B14} L={L} M={M} T={T} (options "
-          f"at T={OPTION_T}): transform alone max err {tile_err:.3e} "
-          f"({tile_rel:.3e} of max |out|); {res} ({clock.lap():.1f} s)",
-          flush=True)
-    require(tile_rel <= 1e-5, f"mono transform err {tile_rel}")
+          f"at T={OPTION_T}): the adjoint launch from the compact z "
+          f"(ns={sup.ns}): max err {adj_err:.3e}, normals "
+          f"{adj['normal']:.3e} of max |out|, integers bit for bit: "
+          f"{adj['integer']}; {res} ({clock.lap():.1f} s)", flush=True)
+    require(adj["normal"] <= 1e-5, f"mono adjoint err {adj['normal']}")
+    require(adj["integer"], "mono adjoint: integer inputs differ")
     check_options(res, B14 * L)
     require(res["tol"]["iters_min"] < OPTION_T, "tol: no early stop")
     del y_n
@@ -1243,12 +1383,17 @@ def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
     bits_per_s = BATCH * c.k_bits / dt
     y_n, idx, _ = draw(BATCH, 12, 9)
     args = (y_n, mask2d, model.sq_npl, c.P, n, T)
-    kernel_ms, kout = timed_result(lambda: amp_fused(*args, encode_idx=idx),
-                                   REPS)
-    stages = device_ms_by_kernel(
-        lambda: amp_fused(*args, encode_idx=idx),
-        ("amp_encode_kernel", "amp_col_kernel", "mono_hm_kernel",
-         "fwht_cols_kernel", "mono_row_kernel"))
+    kw = dict(encode_idx=idx, support=sup)
+    kernel_ms, kout = timed_result(lambda: amp_fused(*args, **kw), REPS)
+    # each launch's device ms beside the bytes K6's design moves in it
+    per = launch_ms(lambda: amp_fused(*args, **kw),
+                    dict(zip(MONO_STAGES, (1, T, T, T))))
+    db = mono_design_bytes(kout[2], L, M, sup.ns, T)
+    stages = {k: sum(v) for k, v in per.items()}
+    by_launch = {k: dict(ms=[round(x, 3) for x in per[k]],
+                         tb_per_s=[round(b / t / 1e9, 3)
+                                   for b, t in zip(db[k], per[k])])
+                 for k in MONO_STAGES}
     plain_ms, pout = timed_result(
         lambda: amp_fused_reference(*args, encode_idx=idx), 1)
     mono_b = amp_bound(BATCH, L, M, T, kout[2])
@@ -1266,8 +1411,11 @@ def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
           f"noise in the kernel); decode call at B={BATCH}: mono kernel "
           f"{kernel_ms:.2f} ms, plain {plain_ms:.2f} ms, bound {mono_b} "
           f"(split kernel {sp['kernel_ms']:.2f} ms); one call's device ms "
-          f"by launch (torch.profiler): {stages}; the timed calls, kernel "
-          f"vs plain: {res15} on {card} ({clock.lap():.1f} s)", flush=True)
+          f"by launch kind (torch.profiler): {stages}, by launch with the "
+          f"TB/s of its design bytes: {by_launch}; design bytes "
+          f"{db['total'] / 1e9:.3f} GB, over 3.35 TB/s {db['floor_ms']:.3f} "
+          f"ms; the timed calls, kernel vs plain: {res15} on {card} "
+          f"({clock.lap():.1f} s)", flush=True)
     check_options(res15, BATCH * L)
     require(launches["amp_mono"] > 0, "the mono path did not launch K6")
     require(launches["amp_split"] == 0, "the mono path launched K1")
@@ -1275,9 +1423,9 @@ def mono_path(dev, card: str, sp: dict, clock: Clock) -> dict:
             "trial or iteration count wrong")
     require(abs(tau_gap) <= 0.03, f"tau2_final off SE by {tau_gap:+.3%}")
     require(cnt2 == cnt, "same seed gave different counters")
-    return dict(launches=launches, tile_err=tile_err, kernel_ms=kernel_ms,
+    return dict(launches=launches, adj_err=adj_err, kernel_ms=kernel_ms,
                 plain_ms=plain_ms, bound=mono_b, block_ms=1e3 * dt,
-                bits_per_s=bits_per_s)
+                bits_per_s=bits_per_s, stages_ms=stages)
 
 
 def l4096_path(dev, card: str, clock: Clock) -> dict:
@@ -1468,8 +1616,9 @@ def k3_phase(dev, card: str, clock: Clock) -> dict:
         del x, ints
         torch.cuda.empty_cache()
     # timed at the campaign's B, l = 4096 / 4 (phase 21) and / 2; the
-    # results of the timed calls are held to the plain version's
-    ms, bounds, timed = {}, {}, {}
+    # results of the timed calls are held to the plain version's, and the
+    # library call's at l = 1024 to it within LIBRARY_TOL
+    ms, bounds, timed, stages, design = {}, {}, {}, {}, {}
     scale = 1.0 / math.sqrt(n_fast)
     for l in (1024, 2048):
         x = torch.randn((FAST_BATCH, l, M), generator=gen, device=dev)
@@ -1480,15 +1629,32 @@ def k3_phase(dev, card: str, clock: Clock) -> dict:
         ms[l] = (k_ms, p_ms)
         timed[l], err = compare(kout, pout, x, scale)
         err_abs = max(err_abs, err)
+        # each launch's device ms beside its design bytes (the row and the
+        # column launch at both l: the cluster kernel takes l <= 256)
+        stages[l] = {k: v for k, v in device_ms_by_kernel(
+            lambda: fwht_tile(x, "bf16", scale), K3_STAGES).items()
+            if k in K3_STAGES and v > 0}
+        design[l] = {k: K3_DESIGN_BYTES[k] * x.numel() for k in stages[l]}
+        if l == 1024:
+            lib_ms, lib_err = library_times(
+                lambda f: library_tile(x, scale, f), pout, REPS, 5)
         # x read and the result written once; log2(l M) adds an element
         bounds[l] = bound(2 * tensor_bytes(x),
                           {"fp32": math.log2(l * M) * x.numel()})
         del x, kout, pout
         torch.cuda.empty_cache()
+    design_ms = {l: {k: dict(ms=round(stages[l][k], 4),
+                             tb_per_s=round(b / stages[l][k] / 1e9, 3))
+                     for k, b in design[l].items()} for l in design}
+    floor = {l: 1e3 * sum(d.values()) / HBM_BYTES_PER_S
+             for l, d in design.items()}
     print(f"[18 K3 fwht_tile vs plain] M={M}, scale 1/sqrt(n), errors over "
           f"max |plain| by (B, l): {res}; ms per call, bf16 (kernel, plain) "
           f"at B={FAST_BATCH}: {ms}, their results' bf16 errors {timed}, "
-          f"bounds {bounds} on {card} ({clock.lap():.1f} s)", flush=True)
+          f"bounds {bounds}; by launch with the TB/s of its design bytes: "
+          f"{design_ms}, design floor {floor} ms; library (bf16 "
+          f"factors) at l=1024 ms {lib_ms}, max err / max |plain| "
+          f"{lib_err} on {card} ({clock.lap():.1f} s)", flush=True)
     for s, r in res.items():
         require(r["f32"] <= 1e-5, f"K3 at {s}: f32 error {r['f32']}")
         require(r["bf16"]["ok"], f"K3 at {s}: bf16 error {r['bf16']}")
@@ -1496,13 +1662,17 @@ def k3_phase(dev, card: str, clock: Clock) -> dict:
                 "differ in bf16")
     for l, r in timed.items():
         require(r["ok"], f"K3's timed call at l={l}: bf16 error {r}")
+    for form, e in lib_err.items():
+        require(e <= LIBRARY_TOL, f"K3's library {form}: error {e}")
     return {"name": "fwht_tile", "route": "cuda",
             "source": "sparc_ldpc_tpu_torch/csrc/amp_split.cu",
             "replaces": "sparc_ldpc_tpu/ops/amp_kernel.py:672",
             "max_abs_err": err_abs, "ms": ms[1024][0],
-            "plain_ms": ms[1024][1], **bounds[1024], "library_ms": None,
+            "plain_ms": ms[1024][1], **bounds[1024],
+            "library_ms": min(lib_ms.values()), "library_ms_by_form": lib_ms,
             "ms_l2048": ms[2048][0], "plain_ms_l2048": ms[2048][1],
-            "bound_ms_l2048": bounds[2048]["bound_ms"]}
+            "bound_ms_l2048": bounds[2048]["bound_ms"],
+            "stages_ms": stages[1024]}
 
 
 def virtual_policy(dev, D: int, S: int):
@@ -2985,14 +3155,15 @@ def main() -> None:
         "max_abs_err": max(sp["max_abs_err"], cp["max_abs_err"], noise_err),
         "ms": sp["kernel_ms"], "plain_ms": sp["plain_ms"], **sp["bound"],
         "library_ms": None, "noise_ms": sp["noise_ms"],
-        **{k: k1s["headline"][k] for k in K1_DESIGN_KEYS}}
+        "stages_ms": k1s["headline"]["stages_ms"]}
     mono_rec = {
         "name": "amp_mono", "route": "cuda",
         "source": "sparc_ldpc_tpu_torch/csrc/amp_mono.cu",
         "replaces": "sparc_ldpc_tpu/ops/amp_kernel.py:561",
         "launches": mp["launches"]["amp_mono"],
-        "max_abs_err": mp["tile_err"], "ms": mp["kernel_ms"],
-        "plain_ms": mp["plain_ms"], **mp["bound"], "library_ms": None}
+        "max_abs_err": mp["adj_err"], "ms": mp["kernel_ms"],
+        "plain_ms": mp["plain_ms"], **mp["bound"], "library_ms": None,
+        "stages_ms": mp["stages_ms"]}
     l4096_rec = {
         "name": "amp_split_l4096", "route": "cuda",
         "source": "sparc_ldpc_tpu_torch/csrc/amp_split.cu",
@@ -3002,7 +3173,7 @@ def main() -> None:
         "max_abs_err": lp["max_abs_err"], "ms": lp["kernel_ms"],
         "plain_ms": lp["plain_ms"], **lp["bound"], "library_ms": None,
         "noise_ms": lp["noise_ms"],
-        **{k: k1s["l4096"][k] for k in K1_DESIGN_KEYS}}
+        "stages_ms": k1s["l4096"]["stages_ms"]}
     slab_rec = {
         "name": "amp_slab", "route": "cuda",
         "source": "sparc_ldpc_tpu_torch/csrc/amp_slab.cu",

@@ -1,9 +1,10 @@
-// Device code shared by the two whole-trial AMP kernels, amp_split.cu (the
-// split form, K1) and amp_mono.cu (the monolithic form, K6): the column
-// stage (H_L down 32-column strips of the (L, M) section tile, the residual
-// and Onsager update, the strip's |z|^2), the standalone H_L of strips, the
-// in-kernel encode with its Philox4x32-10 channel noise, and their
-// launchers.  See amp_split.cu for the algorithm and the state layout.
+// Device code shared by the whole-trial AMP kernels, amp_split.cu (the
+// split form, K1, and K3, K5), amp_mono.cu (the monolithic form, K6) and
+// amp_slab.cu (K7): the column code (H_L down 32-column strips of the
+// (L, M) section tile in registers and shared memory), the standalone H_L
+// of strips, the dense in-kernel encode with its Philox4x32-10 channel
+// noise, and their launchers.  See amp_split.cu for the algorithm and the
+// state layout.
 //
 // Column stage, L <= 1024: a block owns an (L, 32) strip, L = W * R, with
 // 32 * W threads.  Thread (w = warp, c = lane) holds R values of column c:
@@ -293,72 +294,16 @@ amp_encode_kernel(const float* __restrict__ y_n,
   }
 }
 
-// Column stage of iteration t.  work holds H_M beta' (the forward
-// transform's first stage, from the row stage) on entry.  The stage applies
-// H_L to it, forms z = y - mask/n * H(beta') + coef * z and the strip's
-// |z|^2 partial; work is left as it was (the mono form runs H_M of z first,
-// in its own launch).
-template <int W, int R, int FA, typename WT>
-__global__ void __launch_bounds__(32 * W, 1)
-amp_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
-               float* __restrict__ z, const float* __restrict__ mask_n,
-               float* __restrict__ zpart,        // (B, FA * M / 32)
-               const float* __restrict__ bpart,  // (B, L) row |beta'|^2
-               const float* __restrict__ trace,  // (T, B)
-               const int32_t* __restrict__ active,  // (T + 1, B)
-               int B, int M, int t, float P, float nn) {
-  extern __shared__ float sm[];
-  __shared__ float red[W];
-  constexpr int L = FA * W * R;
-  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const int b = blockIdx.y, a = blockIdx.x % FA;
-  if (!active[(size_t)t * B + b]) return;  // frozen: uniform per cluster
-  const int m = (blockIdx.x / FA) * kStrip + c;
-  const int l0 = a * W * R;
-  const size_t base = (size_t)b * L * M;
-  float v[R];
-  float coef = 0.f;  // beta' = 0 and z = 0 before the first iteration
-  if (t > 0) {
-    float acc = 0.f;
-    for (int l = threadIdx.x; l < L; l += 32 * W) acc += bpart[(size_t)b * L + l];
-    const float bnorm2 = block_sum<W>(acc, red);
-    coef = (P - bnorm2 / nn) / trace[(size_t)(t - 1) * B + b];
-#pragma unroll
-    for (int k = 0; k < R; ++k)
-      v[k] = to_f32(work[base + (size_t)(l0 + w + W * k) * M + m]);
-    col_fwht_ab<W, R, FA>(v, sm, w, c, a);
-  } else {
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = 0.f;
-  }
-  float zz = 0.f;
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int l = l0 + R * w + k;
-    const size_t off = base + (size_t)l * M + m;
-    float zk = y[off] - mask_n[(size_t)l * M + m] * v[k];
-    if (t > 0) zk += coef * z[off];
-    z[off] = zk;
-    zz += zk * zk;
-  }
-  const float zsum = block_sum<W>(zz, red);
-  if (threadIdx.x == 0) zpart[(size_t)b * gridDim.x + blockIdx.x] = zsum;
-}
-
 // Standalone H_L of every strip of x (B, L, M), in place, the data rounded
 // to bf16 first when round_bf16 is set and the result multiplied by scale
-// as it is stored (scale = 1 stores it as it is: x * 1 is exact).  With
-// active != nullptr, the blocks of a codeword that is frozen at iteration t
-// return at once (the mono form's second transform stage).
+// as it is stored (scale = 1 stores it as it is: x * 1 is exact).
 template <int W, int R, int FA>
 __global__ void __launch_bounds__(32 * W, 1)
-fwht_cols_kernel(float* __restrict__ x, int M, int round_bf16, float scale,
-                 const int32_t* __restrict__ active, int B, int t) {
+fwht_cols_kernel(float* __restrict__ x, int M, int round_bf16, float scale) {
   extern __shared__ float sm[];
   constexpr int L = FA * W * R;
   const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
   const int b = blockIdx.y, a = blockIdx.x % FA;
-  if (active != nullptr && !active[(size_t)t * B + b]) return;
   const int m = (blockIdx.x / FA) * kStrip + c;
   const int l0 = a * W * R;
   const size_t base = (size_t)b * L * M;
@@ -414,19 +359,10 @@ struct Cols {
     return launch_cols<W, R, FA>(amp_encode_kernel<W, R, FA>, B, M, st, y_n,
                                  mask_n, sqo, enc_idx, seeds, sigma, y, M);
   }
-  template <typename WT>
-  static int step(WT* work, const float* y, float* z, const float* mask_n,
-                  float* zpart, const float* bpart, const float* trace,
-                  const int32_t* active, int B, int M, int t, float P,
-                  float nn, cudaStream_t st) {
-    return launch_cols<W, R, FA>(amp_col_kernel<W, R, FA, WT>, B, M,
-                                 st, work, y, z, mask_n, zpart, bpart, trace,
-                                 active, B, M, t, P, nn);
-  }
   static int fwht(float* x, int B, int M, int round_bf16, float scale,
-                  const int32_t* active, int t, cudaStream_t st) {
+                  cudaStream_t st) {
     return launch_cols<W, R, FA>(fwht_cols_kernel<W, R, FA>, B, M, st, x, M,
-                                 round_bf16, scale, active, B, t);
+                                 round_bf16, scale);
   }
 };
 

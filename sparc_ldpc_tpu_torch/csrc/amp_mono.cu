@@ -3,8 +3,9 @@
 // Replaces the TPU kernel sparc_ldpc_tpu/ops/amp_kernel.py::_amp_kernel (K6,
 // the route of amp_kernel="fused" at L <= 1024: in-kernel encode, early
 // stop, pinning, SE schedule; no in-kernel noise).  It runs the iteration
-// of amp_split.cu (same state, scale-free scheme, freeze table, partials and
-// pins) with the transform of the monolithic kernel:
+// of amp_split.cu (same scale-free scheme, freeze table, partials and
+// pins, and y and z kept on the row support only, in K1's layout) with the
+// transform of the monolithic kernel:
 //
 //   T(x) = H_L (bf16(x) H_M)
 //
@@ -13,46 +14,50 @@
 // in float32, and H_L @ (that) takes the float32 intermediate as it is (its
 // first operand, H_L, is the one cast to bf16).  So each transform rounds
 // its data once, before H_M, and applies H_L in float32 -- unlike the split
-// form, which rounds before both stages.  Here:
-//   H_M: the dense product on the tensor cores, mma.sync m16n8k16 with bf16
-//     data and float32 accumulation, the reference's own arithmetic for that
-//     stage (+-1 is exact in bf16).  The H_M fragments are made in registers
-//     from the parity of popcount(k & n) (two base fragments and a sign per
-//     (k, n) tile), so no factor is loaded;
-//   H_L: float32 butterflies on the CUDA cores, the split form's column stage
-//     with no rounding (amp_common.cuh), which computes H_L @ x up to
-//     summation order.
-// Because H_M must see bf16 data and comes first in both transforms, an
-// iteration is four launches (the split form's is two):
-//   column (C1): H_L of w = bf16(beta') H_M, the residual and Onsager term,
-//     z, the strip's |z|^2;
-//   rows (R2): bf16(z) H_M on the tensor cores into the work tile;
-//   column (C2): H_L of the work tile, in place;
-//   rows (R3): + beta', the max-subtracted softmax, pin, |beta'|^2, and,
-//     unless it is the codeword's last iteration, bf16(beta'_new) H_M on the
-//     tensor cores into the work tile for the next C1.
-// The encode is the split form's (float32, the one-hot row's H_M in closed
-// form), so the codeword's power is exact to float32 where the reference's
-// two-pass hi/lo bf16 encode reaches about 2^-16.
+// form, which rounds before both stages.  An iteration is three launches:
+//   column (C1, mono_col_kernel): H_L in float32 of w = bf16(beta') H_M
+//     (the work tile, from R3), the residual and Onsager term on the row
+//     support only (K1's tables: z and y compact, (B, ns) in K1's order of
+//     the entries), the strip's |z|^2, and bf16(z) packed with its column
+//     in row-major order of the entries for the next launch;
+//   column (R2C2, mono_adj_kernel): the adjoint from the compact z: each
+//     strip's columns of bf16(z) H_M built directly from a row's support
+//     entries (about n / L = 9 at the headline, each +-bf16(z), summed in
+//     float32: the products with +-1 are exact), then H_L in float32, the
+//     result u written once into the work tile;
+//   rows (R3, mono_row_kernel): + beta', the max-subtracted softmax, pin,
+//     |beta'|^2, and, unless it is the codeword's last iteration,
+//     bf16(beta'_new) H_M on the tensor cores (mma.sync m16n8k16, bf16 data,
+//     float32 accumulation; the H_M fragments made in registers from the
+//     parity of popcount(k & n)) into the work tile for the next C1.
+// The encode is the split form's (k1_encode_kernel: the one-hot row's H_M
+// in closed form, H_L in float32, y written on the support), so the
+// codeword's power is exact to float32 where the reference's two-pass
+// hi/lo bf16 encode reaches about 2^-16.
 //
-// What bounds it: device-memory bytes and the tensor cores.  Per iteration
-// it moves about 12 float32 (B, L, M) passes (C1: read w, y, z, write z;
-// R2: read z, write v; C2: read and write v; R3: read u, beta', write
-// beta', w), against the split form's 7, and the dense H_M costs 2 M flops
-// per element and transform: at the headline shapes (B = 2048, L = 1024,
-// M = 512, T = 22) about 48 TFLOP, 49 ms at the H100's 989 TFLOP/s bf16
-// peak, beside about 1.1 TB of traffic, 340 ms at 3.35 TB/s.  A simple first
-// kernel: mma.sync from a padded shared tile, one 16-row tile per block, no
-// overlap of loads with products.
+// What bounds it: device-memory bytes.  Per element and iteration C1 reads
+// the float32 work tile (4 bytes), R2C2 writes it (4), R3 reads it and
+// beta' and writes both (16): 24 bytes, beside 12 bytes an entry of the
+// support (y, z read, z written) and the packed z.  The earlier design
+// moved 48: C1 read y, z, mask/n and w and wrote z densely (20 bytes), R2
+// read the dense z and wrote a product (8), C2 read and rewrote it in
+// place (8), and its R2 multiplied the mostly-zero z by the dense H_M on
+// the tensor cores.  R2C2's work is the sparse product's: a shift, a logic
+// operation and an add a term, about n / L terms an element (on an H100,
+// PERF.md, it is held by those instructions, not by its bytes; summing a
+// row's terms in buckets by m' % 32 and five butterflies across the lanes,
+// with __match_any_sync finding the terms of one bucket, took 10.07 ms a
+// headline launch against 3.78).
 //
 // Determinism: no float atomics; the same fixed-order partial sums as the
-// split form, and each mma accumulates its k-steps in a fixed order.
+// split form, each row's support entries summed in column order, and each
+// mma accumulates its k-steps in a fixed order.
 //
 // Built by sparc_ldpc_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (plain C interface below).
 
-#include "amp_common.cuh"
+#include "amp_support.cuh"
 
 namespace {
 
@@ -132,25 +137,7 @@ __device__ __forceinline__ void hm_mma(const __nv_bfloat16* sA,
   }
 }
 
-// R2: out = bf16(x) H_M for every row of x (B, L, M), 16 rows per block.
-// With active != nullptr the blocks of a codeword frozen at iteration t
-// return at once.
-template <int M>
-__global__ void __launch_bounds__(32 * RowShape<M>::NW)
-mono_hm_kernel(const float* __restrict__ x, float* __restrict__ out,
-               const int32_t* __restrict__ active, int B, int L, int t) {
-  constexpr int NT = 32 * RowShape<M>::NW, LDA = RowShape<M>::LDA;
-  __shared__ __align__(16) __nv_bfloat16 sA[kTileRows * LDA];
-  const int b = blockIdx.y;
-  if (active != nullptr && !active[(size_t)t * B + b]) return;
-  const size_t base = ((size_t)b * L + (size_t)blockIdx.x * kTileRows) * M;
-  for (int e = threadIdx.x; e < kTileRows * M; e += NT)
-    sA[(e / M) * LDA + e % M] = __float2bfloat16_rn(x[base + e]);
-  __syncthreads();
-  hm_mma<M>(sA, out + base);
-}
-
-// R3 of iteration t.  work holds H_L (bf16(z) H_M) on entry and, unless this
+// R3 of iteration t.  work holds u = H_L (bf16(z) H_M) on entry and, unless this
 // is the codeword's last iteration, bf16(beta'_new) H_M on exit.  beta
 // holds beta' and, after the codeword's last iteration, the true-scale beta.
 // One warp per row at a time; lane i holds columns i + 32 j.
@@ -255,17 +242,372 @@ mono_row_kernel(float* __restrict__ work, float* __restrict__ beta,
   }
 }
 
+// Support entries (K1's order) of a column-stage block that C1 stages in
+// shared memory, and entries of a codeword that R2C2 stages (8 bytes each,
+// beside the transpose buffer and the row offsets); a launch with more
+// reads them from device memory.
+template <int W, int R>
+__host__ __device__ constexpr int mono_col_smem_bytes() {
+  return W * R * kStrip * 4 + 3 * entry_cap<W, R>() * 4 + 2 * 32 * W * 4;
+}
+constexpr int kAdjCap = 11264;
+template <int W, int R>
+__host__ __device__ constexpr int mono_adj_smem_bytes() {
+  return W * R * kStrip * 4 + (W * R + 4) * 4 + kAdjCap * 8;
+}
+
+// bf16(z) with its column m (< 2^16) in one word: the bf16 bits above, so
+// the word with its low half cleared is the float bf16(z).
+__device__ __forceinline__ uint32_t pack_entry(float z, int m) {
+  return ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(z)) << 16) |
+         (uint32_t)m;
+}
+
+// C1 of iteration t.  work holds w = bf16(beta') H_M (float32, from R3) on
+// entry and is only read.  The walk of K1's column stage (k1_col_kernel at
+// FA = 1): walker i takes the items (codeword, strip) i, i + walkers, ...
+// of the active codewords; cp.async brings an item's float32 strip of the
+// work tile (16 bytes a thread) and its support data (y, z, mask/n, each
+// thread's word and first entry) into shared memory while the item before
+// is finished.  The strip's buffer is also the transpose buffer: a thread
+// reads its rows in layout A, runs H_L's first butterflies and writes them
+// back where it read them, and after a barrier reads layout B; then the
+// next strip's copy starts and overlaps H_L's last butterflies, the
+// residual and the reductions.  On the thread's support rows z = y -
+// mask/n * v + coef * z in K1's order, z written compact in K1's order and,
+// as bf16 with its column, at its row-major place (row_index) in zr; the
+// strip's |z|^2 and the next item's |beta'|^2 in one block reduction.
+template <int W, int R, int M>
+__global__ void __launch_bounds__(32 * W, 1)
+mono_col_kernel(const float* __restrict__ work, const float* __restrict__ yc,
+                float* __restrict__ zc, uint32_t* __restrict__ zr,
+                Support sp, const int32_t* __restrict__ row_index,
+                float* __restrict__ zpart,        // (B, M / 32)
+                const float* __restrict__ bpart,  // (B, L) row |beta'|^2
+                const float* __restrict__ trace,  // (T, B)
+                const int32_t* __restrict__ active,  // (T + 1, B)
+                int B, int t, float P, float nn) {
+  extern __shared__ __align__(16) float mc_sm[];
+  __shared__ float red[2 * W];
+  constexpr int L = W * R, NT = 32 * W, S = M / kStrip;
+  constexpr int CAP = entry_cap<W, R>();
+  float* sm = mc_sm;  // strip and transpose buffer, then the support data
+  float* ys = sm + L * kStrip;
+  float* zs = ys + CAP;
+  float* ms = zs + CAP;
+  uint32_t* tword = reinterpret_cast<uint32_t*>(ms + CAP);
+  int32_t* toff = reinterpret_cast<int32_t*>(tword + NT);
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int walkers = gridDim.x, items = B * S;
+  const int32_t* act = active + (size_t)t * B;
+  auto next = [&](int it) {
+    while (it < items && !act[it / S]) it += walkers;
+    return it;
+  };
+  // cp.async of an item's float32 strip of the work tile into sm
+  auto fetch_work = [&](int it) {
+    const float* src =
+        work + (size_t)(it / S) * L * M + (size_t)(it % S) * kStrip;
+    for (int q = threadIdx.x; q < L * 8; q += NT) {
+      const int r = q >> 3, p = q & 7;
+      cp_async16(sm + r * kStrip + 4 * p, src + (size_t)r * M + 4 * p);
+    }
+  };
+  auto fetch_entries = [&](int it) {
+    const int s = it % S;
+    const size_t tab = (size_t)w * M + s * kStrip + c;
+    cp_async4(tword + threadIdx.x, sp.word + tab);
+    cp_async4(toff + threadIdx.x, sp.offset + tab);
+    const int first = sp.block[s], count = sp.block[s + 1] - first;
+    if (count > CAP) return;
+    const size_t off = (size_t)(it / S) * sp.ns + first;
+    for (int i = threadIdx.x; i < count; i += NT) {
+      cp_async4(ys + i, yc + off + i);
+      cp_async4(ms + i, sp.mask + first + i);
+      if (t > 0) cp_async4(zs + i, zc + off + i);
+    }
+  };
+  auto bterms = [&](int it) {
+    float acc = 0.f;
+    if (t > 0 && it < items) {
+      const float* bp = bpart + (size_t)(it / S) * L;
+      for (int l = threadIdx.x; l < L; l += NT) acc += bp[l];
+    }
+    return acc;
+  };
+
+  int it = next(blockIdx.x);
+  if (it >= items) return;
+  if (t > 0) fetch_work(it);
+  fetch_entries(it);
+  float bnorm2 = block_sum2<W>(bterms(it), 0.f, red).x;
+  while (it < items) {
+    const int nx = next(it + walkers);
+    const int b = it / S, s = it % S, m = s * kStrip + c;
+    const int first = sp.block[s];
+    const bool staged = sp.block[s + 1] - first <= CAP;
+    const float tau2_prev = t > 0 ? trace[(size_t)(t - 1) * B + b] : 1.f;
+    const float bnext = bterms(nx);  // consumed after this item's residual
+    cp_async_wait_all();
+    __syncthreads();  // this item's strip and support data are visible
+    const uint32_t word = tword[threadIdx.x];
+    float v[R];
+    float coef = 0.f;  // beta' = 0 and z = 0 before the first iteration
+    if (t > 0) {
+      coef = (P - bnorm2 / nn) / tau2_prev;
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = sm[(w + W * k) * kStrip + c];
+      reg_fwht<R, R>(v);
+      // layout A to B in place: each thread rewrites the places it read
+#pragma unroll
+      for (int k = 0; k < R; ++k) sm[(w + W * k) * kStrip + c] = v[k];
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = sm[(R * w + k) * kStrip + c];
+      __syncthreads();  // every thread has read the strip
+      if (nx < items) fetch_work(nx);
+      reg_fwht<R, W>(v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = 0.f;
+    }
+    const size_t cw = (size_t)b * sp.ns;
+    const float* ysrc = staged ? ys - first : yc + cw;
+    const float* zsrc = staged ? zs - first : zc + cw;
+    const float* msrc = staged ? ms - first : sp.mask;
+    const int e0 = toff[threadIdx.x];
+    float zz = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if ((word >> k) & 1u) {
+        const int e = e0 + __popc(word & ((1u << k) - 1u));
+        float zk = ysrc[e] - msrc[e] * v[k];
+        if (t > 0) zk += coef * zsrc[e];
+        zc[cw + e] = zk;
+        zr[cw + row_index[e]] = pack_entry(zk, m);
+        zz += zk * zk;
+      }
+    }
+    // this item's |z|^2 and the next item's |beta'|^2; the barriers also
+    // end every thread's reads of the support data
+    const float2 sums = block_sum2<W>(zz, bnext, red);
+    if (threadIdx.x == 0) zpart[(size_t)b * S + s] = sums.x;
+    if (nx < items) fetch_entries(nx);
+    bnorm2 = sums.y;
+    it = nx;
+  }
+}
+
+// R2C2 of iteration t: work = u = H_L (bf16(z) H_M) of every active
+// codeword, from zr (B, ns), z's packed entries in row-major order (row l's
+// are row_offset[l] .. row_offset[l + 1] - 1, in column order).  Walkers as
+// C1's over (codeword, strip) items.  Thread (w, c) builds column
+// m = 32 s + c of its rows w + W k (layout A) from the row's entries:
+//   (bf16(z) H_M)[l][m] = sum over the row's entries (m', z), in column
+//   order, of (-1)^popc(m' & m) bf16(z),
+// with the sign split as (-1)^popc(m'_hi & s) (the entry's, the same for
+// the whole strip) times (-1)^popc(m'_lo & c) (m'_lo = m' % 32: bit 31 of
+// the lane's mask xc shifted left by m'_lo), so a term costs a shift, a
+// logic operation and an add.  Each item stages its codeword's entries in
+// shared memory as (bf16(z) with the strip's sign, m'_lo) pairs: cp.async
+// brings the packed words while the item before is transformed, and one
+// pass turns them into pairs (ns <= kAdjCap; above, the terms are formed
+// from device memory, the same values in the same order).  Then H_L in
+// float32 (layout A to B) and the strip is stored.  With active == nullptr
+// every codeword runs (the standalone adjoint, amp_mono_adjoint).
+template <int W, int R, int M>
+__global__ void __launch_bounds__(32 * W, 1)
+mono_adj_kernel(const uint32_t* __restrict__ zr,
+                const int32_t* __restrict__ row_offset, int ns,
+                float* __restrict__ work,
+                const int32_t* __restrict__ active, int B, int t) {
+  extern __shared__ __align__(16) float ma_sm[];
+  constexpr int L = W * R, NT = 32 * W, S = M / kStrip;
+  float* sm = ma_sm;  // transpose buffer, row offsets, staged entries
+  int32_t* rows = reinterpret_cast<int32_t*>(sm + L * kStrip);
+  int2* ent = reinterpret_cast<int2*>(rows + L + 4);
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int walkers = gridDim.x, items = B * S;
+  const bool staged = ns <= kAdjCap;
+  const int32_t* act = active != nullptr ? active + (size_t)t * B : nullptr;
+  // bit 31 - k of xc is popc(k & c) & 1
+  uint32_t xc = 0u;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) xc |= (uint32_t)(__popc(k & c) & 1) << (31 - k);
+  auto next = [&](int it) {
+    while (act != nullptr && it < items && !act[it / S]) it += walkers;
+    return it;
+  };
+  // the packed words of an item's codeword into the pairs' second halves
+  auto fetch = [&](int it) {
+    const uint32_t* src = zr + (size_t)(it / S) * ns;
+    for (int i = threadIdx.x; i < ns; i += NT) cp_async4(&ent[i].y, src + i);
+  };
+  // (bf16(z) with the strip's sign, as float bits; m' % 32) of a packed word
+  auto pair = [](uint32_t p, int s) {
+    const uint32_t hi = (p >> 5) & 31u;
+    const uint32_t sgn = (uint32_t)(__popc(hi & (uint32_t)s) & 1) << 31;
+    return make_int2((int)((p & 0xFFFF0000u) ^ sgn), (int)(p & 31u));
+  };
+  auto term = [&](int2 q) {
+    return __uint_as_float(((xc << q.y) & 0x80000000u) ^ (uint32_t)q.x);
+  };
+  for (int i = threadIdx.x; i <= L; i += NT) rows[i] = row_offset[i];
+  int it = next(blockIdx.x);
+  if (it >= items) return;
+  if (staged) fetch(it);
+  while (it < items) {
+    const int nx = next(it + walkers);
+    const int b = it / S, s = it % S;
+    cp_async_wait_all();
+    __syncthreads();  // the staged words (and the row offsets) are visible
+    if (staged) {
+      for (int i = threadIdx.x; i < ns; i += NT)
+        ent[i] = pair((uint32_t)ent[i].y, s);
+      __syncthreads();
+    }
+    const uint32_t* zb = zr + (size_t)b * ns;
+    float v[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int l = w + W * k;
+      const int j1 = rows[l + 1];
+      float acc = 0.f;
+      if (staged) {
+#pragma unroll 4
+        for (int j = rows[l]; j < j1; ++j) acc += term(ent[j]);
+      } else {
+        for (int j = rows[l]; j < j1; ++j) acc += term(pair(zb[j], s));
+      }
+      v[k] = acc;
+    }
+    __syncthreads();  // every thread has read the staged entries
+    if (staged && nx < items) fetch(nx);
+    reg_fwht<R, R>(v);
+    a_to_b<W, R>(v, sm, w, c);
+    reg_fwht<R, W>(v);
+    float* dst = work + (size_t)b * L * M + s * kStrip + c;
+#pragma unroll
+    for (int k = 0; k < R; ++k) dst[(size_t)(R * w + k) * M] = v[k];
+    it = nx;
+  }
+}
+
 // ------------------------------------------------------------- launchers
+
+// C1 and R2C2 for the column geometry (W, R) of L = W R <= 1024.
+template <int W, int R>
+struct MonoCols {
+  static int encode(const float* y_n, const Support& sp, const float* sqo,
+                    const int32_t* enc_idx, float* yc, int B, int M,
+                    cudaStream_t st) {
+    auto kernel = k1_encode_kernel<W, R, 1>;
+    const int bytes = W * R * kStrip * (int)sizeof(float);
+    int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc) return rc;
+    kernel<<<dim3(M / kStrip, B), 32 * W, bytes, st>>>(
+        y_n, sp, sqo, enc_idx, nullptr, 0.f, yc, M);
+    return (int)cudaGetLastError();
+  }
+  // Launch kernel with as many walkers as are resident, at most the items.
+  template <typename K, typename... Args>
+  static int walk(K kernel, int bytes, int B, int M, cudaStream_t st,
+                  Args... args) {
+    int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc) return rc;
+    int walkers = 0;
+    rc = resident_walkers<1>(kernel, 32 * W, bytes, st, &walkers);
+    if (rc) return rc;
+    const int items = B * (M / kStrip);
+    walkers = walkers < items ? walkers : items;
+    kernel<<<walkers, 32 * W, bytes, st>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  template <int M>
+  static int col(const float* work, const float* yc, float* zc, uint32_t* zr,
+                 const Support& sp, const int32_t* row_index, float* zpart,
+                 const float* bpart, const float* trace,
+                 const int32_t* active, int B, int t, float P, float nn,
+                 cudaStream_t st) {
+    return walk(mono_col_kernel<W, R, M>, mono_col_smem_bytes<W, R>(), B, M,
+                st, work, yc, zc, zr, sp, row_index, zpart, bpart, trace,
+                active, B, t, P, nn);
+  }
+  template <int M>
+  static int adj(const uint32_t* zr, const int32_t* row_offset, int ns,
+                 float* work, const int32_t* active, int B, int t,
+                 cudaStream_t st) {
+    return walk(mono_adj_kernel<W, R, M>, mono_adj_smem_bytes<W, R>(), B, M,
+                st, zr, row_offset, ns, work, active, B, t);
+  }
+};
+
+template <class C>
+struct MonoOf;
+template <int W, int R>
+struct MonoOf<Cols<W, R, 1>> {
+  using type = MonoCols<W, R>;
+};
+
+#define MONO_CASES_M(CALL)                        \
+  case 32: { constexpr int MM = 32; return CALL; }     \
+  case 64: { constexpr int MM = 64; return CALL; }     \
+  case 128: { constexpr int MM = 128; return CALL; }   \
+  case 256: { constexpr int MM = 256; return CALL; }   \
+  case 512: { constexpr int MM = 512; return CALL; }   \
+  case 1024: { constexpr int MM = 1024; return CALL; }
+
+int mono_encode(const float* y_n, const Support& sp, const float* sqo,
+                const int32_t* enc_idx, float* yc, int B, int L, int M,
+                cudaStream_t st) {
+  DISPATCH_L1024(L, MonoOf<C>::type::encode(y_n, sp, sqo, enc_idx, yc, B, M,
+                                            st))
+}
+
+template <class Q>
+int mono_col_m(const float* work, const float* yc, float* zc, uint32_t* zr,
+               const Support& sp, const int32_t* row_index, float* zpart,
+               const float* bpart, const float* trace, const int32_t* active,
+               int B, int M, int t, float P, float nn, cudaStream_t st) {
+  switch (M) {
+    MONO_CASES_M((Q::template col<MM>(work, yc, zc, zr, sp, row_index, zpart,
+                                      bpart, trace, active, B, t, P, nn, st)))
+    default: return kBadShape;
+  }
+}
+
+int col_step(const float* work, const float* yc, float* zc, uint32_t* zr,
+             const Support& sp, const int32_t* row_index, float* zpart,
+             const float* bpart, const float* trace, const int32_t* active,
+             int B, int L, int M, int t, float P, float nn, cudaStream_t st) {
+  DISPATCH_L1024(L, (mono_col_m<MonoOf<C>::type>(
+                        work, yc, zc, zr, sp, row_index, zpart, bpart, trace,
+                        active, B, M, t, P, nn, st)))
+}
+
+template <class Q>
+int mono_adj_m(const uint32_t* zr, const int32_t* row_offset, int ns,
+               float* work, const int32_t* active, int B, int M, int t,
+               cudaStream_t st) {
+  switch (M) {
+    MONO_CASES_M((Q::template adj<MM>(zr, row_offset, ns, work, active, B, t,
+                                      st)))
+    default: return kBadShape;
+  }
+}
+
+int adj_step(const uint32_t* zr, const int32_t* row_offset, int ns,
+             float* work, const int32_t* active, int B, int L, int M, int t,
+             cudaStream_t st) {
+  DISPATCH_L1024(L, (mono_adj_m<MonoOf<C>::type>(
+                        zr, row_offset, ns, work, active, B, M, t, st)))
+}
 
 template <int M>
 struct MonoRows {
   static constexpr int NT = 32 * RowShape<M>::NW;
-  static int hm(const float* x, float* out, const int32_t* active, int B,
-                int L, int t, cudaStream_t st) {
-    mono_hm_kernel<M><<<dim3(L / kTileRows, B), NT, 0, st>>>(x, out, active,
-                                                             B, L, t);
-    return (int)cudaGetLastError();
-  }
   static int row(float* work, float* beta, const float* zpart, float* bpart,
                  float* trace, int32_t* iters, int32_t* active,
                  const int32_t* pin, const float* sched, const float* sqi,
@@ -289,32 +631,6 @@ struct MonoRows {
     default: return kBadShape;                           \
   }
 
-int encode(const float* y_n, const float* mask_n, const float* sqo,
-           const int32_t* enc_idx, float* y, int B, int L, int M,
-           cudaStream_t st) {
-  DISPATCH_L1024(L, C::encode(y_n, mask_n, sqo, enc_idx, nullptr, 0.f, y, B,
-                              M, st))
-}
-
-int col_step(float* work, const float* y, float* z, const float* mask_n,
-             float* zpart, const float* bpart, const float* trace,
-             const int32_t* active, int B, int L, int M, int t, float P,
-             float nn, cudaStream_t st) {
-  DISPATCH_L1024(L, (C::template step<float>(work, y, z, mask_n, zpart,
-                                             bpart, trace, active, B, M, t,
-                                             P, nn, st)))
-}
-
-int cols_fwht(float* x, int B, int L, int M, const int32_t* active, int t,
-              cudaStream_t st) {
-  DISPATCH_L1024(L, C::fwht(x, B, M, 0, 1.f, active, t, st))
-}
-
-int rows_hm(const float* x, float* out, const int32_t* active, int B, int L,
-            int M, int t, cudaStream_t st) {
-  DISPATCH_MONO_M(M, Q::hm(x, out, active, B, L, t, st))
-}
-
 int rows_softmax(float* work, float* beta, const float* zpart, float* bpart,
                  float* trace, int32_t* iters, int32_t* active,
                  const int32_t* pin, const float* sched, const float* sqi,
@@ -335,33 +651,44 @@ extern "C" {
 
 // Whole-trial AMP of the monolithic form for B codewords.  Inputs: y_n
 // (B, L, M) the channel noise (enc_idx given) or the whole observation
-// (enc_idx null), embedded on the row support; mask_n (L, M) = mask / n;
-// sqi, sqo (L,); enc_idx (B, L) int32 or null; pin (B, L) int32 (-1 =
-// unpinned) or null; sched (T,) SE tau2 schedule or null; tol the
-// early-stop threshold (0 = fixed T).  Outputs: beta (B, L, M) true scale,
-// trace (T, B), iters (B,) int32.  active (T + 1, B) int32 holds the freeze
-// flags and must arrive with row 0 all ones.  Scratch: y, z, work (B, L, M)
+// (enc_idx null), read on the row support only.  The row support, ns
+// entries in K1's order (ops/split_support.py): mask_c (ns,) mask/n of each
+// entry, offset and word (L / R, M), block (M / 32 + 1,), perm (ns,)
+// each entry's place in row-major order, row_offset (L + 1,) each row's
+// first entry in row-major order.  sqi, sqo (L,); enc_idx (B, L) int32 or
+// null; pin (B, L) int32 (-1 = unpinned) or null; sched (T,) SE tau2
+// schedule or null; tol the early-stop threshold (0 = fixed T).  Outputs:
+// beta (B, L, M) true scale, trace (T, B), iters (B,) int32.  active
+// (T + 1, B) int32 holds the freeze flags and must arrive with row 0 all
+// ones.  Scratch: yc, zc (B, ns) float, zr (B, ns) uint32, work (B, L, M)
 // float; zpart (B, M / 32); bpart (B, L).  L, M powers of two in
 // [32, 1024].  Returns 0, a cudaError_t, or -1 for an unsupported shape.
-int amp_mono_run(const float* y_n, const float* mask_n, const float* sqi,
-                 const float* sqo, const int32_t* enc_idx, const int32_t* pin,
-                 const float* sched, float* beta, float* trace,
-                 int32_t* iters, int32_t* active, float* y, float* z,
-                 float* work, float* zpart, float* bpart, int B, int L, int M,
-                 int T, float P, float n, float inv_sqrt_n, float tol,
-                 void* stream) {
-  if (!supported(B, L, M) || T < 1 || y_n == nullptr) return kBadShape;
+int amp_mono_run(const float* y_n, const float* mask_c, const int32_t* offset,
+                 const uint32_t* word, const int32_t* block,
+                 const int32_t* perm, const int32_t* row_offset, int ns,
+                 const float* sqi, const float* sqo, const int32_t* enc_idx,
+                 const int32_t* pin, const float* sched, float* beta,
+                 float* trace, int32_t* iters, int32_t* active, float* yc,
+                 float* zc, uint32_t* zr, float* work, float* zpart,
+                 float* bpart, int B, int L, int M, int T, float P, float n,
+                 float inv_sqrt_n, float tol, void* stream) {
+  if (!supported(B, L, M) || T < 1 || y_n == nullptr || ns < 0)
+    return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = encode(y_n, mask_n, sqo, enc_idx, y, B, L, M, st);
+  Support sp;
+  sp.mask = mask_c;
+  sp.offset = offset;
+  sp.word = word;
+  sp.block = block;
+  sp.ns = ns;
+  int rc = mono_encode(y_n, sp, sqo, enc_idx, yc, B, L, M, st);
   if (rc) return rc;
   const float nn = n * n;
   for (int t = 0; t < T; ++t) {
-    rc = col_step(work, y, z, mask_n, zpart, bpart, trace, active, B, L, M, t,
-                  P, nn, st);
+    rc = col_step(work, yc, zc, zr, sp, perm, zpart, bpart, trace,
+                  active, B, L, M, t, P, nn, st);
     if (rc) return rc;
-    rc = rows_hm(z, work, active, B, L, M, t, st);
-    if (rc) return rc;
-    rc = cols_fwht(work, B, L, M, active, t, st);
+    rc = adj_step(zr, row_offset, ns, work, active, B, L, M, t, st);
     if (rc) return rc;
     rc = rows_softmax(work, beta, zpart, bpart, trace, iters, active, pin,
                       sched, sqi, sqo, B, L, M, t, t == T - 1, n, inv_sqrt_n,
@@ -371,15 +698,15 @@ int amp_mono_run(const float* y_n, const float* mask_n, const float* sqi,
   return 0;
 }
 
-// The monolithic form's transform of each (L, M) tile of x (B, L, M) into
-// out: H_L (bf16(x) H_M), H_M on the tensor cores, H_L in float32.
-int amp_mono_tile(const float* x, float* out, int B, int L, int M,
-                  void* stream) {
-  if (!supported(B, L, M)) return kBadShape;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = rows_hm(x, out, nullptr, B, L, M, 0, st);
-  if (rc) return rc;
-  return cols_fwht(out, B, L, M, nullptr, 0, st);
+// The decode's adjoint alone (R2C2 on every codeword): out (B, L, M) =
+// H_L (bf16(z) H_M) from zr (B, ns), z's entries packed as mono_col_kernel
+// writes them (bf16 bits above, the column below) in row-major order, with
+// row_offset (L + 1,).
+int amp_mono_adjoint(const uint32_t* zr, const int32_t* row_offset, int ns,
+                     float* out, int B, int L, int M, void* stream) {
+  if (!supported(B, L, M) || ns < 0) return kBadShape;
+  return adj_step(zr, row_offset, ns, out, nullptr, B, L, M, 0,
+                  static_cast<cudaStream_t>(stream));
 }
 
 const char* amp_mono_error_string(int code) {

@@ -123,21 +123,20 @@
 // encode with no codeword.  The transcendentals are the precise
 // logf/sincosf/sqrtf (no fast-math).
 //
-// The transform stages of the standalone tile transform (amp_fwht_tile,
-// K3) and of the plain length-N FWHT of the operator route (fwht2_run, K5,
-// the counterpart of sparc_ldpc_tpu/ops/fwht.py::_fwht2_kernel) are
-// row_fwht below and amp_common.cuh's column code, which the monolithic
-// form (amp_mono.cu) shares.
+// The transform stages of the plain length-N FWHT of the operator route
+// (fwht2_run, K5, the counterpart of sparc_ldpc_tpu/ops/fwht.py::
+// _fwht2_kernel) and of the standalone tile transform in float32
+// (amp_fwht_tile, K3) are row_fwht below and amp_common.cuh's column code,
+// which the monolithic form (amp_mono.cu) shares; K3 in bf16 has kernels of
+// its own (k3_row_kernel, k3_col_kernel, below).
 //
 // Built by sparc_ldpc_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (plain C interface below).
 
-#include "amp_common.cuh"
+#include "amp_support.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kRowThreads = 256;   // threads per row-stage block
 
@@ -244,26 +243,6 @@ fwht_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 // --------------------------------------------------------------------- K1
 
-// The support tables of the (L, M) tile (ops/split_support.py): entry e of
-// the kernel's order, of ns, has mask/n mask[e]; (row-range g, column m)
-// holds the rows R g + k whose bit k of word[g M + m] is set, entries
-// offset[g M + m] on; column-stage block ib = strip * FA + cluster rank
-// holds entries block[ib] .. block[ib + 1] - 1.
-struct Support {
-  const float* mask;
-  const int32_t* offset;
-  const uint32_t* word;
-  const int32_t* block;
-  int ns;
-};
-
-// Support entries of one column-stage block staged in shared memory; a
-// block with more (a dense mask) reads them from device memory.
-template <int W, int R>
-__host__ __device__ constexpr int entry_cap() {
-  return W * R * kStrip < 2048 ? W * R * kStrip : 2048;
-}
-
 // Dynamic shared memory of the column stage: the float32 transpose buffer,
 // the bf16 staging of the next strip (bf16 work tiles only), y, z and
 // mask/n of the next item's entries, and each thread's word and first
@@ -272,142 +251,6 @@ template <int W, int R, typename WT>
 __host__ __device__ constexpr int col_smem_bytes() {
   return W * R * kStrip * 4 + (IsBf16<WT>::value ? W * R * kStrip * 2 : 0) +
          3 * entry_cap<W, R>() * 4 + 2 * 32 * W * 4;
-}
-
-// Sums of x and of y over a block of NW warps, each in block_sum's fixed
-// order; every thread gets both.
-template <int NW>
-__device__ __forceinline__ float2 block_sum2(float x, float y, float* red) {
-  x = warp_sum(x);
-  y = warp_sum(y);
-  __syncthreads();  // earlier readers of red are done
-  if ((threadIdx.x & 31) == 0) {
-    red[threadIdx.x >> 5] = x;
-    red[NW + (threadIdx.x >> 5)] = y;
-  }
-  __syncthreads();
-  float2 s = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    s.x += red[i];
-    s.y += red[NW + i];
-  }
-  return s;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// H_FA across the FA blocks of a cluster (block a holds rows 1024 a + the
-// same local rows in the same layout), above L = 1024, on the support
-// only.  The forward transform's result is read on the thread's support
-// rows alone (its word): there v[k] = sum_a' (-1)^popc(a & a') x_a'[k] in
-// amp_common.cuh's cluster_fwht's order, so the same values, from one
-// remote read per other block and support row instead of all R values.
-// With TAIL the blocks wait until every remote read is done; without, the
-// caller's next cluster barrier must come before any block writes its sm.
-template <int FA, int R, bool TAIL>
-__device__ __forceinline__ void k1_cluster_on_support(float (&v)[R],
-                                                      float* sm, int a,
-                                                      uint32_t word) {
-  if constexpr (FA > 1) {
-    cg::cluster_group cl = cg::this_cluster();
-    const int nt = blockDim.x;
-    __syncthreads();  // this block's earlier readers of sm are done
-#pragma unroll
-    for (int k = 0; k < R; ++k) sm[k * nt + threadIdx.x] = v[k];
-    cl.sync();
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      if ((word >> k) & 1u) {
-        float s = 0.f;
-#pragma unroll
-        for (int a2 = 0; a2 < FA; ++a2) {
-          const float x = a2 == a
-                              ? v[k]
-                              : cl.map_shared_rank(sm, a2)[k * nt + threadIdx.x];
-          s = (__popc(a & a2) & 1) ? s - x : s + x;
-        }
-        v[k] = s;
-      }
-    }
-    if constexpr (TAIL) cl.sync();
-  }
-}
-
-// Encode: y on the support, compact.  As amp_common.cuh's amp_encode_kernel
-// (the one-hot row's H_M in closed form, H_L in float32), then in layout B
-// each thread draws the Philox blocks of its support rows only and writes
-// noise + mask/n * v there.  Grid (FA * M / 32, B).
-template <int W, int R, int FA>
-__global__ void __launch_bounds__(32 * W, 1)
-k1_encode_kernel(const float* __restrict__ y_n, Support sp,
-                 const float* __restrict__ sqo,
-                 const int32_t* __restrict__ enc_idx,
-                 const uint32_t* __restrict__ seeds, float sigma,
-                 float* __restrict__ yc, int M) {
-  extern __shared__ float sm[];
-  constexpr int L = FA * W * R;
-  static_assert(R % 4 == 0, "a Philox block feeds four rows of a thread");
-  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const int b = blockIdx.y, a = blockIdx.x % FA;
-  const int m = (blockIdx.x / FA) * kStrip + c;
-  const int l0 = a * W * R;  // this block's first row
-  const size_t tab = (size_t)(a * W + w) * M + m;
-  const uint32_t word = sp.word[tab];
-  int e = sp.offset[tab];
-  float v[R];
-  if (enc_idx != nullptr) {
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int l = l0 + w + W * k;
-      const float s = sqo[l];
-      v[k] = (__popc(enc_idx[(size_t)b * L + l] & m) & 1) ? -s : s;
-    }
-    reg_fwht<R, R>(v);
-    a_to_b<W, R>(v, sm, w, c);
-    reg_fwht<R, W>(v);
-    k1_cluster_on_support<FA, R, true>(v, sm, a, word);
-  } else {
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = 0.f;
-  }
-  uint2 key = make_uint2(0u, 0u);
-  if (seeds != nullptr) key = make_uint2(seeds[2 * b], seeds[2 * b + 1]);
-  float* yb = yc + (size_t)b * sp.ns;
-#pragma unroll
-  for (int g = 0; g < R / 4; ++g) {
-    if (((word >> (4 * g)) & 0xFu) == 0u) continue;
-    float e4[4] = {0.f, 0.f, 0.f, 0.f};
-    if (seeds != nullptr) normal4(key, m, (l0 + R * w) / 4 + g, e4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 4 * g + i;
-      if ((word >> k) & 1u) {
-        const float noise =
-            seeds != nullptr
-                ? __fmul_rn(sigma, e4[i])
-                : y_n[((size_t)b * L + l0 + R * w + k) * M + m];
-        yb[e] = noise + sp.mask[e] * v[k];
-        ++e;
-      }
-    }
-  }
 }
 
 // Column stage of iteration t.  work holds H_M beta' (the forward
@@ -878,6 +721,157 @@ k1_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
   }
 }
 
+// --------------------------------------------------------------------- K3
+//
+// K3 in bf16 mode (amp_fwht_tile with round_bf16; the mode section-sharded
+// AMP runs): a bf16 intermediate, in distributed shared memory (one launch,
+// 8 bytes an element) or in device memory (two launches, 12 bytes) against
+// the earlier 16 (a float32 intermediate, rewritten in place by the column
+// stage).  Storing the intermediate in bf16 changes no value: the column
+// stage rounded it to bf16 before H_L anyway.
+
+// Rows: one warp per section row (RowShape, as K1's row stage), x read in
+// chunks of C float32 and rounded to bf16, H_M in registers and shuffles
+// (row_fwht's butterflies, so the same values), the result rounded to bf16
+// and stored in chunks of C (16 bytes at C = 8).  Grid (rows / RPB).
+template <int M>
+__global__ void __launch_bounds__(kRowThreads)
+k3_row_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ mid) {
+  using Sh = RowShape<M>;
+  constexpr int VPL = Sh::VPL, C = Sh::C, NCH = Sh::NCH;
+  const int lane = threadIdx.x & 31;
+  const int j = lane % Sh::TPR;
+  const int r = (threadIdx.x >> 5) * (32 / Sh::TPR) + lane / Sh::TPR;
+  const size_t row = ((size_t)blockIdx.x * Sh::RPB + r) * M;
+  float v[VPL];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+    load_chunk<C>(v + C * i, x + row + Sh::col(j, C * i));
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) v[i] = maybe_round(v[i], 1);
+  warp_row_fwht<M>(v, j);
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+    store_chunk<C>(mid + row + Sh::col(j, C * i), v + C * i);
+}
+
+// One pass for l <= kK3ClusterRows and M <= 512: a cluster of CL = M / 32
+// blocks per codeword keeps the bf16 intermediate in its blocks' shared
+// memory.
+// Block j of the cluster runs the row stage on its RB = l / CL rows (x read
+// once, rounded, H_M in registers and shuffles, rounded) into its shared
+// memory; after a cluster barrier it reads strip j (32 columns) of all l
+// rows from the blocks that hold them (distributed shared memory, 64-byte
+// row segments a warp), runs the column code (H_L in float32 through its own
+// transpose buffer) and writes the strip, times scale, once: 8 bytes an
+// element of device memory, the function's, and 2 through the cluster.
+// Shared memory l * 64 bytes of intermediate beside l * 128 of transpose
+// buffer (48 KB at l = 256).  The same values as the two launches.  On an
+// H100 (PERF.md, tools/amp_ab.py --k3) it beat them at (B, l, M) =
+// (1024, 256, 512), 0.56-0.57 ms against 0.61-0.63, and lost at l = 512
+// and 1024 (1.48-1.50 ms against 1.18 at (1024, 512, 512), 1.32 against
+// 1.19 at (512, 1024, 512)), where a block's 96 or 192 KB of shared memory
+// leave one or two resident blocks an SM and nothing overlaps its loads;
+// the two launches run there (ops/amp_kernel.py k3_design chooses).
+constexpr int kK3ClusterRows = 256;
+template <int W, int R, int M>
+__global__ void __launch_bounds__(32 * W, 1)
+k3_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  float scale) {
+  extern __shared__ __align__(16) float kc_sm[];
+  using Sh = RowShape<M>;
+  constexpr int L = W * R, CL = M / kStrip, RB = L / CL, NT = 32 * W;
+  constexpr int C = Sh::C, NCH = Sh::NCH, RPP = NT / Sh::TPR;
+  float* sm = kc_sm;  // transpose buffer, then this block's RB rows of mid
+  __nv_bfloat16* mid = reinterpret_cast<__nv_bfloat16*>(sm + L * kStrip);
+  cg::cluster_group cl = cg::this_cluster();
+  const int j = (int)cl.block_rank();
+  const size_t base = (size_t)(blockIdx.x / CL) * L * M;
+  {
+    const int lane = threadIdx.x & 31, jj = lane % Sh::TPR;
+    for (int r = (threadIdx.x >> 5) * (32 / Sh::TPR) + lane / Sh::TPR;
+         r < RB; r += RPP) {
+      const float* src = x + base + (size_t)(j * RB + r) * M;
+      float v[Sh::VPL];
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+        load_chunk<C>(v + C * i, src + Sh::col(jj, C * i));
+#pragma unroll
+      for (int i = 0; i < Sh::VPL; ++i) v[i] = maybe_round(v[i], 1);
+      warp_row_fwht<M>(v, jj);
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+        store_chunk<C>(mid + r * M + Sh::col(jj, C * i), v + C * i);
+    }
+  }
+  cl.sync();  // every block's rows are in its shared memory
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  float v[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int l = w + W * k;
+    const __nv_bfloat16* src = cl.map_shared_rank(mid, l / RB);
+    v[k] = __bfloat162float(src[(l % RB) * M + j * kStrip + c]);
+  }
+  cl.sync();  // the other blocks are done reading this one's rows
+  col_fwht_ab<W, R, 1>(v, sm, w, c, 0);
+  float* dst = out + base + j * kStrip + c;
+#pragma unroll
+  for (int k = 0; k < R; ++k) dst[(size_t)(R * w + k) * M] = v[k] * scale;
+}
+
+// Columns: H_L of every 32-column strip of mid, times scale, into out
+// (float32), with amp_common.cuh's column code (a cluster of FA blocks per
+// strip above L = 1024).  Walkers as K1's column stage, as many as are
+// resident (one block, or one cluster, per SM): walker i takes the items
+// (codeword, strip) i, i + walkers, ...; while it transforms one, cp.async
+// brings the next one's bf16 strip (16 bytes a thread) into shared memory
+// beside the float32 transpose buffer, so the loads overlap the
+// transposes, butterflies and stores.
+template <int W, int R, int FA>
+__global__ void __launch_bounds__(32 * W, 1)
+k3_col_kernel(const __nv_bfloat16* __restrict__ mid, float* __restrict__ out,
+              int B, int M, float scale) {
+  extern __shared__ __align__(16) float k3_sm[];
+  constexpr int LB = W * R, NT = 32 * W, L = FA * LB;
+  float* sm = k3_sm;
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(sm + LB * kStrip);
+  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
+  const int a = blockIdx.x % FA, walkers = gridDim.x / FA;
+  const int S = M / kStrip, items = B * S;
+  // offset of an item's strip at this block's first row
+  auto strip = [&](int it) {
+    return ((size_t)(it / S) * L + (size_t)a * LB) * M +
+           (size_t)(it % S) * kStrip;
+  };
+  auto fetch = [&](int it) {
+    const __nv_bfloat16* src = mid + strip(it);
+    for (int q = threadIdx.x; q < LB * 4; q += NT) {
+      const int r = q >> 2, p = q & 3;
+      cp_async16(stage + r * kStrip + 8 * p, src + (size_t)r * M + 8 * p);
+    }
+  };
+  int it = blockIdx.x / FA;  // the same in every block of a cluster
+  if (it >= items) return;
+  fetch(it);
+  while (it < items) {
+    const int nx = it + walkers;
+    cp_async_wait_all();
+    __syncthreads();  // this item's strip is visible
+    float v[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      v[k] = __bfloat162float(stage[(w + W * k) * kStrip + c]);
+    __syncthreads();  // every thread has read the stage
+    if (nx < items) fetch(nx);
+    col_fwht_ab<W, R, FA>(v, sm, w, c, a);
+    float* dst = out + strip(it) + c;
+#pragma unroll
+    for (int k = 0; k < R; ++k) dst[(size_t)(R * w + k) * M] = v[k] * scale;
+    it = nx;
+  }
+}
+
 // ------------------------------------------------------------- launchers
 
 template <int M>
@@ -936,25 +930,6 @@ struct Rows {
     default: return kBadShape;                       \
   }
 
-// Launch config of FA-block clusters along x (a plain launch at FA = 1).
-template <int FA>
-struct ClusterLaunch {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  ClusterLaunch(dim3 grid, int threads, int bytes, cudaStream_t st) {
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = bytes;
-    cfg.stream = st;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = FA;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = FA > 1 ? 1 : 0;
-  }
-};
-
 // K1's encode and column stage for the column geometry (W, R, FA).
 template <int W, int R, int FA>
 struct K1Cols {
@@ -1001,43 +976,13 @@ struct K1Cols {
     if (rc) return rc;
     const int items = B * (M / kStrip);
     int walkers = 0;
-    rc = resident(kernel, bytes, st, &walkers);
+    rc = resident_walkers<FA>(kernel, 32 * W, bytes, st, &walkers);
     if (rc) return rc;
     walkers = walkers < items ? walkers : items;
     ClusterLaunch<FA> lc(dim3(FA * walkers), 32 * W, bytes, st);
     rc = (int)cudaLaunchKernelEx(&lc.cfg, kernel, work, yc, zc, sp, zpart,
                                  bpart, trace, active, B, t, P, nn);
     return rc ? rc : (int)cudaGetLastError();
-  }
-  // Walkers that fit on the device at once, per device (queried once).
-  template <typename K>
-  static int resident(K kernel, int bytes, cudaStream_t st, int* out) {
-    static int cache[64] = {0};
-    int dev = 0;
-    int rc = (int)cudaGetDevice(&dev);
-    if (rc) return rc;
-    if (dev < 64 && cache[dev] > 0) {
-      *out = cache[dev];
-      return 0;
-    }
-    int count = 0;
-    if constexpr (FA == 1) {
-      int per_sm = 0, sms = 0;
-      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, 32 * W, bytes);
-      if (!rc)
-        rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         dev);
-      count = per_sm * sms;
-    } else {
-      ClusterLaunch<FA> lc(dim3(FA), 32 * W, bytes, st);
-      rc = (int)cudaOccupancyMaxActiveClusters(&count, kernel, &lc.cfg);
-    }
-    if (rc) return rc;
-    if (count < 1) count = 1;
-    if (dev < 64) cache[dev] = count;
-    *out = count;
-    return 0;
   }
 };
 
@@ -1110,9 +1055,103 @@ int amp_iterations(const AmpArgs& a, WT* work, cudaStream_t st) {
   return 0;
 }
 
+template <class C>
+struct K3Of;
+template <int W, int R, int FA>
+struct K3Of<Cols<W, R, FA>> {
+  static int cols(const __nv_bfloat16* mid, float* out, int B, int M,
+                  float scale, cudaStream_t st) {
+    auto kernel = k3_col_kernel<W, R, FA>;
+    constexpr int bytes = W * R * kStrip * (4 + 2);
+    int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc) return rc;
+    int walkers = 0;
+    rc = resident_walkers<FA>(kernel, 32 * W, bytes, st, &walkers);
+    if (rc) return rc;
+    const int items = B * (M / kStrip);
+    walkers = walkers < items ? walkers : items;
+    ClusterLaunch<FA> lc(dim3(FA * walkers), 32 * W, bytes, st);
+    rc = (int)cudaLaunchKernelEx(&lc.cfg, kernel, mid, out, B, M, scale);
+    return rc ? rc : (int)cudaGetLastError();
+  }
+};
+
+// The one-pass cluster kernel for (W, R) of L = W R <= 1024 and M <= 512.
+template <int W, int R, int M>
+int k3_cluster_launch(const float* x, float* out, int B, float scale,
+                      cudaStream_t st) {
+  auto kernel = k3_cluster_kernel<W, R, M>;
+  constexpr int CL = M / kStrip;
+  constexpr int bytes = W * R * (kStrip * 4 + M / CL * 2);
+  int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (!rc && CL > 8)
+    rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc) return rc;
+  ClusterLaunch<CL> lc(dim3(CL * B), 32 * W, bytes, st);
+  rc = (int)cudaLaunchKernelEx(&lc.cfg, kernel, x, out, scale);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+template <class C>
+struct K3ClusterOf;
+template <int W, int R>
+struct K3ClusterOf<Cols<W, R, 1>> {
+  static int run(const float* x, float* out, int B, int M, float scale,
+                 cudaStream_t st) {
+    switch (M) {
+      case 32: return k3_cluster_launch<W, R, 32>(x, out, B, scale, st);
+      case 64: return k3_cluster_launch<W, R, 64>(x, out, B, scale, st);
+      case 128: return k3_cluster_launch<W, R, 128>(x, out, B, scale, st);
+      case 256: return k3_cluster_launch<W, R, 256>(x, out, B, scale, st);
+      case 512: return k3_cluster_launch<W, R, 512>(x, out, B, scale, st);
+      default: return kBadShape;
+    }
+  }
+};
+
+int k3_cluster(const float* x, float* out, int B, int L, int M, float scale,
+               cudaStream_t st) {
+  switch (L) {
+    case 32: return K3ClusterOf<Cols<4, 8, 1>>::run(x, out, B, M, scale, st);
+    case 64: return K3ClusterOf<Cols<8, 8, 1>>::run(x, out, B, M, scale, st);
+    case 128:
+      return K3ClusterOf<Cols<8, 16, 1>>::run(x, out, B, M, scale, st);
+    case 256:
+      return K3ClusterOf<Cols<16, 16, 1>>::run(x, out, B, M, scale, st);
+    default: return kBadShape;
+  }
+}
+
+int k3_cols(const __nv_bfloat16* mid, float* out, int B, int L, int M,
+            float scale, cudaStream_t st) {
+  DISPATCH_L(L, K3Of<C>::cols(mid, out, B, M, scale, st))
+}
+
+template <int M>
+int k3_rows_m(const float* x, __nv_bfloat16* mid, int rows, cudaStream_t st) {
+  k3_row_kernel<M><<<rows / RowShape<M>::RPB, kRowThreads, 0, st>>>(x, mid);
+  return (int)cudaGetLastError();
+}
+
+int k3_rows(const float* x, __nv_bfloat16* mid, int rows, int M,
+            cudaStream_t st) {
+  switch (M) {
+    case 32: return k3_rows_m<32>(x, mid, rows, st);
+    case 64: return k3_rows_m<64>(x, mid, rows, st);
+    case 128: return k3_rows_m<128>(x, mid, rows, st);
+    case 256: return k3_rows_m<256>(x, mid, rows, st);
+    case 512: return k3_rows_m<512>(x, mid, rows, st);
+    case 1024: return k3_rows_m<1024>(x, mid, rows, st);
+    default: return kBadShape;
+  }
+}
+
 int cols_fwht(float* x, int B, int L, int M, int round_bf16, float scale,
               cudaStream_t st) {
-  DISPATCH_L(L, C::fwht(x, B, M, round_bf16, scale, nullptr, 0, st))
+  DISPATCH_L(L, C::fwht(x, B, M, round_bf16, scale, st))
 }
 
 int rows_fwht(const float* x, float* out, int rows, int M, int round_bf16,
@@ -1195,7 +1234,10 @@ int amp_split_run(const float* y_n, const float* mask_c,
 // K3: scale * (H_L (x) H_M) of each (L, M) tile of x (B, L, M) into out:
 // H_M along the rows, then H_L down the columns, each stage's input rounded
 // to bfloat16 when round_bf16 is set, the scale applied once, in float32,
-// as the column stage stores its result.
+// as the column stage stores its result.  With round_bf16, mid is the
+// (B, L, M) bfloat16 intermediate of the two launches, or null for the
+// one-pass cluster launch (L <= kK3ClusterRows, M <= 512); the caller picks
+// (ops/amp_kernel.py k3_design).
 //
 // Replaces the TPU kernel sparc_ldpc_tpu/ops/amp_kernel.py::_fwht_tile_kernel
 // (fwht_tile_pallas), the local stage of section-sharded AMP: each device
@@ -1204,16 +1246,34 @@ int amp_split_run(const float* y_n, const float* mask_c,
 // (parallel/amp_sharded.py).  What bounds it: device-memory bytes.  The
 // function reads x and writes out once (8 bytes an element) and does
 // log2(L M) adds an element, about 2.4 adds a byte where the card's
-// float32 rate over its memory rate is 20; the design moves 16 bytes an
-// element (the row stage reads x and writes out, the column stage reads and
-// rewrites out in place), both stages on K1's device functions.
-int amp_fwht_tile(const float* x, float* out, int B, int L, int M,
-                  int round_bf16, float scale, void* stream) {
+// float32 rate over its memory rate is 20.  In bf16 mode (the sharded
+// loop's) at L <= 256 and M <= 512 it is one launch that moves those 8
+// bytes (k3_cluster_kernel: a cluster of M / 32 blocks a codeword keeps
+// the bf16 intermediate in distributed shared memory); above, two launches
+// over a bf16 intermediate in device memory, 12 bytes an element
+// (k3_row_kernel reads x and writes it, k3_col_kernel reads it and writes
+// out).  Either gives the earlier design's values bit for bit (the same
+// butterflies, and the intermediate was rounded to bf16 before H_L there
+// too).  Without rounding (float32, which no timed path runs) it keeps the
+// earlier design: the row stage into out and the column stage in place,
+// 16 bytes an element.
+int amp_fwht_tile(const float* x, float* out, void* mid, int B, int L,
+                  int M, int round_bf16, float scale, void* stream) {
   if (!supported(B, L, M)) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = rows_fwht(x, out, B * L, M, round_bf16, st);
+  if (!round_bf16) {
+    int rc = rows_fwht(x, out, B * L, M, 0, st);
+    if (rc) return rc;
+    return cols_fwht(out, B, L, M, 0, scale, st);
+  }
+  if (mid == nullptr) {
+    if (L > kK3ClusterRows || M > 512) return kBadShape;
+    return k3_cluster(x, out, B, L, M, scale, st);
+  }
+  __nv_bfloat16* m = static_cast<__nv_bfloat16*>(mid);
+  int rc = k3_rows(x, m, B * L, M, st);
   if (rc) return rc;
-  return cols_fwht(out, B, L, M, round_bf16, scale, st);
+  return k3_cols(m, out, B, L, M, scale, st);
 }
 
 // The masked channel noise alone: y = where(mask_n > 0, sigma * normal, 0)

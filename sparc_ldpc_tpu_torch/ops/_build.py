@@ -42,14 +42,15 @@ _SIGNATURES = {
     "amp_split": {
         "amp_split_run": ((_P,) * 5 + (_I,) + (_P,) * 15 + (_I,) * 4
                           + (_F,) * 5 + (_I, _P), _I),
-        "amp_fwht_tile": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
+        "amp_fwht_tile": ((_P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
         "amp_noise_run": ((_P, _P, _F, _P, _I, _I, _I, _P), _I),
         "amp_noise_draws": ((_P, _P, _P, _I, _I, _I, _P), _I),
         "fwht2_run": ((_P, _P, _I, _I, _I, _I, _P), _I),
     },
     "amp_mono": {
-        "amp_mono_run": ((_P,) * 16 + (_I,) * 4 + (_F,) * 4 + (_P,), _I),
-        "amp_mono_tile": ((_P, _P, _I, _I, _I, _P), _I),
+        "amp_mono_run": ((_P,) * 7 + (_I,) + (_P,) * 15 + (_I,) * 4
+                         + (_F,) * 4 + (_P,), _I),
+        "amp_mono_adjoint": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     },
     "amp_exp": {
         "amp_exp_run": ((_I,) + (_P,) * 9 + (_I,) * 4 + (_F,) * 3

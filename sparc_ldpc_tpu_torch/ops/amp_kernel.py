@@ -108,7 +108,7 @@ def _check_cuda_tensor(name, t, dtype, shape, device):
 
 
 def _check_support(sp: SplitSupport, L: int, M: int, device) -> None:
-    """The split kernel's tables fit an (L, M) tile on device."""
+    """The split and mono kernels' tables fit an (L, M) tile on device."""
     if (sp.L, sp.M) != (L, M):
         raise ValueError(f"the support tables are of an ({sp.L}, {sp.M}) "
                          f"tile, not ({L}, {M})")
@@ -119,7 +119,9 @@ def _check_support(sp: SplitSupport, L: int, M: int, device) -> None:
             ("word", sp.word, torch.int32, (L // R, M)),
             ("block_offset", sp.block_offset, torch.int32,
              (FA * M // 32 + 1,)),
-            ("flat", sp.flat, torch.int64, (ns,))):
+            ("flat", sp.flat, torch.int64, (ns,)),
+            ("perm", sp.perm, torch.int32, (ns,)),
+            ("row_offset", sp.row_offset, torch.int32, (L + 1,))):
         _check_cuda_tensor(f"support.{name}", t, dtype, shape, device)
 
 
@@ -147,22 +149,70 @@ def mono_tile_reference(x: torch.Tensor, precision: str = "bf16"
     return _axis_stage(_axis_stage(x, -1, precision == "bf16"), -2, False)
 
 
-def mono_tile(x: torch.Tensor) -> torch.Tensor:
-    """The mono form's transform of each tile of x (B, L, M) float32,
-    H_L (bf16(x) H_M): on a CUDA tensor the kernel's tensor-core H_M and
-    float32 H_L stages, on a CPU tensor `mono_tile_reference`."""
-    if x.device.type == "cpu":
-        return mono_tile_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"mono_tile runs on cpu or cuda, not {x.device}")
+def _parity_signs(cols: torch.Tensor, M: int, dtype) -> torch.Tensor:
+    """(len(cols), M): (-1)^popcount(col & m), the rows of H_M at cols."""
+    m = torch.arange(M, device=cols.device)
+    x = cols[:, None] & m[None, :]
+    par = torch.zeros_like(x)
+    while bool(x.any()):
+        par ^= x & 1
+        x = x >> 1
+    return (1 - 2 * par).to(dtype)
+
+
+def mono_adjoint_reference(zc: torch.Tensor, support: SplitSupport
+                           ) -> torch.Tensor:
+    """Plain version of K6's adjoint from the compact z (B, ns), in the
+    split kernel's order of the support entries (`support`): each row's
+    bf16(z) H_M built from its support entries alone, (bf16(z) H_M)[l][m] =
+    sum over the row's entries (m', z) of (-1)^popcount(m' & m) bf16(z),
+    then H_L in zc's dtype (float32; float64 sums for float64).  The same
+    function as `mono_tile_reference` of z embedded in its (L, M) tile."""
+    L, M = support.L, support.M
+    B = zc.shape[0]
+    flat = support.flat.to(zc.device)
+    rows, cols = flat // M, flat % M
+    terms = round_bf16(zc)[:, :, None] * _parity_signs(cols, M, zc.dtype)
+    u = torch.zeros((B, L, M), dtype=zc.dtype, device=zc.device)
+    u.index_add_(1, rows, terms)
+    return fwht_kron(u, "highest", -2)
+
+
+def pack_entries(zc: torch.Tensor, support: SplitSupport) -> torch.Tensor:
+    """The compact z (B, ns) float32 as K6's column stage leaves it for its
+    adjoint: each entry bf16(z) with its column, (bf16 bits << 16) | m, as
+    int32 bit patterns in row-major order of the entries."""
+    M = support.M
+    bits = zc.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    word = (bits << 16) | (support.flat.to(zc.device) % M)
+    word = torch.where(word >= 2 ** 31, word - 2 ** 32, word)
+    out = torch.empty_like(word)
+    out[:, support.perm.to(zc.device).long()] = word
+    return out.to(torch.int32)
+
+
+def mono_adjoint(zc: torch.Tensor, support: SplitSupport) -> torch.Tensor:
+    """K6's adjoint alone, H_L (bf16(z) H_M) (B, L, M) float32 from the
+    compact z (B, ns) float32 in the split kernel's order of `support`'s
+    entries: on a CUDA tensor the decode's column launch (csrc/amp_mono.cu
+    `amp_mono_adjoint`, on z packed as its column stage packs it), on a
+    CPU tensor `mono_adjoint_reference`."""
+    if zc.device.type == "cpu":
+        return mono_adjoint_reference(zc, support)
+    if zc.device.type != "cuda":
+        raise ValueError(f"mono_adjoint runs on cpu or cuda, not "
+                         f"{zc.device}")
     from ._build import run
 
-    B, L, M = x.shape
+    L, M = support.L, support.M
+    B = zc.shape[0]
     _check_cuda_shape(B, L, M, max_l=1024)
-    _check_cuda_tensor("x", x, torch.float32, (B, L, M), x.device)
-    out = torch.empty_like(x)
-    run("amp_mono", "amp_mono_tile", x.device, x.data_ptr(), out.data_ptr(),
-        B, L, M)
+    _check_support(support, L, M, zc.device)
+    _check_cuda_tensor("zc", zc, torch.float32, (B, support.ns), zc.device)
+    zr = pack_entries(zc, support)
+    out = torch.empty((B, L, M), dtype=torch.float32, device=zc.device)
+    run("amp_mono", "amp_mono_adjoint", zc.device, zr.data_ptr(),
+        support.row_offset.data_ptr(), support.ns, out.data_ptr(), B, L, M)
     return out
 
 
@@ -187,6 +237,26 @@ def slab_tile(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# K3 in bf16 runs on a cluster of M / 32 blocks a codeword up to this many
+# rows (and M <= 512), through a bf16 intermediate in device memory above
+# (csrc/amp_split.cu kK3ClusterRows: on an H100 the cluster won at l = 256
+# and lost at 512 and 1024, PERF.md)
+K3_CLUSTER_ROWS = 256
+
+
+def k3_design(L: int, M: int, precision: str) -> str:
+    """K3's design for (L, M) tiles: "cluster" (bf16, L <= K3_CLUSTER_ROWS
+    and M <= 512: one launch on a cluster of M // 32 blocks a codeword,
+    the bf16 intermediate in distributed shared memory), "rows_cols"
+    (bf16 otherwise: a row and a column launch through a bf16
+    intermediate in device memory, the column launch on clusters of
+    L // 1024 blocks above L = 1024) or "float32" (any other precision:
+    the AMP kernel's row and column stages)."""
+    if precision != "bf16":
+        return "float32"
+    return "cluster" if L <= K3_CLUSTER_ROWS and M <= 512 else "rows_cols"
+
+
 def fwht_tile(x: torch.Tensor, precision: str = "highest",
               scale: float = 1.0) -> torch.Tensor:
     """scale * (H_L (x) H_M) of each tile of x (B, L, M) float32 (H_M
@@ -194,9 +264,8 @@ def fwht_tile(x: torch.Tensor, precision: str = "highest",
 
     K3, the reference's `fwht_tile_pallas` (the local transform of
     section-sharded AMP, scale 1/sqrt(n) there, always "bf16"): on a CUDA
-    tensor it runs the AMP kernel's row and column stages
-    (csrc/amp_split.cu `amp_fwht_tile`), on a CPU tensor
-    `fwht_tile_reference(x, precision) * scale`."""
+    tensor csrc/amp_split.cu `amp_fwht_tile` in the design `k3_design`
+    picks, on a CPU tensor `fwht_tile_reference(x, precision) * scale`."""
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     if x.device.type == "cpu":
@@ -209,9 +278,14 @@ def fwht_tile(x: torch.Tensor, precision: str = "highest",
     B, L, M = x.shape
     _check_cuda_shape(B, L, M)
     _check_cuda_tensor("x", x, torch.float32, (B, L, M), x.device)
+    design = k3_design(L, M, precision)
     out = torch.empty_like(x)
+    # the two launches' bf16 intermediate; none on the other designs
+    mid = (torch.empty_like(x, dtype=torch.bfloat16)
+           if design == "rows_cols" else None)
     run("amp_split", "amp_fwht_tile", x.device, x.data_ptr(), out.data_ptr(),
-        B, L, M, int(precision == "bf16"), float(scale))
+        mid.data_ptr() if mid is not None else None, B, L, M,
+        int(design != "float32"), float(scale))
     fwht_tile.launches += 1
     return out
 
@@ -368,9 +442,10 @@ def noise_uniforms(noise_seed: torch.Tensor, L: int, M: int
 # ------------------------------------------------------------------- AMP
 
 def _constants(mask, sq_npl, n):
-    """Scale-free constants: mask/n, sq/sqrt(n) and sq*sqrt(n) (as (L, 1))."""
+    """Scale-free constants: mask/n, sq/sqrt(n) and sq*sqrt(n) (as (L, 1)),
+    in sq_npl's dtype."""
     L = sq_npl.shape[0]
-    mask_n = mask.to(torch.float32) / n
+    mask_n = mask.to(sq_npl.dtype) / n
     sqi = (sq_npl * (1.0 / math.sqrt(n))).reshape(L, 1)
     sqo = (sq_npl * math.sqrt(n)).reshape(L, 1)
     return mask_n, sqi, sqo
@@ -454,7 +529,9 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
     and tau2 are sums over the whole tile, on the slab form per slab and
     then over the slabs in order (`_slab_sq_sum`).  Everything else is
     shared: the adjoint plus beta', the row softmax, the pin, the schedule
-    and the tol freeze with the iterations count."""
+    and the tol freeze with the iterations count.  It computes in the
+    dtype of y_n and sq_npl: float64 inputs give float64 sums (a witness
+    of how far the float32 version's summation order moves a decode)."""
     L, M = mask.shape
     f = fused_form(L, split, form, noise_seed is not None)
     transform = mono_tile_reference if f == "mono" else fwht_tile_reference
@@ -472,8 +549,8 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
         y = y + mask_n * fwht_tile_reference(b0, "highest")
     beta = torch.zeros_like(y)
     z = y
-    trace = torch.empty((T, B), dtype=torch.float32, device=y.device)
-    tau2_prev = torch.full((B,), math.inf, device=y.device)
+    trace = torch.empty((T, B), dtype=y.dtype, device=y.device)
+    tau2_prev = torch.full((B,), math.inf, dtype=y.dtype, device=y.device)
     active = torch.ones((B,), dtype=torch.bool, device=y.device)
     iters = torch.zeros((B,), dtype=torch.int32, device=y.device)
     for t in range(T):
@@ -486,7 +563,7 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
         if tau2_schedule is None:
             tau2 = sq_sum(z_new) / n
         else:
-            tau2 = tau2_schedule[t].to(torch.float32).expand(B)
+            tau2 = tau2_schedule[t].to(y.dtype).expand(B)
         s = transform(z_new, precision) + beta
         a = (sqi / tau2[:, None, None]) * s
         a = a - a.amax(-1, keepdim=True)
@@ -538,8 +615,9 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     precision "bf16" is the reference kernels' arithmetic (module
     docstring); the other modes keep float32 operands, in which the split
     kernel and its plain version differ only in summation order.  The mono
-    kernel computes H_M on the tensor cores in bf16, the slab kernel H_{m_b}
-    and H_{f_b}, so both take "bf16" only.
+    kernel computes its forward H_M on the tensor cores in bf16 (its
+    adjoint's H_M from the row support's bf16 entries), the slab kernel
+    H_{m_b} and H_{f_b}, so both take "bf16" only.
 
     tol > 0 is the reference's per-codeword early stop: once
     |tau2_t - tau2_{t-1}| < tol * tau2_t a codeword is frozen from
@@ -559,11 +637,11 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     pass's channel.
 
     support (ops/split_support.py) is the split kernel's layout of the row
-    support mask > 0, on the data's device: the split form keeps y and z
-    on it only.  A caller that decodes many blocks with one mask builds it
-    once (the operator's `split_support`); without it a CUDA call of the
-    split form builds it from mask, which waits for the device.  The other
-    forms and the CPU route do not read it."""
+    support mask > 0, on the data's device: the split and the mono form
+    keep y and z on it only.  A caller that decodes many blocks with one
+    mask builds it once (the operator's `split_support`); without it a CUDA
+    call of those forms builds it from mask, which waits for the device.
+    The slab form and the CPU route do not read it."""
     if noise_seed is not None:
         if encode_idx is None or y_n is not None or noise_sigma is None:
             raise ValueError("the in-kernel noise needs encode_idx and "
@@ -642,22 +720,8 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
             float(P), float(n), 1.0 / math.sqrt(n), float(tol))
         amp_fused.slab_launches += 1
         return beta, trace, iters
-    if f == "mono":
-        # the mono form's work tile holds float32 products (bf16(x) H_M
-        # and its H_L), so it is float32
-        work, y, z = (torch.empty_like(beta) for _ in range(3))
-        run("amp_mono", "amp_mono_run", dev,
-            y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
-            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
-            beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
-            active.data_ptr(), y.data_ptr(), z.data_ptr(), work.data_ptr(),
-            zpart.data_ptr(), bpart.data_ptr(), B, L, M, T, float(P),
-            float(n), 1.0 / math.sqrt(n), float(tol))
-        amp_fused.mono_launches += 1
-        return beta, trace, iters
-    # the split stages round the work tile to bf16 when they read it: in
-    # bf16 mode it is stored in bf16 (same values, half the bytes); y and z
-    # live on the row support only, in the kernel's order of its entries
+    # y and z live on the row support only, in the split kernel's order of
+    # its entries (both the split and the mono form)
     if support is None:
         support = split_support_from_mask(mask)
     _check_support(support, L, M, dev)
@@ -665,6 +729,26 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     mask_c = support.gather(mask_n)
     yc = torch.empty((B, ns), dtype=torch.float32, device=dev)
     zc = torch.empty_like(yc)
+    if f == "mono":
+        # the mono form's work tile holds float32 products (bf16(x) H_M
+        # and its H_L), so it is float32; zr holds bf16(z) with its column
+        # in row-major order for the adjoint's launch
+        work = torch.empty_like(beta)
+        zr = torch.empty((B, ns), dtype=torch.int32, device=dev)
+        run("amp_mono", "amp_mono_run", dev,
+            y_n.data_ptr(), mask_c.data_ptr(), support.offset.data_ptr(),
+            support.word.data_ptr(), support.block_offset.data_ptr(),
+            support.perm.data_ptr(), support.row_offset.data_ptr(), ns,
+            sqi.data_ptr(), sqo.data_ptr(),
+            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+            beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+            active.data_ptr(), yc.data_ptr(), zc.data_ptr(), zr.data_ptr(),
+            work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(), B, L, M, T,
+            float(P), float(n), 1.0 / math.sqrt(n), float(tol))
+        amp_fused.mono_launches += 1
+        return beta, trace, iters
+    # the split stages round the work tile to bf16 when they read it: in
+    # bf16 mode it is stored in bf16 (same values, half the bytes)
     bf16 = precision == "bf16"
     work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
     run("amp_split", "amp_split_run", dev,

@@ -45,19 +45,22 @@ def _hadamard_np(f: int) -> np.ndarray:
     return H
 
 
-def hadamard_factor(f: int, device="cpu") -> torch.Tensor:
-    """Dense +-1 Sylvester Hadamard matrix H_f, float32."""
-    return torch.as_tensor(_hadamard_np(f), dtype=torch.float32, device=device)
+def hadamard_factor(f: int, device="cpu", dtype=torch.float32
+                    ) -> torch.Tensor:
+    """Dense +-1 Sylvester Hadamard matrix H_f, float32 (or dtype)."""
+    return torch.as_tensor(_hadamard_np(f), dtype=dtype, device=device)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """Round float32 values to the nearest bfloat16, keep float32."""
-    return x.to(torch.bfloat16).to(torch.float32)
+    """Round values to the nearest bfloat16, keep x's dtype (float32, or
+    float64 for a plain version run with float64 sums)."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def fwht_kron(x: torch.Tensor, precision: str = "highest",
               dim: int = -1) -> torch.Tensor:
-    """Unnormalized FWHT of float32 `x` along `dim` by mode contractions."""
+    """Unnormalized FWHT of `x` along `dim` by mode contractions, in x's
+    dtype (float32; float64 sums for a float64 x)."""
     bf16 = precision == "bf16"
     y = x.movedim(dim, -1)
     N = y.shape[-1]
@@ -70,7 +73,7 @@ def fwht_kron(x: torch.Tensor, precision: str = "highest",
             continue
         if bf16:
             y = round_bf16(y)
-        H = hadamard_factor(f, device=y.device)
+        H = hadamard_factor(f, device=y.device, dtype=y.dtype)
         y = torch.tensordot(y, H, dims=([nb + i], [0])).movedim(-1, nb + i)
     return y.reshape(lead + (N,)).movedim(-1, dim)
 

@@ -15,7 +15,9 @@ then column, then thread row-range, then row, so each thread's entries are
 consecutive and each block's too.  The tables (`SplitSupport`) give, for
 each (row-range g = L-row // R, column m): the offset of its first entry in
 that order and a 32-bit word whose bit k says that row R g + k is on the
-support; and for each block its first entry.
+support; and for each block its first entry.  The mono form (K6) also reads
+z by rows: `perm` gives each entry's place in row-major order (the sorted
+support) and `row_offset` each row's first place there.
 
 `split_support(rows, L, M)` builds them from the sorted support (the
 operator's plan rows, positions l M + m of the (L, M) tile) with plain
@@ -51,14 +53,17 @@ class SplitSupport(NamedTuple):
     M: int
     flat: torch.Tensor          # (ns,) int64: tile position l M + m of
                                 # each entry, in the kernel's order
-    perm: torch.Tensor          # (ns,) int64: each entry's index in the
-                                # sorted support (the plan's order)
+    perm: torch.Tensor          # (ns,) int32: each entry's index in the
+                                # sorted support (the plan's order, the
+                                # row-major order of the entries)
     offset: torch.Tensor        # (L / R, M) int32: first entry of each
                                 # (row-range, column)
     word: torch.Tensor          # (L / R, M) int32: the uint32 bit pattern
                                 # of the range's support rows
     block_offset: torch.Tensor  # (FA M / 32 + 1,) int32: first entry of
                                 # each column-stage block, then ns
+    row_offset: torch.Tensor    # (L + 1,) int32: first row-major place of
+                                # each row, then ns
 
     @property
     def ns(self) -> int:
@@ -106,8 +111,12 @@ def split_support(rows, L: int, M: int) -> SplitSupport:
     block = first.reshape(S * FA, STRIP * W)[:, 0]
     block_offset = torch.cat([block, torch.tensor([pos.numel()],
                                                   device=dev)])
-    return SplitSupport(L, M, flat, perm, table(first), table(word),
-                        block_offset.to(torch.int32))
+    row_counts = torch.bincount(l, minlength=L)
+    row_offset = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.cumsum(row_counts, 0)])
+    return SplitSupport(L, M, flat, perm.to(torch.int32), table(first),
+                        table(word), block_offset.to(torch.int32),
+                        row_offset.to(torch.int32))
 
 
 def split_support_from_mask(mask: torch.Tensor) -> SplitSupport:

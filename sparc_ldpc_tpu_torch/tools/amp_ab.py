@@ -1,32 +1,56 @@
 #!/usr/bin/env python3
-"""Time the split AMP kernel's decode call of two or more source trees on
-one GPU, interleaved, to tell a code change from drift of the card.
+"""Time the AMP kernels' calls of two or more source trees on one GPU,
+interleaved, to tell a code change from drift of the card.
 
     python3 sparc_ldpc_tpu_torch/tools/amp_ab.py TREE ... \
-        [--l4096] [--compare] [--out results.json]
+        [--l4096 | --form mono | --k3 | --dense-strip] [--compare] \
+        [--out results.json]
 
 Each TREE is a directory that holds a `sparc_ldpc_tpu_torch/` package (the
 repository root, or an unpacked `git archive` of another commit); list the
 trees in the order to run them, e.g. `old new new old`.  Each runs in a
-process of its own, which builds that tree's kernels and times the decode
-call: at the headline shape L=1024, M=512, T=22 fixed, B=2048 (with
---l4096: fast_l4096's L=4096, M=512, n=24576, B=512, T=32 fixed), bf16,
-the split form with the in-kernel encode, once with the noise as an input
-and once drawn in the kernel (median of 5 calls each, CUDA events), and
-the device ms of the encode and per iteration of the column and row
+process of its own, which builds that tree's kernels and times the split
+form's (K1's) decode call: at the headline shape L=1024, M=512, T=22
+fixed, B=2048 (with --l4096: fast_l4096's L=4096, M=512, n=24576, B=512,
+T=32 fixed), bf16, with the in-kernel encode, once with the noise as an
+input and once drawn in the kernel (median of 5 calls each, CUDA events),
+and the device ms of the encode and per iteration of the column and row
 stages from one torch.profiler trace.  The inputs are synthetic (a random
 row support of n of the L M positions, flat power, sigma2 of 2.0 dB at
 R = 1): at fixed T the kernel's work does not depend on the data; a tree
-whose `amp_fused` takes the split kernel's support tables gets them built
-once, outside the timing.
+whose `amp_fused` takes the support tables gets them built once, outside
+the timing.
+
+--form mono times the mono form's (K6's) headline call instead (the same
+shape and inputs, T=22 fixed, B=2048, the noise as an input: the mono form
+draws none), with the device ms of each launch kind (the names of either
+design).
+
+--k3 times K3 (`fwht_tile`, bf16, scale 1/sqrt(9216)) at (B, l, M) =
+(512, 1024, 512), (1024, 512, 512), (1024, 256, 512) and (512, 2048, 512)
+(median of 5 runs of 5 calls each), with a digest of each result, and the
+section-sharded decode of phase 20 of chip_smoke.py at S = 2 (the headline
+model, B=1024 draws from one generator, a virtual (1 x 2) mesh of the
+card; median of 3 decodes).
 
 With --compare each run also decodes one headline block of the real
 headline model (SparcModel.build of L=1024, M=512, R=1.0, iterative
-power, 2.0 dB, noise drawn in the kernel, B=2048, generator seed 0), and
-every run is held to the first: the sections whose decision differs,
+power, 2.0 dB, B=2048, generator seed 0; on the split form with the noise
+drawn in the kernel, with --form mono on amp_kernel="fused" with the noise
+from the generator, and then that block's run_block timed, median of 3),
+and every run is held to the first: the sections whose decision differs,
 whether beta, the trace and the iteration counts are equal bit for bit.
 Prints one JSON line per run, the card's `nvidia-smi` name and power
 limit, and writes all of it to --out.
+
+With --dense-strip no call is timed: each tree's split kernel decodes the
+dense-strip mask (`dense_strip_mask`) at B = 3, T = 8 in float32 and in
+bf16 (the inputs of the CUDA test of K1's hand-made masks), and the plain
+version `amp_fused_reference` decodes the same inputs in float32 and in
+float64; every pair of the four decodes is held to the other by
+`decision_flips` (sections flipped, and decisively flipped: both top-2
+margins above 2 %), with the flipped sections' margins, decisions and
+true indices.
 """
 
 from __future__ import annotations
@@ -40,14 +64,124 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 REPS = 5
 SHAPES = {"headline": dict(L=1024, M=512, T=22, B=2048, n=9216),
-          "l4096": dict(L=4096, M=512, T=32, B=512, n=24576)}
+          "l4096": dict(L=4096, M=512, T=32, B=512, n=24576),
+          "mono": dict(L=1024, M=512, T=22, B=2048, n=9216)}
 # each stage's kernel names: the dense design's, then the support design's
 STAGES = {"encode": ("amp_encode_kernel", "k1_encode_kernel"),
           "col": ("amp_col_kernel", "k1_col_kernel"),
           "row": ("amp_row_kernel", "k1_row_kernel")}
+# K6's launches: the earlier design's C1, R2, C2, R3 and the new C1, R2C2
+# (R3 keeps its kernel); a name is matched as a substring
+MONO_STAGES = {"encode": ("amp_encode_kernel", "k1_encode_kernel"),
+               "c1_dense": ("amp_col_kernel",), "r2": ("mono_hm_kernel",),
+               "c2": ("fwht_cols_kernel",), "c1": ("mono_col_kernel",),
+               "r2c2": ("mono_adj_kernel",), "r3": ("mono_row_kernel",)}
+K3_SHAPES = ((512, 1024, 512), (1024, 512, 512), (1024, 256, 512),
+             (512, 2048, 512))
+K3_N = 9216          # the headline n: K3's scale is 1/sqrt(n)
+SHARD_BATCH = 1024   # chip_smoke.py phase 20's codewords
+
+
+def dense_strip_mask(L: int = 1024, M: int = 64):
+    """The dense-strip mask of the CUDA test of K1's hand-made masks, as its
+    first version is recorded ("a strip filled densely"): the hand-made
+    mask (sparse random rows at density 0.02, an empty column 5, column 9
+    on rows 64-95 only, a full column 33) with the whole 32-column strip 1
+    (columns 32-63) on the support.  That strip holds
+    every one of its L * 32 positions, more entries than K1's column-stage
+    block stages in shared memory (2048), so K1 reads them from device
+    memory.  Returns an (L, M) float32 0/1 tensor."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    mask = rng.random((L, M)) < 0.02
+    mask[:, 5] = False
+    mask[:, 9] = False
+    mask[64:96, 9] = True
+    mask[:, 33] = True
+    mask[:, 32:64] = True
+    return torch.tensor(mask, dtype=torch.float32)
+
+
+def dense_strip_inputs(B: int = 3, sigma: float = 0.1, seed: int = 0):
+    """(y_n, mask, sq_npl, P, n) and the true indices for the dense-strip
+    decode, on the CPU, made as the CUDA test makes them: noise sigma on
+    the support, flat power sqrt(n / L), P = 1."""
+    import numpy as np
+    import torch
+
+    mask = dense_strip_mask()
+    L, M = mask.shape
+    n = int(mask.sum())
+    rng = np.random.default_rng(seed)
+    y_n = torch.tensor(rng.standard_normal((B, L, M)) * sigma,
+                       dtype=torch.float32) * mask
+    idx = torch.tensor(rng.integers(0, M, (B, L)), dtype=torch.int32)
+    sq = torch.full((L,), math.sqrt(n / L))
+    return (y_n, mask, sq, 1.0, n), idx
+
+
+DENSE_STRIP_T = 8
+DENSE_STRIP_PRECISIONS = ("highest", "bf16")
+
+
+def _dense_strip_worker(ak, dev, out_dir: str) -> dict:
+    """Decode the dense-strip inputs with this tree's split kernel."""
+    import numpy as np
+
+    args, idx = dense_strip_inputs()
+    args = tuple(a.to(dev) if hasattr(a, "to") else a for a in args)
+    out = {}
+    for prec in DENSE_STRIP_PRECISIONS:
+        beta, trace, iters = ak.amp_fused(*args, DENSE_STRIP_T,
+                                          encode_idx=idx.to(dev),
+                                          precision=prec, split=True)
+        path = os.path.join(out_dir, f"strip_{prec}_{os.getpid()}.npz")
+        np.savez(path, beta=beta.cpu().numpy(), trace=trace.cpu().numpy(),
+                 iters=iters.cpu().numpy())
+        out[prec] = path
+    return out
+
+
+def dense_strip_report(decodes: dict, idx) -> dict:
+    """Every pair of the decodes {name: {precision: (beta, trace)}} held to
+    each other: sections flipped and decisively flipped, the trace's
+    largest relative difference, and for each decisive flip of a pair its
+    (codeword, row), both decisions, both margins and the true index."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.models.amp import decision_flips
+
+    def margin(x):
+        top2 = x.topk(2, dim=-1).values
+        return (top2[..., 0] - top2[..., 1]) / top2[..., 0].clamp(min=1e-30)
+
+    names = list(decodes)
+    rep = {}
+    for prec in DENSE_STRIP_PRECISIONS:
+        for i, a in enumerate(names):
+            for b in names[i + 1:]:
+                (ba, ta), (bb, tb) = decodes[a][prec], decodes[b][prec]
+                ba, bb = ba.double(), bb.double()
+                flips, decisive = decision_flips(ba, bb)
+                da, db = ba.argmax(-1), bb.argmax(-1)
+                ma, mb = margin(ba), margin(bb)
+                hard = (da != db) & (ma > 2e-2) & (mb > 2e-2)
+                where = torch.nonzero(hard).tolist()[:8]
+                rep[f"{prec}: {a} vs {b}"] = dict(
+                    flips=flips, decisive=decisive,
+                    trace_rel=float(((ta.double() - tb.double()).abs()
+                                     / tb.double().abs()).max()),
+                    decisive_sections=[dict(
+                        codeword=c, row=r, dec=[int(da[c, r]), int(db[c, r])],
+                        margin=[float(ma[c, r]), float(mb[c, r])],
+                        true=int(idx[c, r])) for c, r in where])
+    return rep
 
 
 def _events_ms(fn) -> float:
@@ -65,7 +199,7 @@ def _events_ms(fn) -> float:
     return statistics.median(ms)
 
 
-def _stage_ms(fn) -> dict:
+def _stage_ms(fn, stages=STAGES) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -81,38 +215,61 @@ def _stage_ms(fn) -> dict:
             events = json.load(f).get("traceEvents", [])
     finally:
         os.remove(path)
-    us = dict.fromkeys(STAGES, 0.0)
+    us = dict.fromkeys(stages, 0.0)
     for e in events:
         if e.get("cat") == "kernel":
-            for k, names in STAGES.items():
+            for k, names in stages.items():
                 if any(nm in e.get("name", "") for nm in names):
                     us[k] += float(e.get("dur", 0.0))
-    return {k: us[k] / 1e3 for k in STAGES}
+    return {k: us[k] / 1e3 for k in stages}
 
 
-def _headline_block(torch, dev, out_dir: str) -> dict:
-    """Decode one headline block of the real model; save its decisions."""
-    import numpy as np
-
+def _headline_model(dev, mono: bool):
+    """The headline model (bench.py's configuration) on the split form with
+    the noise drawn in the kernel, or with mono on amp_kernel="fused" (the
+    mono form at L = 1024) with the noise drawn outside."""
     import sparc_ldpc_tpu_torch as slt
     from sparc_ldpc_tpu_torch.models.sparc import SparcModel
-    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
 
     cfg = slt.SparcConfig(L=1024, M=512, R=1.0, power_alloc="iterative",
-                          op_kind="hadamard", amp_kernel="fused_split",
+                          op_kind="hadamard",
+                          amp_kernel="fused" if mono else "fused_split",
                           transform_precision="bf16", amp_iters=32,
                           amp_tol=0.0, amp_iters_auto=True,
-                          amp_noise_in_kernel=True)
-    model = SparcModel.build(cfg, 2.0, dev)
+                          amp_noise_in_kernel=not mono)
+    return SparcModel.build(cfg, 2.0, dev)
+
+
+def _headline_block(torch, dev, out_dir: str, mono: bool = False) -> dict:
+    """Decode one headline block of the real model; save its decisions.
+    On the mono form also time its run_block (median of 3)."""
+    import numpy as np
+
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+
+    model = _headline_model(dev, mono)
     c = model.cfg
     gen = torch.Generator(device=dev).manual_seed(0)
     B = 2048
     bits = torch.randint(0, 2, (B, c.k_bits), generator=gen,
                          dtype=torch.int32, device=dev)
     idx = bits_to_indices(bits, c.logM)
-    seeds = model.draw_seeds(gen, B)
-    res = model.decode(None, encode_idx=idx, noise_seed=seeds,
-                       noise_sigma=math.sqrt(model.sigma2))
+    block_ms = None
+    if mono:
+        noise = torch.randn((B, c.n), generator=gen, device=dev)
+        res = model.decode(noise * math.sqrt(model.sigma2), encode_idx=idx)
+        times = []
+        for r in range(3):
+            g = torch.Generator(device=dev).manual_seed(1 + r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _ = int(model.run_block(g, B)["bit_errors"])
+            times.append(1e3 * (time.perf_counter() - t0))
+        block_ms = statistics.median(times)
+    else:
+        seeds = model.draw_seeds(gen, B)
+        res = model.decode(None, encode_idx=idx, noise_seed=seeds,
+                           noise_sigma=math.sqrt(model.sigma2))
     dec = res.beta.argmax(-1).to(torch.int16).cpu().numpy()
     path = os.path.join(out_dir, f"dec_{os.getpid()}.npy")
     np.save(path, dec)
@@ -121,11 +278,63 @@ def _headline_block(torch, dev, out_dir: str) -> dict:
                                         ("trace", res.tau2_trace),
                                         ("iters", res.iters))}
     return dict(T=c.amp_iters, decisions=path, digest=digest,
-                section_errors=int((res.beta.argmax(-1) != idx).sum()))
+                section_errors=int((res.beta.argmax(-1) != idx).sum()),
+                tau2_final=float(res.tau2_trace[-1].mean()),
+                block_ms=block_ms)
+
+
+def _k3_worker(torch, ak, dev) -> dict:
+    """K3's calls at K3_SHAPES and phase 20's S = 2 sharded decode."""
+    import dataclasses
+
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scale = 1.0 / math.sqrt(K3_N)
+    out = {}
+    for B, l, M in K3_SHAPES:
+        x = torch.randn((B, l, M), generator=gen, device=dev)
+        ms = _events_ms(lambda: [ak.fwht_tile(x, "bf16", scale)
+                                 for _ in range(5)]) / 5
+        y = ak.fwht_tile(x, "bf16", scale)
+        out[f"{B}x{l}x{M}"] = dict(ms=ms, digest=hashlib.sha256(
+            y.cpu().numpy().tobytes()).hexdigest())
+        del x, y
+        torch.cuda.empty_cache()
+    model = _headline_model(dev, False)
+    c = model.cfg
+    B = SHARD_BATCH
+    bits = torch.randint(0, 2, (B, c.k_bits), generator=gen,
+                         dtype=torch.int32, device=dev)
+    noise = torch.randn((B, c.n), generator=gen, device=dev) * math.sqrt(
+        model.sigma2)
+    y = model.encode(bits) + noise
+    sharded = dataclasses.replace(
+        model, policy=ShardingPolicy(make_mesh(2, [dev] * 2)))
+    got = sharded.decode(y)
+    times = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        sharded.decode(y)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    idx = bits_to_indices(bits, c.logM)
+    out["sharded_s2"] = dict(
+        ms=statistics.median(times),
+        tau2_final=float(got.tau2_trace[-1].mean()),
+        section_errors=int((got.beta.argmax(-1) != idx).sum()),
+        fwht_tile_device_ms=_stage_ms(lambda: sharded.decode(y), {
+            "k3": ("fwht_rows_kernel", "fwht_cols_kernel", "k3_row_kernel",
+                   "k3_col_kernel", "k3_cluster_kernel")})["k3"])
+    return out
 
 
 def worker(tree: str, shape: str, compare_dir: str) -> dict:
-    """Time one tree's decode call (in this process)."""
+    """Time one tree's calls of `shape` (a SHAPES key, "k3" or
+    "dense_strip") in this process."""
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     import inspect
@@ -137,10 +346,16 @@ def worker(tree: str, shape: str, compare_dir: str) -> dict:
 
     if not os.path.abspath(ak.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {ak.__file__}, not from {root}")
-    sh = SHAPES[shape]
-    L, M, T, B, n = sh["L"], sh["M"], sh["T"], sh["B"], sh["n"]
     nvcc_s = _build.build()
     dev = torch.device("cuda", 0)
+    if shape == "dense_strip":
+        return dict(tree=root, nvcc_s=nvcc_s,
+                    dense_strip=_dense_strip_worker(ak, dev, compare_dir))
+    if shape == "k3":
+        return dict(tree=root, nvcc_s=nvcc_s, k3=_k3_worker(torch, ak, dev))
+    mono = shape == "mono"
+    sh = SHAPES[shape]
+    L, M, T, B, n = sh["L"], sh["M"], sh["T"], sh["B"], sh["n"]
     gen = torch.Generator(device=dev).manual_seed(0)
     mask = torch.zeros(L * M, device=dev)
     mask[torch.randperm(L * M, generator=gen, device=dev)[:n]] = 1.0
@@ -156,6 +371,8 @@ def worker(tree: str, shape: str, compare_dir: str) -> dict:
     params = inspect.signature(ak.amp_fused).parameters
     # the split form at L = 1024: the default before the mono form existed
     form = {"split": True} if "split" in params else {}
+    if mono:
+        form = {"form": "mono"}
     if "support" in params:
         from sparc_ldpc_tpu_torch.ops.split_support import (
             split_support_from_mask)
@@ -168,14 +385,20 @@ def worker(tree: str, shape: str, compare_dir: str) -> dict:
         return ak.amp_fused(y_n, mask, sq, P, n, T, encode_idx=idx, **form)
 
     out = dict(tree=root, shape=shape, nvcc_s=nvcc_s,
-               ms=_events_ms(lambda: call(False)),
-               noise_ms=_events_ms(lambda: call(True)))
-    st = _stage_ms(lambda: call(False))
-    out.update(encode_ms=st["encode"], col_ms_per_iter=st["col"] / T,
-               row_ms_per_iter=st["row"] / T)
+               ms=_events_ms(lambda: call(False)))
+    if mono:
+        st = _stage_ms(lambda: call(False), MONO_STAGES)
+        out.update(encode_ms=st.pop("encode"),
+                   ms_per_iter={k: v / T for k, v in st.items() if v > 0})
+    else:
+        out["noise_ms"] = _events_ms(lambda: call(True))
+        st = _stage_ms(lambda: call(False))
+        out.update(encode_ms=st["encode"], col_ms_per_iter=st["col"] / T,
+                   row_ms_per_iter=st["row"] / T)
     if compare_dir:
         del y_n
-        out["headline_block"] = _headline_block(torch, dev, compare_dir)
+        out["headline_block"] = _headline_block(torch, dev, compare_dir,
+                                                mono)
     return out
 
 
@@ -194,16 +417,55 @@ def _compare(runs) -> None:
             k: hb["digest"][k] == first["digest"][k] for k in hb["digest"]}
 
 
+def _dense_strip_all(runs) -> dict:
+    """The trees' dense-strip decodes beside the plain version's in float32
+    and float64 (on the CPU), every pair held to the other."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused_reference
+
+    args, idx = dense_strip_inputs()
+    decodes = {}
+    for i, r in enumerate(runs):
+        decodes[f"kernel[{i}] {r['tree_arg']}"] = {
+            prec: tuple(torch.from_numpy(np.load(path)[k])
+                        for k in ("beta", "trace"))
+            for prec, path in r["dense_strip"].items()}
+    for dt in (torch.float32, torch.float64):
+        a = tuple(t.to(dt) if torch.is_tensor(t) and t.is_floating_point()
+                  else t for t in args)
+        decodes[f"plain {str(dt)[6:]}"] = {
+            prec: amp_fused_reference(*a, DENSE_STRIP_T, encode_idx=idx,
+                                      precision=prec, split=True)[:2]
+            for prec in DENSE_STRIP_PRECISIONS}
+    return dense_strip_report(decodes, idx)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--compare-dir", help=argparse.SUPPRESS)
     ap.add_argument("--l4096", action="store_true")
+    ap.add_argument("--form", choices=("split", "mono"), default="split")
+    ap.add_argument("--k3", action="store_true")
     ap.add_argument("--compare", action="store_true")
+    ap.add_argument("--dense-strip", action="store_true")
     ap.add_argument("--out")
     a = ap.parse_args()
-    shape = "l4096" if a.l4096 else "headline"
+    modes = [m for m, on in (("l4096", a.l4096), ("mono", a.form == "mono"),
+                             ("k3", a.k3), ("dense_strip", a.dense_strip))
+             if on]
+    if len(modes) > 1:
+        ap.error("--l4096, --form mono, --k3 and --dense-strip exclude each "
+                 "other")
+    if a.compare and modes and modes[0] in ("k3", "dense_strip"):
+        ap.error("--compare decodes a headline block: the split form's or, "
+                 "with --form mono, the mono form's")
+    shape = modes[0] if modes else "headline"
     if a.worker:
         print(json.dumps(worker(a.worker, shape, a.compare_dir)),
               flush=True)
@@ -220,8 +482,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for tree in a.trees:
             cmd = [sys.executable, os.path.abspath(__file__), "--worker",
-                   tree] + (["--l4096"] if a.l4096 else [])
-            if a.compare:
+                   tree, "--form", a.form]
+            cmd += [f"--{m.replace('_', '-')}" for m in modes
+                    if m != "mono"]
+            if a.compare or a.dense_strip:
                 cmd += ["--compare-dir", tmp]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
@@ -235,11 +499,15 @@ def main() -> None:
             for r in runs:
                 print(json.dumps({"tree_arg": r["tree_arg"],
                                   **r["headline_block"]}), flush=True)
+        report = _dense_strip_all(runs) if a.dense_strip else None
+    if report is not None:
+        print(json.dumps(report, indent=1), flush=True)
     print(card)
     if a.out:
         with open(a.out, "w") as f:
-            json.dump(dict(card=card, shape=SHAPES[shape], runs=runs), f,
-                      indent=1)
+            json.dump(dict(card=card, mode=shape,
+                           shape=SHAPES.get(shape), runs=runs,
+                           dense_strip=report), f, indent=1)
 
 
 if __name__ == "__main__":

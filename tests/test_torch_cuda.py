@@ -20,8 +20,13 @@ uniforms as its plain version bit for bit and normals within 1e-5 (log,
 sin and cos differ in their last bits); the FWHT within 1e-5 of the
 output scale; the denoiser to rtol 1e-5 (beta: atol 1e-6 max sq, post:
 atol 1e-7).  The mono form (amp_mono.cu) rounds where its plain version
-does, once per transform before H_M, so its transform alone agrees to
-1e-5 of the output scale and its decode to the bf16 tolerances above.
+does, once per transform before H_M, so its transform alone, and its
+adjoint built from the compact z, agree to 1e-5 of the output scale and
+its decode to the bf16 tolerances above; it keeps y and z on the split
+form's support tables, held on hand-made masks, with frozen codewords and
+repeats bit for bit.  K3 (`fwht_tile`) in bf16 rounds where its plain
+version does: integer inputs bit for bit, normals within one bf16 ulp of
+the largest H_M value, on each of its designs.
 The slab form (amp_slab.cu) also rounds where its plain version does,
 before H_M and before H_L; its transform is bit-equal on integer inputs
 (every sum exact) and within one bf16 ulp of the largest H_M value on
@@ -70,7 +75,7 @@ from sparc_ldpc_tpu_torch.ops.amp_exp import (
     ABLATED, MODES, _full_runtime_m, amp_exp, amp_exp_reference, mode_f_b)
 from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
-    fwht_tile, fwht_tile_reference, mono_tile, mono_tile_reference,
+    fwht_tile, fwht_tile_reference, mono_adjoint, mono_tile_reference,
     noise_uniforms, noise_uniforms_reference, slab_tile)
 from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
     ABLATED as SLAB_ABLATED, MODES as SLAB_MODES, amp_slab_exp,
@@ -81,6 +86,7 @@ from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2, fwht2_reference
 from sparc_ldpc_tpu_torch.ops.split_support import split_support_from_mask
 from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
 from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
+from sparc_ldpc_tpu_torch.tools.amp_ab import dense_strip_mask
 from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
 
 pytestmark = pytest.mark.cuda
@@ -204,10 +210,16 @@ def _hand_made_mask(kind, M=64):
     64-95) and a full column (33); "dense": a random support of density
     0.1, about 3300 entries a column-stage block, more than it stages in
     shared memory; "dense_l4096" the same at L = 4096, where each block
-    of a cluster holds 1024 of a strip's rows.  (Not a strip filled
-    densely: the rows of one 32-column strip share their index bits 5 and
-    up, so they cannot tell some columns apart, and the sections those
-    rows decide become near-ties.)"""
+    of a cluster holds 1024 of a strip's rows; "dense_strip" the hand-made
+    mask with the whole strip of columns 32-63 on the support
+    (`dense_strip_mask`, 32 768 entries in that strip's block).  The
+    dense strip decodes with no flip against the plain version in float32
+    and float64 and the earlier K1, and the earlier K1's bits
+    (tools/amp_ab.py --dense-strip on an H100); "empty_rows" (the mono
+    form's case) a sparse random support with rows 100-163 empty and row
+    200 full."""
+    if kind == "dense_strip":
+        return dense_strip_mask(M=M)
     L = 4096 if kind == "dense_l4096" else 1024
     rng = np.random.default_rng(7)
     if kind == "hand":
@@ -216,6 +228,10 @@ def _hand_made_mask(kind, M=64):
         mask[:, 9] = False
         mask[64:96, 9] = True
         mask[:, 33] = True
+    elif kind == "empty_rows":
+        mask = rng.random((L, M)) < 0.02
+        mask[100:164] = False
+        mask[200] = True
     else:
         mask = rng.random((L, M)) < 0.1
     return torch.tensor(mask, dtype=torch.float32)
@@ -236,16 +252,20 @@ def _hold_split(out_k, out_p, idx, f32: bool):
         assert float((bk - bp).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("kind", ["hand", "dense", "dense_l4096"])
+@pytest.mark.parametrize("kind", ["hand", "dense", "dense_l4096",
+                                  "dense_strip"])
 def test_cuda_amp_split_hand_made_masks_match_plain(cuda_device, kind):
     """The support layout's corner cases: an empty column, a thread whose
     32 rows are all on the support, a full column, and a strip with more
     entries than the column stage stages in shared memory (it reads them
-    from device memory), alone and in a cluster."""
+    from device memory), alone and in a cluster, and one strip filled
+    densely."""
     mask = _hand_made_mask(kind)
-    if kind != "hand":
-        blocks = split_support_from_mask(mask).block_offset
-        assert int(blocks.diff().min()) > STAGED_ENTRIES
+    blocks = split_support_from_mask(mask).block_offset.diff()
+    if kind in ("dense", "dense_l4096"):
+        assert int(blocks.min()) > STAGED_ENTRIES
+    elif kind == "dense_strip":
+        assert int(blocks.max()) > STAGED_ENTRIES
     args, idx = _support_inputs(mask, 3, cuda_device)
     for prec in ("highest", "bf16"):
         kw = dict(encode_idx=idx, precision=prec, split=True)
@@ -326,16 +346,6 @@ def test_cuda_amp_split_rejects_tables_of_another_tile(cuda_device):
                   support=cpu)
 
 
-@pytest.mark.parametrize("L,M", [(64, 128), (256, 512), (1024, 512)])
-def test_cuda_mono_tile_matches_plain(cuda_device, L, M):
-    """K6's transform alone: bf16(x) H_M on the tensor cores, then H_L in
-    float32; the plain version rounds at the same place."""
-    x = torch.randn((3, L, M), device=cuda_device)
-    ref = mono_tile_reference(x)
-    err = (mono_tile(x) - ref).abs().max() / ref.abs().max()
-    assert float(err) <= 1e-5, float(err)
-
-
 @pytest.mark.parametrize("L,M", [(64, 128), (256, 256), (1024, 512)])
 def test_cuda_amp_mono_matches_plain(cuda_device, L, M):
     """K6 (the mono form, "fused" at L <= 1024) against its plain version:
@@ -398,6 +408,93 @@ def test_cuda_amp_mono_rejects_what_it_cannot_take(cuda_device):
                   noise_seed=_seeds(2, cuda_device), noise_sigma=0.5)
     with pytest.raises(ValueError):         # H_{m_b}, H_{f_b} on bf16 cores
         amp_fused(*args, encode_idx=idx, form="slab", precision="highest")
+
+
+@pytest.mark.parametrize("L,M,density", [(64, 128, 0.05), (256, 512, 0.02),
+                                         (1024, 512, 0.018),
+                                         (1024, 64, 0.5), (32, 1024, 0.1)])
+def test_cuda_mono_adjoint_matches_plain(cuda_device, L, M, density):
+    """K6's adjoint launch alone (bf16(z) H_M built from the compact z,
+    then H_L): against `mono_tile_reference` of z embedded in its tile, on
+    integer z bit for bit (every sum exact) and on normals to 1e-5 of the
+    output scale; (1024, 64, 0.5) has more entries than the launch stages
+    in shared memory."""
+    rng = np.random.default_rng(1)
+    mask = torch.tensor(rng.random((L, M)) < density, dtype=torch.float32)
+    sp = split_support_from_mask(mask).to(cuda_device)
+    B = 3
+    for z in (rng.integers(-8, 9, (B, sp.ns)), rng.standard_normal((B, sp.ns))):
+        zc = torch.tensor(z, dtype=torch.float32, device=cuda_device)
+        dense = torch.zeros((B, L * M), device=cuda_device)
+        dense[:, sp.flat] = zc
+        ref = mono_tile_reference(dense.reshape(B, L, M))
+        got = mono_adjoint(zc, sp)
+        if z.dtype.kind == "i":
+            assert torch.equal(got, ref)
+        else:
+            err = (got - ref).abs().max() / ref.abs().max()
+            assert float(err) <= 1e-5, float(err)
+
+
+def _hold_mono(out_k, out_p, idx, tol: bool):
+    """K6's rules against its plain version (bf16: module docstring):
+    iteration counts equal at fixed T, their means within 2 with tol."""
+    (bk, tk, ik), (bp, tp, ip) = out_k, out_p
+    assert bool(torch.isfinite(bk).all() & torch.isfinite(tk).all())
+    ik, ip = ik.cpu().numpy(), ip.cpu().numpy()
+    if tol:
+        assert abs(float(np.mean(ik - ip))) <= 2, (ik, ip)
+    else:
+        np.testing.assert_array_equal(ik, ip)
+    t_min = int(min(ik.min(), ip.min()))
+    np.testing.assert_allclose(tk[:t_min].cpu().numpy(),
+                               tp[:t_min].cpu().numpy(), rtol=2e-2)
+    flips, decisive = decision_flips(bp, bk)
+    assert decisive == 0 and flips <= 0.01 * idx.numel()
+
+
+@pytest.mark.parametrize("kind", ["hand", "empty_rows", "dense",
+                                  "dense_strip"])
+def test_cuda_amp_mono_hand_made_masks_match_plain(cuda_device, kind):
+    """K6 keeps y and z on the row support in K1's layout: an empty column,
+    empty rows, a full row, a random support of density 0.1 (more entries
+    a column block than its column launch stages) and a dense strip (more
+    entries a codeword than its adjoint launch stages); against its plain
+    version and a second identical run bit for bit."""
+    mask = _hand_made_mask(kind)
+    args, idx = _support_inputs(mask, 3, cuda_device)
+    launches = amp_fused.mono_launches
+    for kw in (dict(), dict(tol=1e-4)):
+        kw = dict(encode_idx=idx, form="mono", **kw)
+        out = amp_fused(*args, 8, **kw)
+        again = amp_fused(*args, 8, **kw)
+        for a, b in zip(out, again):
+            assert torch.equal(a, b)
+        _hold_mono(out, amp_fused_reference(*args, 8, **kw), idx,
+                   "tol" in kw)
+    assert amp_fused.mono_launches == launches + 4
+
+
+def test_cuda_amp_mono_walker_skips_frozen_codewords(cuda_device):
+    """With the early stop codewords freeze at different iterations; K6's
+    column launches' walkers skip their items ((codeword, strip) items
+    outnumber the walkers); the result keeps the plain version's rules and
+    repeats bit for bit."""
+    L, M, B = 1024, 64, 192
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert B * (M // 32) > sms
+    model, y_n, mask, sq, idx = _inputs(L, M, B, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    y_n[:B // 2] *= 0.5
+    args = (y_n, mask, sq, c.P, c.n, 16)
+    kw = dict(encode_idx=idx, form="mono", tol=1e-3)
+    out = amp_fused(*args, **kw)
+    again = amp_fused(*args, **kw)
+    ik = out[2].cpu().numpy()
+    assert ik.min() < ik.max(), ik
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    _hold_mono(out, amp_fused_reference(*args, **kw), idx, True)
 
 
 @pytest.mark.parametrize("L,M", [(32, 32), (64, 256), (256, 512),
@@ -809,6 +906,46 @@ def test_cuda_fwht_tile_with_scale_matches_plain(cuda_device, L):
     err = (fwht_tile(x, "highest", scale) - ref).abs().max() / ref.abs().max()
     assert float(err) <= 1e-5
     assert fwht_tile.launches == launches + 2
+
+
+def _bf16_flip_limit(x, scale):
+    """One bf16 ulp of the largest H_M value, times the scale: K3 and its
+    plain version both round the H_M stage's values before H_L, but sum in
+    other orders, so a rounding may fall to the other neighbour."""
+    v = float(fwht_kron(round_bf16(x), "highest", -1).abs().max())
+    return scale * 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("L", [32, 64, 256, 512, 1024, 2048, 4096])
+def test_cuda_fwht_tile_every_path(cuda_device, L):
+    """K3 on every path it takes: in bf16 the one-pass cluster of M / 32
+    blocks a codeword at l <= 256 and M <= 512 (one block at M = 32, 16
+    at 512), and the row and column launches above (M = 1024, l >= 512;
+    at 2048 and 4096 the column launch on a cluster of two and four blocks
+    a strip),
+    the row stage's warp layouts (M = 32, 64, 512 and 1024); float32 to
+    1e-5 of the output scale, bf16 on integer inputs bit for bit and on
+    normals within one bf16 ulp of the largest H_M value."""
+    scale = 1.0 / math.sqrt(L * 64)
+    for M in (32, 64, 512, 1024):
+        B = 3 if L * M <= 2 ** 17 else 1
+        x = torch.randn((B, L, M), device=cuda_device)
+        ref = fwht_tile_reference(x, "highest") * scale
+        err = (fwht_tile(x, "highest", scale) - ref).abs().max()
+        assert float(err / ref.abs().max()) <= 1e-5, (M, float(err))
+        err = (fwht_tile(x, "bf16", scale)
+               - fwht_tile_reference(x, "bf16") * scale).abs().max()
+        assert float(err) <= _bf16_flip_limit(x, scale), (M, float(err))
+        ints = torch.randint(-8, 9, (B, L, M), device=cuda_device).float()
+        assert torch.equal(fwht_tile(ints, "bf16", scale),
+                           fwht_tile_reference(ints, "bf16") * scale), M
+
+
+def test_cuda_fwht_tile_repeats_bit_for_bit(cuda_device):
+    """K3's column launch walks (codeword, strip) items when they outnumber
+    its resident walkers; two calls give the same bits."""
+    x = torch.randn((64, 1024, 512), device=cuda_device)
+    assert torch.equal(fwht_tile(x, "bf16", 0.5), fwht_tile(x, "bf16", 0.5))
 
 
 def test_cuda_data_parallel_block_is_bitwise_the_single_device(cuda_device):

@@ -27,7 +27,9 @@ from sparc_ldpc_tpu_torch.ops import denoiser as tden
 from sparc_ldpc_tpu_torch.ops import fwht as tfwht
 from sparc_ldpc_tpu_torch.ops import fwht_kernel as tfk
 from sparc_ldpc_tpu_torch.ops import operators as tops
-from sparc_ldpc_tpu_torch.ops.amp_kernel import fwht_tile, fwht_tile_reference
+from sparc_ldpc_tpu_torch.ops.amp_kernel import (
+    K3_CLUSTER_ROWS, fwht_tile, fwht_tile_reference, k3_design)
+from sparc_ldpc_tpu_torch.ops.split_support import split_geometry
 from sparc_ldpc_tpu_torch.utils import bits as tbits
 from sparc_ldpc_tpu_torch.utils.rng import block_generator, block_seed
 
@@ -111,6 +113,27 @@ def test_fwht_tile_is_the_flattened_transform(L, M):
     np.testing.assert_array_equal(fwht_tile(_t(x)).numpy(),
                                   fwht_tile_reference(_t(x)).numpy())
     assert fwht_tile.launches == launches
+
+
+@pytest.mark.parametrize("L", [1 << k for k in range(5, 13)])
+def test_k3_design_for_every_tile_height(L):
+    """K3's path on the card for every l in [32, 4096]: in bf16 the one
+    launch on a cluster of M / 32 blocks a codeword (at most 16, the
+    largest cluster an H100 schedules) up to K3_CLUSTER_ROWS rows and
+    M <= 512, the row and column launches above (their column launch on
+    the column geometry's clusters of L / 1024 blocks); float32 keeps the
+    earlier stages."""
+    for M in (32, 64, 128, 256, 512, 1024):
+        design = k3_design(L, M, "bf16")
+        if design == "cluster":
+            assert L <= K3_CLUSTER_ROWS == 256 and 1 <= M // 32 <= 16
+            assert L * 192 <= 227 * 1024      # its shared memory a block
+        else:
+            assert design == "rows_cols" and (L > 256 or M == 1024)
+            W, R, FA = split_geometry(L)
+            assert FA == max(1, L // 1024) and W * R * FA == L
+        for prec in ("highest", "high", "default"):
+            assert k3_design(L, M, prec) == "float32"
 
 
 @pytest.mark.parametrize("N", [1 << 13, 1 << 15])

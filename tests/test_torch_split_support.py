@@ -245,3 +245,32 @@ def test_geometry_is_the_column_stage_dispatch(L):
     W, R, FA = split_geometry(L)
     assert W * R * FA == L and W <= R <= 32 and R % 4 == 0
     assert FA == max(1, L // 1024)
+
+
+def test_dense_strip_decodes_alike_in_float32_and_float64():
+    """Queue C's C2: the dense-strip mask (a whole 32-column strip on the
+    support; `tools/amp_ab.py dense_strip_mask`) is not degenerate.  The
+    plain version decodes it in float32 and with float64 sums with no
+    flipped decision, in float32 and in bf16 operands (on an H100, K1 and
+    the earlier K1 decoded it to the same bits and no flip against either,
+    `amp_ab.py --dense-strip`)."""
+    from sparc_ldpc_tpu_torch.models.amp import decision_flips
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused_reference
+    from sparc_ldpc_tpu_torch.tools.amp_ab import (
+        DENSE_STRIP_T, dense_strip_inputs)
+
+    args, idx = dense_strip_inputs()
+    wide = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    assert int(split_support_from_mask(args[1]).block_offset.diff().max()) \
+        > 2048
+    for prec in ("highest", "bf16"):
+        b32, t32, i32 = amp_fused_reference(*args, DENSE_STRIP_T,
+                                            encode_idx=idx, precision=prec,
+                                            split=True)
+        b64, t64, i64 = amp_fused_reference(*wide, DENSE_STRIP_T,
+                                            encode_idx=idx, precision=prec,
+                                            split=True)
+        assert b64.dtype == torch.float64
+        assert decision_flips(b64, b32) == (0, 0), prec
+        assert torch.equal(i32, i64)
+        np.testing.assert_allclose(t32.numpy(), t64.numpy(), rtol=1e-4)
