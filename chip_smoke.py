@@ -58,7 +58,9 @@ the concat preset.  Each phase prints one line with its seconds:
      block against a torch.randn-route block, both printed, phase 8's
      windows asserted;
  11. the FWHT kernel (K5, fwht2) against its plain version at (B=64,
-     N=2^19) and (B=64, N=2^17) to 1e-5 of the output scale, and ms per
+     N=2^19) and (B=64, N=2^17) to 1e-5 of the output scale, its design
+     (a row and a column launch, 16 bytes an element) and those bytes
+     over 3.35 TB/s at the campaign's shape, and ms per
      call of both at B=64 and at the campaign's B=512, beside the library
      calls (`library_fwht2` with dense bf16 Hadamard factors: one
      torch.einsum, and two torch.matmul; each held to the plain version
@@ -157,12 +159,18 @@ the concat preset.  Each phase prints one line with its seconds:
      (f_a = m_a = 1).  Its transform alone: integer inputs bit-equal to
      the plain version (every sum exact, so within 1e-5 of the output
      scale in float32), normals within one bf16 ulp of the largest H_M
-     value (the two sum in other orders);
+     value (the two sum in other orders); its adjoint launch alone (R2C2,
+     from a compact z on the headline support): integers bit-equal,
+     normals within 1e-5 of the output scale;
  25. the slab main path: run_block on the headline configuration with
      amp_kernel="fused_slab" (torch.randn noise, encode in the kernel),
      B=2048: K7 launched, K1 and K6 not, mean final tau2 within 3 % of
      SE, identical counters per seed; ms per block and bits/s beside
      phases 5 and 15; K7's and the plain version's ms per decode call,
+     each launch's device ms (encode, then C1, R2C2, R3 of every
+     iteration) beside the bytes K7's design moves in it
+     (`slab_design_bytes`: 20 N + 16 ns a codeword and iteration) and the
+     call's design bytes over 3.35 TB/s,
      the timed results held to phase 24's rules, and the same draws
      through K1: at most 1 % flipped decisions, mean final tau2 within
      2e-2;
@@ -229,8 +237,8 @@ read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
 operations over the H100's peak for their type, 67 TFLOP/s float32 and
-989 TFLOP/s bf16; K1, K3 and K6 with their launches' ms and design
-bytes), the card's `nvidia-smi` line, and last
+989 TFLOP/s bf16; K1, K3, K6 and K7 with their launches' measured ms,
+K5 with its design's name), the card's `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises (exit code 1);
 without a GPU it exits with code 1 before printing any result.  The port
 imports no JAX and nothing of the reference package, nor does this
@@ -292,6 +300,13 @@ K1_STAGES = ("k1_encode_kernel", "k1_col_kernel", "k1_row_kernel")
 # K6's launches (encode, C1, R2C2, R3) and K3's (rows, columns)
 MONO_STAGES = ("k1_encode_kernel", "mono_col_kernel", "mono_adj_kernel",
                "mono_row_kernel")
+# K5's design (ops/fwht_kernel.py) and the device-memory bytes an element
+# it moves
+K5_DESIGN = "row launch into the output, column launch in place"
+K5_DESIGN_BYTES = 16
+# K7's launches (encode, C1, R2C2, R3)
+SLAB_STAGES_K7 = ("k1_encode_kernel", "slab_c1_kernel", "slab_adj_kernel",
+                  "slab_row_kernel")
 K3_STAGES = ("k3_cluster_kernel", "k3_row_kernel", "k3_col_kernel")
 # the device-memory bytes an element each of K3's launches moves: the
 # cluster kernel reads x and writes out (8); the row launch reads x and
@@ -946,11 +961,17 @@ def fwht_phase(dev, card: str, clock: Clock) -> dict:
                                     ref, REPS, 10)
     # x read and the result written once; log2(N) adds per element
     fw_b = bound(2 * tensor_bytes(x), {"fp32": math.log2(x.shape[1]) * x.numel()})
+    # the design's device-memory bytes: a row launch into the output and a
+    # column launch in place, each reading and writing the tile (16 bytes
+    # an element; the function's own 8 are its bound)
+    floor_ms = 1e3 * K5_DESIGN_BYTES * x.numel() / HBM_BYTES_PER_S
     del x, ref
-    print(f"[11 fwht2 vs plain] max err / max |out| at B={KERNEL_BATCH}: "
-          f"{res}; ms per call at N=2^19 (kernel, plain): {ms}, bound at "
-          f"B={CLI_BATCH} {fw_b}; library (bf16 factors {f1} x {f2}) ms "
-          f"{lib_ms}, max err / max |plain| {lib_err} on {card} "
+    print(f"[11 fwht2 vs plain] design: {K5_DESIGN}, {K5_DESIGN_BYTES} bytes "
+          f"an element (at B={CLI_BATCH}, N=2^19 a floor of {floor_ms:.3f} "
+          f"ms at 3.35 TB/s); max err / max |out| at B="
+          f"{KERNEL_BATCH}: {res}; ms per call at N=2^19 (kernel, plain): "
+          f"{ms}, bound at B={CLI_BATCH} {fw_b}; library (bf16 factors {f1} "
+          f"x {f2}) ms {lib_ms}, max err / max |plain| {lib_err} on {card} "
           f"({clock.lap():.1f} s)", flush=True)
     for k, v in res.items():
         require(v <= 1e-5, f"fwht2 at N={k}: error {v}")
@@ -962,7 +983,7 @@ def fwht_phase(dev, card: str, clock: Clock) -> dict:
             "max_abs_err": err_abs, "ms": ms[CLI_BATCH][0],
             "plain_ms": ms[CLI_BATCH][1], **fw_b,
             "library_ms": min(lib_ms.values()),
-            "library_ms_by_form": lib_ms}
+            "library_ms_by_form": lib_ms, "design": K5_DESIGN}
 
 
 def denoise_phase(dev, sq_npl, card: str, clock: Clock) -> dict:
@@ -1282,6 +1303,34 @@ def mono_design_bytes(iters, L: int, M: int, ns: int, T: int) -> dict:
         out[MONO_STAGES[2]].append(active * (4 * ns + 4 * N))
         out[MONO_STAGES[3]].append(active * (4 * N + (8 if t else 4) * N)
                                    + (active - last) * 4 * N)
+    total = sum(sum(v) for v in out.values())
+    return {**out, "total": total, "floor_ms": 1e3 * total / HBM_BYTES_PER_S}
+
+
+def slab_design_bytes(iters, L: int, M: int, ns: int, T: int) -> dict:
+    """The bytes K7's design moves in one call, by launch (SLAB_STAGES_K7):
+    the encode (the indices read, y_n read on the support and y written
+    on it), then per iteration t over the codewords still running it: C1
+    (the bf16 work tile read unless t = 0, y, z read (z not at t = 0) and
+    z and its packed bf16 copy written on the support, the slab |beta'|^2
+    partials read), R2C2 (the packed z read, u written in float32), R3 (u
+    read, beta' read unless t = 0 and written, the bf16 work tile written
+    unless it is the codeword's last iteration).  iters (B,) the
+    iterations each codeword ran."""
+    N = L * M
+    it = iters.to("cpu").long()
+    B = it.numel()
+    out = {k: [] for k in SLAB_STAGES_K7}
+    out[SLAB_STAGES_K7[0]].append(B * (4 * L + 8 * ns))
+    for t in range(T):
+        active = int((it > t).sum())
+        last = int((it == t + 1).sum())
+        out[SLAB_STAGES_K7[1]].append(active * (
+            (2 * N + 4 * (L // min(128, L)) if t else 0)
+            + (16 if t else 12) * ns))
+        out[SLAB_STAGES_K7[2]].append(active * (4 * ns + 4 * N))
+        out[SLAB_STAGES_K7[3]].append(active * (4 * N + (8 if t else 4) * N)
+                                      + (active - last) * 2 * N)
     total = sum(sum(v) for v in out.values())
     return {**out, "total": total, "floor_ms": 1e3 * total / HBM_BYTES_PER_S}
 
@@ -1981,7 +2030,7 @@ def slab_check_phase(dev, card: str, sp: dict, cp: dict, lp: dict,
     from sparc_ldpc_tpu_torch.design.se import se_trajectory
     from sparc_ldpc_tpu_torch.models.sparc import SparcModel
     from sparc_ldpc_tpu_torch.ops.amp_kernel import (
-        fwht_tile_reference, slab_tile)
+        fwht_tile_reference, slab_adjoint, slab_adjoint_reference, slab_tile)
     from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, round_bf16
     from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
     from sparc_ldpc_tpu_torch.utils.rng import block_generator
@@ -2022,6 +2071,21 @@ def slab_check_phase(dev, card: str, sp: dict, cp: dict, lp: dict,
                 integers=float((ki - ri).abs().max() / ri.abs().max()),
                 integers_equal=bool(torch.equal(ki, ri)))
     del a, x, ref, ints, ri, ki
+    # the decode's adjoint launch alone, from a compact z on the headline
+    # support: normals to 1e-5 of the scale, integers bit for bit
+    sup = hm.op.split_support(L, M, dev)
+    adj, adj_err = {}, 0.0
+    for kind in ("normal", "integer"):
+        zc = (torch.randn((CHECK_BATCH, sup.ns), generator=gen, device=dev)
+              if kind == "normal" else torch.randint(
+                  -8, 9, (CHECK_BATCH, sup.ns), generator=gen,
+                  device=dev).float())
+        ref = slab_adjoint_reference(zc, sup)
+        got = slab_adjoint(zc, sup)
+        adj[kind] = (float((got - ref).abs().max() / ref.abs().max())
+                     if kind == "normal" else bool(torch.equal(got, ref)))
+        adj_err = max(adj_err, float((got - ref).abs().max()))
+    del zc, ref, got
     # the concat configuration at B=32: tol, tol with pins, SE schedule
     sm = cp["model"].sparc
     T = sm.cfg.amp_iters
@@ -2058,8 +2122,11 @@ def slab_check_phase(dev, card: str, sp: dict, cp: dict, lp: dict,
         16), OPTION_BATCH * 64))
     res = {k: r for g, _ in groups for k, r in g.items()}
     print(f"[24 slab kernel (K7) vs plain] bf16; transform alone at B="
-          f"{CHECK_BATCH} L={L} M={M}, errors over max |plain|: {tile}; "
-          f"decodes: {res} ({clock.lap():.1f} s)", flush=True)
+          f"{CHECK_BATCH} L={L} M={M}, errors over max |plain|: {tile}; the "
+          f"adjoint launch from the compact z (ns={sup.ns}): max err "
+          f"{adj_err:.3e}, normals {adj['normal']:.3e} of max |out|, "
+          f"integers bit for bit: {adj['integer']}; decodes: {res} "
+          f"({clock.lap():.1f} s)", flush=True)
     for g, sections in groups:
         check_options(g, sections)
     require(res["concat tol"]["iters_min"] < OPTION_T,
@@ -2068,7 +2135,9 @@ def slab_check_phase(dev, card: str, sp: dict, cp: dict, lp: dict,
             f"K7 transform on integers: {tile}")
     require(tile["normals"] <= tile["ulp_limit"],
             f"K7 transform on normals: {tile}")
-    return dict(tile_err=tile_err, res=res)
+    require(adj["normal"] <= 1e-5, f"K7 adjoint err {adj['normal']}")
+    require(adj["integer"], "K7 adjoint: integer inputs differ")
+    return dict(tile_err=tile_err, adj_err=adj_err, res=res)
 
 
 def slab_path(dev, card: str, sp: dict, mp: dict, clock: Clock) -> dict:
@@ -2120,14 +2189,20 @@ def slab_path(dev, card: str, sp: dict, mp: dict, clock: Clock) -> dict:
     idx = bits_to_indices(bits, c.logM)
     del bits, noise
     args = (y_n, model.op.mask.reshape(L, M), model.sq_npl, c.P, n, T)
-    kw = dict(encode_idx=idx, form="slab")
+    sup = model.op.split_support(L, M, dev)
+    kw = dict(encode_idx=idx, form="slab", support=sup)
     kernel_ms, kout = timed_result(lambda: amp_fused(*args, **kw), REPS)
-    stages = device_ms_by_kernel(
-        lambda: amp_fused(*args, **kw),
-        ("amp_encode_kernel", "slab_col_kernel", "slab_hm_kernel",
-         "slab_row_kernel"))
-    plain_ms, pout = timed_result(lambda: amp_fused_reference(*args, **kw),
-                                  1)
+    # each launch's device ms beside the bytes K7's design moves in it
+    per = launch_ms(lambda: amp_fused(*args, **kw),
+                    dict(zip(SLAB_STAGES_K7, (1, T, T, T))))
+    db = slab_design_bytes(kout[2], L, M, sup.ns, T)
+    stages = {k: round(sum(v), 3) for k, v in per.items()}
+    by_launch = {k: dict(ms=[round(x, 3) for x in per[k]],
+                         tb_per_s=[round(b / t / 1e9, 3)
+                                   for b, t in zip(db[k], per[k])])
+                 for k in SLAB_STAGES_K7}
+    plain_ms, pout = timed_result(
+        lambda: amp_fused_reference(*args, encode_idx=idx, form="slab"), 1)
     slab_b = amp_bound(BATCH, L, M, T, kout[2], noise_drawn=False)
     # the timed calls' results, held to phase 24's rules at this shape
     res25 = {"main path": compare_runs("main path", kout, pout, args,
@@ -2153,9 +2228,11 @@ def slab_path(dev, card: str, sp: dict, mp: dict, clock: Clock) -> dict:
           f"({mp['block_ms']:.2f} ms, K6); decode call at B={BATCH}: K7 "
           f"{kernel_ms:.2f} ms, plain {plain_ms:.2f} ms, bound {slab_b}, K1 "
           f"on the same draws {k1_ms:.2f} ms; one call's device ms by launch "
-          f"(torch.profiler): {stages}; the timed calls, kernel vs plain: "
-          f"{res25}; K7 vs K1 on the same draws: {vs_k1} on {card} "
-          f"({clock.lap():.1f} s)", flush=True)
+          f"kind (torch.profiler): {stages}, by launch with the TB/s of its "
+          f"design bytes: {by_launch}; design bytes {db['total'] / 1e9:.3f} "
+          f"GB, over 3.35 TB/s {db['floor_ms']:.3f} ms; the timed calls, "
+          f"kernel vs plain: {res25}; K7 vs K1 on the same draws: {vs_k1} on "
+          f"{card} ({clock.lap():.1f} s)", flush=True)
     check_options(res25, BATCH * L)
     require(launches["amp_slab"] > 0, "the slab path did not launch K7")
     require(launches["amp_split"] == 0 and launches["amp_mono"] == 0,
@@ -2169,7 +2246,8 @@ def slab_path(dev, card: str, sp: dict, mp: dict, clock: Clock) -> dict:
     require(vs_k1["tau2_rel_diff"] <= 2e-2, "K7's and K1's tau2 differ")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound=slab_b, block_ms=1e3 * dt, bits_per_s=bits_per_s,
-                k1_ms=k1_ms)
+                k1_ms=k1_ms, stages_ms=stages,
+                design_floor_ms=db["floor_ms"])
 
 
 def slab_concat_phase(dev, card: str, cp: dict, clock: Clock) -> dict:
@@ -3180,8 +3258,9 @@ def main() -> None:
         "replaces": "sparc_ldpc_tpu/ops/amp_kernel.py:134",
         "launches": sl["launches"]["amp_slab"],
         "launches_by_path": {"concat": sc["launches"]["amp_slab"]},
-        "max_abs_err": k7["tile_err"], "ms": sl["kernel_ms"],
-        "plain_ms": sl["plain_ms"], **sl["bound"], "library_ms": None}
+        "max_abs_err": max(k7["tile_err"], k7["adj_err"]),
+        "ms": sl["kernel_ms"], "plain_ms": sl["plain_ms"], **sl["bound"],
+        "library_ms": None, "stages_ms": sl["stages_ms"]}
     # K3's main path: the section-sharded fast_l4096 campaign (phase 21)
     k3_rec["launches"] = pc["launches"]["fwht_tile"]
     k3_rec["launches_by_path"] = {

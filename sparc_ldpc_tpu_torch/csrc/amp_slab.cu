@@ -3,8 +3,9 @@
 // Replaces the TPU kernel sparc_ldpc_tpu/ops/amp_kernel.py::_amp_kernel_slab
 // (K7, the route of amp_kernel="fused_slab": in-kernel encode, early stop,
 // pinning, SE schedule; no in-kernel noise).  It computes the iteration of
-// amp_split.cu (same scale-free scheme, freeze table and pins) with the slab
-// kernel's transform and reductions:
+// amp_split.cu (same scale-free scheme, freeze table and pins, and y and z
+// kept on the row support only, in K1's layout of ops/split_support.py)
+// with the slab kernel's transform and reductions:
 //
 //   H = H_L (x) H_M,  H_L = H_{f_a} (x) H_{f_b},  H_M = H_{m_a} (x) H_{m_b}
 //   f_b = min(128, L), m_b = 128 when 128 divides M > 128, else M
@@ -12,16 +13,17 @@
 // H_M runs first in both transforms, on the data rounded to bf16, and H_L
 // on the H_M stage's result rounded to bf16 again: the reference's `_mm`
 // (tall column blocks times H_{m_b}) and `_mml` (H_{f_b} times wide row
-// slabs).  The two 128-wide factors are products on the tensor cores, as the
-// TPU kernel runs them on its matrix unit: mma.sync m16n8k16 with bf16 data
-// and float32 accumulation, their +-1 fragments made in registers from the
-// parity of popcount(k & n) (as amp_mono.cu does; no factor is loaded).  The
-// radix factors H_{m_a} and H_{f_a} are float32 butterflies on the products,
-// stride 1 first, the order of the reference's `_fwht_blocks`.  So kernel and
-// plain version (ops/amp_kernel.py, fwht_tile_reference(x, "bf16")) round at
-// the same places and differ in summation order only.  The kernel computes
-// in bf16 only: its factors run on the bf16 tensor cores, and the reference
-// kernel has no float32 mode either.
+// slabs).  The 128-wide factors of the dense stages are products on the
+// tensor cores, as the TPU kernel runs them on its matrix unit: mma.sync
+// m16n8k16 with bf16 data and float32 accumulation, their +-1 fragments
+// made in registers from the parity of popcount(k & n) (no factor is
+// loaded).  The radix factors H_{m_a} and H_{f_a} are float32 butterflies
+// on the products, stride 1 first, the order of the reference's
+// `_fwht_blocks`; above L = 1024 the rest of H_{f_a} runs across a cluster
+// of L / 1024 blocks through distributed shared memory (amp_common.cuh
+// cluster_fwht, K1's).  The kernel computes in bf16 only: its factors run
+// on the bf16 tensor cores, and the reference kernel has no float32 mode
+// either.
 //
 // Reductions are the slab kernel's: tau2 from one |z|^2 partial per
 // (codeword, slab, 32-column strip), |beta'|^2 from one partial per
@@ -30,182 +32,421 @@
 //
 // State: the TPU kernel kept y, z and beta of a codeword in VMEM for all T
 // iterations (4 x 2 MiB at L = 1024, M = 512); a Hopper SM has 227 KB of
-// shared memory, so here, as in amp_split.cu, the state lives in device
-// memory and an iteration is four launches over the batch:
-//   C1 column stage (one block per 32-column strip, all L rows; a cluster of
-//      L / 1024 blocks above L = 1024): H_L of w = bf16(H_M bf16(beta')),
-//      z = y - mask/n * H(beta') + coef * z, the strip's |z|^2 per slab;
-//   R2 row stage (one block per 16 rows): bf16(H_M bf16(z)) into the work
-//      tile;
-//   C2 column stage: H_L of the work tile into u (float32);
-//   R3 row stage (one block per slab of f_b rows, 16 rows at a time):
-//      u + beta', the max-subtracted softmax, pin, the slab's |beta'|^2, and,
-//      unless it is the codeword's last iteration, bf16(H_M bf16(beta'_new))
-//      into the work tile for the next C1.
-// The column stage's H_{f_b}: within each slab, D = H_{f_b} X, the factor the
-// mma's A operand and the strip's bf16 data (from shared memory) its B
-// operand; a warp holds one (16-row, 8-column) output tile of every slab of
-// the block, so H_{f_a} across the block's slabs is in its registers; above
-// L = 1024 the remaining H_{L / 1024} runs across the cluster through
-// distributed shared memory (amp_common.cuh cluster_fwht, K1's).  The row
-// stage's H_{m_b}: D = X H_{m_b} per column block, the data the A operand;
-// a warp holds one 8-column tile of every column block, so H_{m_a} is in its
-// registers too.  The encode is amp_split.cu's (float32, the one-hot row's
-// H_M in closed form), so codeword power is exact to float32 where the
-// reference's two bf16 passes (hi, lo) reach about 2^-16.
+// shared memory, so the state lives in device memory.  z is 0 off the row
+// support at every iteration, so y and z are kept only there, (B, ns) in
+// K1's order of the entries (about n / L = 9 of a 512-wide row at the
+// headline).  An iteration is three launches:
+//   C1 (slab_c1_kernel): H_L of the work tile w = bf16(H_M bf16(beta')),
+//     the residual and Onsager term z = y - mask/n * H(beta') + coef * z on
+//     the support entries alone, z written compact and, as bf16 with its
+//     column, at its row-major place for R2C2, and the strip's |z|^2 per
+//     slab;
+//   R2C2 (slab_adj_kernel): the adjoint from the compact z: each strip's
+//     columns of H_M bf16(z) built from each row's support entries (the
+//     mono form's sparse build, amp_mono.cu mono_adj_kernel: a shift, a
+//     logic operation and an add a term), rounded to bf16 as the
+//     reference's `_mml` reads them, then H_L on the tensor cores, u
+//     written once in float32;
+//   R3 (slab_row_kernel, one block per slab of f_b rows, 16 rows at a
+//     time): u + beta', the max-subtracted softmax, pin, the slab's
+//     |beta'|^2, and, unless it is the codeword's last iteration,
+//     bf16(H_M bf16(beta'_new)) into the work tile for the next C1.
+// C1 and R2C2 walk (codeword, strip) items, skipping frozen codewords,
+// with as many walkers as are resident (one block, or one cluster, an SM).
+// C1 keeps two strip buffers: cp.async brings the next item's bf16 strip
+// (and its support entries of y, z and mask/n) while this item's products
+// run.  R2C2 stages the packed z of the block's rows by cp.async while the
+// item before is in its products.  The column products read their bf16
+// operand with ldmatrix.trans (one instruction for two k-steps of a 16 x 8
+// tile) and a warp owns one (16-row, 8-column) tile of every slab of the
+// block, so H_{f_a} across the block's slabs is in its registers.  The
+// encode is K1's compact encode (k1_encode_kernel: the one-hot row's H_M in
+// closed form, H_L in float32, y written on the support), so codeword
+// power is exact to float32 where the reference's two bf16 passes (hi, lo)
+// reach about 2^-16.
 //
-// What bounds it: device-memory bytes.  Per iteration it moves about 10
-// float32-equivalent (B, L, M) passes (C1: read w (bf16), y, z, write z; R2:
-// read z, write bf16; C2: read bf16, write u; R3: read u, beta', write
-// beta', bf16), against amp_split.cu's 7 and amp_mono.cu's 12: at the
-// headline shape (B = 2048, L = 1024, M = 512, T = 22) about 0.94 TB, 282 ms
-// at 3.35 TB/s.  The tensor cores do 2 (f_b + m_b) = 512 flops per element
-// and transform, about 24 TFLOP there, 24 ms at 989 TFLOP/s.  The function
-// itself needs neither: its bound (chip_smoke.py amp_bound, the butterflies'
-// log2(L M) float32 adds per element and transform, inputs read and outputs
-// written once) is 17.5 ms at that shape.  A simple first kernel:
-// mma.sync from shared tiles, no overlap of loads with products.
+// Bytes: per element and iteration C1 reads the bf16 work tile (2 bytes),
+// R2C2 writes u (4), R3 reads u and beta' and writes beta' and the bf16
+// work tile (14): 20 bytes, beside 16 bytes an entry of the support (y, z
+// read, z and its packed copy written) and the packed z read by R2C2.  At
+// the headline shape (B = 2048, L = 1024, M = 512, T = 22) about 472 GB,
+// 141 ms at 3.35 TB/s.  The earlier design moved about 40 bytes an
+// element: C1 read y, mask/n and z and wrote z densely, a row launch (R2)
+// multiplied the mostly-zero z by the dense H_M on the tensor cores into a
+// bf16 tile, and a column launch (C2) read it back.  On an H100 (PERF.md)
+// R3 runs near the card's memory rate, while C1 and R2C2 take two to four
+// times their bytes' time: R2C2 is held by its sparse build's
+// instructions, as the mono form's is, and a warp taking two (i, j) units
+// (16 warps a block) was slower in both.  The function itself needs
+// neither: its bound (chip_smoke.py amp_bound, the butterflies' log2(L M)
+// float32 adds per element and transform, inputs read and outputs written
+// once) is 17.5 ms at that shape.
 //
 // Built by sparc_ldpc_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (plain C interface below).
 
-#include "amp_common.cuh"
+#include "amp_support.cuh"
 #include "amp_mma.cuh"
 
 namespace {
 
-constexpr int kSlabRows = 128;        // f_b at L >= 128
-constexpr int kColWarps = 8;          // warps of a column-stage block
-constexpr int kColThreads = 32 * kColWarps;
+constexpr int kSlabRows = 128;  // f_b at L >= 128
+constexpr int kXchg = 8;        // values a thread exchanges a cluster round
+constexpr int kAdjCap = 11264;  // packed z entries R2C2 stages a block
 
-// ---------------------------------------------------------------- columns
-//
-// A block owns a 32-column strip of FAL slabs of FB rows (LB = FAL FB rows,
-// 1024 at most; block c of a cluster of CL owns rows [c LB, (c + 1) LB)).
-// Its bf16 tile sits in shared memory, kLdX bf16 a row.  Warp w computes
-// the (16-row tile i, 8-column tile j) pairs p = w + 8 s of every slab of the
-// block: for the mma m16n8k16 (g = lane / 4, q = lane % 4) the A operand is
+// The column launches' geometry for L = CL * FAL * FB: a block owns FAL
+// slabs of FB rows (LB rows, 1024 at most) of a 32-column strip, block c of
+// a cluster of CL rows [c LB, (c + 1) LB).  A warp owns one (16-row tile i,
+// 8-column tile j) pair of every slab: FB / 16 * 4 = FB / 4 warps.
+template <int FB_, int FAL_, int CL_>
+struct SlabGeo {
+  static constexpr int FB = FB_, FAL = FAL_, CL = CL_;
+  static constexpr int LB = FAL * FB, L = CL * LB, FA = CL * FAL;
+  static constexpr int NW = FB / 4, NT = 32 * NW;
+  // the support tables' row range (ops/split_support.py split_geometry)
+  static constexpr int RR = L <= 64 ? 8 : L <= 256 ? 16 : 32;
+  static constexpr int XBYTES = LB * kLdX * 2;           // one bf16 strip
+  static constexpr int SCBYTES = CL > 1 ? kXchg * NT * 4 : 0;
+  static constexpr int CAP = CL > 1 ? 1024 : 2048;       // C1's staged entries
+  // C1: two strips, the cluster exchange, two sets of y, z, mask/n
+  static constexpr int C1_BYTES = 2 * XBYTES + SCBYTES + 2 * 3 * CAP * 4;
+  // R2C2: one strip, the exchange, the row offsets, the staged entries
+  static constexpr int ADJ_BYTES = XBYTES + SCBYTES + (LB + 4) * 4 +
+                                   kAdjCap * 8;
+};
+
+// bf16(z) with its column m (< 2^16) in one word: the bf16 bits above, so
+// the word with its low half cleared is the float bf16(z) (amp_mono.cu's).
+__device__ __forceinline__ uint32_t pack_entry(float z, int m) {
+  return ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(z)) << 16) |
+         (uint32_t)m;
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8 r ..
+// 8 r + 7 give the row addresses of matrix r; thread (g, q) receives
+// elements [2 q][g] and [2 q + 1][g] of each, the mma's B fragment.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// H_L of the block's bf16 strip sx (LB rows of kLdX): warp (i, j) =
+// (warp / 4, warp % 4) gets D = H_{f_b} X of its tile in every slab a, then
+// H_{f_a} across the block's slabs in registers and across the cluster's
+// blocks (rank c) through distributed shared memory.  For the mma
+// m16n8k16 (g = lane / 4, q = lane % 4) the A operand is
 // H_{f_b}[16 i + r][16 kk + k] = (-1)^(popc(i & kk) + popc(r & k)): a base
 // 16 x 16 fragment, negated as a whole when popc(i & kk) is odd; the B
-// operand is X[16 kk + k][8 j + n] of the slab, read as bf16 pairs along k.
-// D holds rows 16 i + g and + 8, columns 8 j + 2 q and + 1.
-
-template <int FB, int FAL, int CL, bool RESID>
-__global__ void __launch_bounds__(kColThreads, 2)
-slab_col_kernel(const __nv_bfloat16* __restrict__ work,
-                float* __restrict__ out,          // C2: u (B, L, M)
-                const float* __restrict__ y, float* __restrict__ z,
-                const float* __restrict__ mask_n,
-                float* __restrict__ zpart,        // (B, FA, M / 32)
-                const float* __restrict__ bpart,  // (B, FA)
-                const float* __restrict__ trace,  // (T, B)
-                const int32_t* __restrict__ active,  // (T + 1, B) or null
-                int B, int M, int t, float P, float nn) {
-  constexpr int LB = FAL * FB, L = CL * LB, FA = CL * FAL;
-  constexpr int PPW = (FB / kTile) * (kStrip / 8) / kColWarps;
-  static_assert(PPW >= 1, "a warp owns at least one tile pair");
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* sc = reinterpret_cast<float*>(smem + LB * kLdX * sizeof(__nv_bfloat16));
-  __shared__ float red[kColWarps][FAL];
+// operand X[16 kk + k][8 j + n] of the slab, two k-steps an ldmatrix.  acc
+// holds rows 16 i + g and + 8 of each slab, columns 8 j + 2 q and + 1.
+template <class G>
+__device__ __forceinline__ void slab_hl(const __nv_bfloat16* sx,
+                                        float (&acc)[G::FAL][4], float* sc,
+                                        int c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int b = blockIdx.y, c = blockIdx.x % CL, strip = blockIdx.x / CL;
-  if (active != nullptr && !active[(size_t)t * B + b]) return;  // frozen
-  const int m0 = strip * kStrip, row0 = c * LB;
-  const size_t base = (size_t)b * L * M;
-  // beta' = 0 before the first iteration: no forward transform there
-  const bool transform = !RESID || t > 0;
-  float coef = 0.f;
-  if (RESID && t > 0) {
-    float bn = 0.f;
-#pragma unroll 1
-    for (int a = 0; a < FA; ++a) bn += bpart[(size_t)b * FA + a];
-    coef = (P - bn / nn) / trace[(size_t)(t - 1) * B + b];
-  }
-  if (transform) {
-    for (int e = threadIdx.x; e < LB * 4; e += kColThreads) {
-      const int r = e >> 2, part = e & 3;
-      *reinterpret_cast<uint4*>(sx + r * kLdX + 8 * part) =
-          *reinterpret_cast<const uint4*>(work + base + (size_t)(row0 + r) * M
-                                          + m0 + 8 * part);
-    }
-    __syncthreads();
-  }
+  const int g = lane >> 2, q = lane & 3, i = warp >> 2, j = warp & 3;
   const uint32_t ha0 = h_pair(g, 2 * q), ha1 = h_pair(g + 8, 2 * q);
   const uint32_t ha2 = h_pair(g, 2 * q + 8), ha3 = h_pair(g + 8, 2 * q + 8);
-  float zz[FAL];
 #pragma unroll
-  for (int a = 0; a < FAL; ++a) zz[a] = 0.f;
-#pragma unroll 1
-  for (int s = 0; s < PPW; ++s) {
-    const int p = warp + kColWarps * s;
-    const int i = p >> 2, j = p & 3;
-    float acc[FAL][4];
+  for (int a = 0; a < G::FAL; ++a) {
+    acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.f;
 #pragma unroll
-    for (int a = 0; a < FAL; ++a)
-      acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.f;
+    for (int k2 = 0; k2 < G::FB / 32; ++k2) {
+      uint32_t r[4];
+      ldsm_x4_t(r, sx + (a * G::FB + 32 * k2 + lane) * kLdX + 8 * j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t sg = (__popc(i & (2 * k2 + h)) & 1) ? kNeg : 0u;
+        mma_bf16(acc[a][0], acc[a][1], acc[a][2], acc[a][3], ha0 ^ sg,
+                 ha1 ^ sg, ha2 ^ sg, ha3 ^ sg, r[2 * h], r[2 * h + 1]);
+      }
+    }
+  }
+  tile_fwht<G::FAL>(acc);  // H_{f_a} across the block's slabs
+  if constexpr (G::CL > 1) {
+    // the rest of H_{f_a} across the cluster, kXchg values at a time
+#pragma unroll
+    for (int ch = 0; ch < G::FAL * 4 / kXchg; ++ch) {
+      float v[kXchg];
+#pragma unroll
+      for (int e = 0; e < kXchg; ++e)
+        v[e] = acc[(ch * kXchg + e) / 4][(ch * kXchg + e) % 4];
+      cluster_fwht<G::CL, kXchg>(v, sc, c);
+#pragma unroll
+      for (int e = 0; e < kXchg; ++e)
+        acc[(ch * kXchg + e) / 4][(ch * kXchg + e) % 4] = v[e];
+    }
+  }
+}
+
+// C1 of iteration t (RESID), or the standalone H_L of a bf16 tile into out
+// (!RESID, active null).  Grid (CL * walkers): walker i (a block, or a
+// cluster of CL blocks) takes the items (codeword, strip) i, i + walkers,
+// ... of the active codewords, item it = b * M / 32 + strip.  At the top of
+// an item cp.async starts the next item's bf16 strip (16 bytes a thread)
+// and its support entries of y, z and mask/n into the other buffers, so
+// the loads overlap this item's products and residual.  The residual runs
+// in the products' layout: each lane finds its elements' support bits and
+// entries in K1's tables (word and offset of (row range, column)), forms z
+// there only, and adds its |z|^2 per slab in the earlier design's order
+// (zeros off the support), so z and the partials are the dense design's.
+template <class G, bool RESID>
+__global__ void __launch_bounds__(G::NT, 1)
+slab_c1_kernel(const __nv_bfloat16* __restrict__ work,
+               float* __restrict__ out,          // !RESID: (B, L, M)
+               const float* __restrict__ yc, float* __restrict__ zc,
+               uint32_t* __restrict__ zr, Support sp,
+               const int32_t* __restrict__ perm,
+               float* __restrict__ zpart,        // (B, FA * M / 32)
+               const float* __restrict__ bpart,  // (B, FA)
+               const float* __restrict__ trace,  // (T, B)
+               const int32_t* __restrict__ active,  // (T + 1, B) or null
+               int B, int M, int t, float P, float nn) {
+  constexpr int FB = G::FB, FAL = G::FAL, CL = G::CL, LB = G::LB;
+  constexpr int L = G::L, FA = G::FA, NT = G::NT, NW = G::NW, CAP = G::CAP;
+  constexpr int RR = G::RR;
+  extern __shared__ __align__(16) unsigned char c1_sm[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(c1_sm);
+  float* sc = reinterpret_cast<float*>(c1_sm + 2 * G::XBYTES);
+  float* es = reinterpret_cast<float*>(c1_sm + 2 * G::XBYTES + G::SCBYTES);
+  __shared__ float red[NW][FAL];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3, i = warp >> 2, j = warp & 3;
+  const int c = blockIdx.x % CL, walkers = gridDim.x / CL;
+  const int row0 = c * LB, S = M / kStrip, items = B * S;
+  const int32_t* act = active != nullptr ? active + (size_t)t * B : nullptr;
+  // beta' = 0 before the first iteration: no forward transform there
+  const bool transform = !RESID || t > 0;
+  // the walker's next item of an active codeword from it on; the same in
+  // every block of a cluster
+  auto next = [&](int it) {
+    while (act != nullptr && it < items && !act[it / S]) it += walkers;
+    return it;
+  };
+  auto fetch = [&](int it, int slot) {
+    const int b = it / S, s = it % S;
     if (transform) {
+      const __nv_bfloat16* src =
+          work + ((size_t)b * L + row0) * M + s * kStrip;
+      __nv_bfloat16* dst = xs + slot * LB * kLdX;
+      for (int e = threadIdx.x; e < LB * 4; e += NT) {
+        const int r = e >> 2, p = e & 3;
+        cp_async16(dst + r * kLdX + 8 * p, src + (size_t)r * M + 8 * p);
+      }
+    }
+    if constexpr (RESID) {
+      const int ib = s * CL + c;  // K1's column-stage block
+      const int first = sp.block[ib], count = sp.block[ib + 1] - first;
+      if (count <= CAP) {
+        float* ys = es + slot * 3 * CAP;
+        const size_t off = (size_t)b * sp.ns + first;
+        for (int e = threadIdx.x; e < count; e += NT) {
+          cp_async4(ys + e, yc + off + e);
+          cp_async4(ys + 2 * CAP + e, sp.mask + first + e);
+          if (t > 0) cp_async4(ys + CAP + e, zc + off + e);
+        }
+      }
+    }
+  };
+
+  int it = next(blockIdx.x / CL);
+  if (it >= items) return;  // uniform per cluster
+  int slot = 0;
+  fetch(it, 0);
+  while (it < items) {
+    const int nx = next(it + walkers);
+    const int b = it / S, s = it % S;
+    cp_async_wait_all();
+    __syncthreads();  // this item's data is visible; the other buffers free
+    if (nx < items) fetch(nx, slot ^ 1);
+    float acc[FAL][4];
+    if (transform) {
+      slab_hl<G>(xs + slot * LB * kLdX, acc, sc, c);
+    } else {
+#pragma unroll
+      for (int a = 0; a < FAL; ++a)
+        acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.f;
+    }
+    const int col = s * kStrip + 8 * j + 2 * q;
+    if constexpr (!RESID) {
 #pragma unroll
       for (int a = 0; a < FAL; ++a) {
 #pragma unroll
-        for (int kk = 0; kk < FB / kTile; ++kk) {
-          const uint32_t sg = (__popc(i & kk) & 1) ? kNeg : 0u;
-          const __nv_bfloat16* px =
-              sx + (a * FB + kTile * kk + 2 * q) * kLdX + 8 * j + g;
-          const uint32_t b0 = bf16_bits(px[0]) | (bf16_bits(px[kLdX]) << 16);
-          const uint32_t b1 =
-              bf16_bits(px[8 * kLdX]) | (bf16_bits(px[9 * kLdX]) << 16);
-          mma_bf16(acc[a][0], acc[a][1], acc[a][2], acc[a][3], ha0 ^ sg,
-                   ha1 ^ sg, ha2 ^ sg, ha3 ^ sg, b0, b1);
+        for (int h = 0; h < 2; ++h) {
+          const int l = row0 + a * FB + kTile * i + g + 8 * h;
+          *reinterpret_cast<float2*>(out + ((size_t)b * L + l) * M + col) =
+              make_float2(acc[a][2 * h], acc[a][2 * h + 1]);
         }
       }
-      tile_fwht<FAL>(acc);  // H_{f_a} across the block's slabs
-      // the rest of H_{f_a} across the cluster's blocks (no-op at CL = 1)
-      cluster_fwht<CL, FAL * 4>(reinterpret_cast<float(&)[FAL * 4]>(acc), sc,
-                                c);
+    } else {
+      float coef = 0.f;
+      if (t > 0) {
+        float bn = 0.f;
+#pragma unroll 1
+        for (int a = 0; a < FA; ++a) bn += bpart[(size_t)b * FA + a];
+        coef = (P - bn / nn) / trace[(size_t)(t - 1) * B + b];
+      }
+      const int ib = s * CL + c;
+      const int first = sp.block[ib];
+      const bool staged = sp.block[ib + 1] - first <= CAP;
+      const size_t cw = (size_t)b * sp.ns;
+      const float* ys = es + slot * 3 * CAP - first;
+      const float* ysrc = staged ? ys : yc + cw;
+      const float* zsrc = staged ? ys + CAP : zc + cw;
+      const float* msrc = staged ? ys + 2 * CAP : sp.mask;
+#pragma unroll
+      for (int a = 0; a < FAL; ++a) {
+        float zz = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int l = row0 + a * FB + kTile * i + g + 8 * h;
+          const size_t tab = (size_t)(l / RR) * M + col;
+          const int k = l % RR;
+          float zv[2];
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            zv[cc] = 0.f;
+            const uint32_t word = __ldg(sp.word + tab + cc);
+            if ((word >> k) & 1u) {
+              const int e = __ldg(sp.offset + tab + cc) +
+                            __popc(word & ((1u << k) - 1u));
+              float zk = ysrc[e] - msrc[e] * acc[a][2 * h + cc];
+              if (t > 0) zk += coef * zsrc[e];
+              zc[cw + e] = zk;
+              zr[cw + __ldg(perm + e)] = pack_entry(zk, col + cc);
+              zv[cc] = zk;
+            }
+          }
+          zz += zv[0] * zv[0] + zv[1] * zv[1];
+        }
+        zz = warp_sum(zz);
+        if (lane == 0) red[warp][a] = zz;
+      }
+      __syncthreads();
+      if (threadIdx.x < FAL) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) sum += red[w][threadIdx.x];
+        zpart[((size_t)b * FA + c * FAL + threadIdx.x) * S + s] = sum;
+      }
     }
-    const int col = m0 + 8 * j + 2 * q;
+    slot ^= 1;
+    it = nx;
+  }
+}
+
+// R2C2 of iteration t: u = H_L bf16(H_M bf16(z)) of every active codeword
+// (every codeword with active == nullptr: the standalone adjoint), from zr
+// (B, ns), z's packed entries in row-major order (row l's are row_offset[l]
+// .. row_offset[l + 1] - 1, in column order).  Walkers as C1's.  Thread
+// (w, c) builds column m = 32 s + c of its rows w + NW k from each row's
+// entries:
+//   (H_M bf16(z))[l][m] = sum over the row's entries (m', z), in column
+//   order, of (-1)^popc(m' & m) bf16(z),
+// with the sign split as (-1)^popc(m'_hi & s) (the entry's, the same for
+// the whole strip) times (-1)^popc(m'_lo & c) (bit 31 of the lane's mask
+// xc shifted left by m'_lo), the float32 sum rounded to bf16 into the
+// strip tile; then the strip's H_L (slab_hl) and u stored once.  The
+// block's rows' packed words are staged as (bf16(z) with the strip's sign,
+// m'_lo) pairs: cp.async brings them while the item before is in its
+// products, and one pass turns them into pairs (at most kAdjCap; above,
+// the terms are formed from device memory, the same values in the same
+// order).
+template <class G>
+__global__ void __launch_bounds__(G::NT, 1)
+slab_adj_kernel(const uint32_t* __restrict__ zr,
+                const int32_t* __restrict__ row_offset, int ns,
+                float* __restrict__ u,
+                const int32_t* __restrict__ active,  // (T + 1, B) or null
+                int B, int M, int t) {
+  constexpr int FB = G::FB, FAL = G::FAL, CL = G::CL, LB = G::LB;
+  constexpr int L = G::L, NT = G::NT, NW = G::NW;
+  extern __shared__ __align__(16) unsigned char adj_sm[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(adj_sm);
+  float* sc = reinterpret_cast<float*>(adj_sm + G::XBYTES);
+  int32_t* rows =
+      reinterpret_cast<int32_t*>(adj_sm + G::XBYTES + G::SCBYTES);
+  int2* ent = reinterpret_cast<int2*>(rows + LB + 4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3, i = warp >> 2, j = warp & 3;
+  const int c = blockIdx.x % CL, walkers = gridDim.x / CL;
+  const int row0 = c * LB, S = M / kStrip, items = B * S;
+  const int32_t* act = active != nullptr ? active + (size_t)t * B : nullptr;
+  const int first = row_offset[row0];
+  const int count = row_offset[row0 + LB] - first;
+  const bool staged = count <= kAdjCap;
+  // bit 31 - k of xc is popc(k & lane) & 1
+  uint32_t xc = 0u;
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    xc |= (uint32_t)(__popc(k & lane) & 1) << (31 - k);
+  auto next = [&](int it) {
+    while (act != nullptr && it < items && !act[it / S]) it += walkers;
+    return it;
+  };
+  // the packed words of an item's rows into the pairs' second halves
+  auto fetch = [&](int it) {
+    const uint32_t* src = zr + (size_t)(it / S) * ns + first;
+    for (int e = threadIdx.x; e < count; e += NT) cp_async4(&ent[e].y, src + e);
+  };
+  // (bf16(z) with the strip's sign, as float bits; m' % 32) of a packed word
+  auto pair = [](uint32_t p, int s) {
+    const uint32_t hi = (p >> 5) & 31u;
+    const uint32_t sgn = (uint32_t)(__popc(hi & (uint32_t)s) & 1) << 31;
+    return make_int2((int)((p & 0xFFFF0000u) ^ sgn), (int)(p & 31u));
+  };
+  auto term = [&](int2 p) {
+    return __uint_as_float(((xc << p.y) & 0x80000000u) ^ (uint32_t)p.x);
+  };
+  for (int e = threadIdx.x; e <= LB; e += NT) rows[e] = row_offset[row0 + e];
+  int it = next(blockIdx.x / CL);
+  if (it >= items) return;  // uniform per cluster
+  if (staged) fetch(it);
+  const int2* ep = ent - first;
+  while (it < items) {
+    const int nx = next(it + walkers);
+    const int b = it / S, s = it % S;
+    cp_async_wait_all();
+    __syncthreads();  // staged words, row offsets visible; strip tile free
+    if (staged) {
+      for (int e = threadIdx.x; e < count; e += NT)
+        ent[e] = pair((uint32_t)ent[e].y, s);
+      __syncthreads();
+    }
+    const uint32_t* zb = zr + (size_t)b * ns;
+#pragma unroll 4
+    for (int k = 0; k < LB / NW; ++k) {
+      const int lr = warp + NW * k;
+      const int j1 = rows[lr + 1];
+      float acc = 0.f;
+      if (staged) {
+#pragma unroll 4
+        for (int e = rows[lr]; e < j1; ++e) acc += term(ep[e]);
+      } else {
+        for (int e = rows[lr]; e < j1; ++e) acc += term(pair(zb[e], s));
+      }
+      xs[lr * kLdX + lane] = __float2bfloat16_rn(acc);
+    }
+    __syncthreads();  // the strip tile is built; the pairs are read
+    if (staged && nx < items) fetch(nx);
+    float v[FAL][4];
+    slab_hl<G>(xs, v, sc, c);
+    const int col = s * kStrip + 8 * j + 2 * q;
 #pragma unroll
     for (int a = 0; a < FAL; ++a) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int l = row0 + a * FB + kTile * i + g + 8 * h;
-        const size_t off = base + (size_t)l * M + col;
-        const float w0 = acc[a][2 * h], w1 = acc[a][2 * h + 1];
-        if constexpr (RESID) {
-          const float2 yv = *reinterpret_cast<const float2*>(y + off);
-          const float2 mk =
-              *reinterpret_cast<const float2*>(mask_n + (size_t)l * M + col);
-          float z0 = yv.x - mk.x * w0, z1 = yv.y - mk.y * w1;
-          if (t > 0) {
-            const float2 zo = *reinterpret_cast<const float2*>(z + off);
-            z0 += coef * zo.x;
-            z1 += coef * zo.y;
-          }
-          *reinterpret_cast<float2*>(z + off) = make_float2(z0, z1);
-          zz[a] += z0 * z0 + z1 * z1;
-        } else {
-          *reinterpret_cast<float2*>(out + off) = make_float2(w0, w1);
-        }
+        *reinterpret_cast<float2*>(u + ((size_t)b * L + l) * M + col) =
+            make_float2(v[a][2 * h], v[a][2 * h + 1]);
       }
     }
-  }
-  if constexpr (RESID) {
-#pragma unroll
-    for (int a = 0; a < FAL; ++a) {
-      const float v = warp_sum(zz[a]);
-      if (lane == 0) red[warp][a] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < FAL) {
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kColWarps; ++w) sum += red[w][threadIdx.x];
-      zpart[((size_t)b * FA + c * FAL + threadIdx.x) * (M / kStrip) + strip] =
-          sum;
-    }
+    it = nx;
   }
 }
 
@@ -213,17 +454,15 @@ slab_col_kernel(const __nv_bfloat16* __restrict__ work,
 //
 // The H_M stage of a row block is amp_mma.cuh's slab_hm.
 
-// R2: out = bf16(H_M bf16(x)) for every row of x (B, L, M), 16 rows per
-// block; the blocks of a codeword frozen at iteration t return at once
-// (active != null).
+// out = bf16(H_M bf16(x)) for every row of x (B, L, M), 16 rows per block
+// (the standalone transform's first stage).
 template <int M>
 __global__ void __launch_bounds__(SlabRows<M>::THREADS)
 slab_hm_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
-               const int32_t* __restrict__ active, int B, int L, int t) {
+               int L) {
   using S = SlabRows<M>;
   __shared__ __align__(16) __nv_bfloat16 sA[kTile * S::LDA];
   const int b = blockIdx.y;
-  if (active != nullptr && !active[(size_t)t * B + b]) return;
   const size_t base = ((size_t)b * L + (size_t)blockIdx.x * kTile) * M;
   for (int e = threadIdx.x; e < kTile * M / 4; e += S::THREADS) {
     const int r = e / (M / 4), c4 = e % (M / 4);
@@ -359,71 +598,114 @@ slab_row_kernel(const float* __restrict__ u, float* __restrict__ beta,
 
 // ------------------------------------------------------------- launchers
 
-template <int FB, int FAL, int CL>
+// Launch kernel with as many walkers (blocks, or clusters of CL blocks) as
+// are resident at once, at most one per item.
+template <int CL, typename K, typename... Args>
+int walk(K kernel, int threads, int bytes, int items, cudaStream_t st,
+         Args... args) {
+  int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc) return rc;
+  int walkers = 0;
+  rc = resident_walkers<CL>(kernel, threads, bytes, st, &walkers);
+  if (rc) return rc;
+  walkers = walkers < items ? walkers : items;
+  ClusterLaunch<CL> lc(dim3(CL * walkers), threads, bytes, st);
+  rc = (int)cudaLaunchKernelEx(&lc.cfg, kernel, args...);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+template <class G>
 struct SlabCols {
-  static constexpr int LB = FAL * FB;
   template <bool RESID>
-  static int step(const __nv_bfloat16* work, float* out, const float* y,
-                  float* z, const float* mask_n, float* zpart,
-                  const float* bpart, const float* trace,
-                  const int32_t* active, int B, int M, int t, float P,
-                  float nn, cudaStream_t st) {
-    auto kernel = slab_col_kernel<FB, FAL, CL, RESID>;
-    const int bytes = LB * kLdX * (int)sizeof(__nv_bfloat16)
-                      + (CL > 1 ? FAL * 4 * kColThreads * (int)sizeof(float)
-                                : 0);
-    int rc = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (rc) return rc;
-    const dim3 grid(CL * (M / kStrip), B);
-    if constexpr (CL == 1) {
-      kernel<<<grid, kColThreads, bytes, st>>>(work, out, y, z, mask_n, zpart,
-                                               bpart, trace, active, B, M, t,
-                                               P, nn);
-    } else {
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = grid;
-      cfg.blockDim = dim3(kColThreads);
-      cfg.dynamicSmemBytes = bytes;
-      cfg.stream = st;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = CL;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      rc = (int)cudaLaunchKernelEx(&cfg, kernel, work, out, y, z, mask_n,
-                                   zpart, bpart, trace, active, B, M, t, P,
-                                   nn);
-      if (rc) return rc;
-    }
-    return (int)cudaGetLastError();
+  static int c1(const __nv_bfloat16* work, float* out, const float* yc,
+                float* zc, uint32_t* zr, const Support& sp,
+                const int32_t* perm, float* zpart, const float* bpart,
+                const float* trace, const int32_t* active, int B, int M,
+                int t, float P, float nn, cudaStream_t st) {
+    return walk<G::CL>(slab_c1_kernel<G, RESID>, G::NT, G::C1_BYTES,
+                       B * (M / kStrip), st, work, out, yc, zc, zr, sp, perm,
+                       zpart, bpart, trace, active, B, M, t, P, nn);
+  }
+  static int adj(const uint32_t* zr, const int32_t* row_offset, int ns,
+                 float* u, const int32_t* active, int B, int M, int t,
+                 cudaStream_t st) {
+    return walk<G::CL>(slab_adj_kernel<G>, G::NT, G::ADJ_BYTES,
+                       B * (M / kStrip), st, zr, row_offset, ns, u, active,
+                       B, M, t);
   }
 };
 
-// Returns CALL with K = SlabCols<f_b, slabs a block, cluster size> for the
-// supported L.
-#define DISPATCH_SLAB_L(L, CALL)                                   \
-  switch (L) {                                                     \
-    case 32: { using K = SlabCols<32, 1, 1>; return CALL; }        \
-    case 64: { using K = SlabCols<64, 1, 1>; return CALL; }        \
-    case 128: { using K = SlabCols<128, 1, 1>; return CALL; }      \
-    case 256: { using K = SlabCols<128, 2, 1>; return CALL; }      \
-    case 512: { using K = SlabCols<128, 4, 1>; return CALL; }      \
-    case 1024: { using K = SlabCols<128, 8, 1>; return CALL; }     \
-    case 2048: { using K = SlabCols<128, 8, 2>; return CALL; }     \
-    case 4096: { using K = SlabCols<128, 8, 4>; return CALL; }     \
-    default: return kBadShape;                                     \
+// K7's column launches for f_b = FB, FAL slabs a block, clusters of CL
+template <int FB, int FAL, int CL>
+using SlabColsOf = SlabCols<SlabGeo<FB, FAL, CL>>;
+
+// Returns CALL with K = SlabColsOf<f_b, slabs a block, cluster size> for
+// the supported L.
+#define DISPATCH_SLAB_L(L, CALL)                                       \
+  switch (L) {                                                         \
+    case 32: { using K = SlabColsOf<32, 1, 1>; return CALL; }          \
+    case 64: { using K = SlabColsOf<64, 1, 1>; return CALL; }          \
+    case 128: { using K = SlabColsOf<128, 1, 1>; return CALL; }        \
+    case 256: { using K = SlabColsOf<128, 2, 1>; return CALL; }        \
+    case 512: { using K = SlabColsOf<128, 4, 1>; return CALL; }        \
+    case 1024: { using K = SlabColsOf<128, 8, 1>; return CALL; }       \
+    case 2048: { using K = SlabColsOf<128, 8, 2>; return CALL; }       \
+    case 4096: { using K = SlabColsOf<128, 8, 4>; return CALL; }       \
+    default: return kBadShape;                                         \
   }
+
+template <bool RESID>
+int c1_step(const __nv_bfloat16* work, float* out, const float* yc, float* zc,
+            uint32_t* zr, const Support& sp, const int32_t* perm,
+            float* zpart, const float* bpart, const float* trace,
+            const int32_t* active, int B, int L, int M, int t, float P,
+            float nn, cudaStream_t st) {
+  DISPATCH_SLAB_L(L, (K::template c1<RESID>(
+                         work, out, yc, zc, zr, sp, perm, zpart, bpart,
+                         trace, active, B, M, t, P, nn, st)))
+}
+
+int adj_step(const uint32_t* zr, const int32_t* row_offset, int ns, float* u,
+             const int32_t* active, int B, int L, int M, int t,
+             cudaStream_t st) {
+  DISPATCH_SLAB_L(L, (K::adj(zr, row_offset, ns, u, active, B, M,
+                                        t, st)))
+}
+
+// K1's compact encode for the column geometry C = Cols<W, R, FA>.
+template <class C>
+struct EncodeOf;
+template <int W, int R, int FA>
+struct EncodeOf<Cols<W, R, FA>> {
+  static int run(const float* y_n, const Support& sp, const float* sqo,
+                 const int32_t* enc_idx, float* yc, int B, int M,
+                 cudaStream_t st) {
+    auto kernel = k1_encode_kernel<W, R, FA>;
+    const int bytes = W * R * kStrip * (int)sizeof(float);
+    int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc) return rc;
+    ClusterLaunch<FA> lc(dim3(FA * (M / kStrip), B), 32 * W, bytes, st);
+    rc = (int)cudaLaunchKernelEx(&lc.cfg, kernel, y_n, sp, sqo, enc_idx,
+                                 static_cast<const uint32_t*>(nullptr), 0.f,
+                                 yc, M);
+    return rc ? rc : (int)cudaGetLastError();
+  }
+};
+
+int encode(const float* y_n, const Support& sp, const float* sqo,
+           const int32_t* enc_idx, float* yc, int B, int L, int M,
+           cudaStream_t st) {
+  DISPATCH_L(L, EncodeOf<C>::run(y_n, sp, sqo, enc_idx, yc, B, M, st))
+}
 
 template <int M>
 struct SlabRowLaunch {
   static constexpr int NT = SlabRows<M>::THREADS;
-  static int hm(const float* x, __nv_bfloat16* out, const int32_t* active,
-                int B, int L, int t, cudaStream_t st) {
-    slab_hm_kernel<M><<<dim3(L / kTile, B), NT, 0, st>>>(x, out, active, B,
-                                                         L, t);
+  static int hm(const float* x, __nv_bfloat16* out, int B, int L,
+                cudaStream_t st) {
+    slab_hm_kernel<M><<<dim3(L / kTile, B), NT, 0, st>>>(x, out, L);
     return (int)cudaGetLastError();
   }
   static int row(const float* u, float* beta, __nv_bfloat16* work,
@@ -450,26 +732,9 @@ struct SlabRowLaunch {
     default: return kBadShape;                                \
   }
 
-int encode(const float* y_n, const float* mask_n, const float* sqo,
-           const int32_t* enc_idx, float* y, int B, int L, int M,
-           cudaStream_t st) {
-  DISPATCH_L(L, C::encode(y_n, mask_n, sqo, enc_idx, nullptr, 0.f, y, B, M,
-                          st))
-}
-
-template <bool RESID>
-int col_step(const __nv_bfloat16* work, float* out, const float* y, float* z,
-             const float* mask_n, float* zpart, const float* bpart,
-             const float* trace, const int32_t* active, int B, int L, int M,
-             int t, float P, float nn, cudaStream_t st) {
-  DISPATCH_SLAB_L(L, (K::template step<RESID>(work, out, y, z, mask_n, zpart,
-                                                bpart, trace, active, B, M, t,
-                                                P, nn, st)))
-}
-
-int rows_hm(const float* x, __nv_bfloat16* out, const int32_t* active, int B,
-            int L, int M, int t, cudaStream_t st) {
-  DISPATCH_SLAB_M(M, Q::hm(x, out, active, B, L, t, st))
+int rows_hm(const float* x, __nv_bfloat16* out, int B, int L, int M,
+            cudaStream_t st) {
+  DISPATCH_SLAB_M(M, Q::hm(x, out, B, L, st))
 }
 
 int rows_softmax(const float* u, float* beta, __nv_bfloat16* work,
@@ -495,36 +760,48 @@ extern "C" {
 
 // Whole-trial AMP of the slab form for B codewords.  Inputs: y_n (B, L, M)
 // the channel noise (enc_idx given) or the whole observation (enc_idx
-// null), embedded on the row support; mask_n (L, M) = mask / n; sqi, sqo
+// null), read on the row support only.  The row support, ns entries in
+// K1's order (ops/split_support.py): mask_c (ns,) mask/n of each entry,
+// offset and word (L / R, M), block (FA M / 32 + 1,) with FA =
+// max(1, L / 1024), perm (ns,) each entry's place in row-major order,
+// row_offset (L + 1,) each row's first entry in row-major order.  sqi, sqo
 // (L,); enc_idx (B, L) int32 or null; pin (B, L) int32 (-1 = unpinned) or
 // null; sched (T,) SE tau2 schedule or null; tol the early-stop threshold
 // (0 = fixed T).  Outputs: beta (B, L, M) true scale, trace (T, B), iters
 // (B,) int32.  active (T + 1, B) int32 holds the freeze flags and must
-// arrive with row 0 all ones.  Scratch: y, z, u (B, L, M) float; work
-// (B, L, M) bfloat16; zpart (B, f_a M / 32); bpart (B, f_a), f_a =
-// L / min(128, L).  L, M powers of two, L in [32, 4096], M in [32, 1024].
-// Returns 0, a cudaError_t, or -1 for an unsupported shape.
-int amp_slab_run(const float* y_n, const float* mask_n, const float* sqi,
-                 const float* sqo, const int32_t* enc_idx, const int32_t* pin,
-                 const float* sched, float* beta, float* trace,
-                 int32_t* iters, int32_t* active, float* y, float* z,
-                 float* u, void* work_v, float* zpart, float* bpart, int B,
-                 int L, int M, int T, float P, float n, float inv_sqrt_n,
-                 float tol, void* stream) {
-  if (!supported(B, L, M) || T < 1 || y_n == nullptr) return kBadShape;
+// arrive with row 0 all ones.  Scratch: yc, zc (B, ns) float, zr (B, ns)
+// uint32, u (B, L, M) float, work (B, L, M) bfloat16; zpart (B, f_a M /
+// 32); bpart (B, f_a), f_a = L / min(128, L).  L, M powers of two, L in
+// [32, 4096], M in [32, 1024].  Returns 0, a cudaError_t, or -1 for an
+// unsupported shape.
+int amp_slab_run(const float* y_n, const float* mask_c, const int32_t* offset,
+                 const uint32_t* word, const int32_t* block,
+                 const int32_t* perm, const int32_t* row_offset, int ns,
+                 const float* sqi, const float* sqo, const int32_t* enc_idx,
+                 const int32_t* pin, const float* sched, float* beta,
+                 float* trace, int32_t* iters, int32_t* active, float* yc,
+                 float* zc, uint32_t* zr, float* u, void* work_v,
+                 float* zpart, float* bpart, int B, int L, int M, int T,
+                 float P, float n, float inv_sqrt_n, float tol,
+                 void* stream) {
+  if (!supported(B, L, M) || T < 1 || y_n == nullptr || ns < 0)
+    return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* work = static_cast<__nv_bfloat16*>(work_v);
-  int rc = encode(y_n, mask_n, sqo, enc_idx, y, B, L, M, st);
+  Support sp;
+  sp.mask = mask_c;
+  sp.offset = offset;
+  sp.word = word;
+  sp.block = block;
+  sp.ns = ns;
+  int rc = encode(y_n, sp, sqo, enc_idx, yc, B, L, M, st);
   if (rc) return rc;
   const float nn = n * n;
   for (int t = 0; t < T; ++t) {
-    rc = col_step<true>(work, nullptr, y, z, mask_n, zpart, bpart, trace,
-                        active, B, L, M, t, P, nn, st);
+    rc = c1_step<true>(work, nullptr, yc, zc, zr, sp, perm, zpart, bpart,
+                       trace, active, B, L, M, t, P, nn, st);
     if (rc) return rc;
-    rc = rows_hm(z, work, active, B, L, M, t, st);
-    if (rc) return rc;
-    rc = col_step<false>(work, u, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, nullptr, active, B, L, M, t, 0.f, 0.f, st);
+    rc = adj_step(zr, row_offset, ns, u, active, B, L, M, t, st);
     if (rc) return rc;
     rc = rows_softmax(u, beta, work, zpart, bpart, trace, iters, active, pin,
                       sched, sqi, sqo, B, L, M, t, t == T - 1, n, inv_sqrt_n,
@@ -536,16 +813,30 @@ int amp_slab_run(const float* y_n, const float* mask_n, const float* sqi,
 
 // The slab form's transform of each (L, M) tile of x (B, L, M) into out:
 // H_L bf16(H_M bf16(x)), both 128-wide factors on the tensor cores; work
-// (B, L, M) bfloat16 scratch holds the H_M stage.
+// (B, L, M) bfloat16 scratch holds the H_M stage, and C1's products (its
+// strip walk without the residual) run H_L.
 int amp_slab_tile(const float* x, void* work_v, float* out, int B, int L,
                   int M, void* stream) {
   if (!supported(B, L, M)) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* work = static_cast<__nv_bfloat16*>(work_v);
-  int rc = rows_hm(x, work, nullptr, B, L, M, 0, st);
+  int rc = rows_hm(x, work, B, L, M, st);
   if (rc) return rc;
-  return col_step<false>(work, out, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, nullptr, nullptr, B, L, M, 0, 0.f, 0.f, st);
+  Support none = {};
+  return c1_step<false>(work, out, nullptr, nullptr, nullptr, none, nullptr,
+                        nullptr, nullptr, nullptr, nullptr, B, L, M, 0, 0.f,
+                        0.f, st);
+}
+
+// The decode's adjoint alone (R2C2 on every codeword): out (B, L, M) =
+// H_L bf16(H_M bf16(z)) from zr (B, ns), z's entries packed as C1 writes
+// them (bf16 bits above, the column below) in row-major order, with
+// row_offset (L + 1,).
+int amp_slab_adjoint(const uint32_t* zr, const int32_t* row_offset, int ns,
+                     float* out, int B, int L, int M, void* stream) {
+  if (!supported(B, L, M) || ns < 0) return kBadShape;
+  return adj_step(zr, row_offset, ns, out, nullptr, B, L, M, 0,
+                  static_cast<cudaStream_t>(stream));
 }
 
 const char* amp_slab_error_string(int code) {

@@ -61,8 +61,10 @@ _SIGNATURES = {
                              + (_P,), _I),
     },
     "amp_slab": {
-        "amp_slab_run": ((_P,) * 17 + (_I,) * 4 + (_F,) * 4 + (_P,), _I),
+        "amp_slab_run": ((_P,) * 7 + (_I,) + (_P,) * 16 + (_I,) * 4
+                         + (_F,) * 4 + (_P,), _I),
         "amp_slab_tile": ((_P,) * 3 + (_I,) * 3 + (_P,), _I),
+        "amp_slab_adjoint": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     },
     "bp_qc_layered": {
         "bp_qc_layered_run": ((_P,) * 5 + (_I,) * 8 + (_F,) * 3 + (_P,), _I),

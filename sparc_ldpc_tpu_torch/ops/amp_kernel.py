@@ -216,6 +216,45 @@ def mono_adjoint(zc: torch.Tensor, support: SplitSupport) -> torch.Tensor:
     return out
 
 
+def slab_adjoint_reference(zc: torch.Tensor, support: SplitSupport
+                           ) -> torch.Tensor:
+    """Plain version of K7's adjoint from the compact z (B, ns), in the
+    split kernel's order of the support entries (`support`): z embedded in
+    its (L, M) tile, then `fwht_tile_reference(., "bf16")`, H_L bf16(H_M
+    bf16(z)) with float32 sums (float64 for float64)."""
+    L, M = support.L, support.M
+    B = zc.shape[0]
+    dense = torch.zeros((B, L * M), dtype=zc.dtype, device=zc.device)
+    dense[:, support.flat.to(zc.device)] = zc
+    return fwht_tile_reference(dense.reshape(B, L, M), "bf16")
+
+
+def slab_adjoint(zc: torch.Tensor, support: SplitSupport) -> torch.Tensor:
+    """K7's adjoint alone, H_L bf16(H_M bf16(z)) (B, L, M) float32 from the
+    compact z (B, ns) float32 in the split kernel's order of `support`'s
+    entries: on a CUDA tensor the decode's adjoint launch (csrc/amp_slab.cu
+    `amp_slab_adjoint`: each row's H_M from its bf16 entries, rounded to
+    bf16, then H_L on the tensor cores; z packed as its column launch
+    packs it), on a CPU tensor `slab_adjoint_reference`."""
+    if zc.device.type == "cpu":
+        return slab_adjoint_reference(zc, support)
+    if zc.device.type != "cuda":
+        raise ValueError(f"slab_adjoint runs on cpu or cuda, not "
+                         f"{zc.device}")
+    from ._build import run
+
+    L, M = support.L, support.M
+    B = zc.shape[0]
+    _check_cuda_shape(B, L, M)
+    _check_support(support, L, M, zc.device)
+    _check_cuda_tensor("zc", zc, torch.float32, (B, support.ns), zc.device)
+    zr = pack_entries(zc, support)
+    out = torch.empty((B, L, M), dtype=torch.float32, device=zc.device)
+    run("amp_slab", "amp_slab_adjoint", zc.device, zr.data_ptr(),
+        support.row_offset.data_ptr(), support.ns, out.data_ptr(), B, L, M)
+    return out
+
+
 def slab_tile(x: torch.Tensor) -> torch.Tensor:
     """The slab form's transform of each tile of x (B, L, M) float32,
     H_L bf16(H_M bf16(x)): on a CUDA tensor K7's two stages (H_{m_b} and
@@ -637,11 +676,11 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     pass's channel.
 
     support (ops/split_support.py) is the split kernel's layout of the row
-    support mask > 0, on the data's device: the split and the mono form
-    keep y and z on it only.  A caller that decodes many blocks with one
-    mask builds it once (the operator's `split_support`); without it a CUDA
-    call of those forms builds it from mask, which waits for the device.
-    The slab form and the CPU route do not read it."""
+    support mask > 0, on the data's device: every form keeps y and z on it
+    only.  A caller that decodes many blocks with one mask builds it once
+    (the operator's `split_support`); without it a CUDA call builds it
+    from mask, which waits for the device.  The CPU route does not read
+    it."""
     if noise_seed is not None:
         if encode_idx is None or y_n is not None or noise_sigma is None:
             raise ValueError("the in-kernel noise needs encode_idx and "
@@ -706,22 +745,8 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    if f == "slab":
-        # the work tile holds the H_M stage's results rounded to bf16, as
-        # the H_L stage reads them; u the adjoint's float32 result
-        work = torch.empty_like(beta, dtype=torch.bfloat16)
-        y, z, u = (torch.empty_like(beta) for _ in range(3))
-        run("amp_slab", "amp_slab_run", dev,
-            y_n.data_ptr(), mask_n.data_ptr(), sqi.data_ptr(), sqo.data_ptr(),
-            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
-            beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
-            active.data_ptr(), y.data_ptr(), z.data_ptr(), u.data_ptr(),
-            work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(), B, L, M, T,
-            float(P), float(n), 1.0 / math.sqrt(n), float(tol))
-        amp_fused.slab_launches += 1
-        return beta, trace, iters
     # y and z live on the row support only, in the split kernel's order of
-    # its entries (both the split and the mono form)
+    # its entries (every form)
     if support is None:
         support = split_support_from_mask(mask)
     _check_support(support, L, M, dev)
@@ -729,6 +754,26 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     mask_c = support.gather(mask_n)
     yc = torch.empty((B, ns), dtype=torch.float32, device=dev)
     zc = torch.empty_like(yc)
+    if f == "slab":
+        # the work tile holds the H_M stage's results rounded to bf16, as
+        # the H_L stage reads them; u the adjoint's float32 result; zr
+        # bf16(z) with its column in row-major order for the adjoint
+        work = torch.empty_like(beta, dtype=torch.bfloat16)
+        u = torch.empty_like(beta)
+        zr = torch.empty((B, ns), dtype=torch.int32, device=dev)
+        run("amp_slab", "amp_slab_run", dev,
+            y_n.data_ptr(), mask_c.data_ptr(), support.offset.data_ptr(),
+            support.word.data_ptr(), support.block_offset.data_ptr(),
+            support.perm.data_ptr(), support.row_offset.data_ptr(), ns,
+            sqi.data_ptr(), sqo.data_ptr(),
+            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+            beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+            active.data_ptr(), yc.data_ptr(), zc.data_ptr(), zr.data_ptr(),
+            u.data_ptr(), work.data_ptr(), zpart.data_ptr(),
+            bpart.data_ptr(), B, L, M, T, float(P), float(n),
+            1.0 / math.sqrt(n), float(tol))
+        amp_fused.slab_launches += 1
+        return beta, trace, iters
     if f == "mono":
         # the mono form's work tile holds float32 products (bf16(x) H_M
         # and its H_L), so it is float32; zr holds bf16(z) with its column
@@ -771,7 +816,7 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
 # CPU route: `launches` of the split kernel (its encode launch plus 2 T
 # iteration launches), `noise_launches` those of them that drew the channel
 # noise in the kernel, `mono_launches` of the mono kernel and
-# `slab_launches` of the slab kernel (each its encode launch plus 4 T
+# `slab_launches` of the slab kernel (each its encode launch plus 3 T
 # iteration launches)
 amp_fused.launches = 0
 amp_fused.noise_launches = 0

@@ -3,8 +3,8 @@
 interleaved, to tell a code change from drift of the card.
 
     python3 sparc_ldpc_tpu_torch/tools/amp_ab.py TREE ... \
-        [--l4096 | --form mono | --k3 | --dense-strip] [--compare] \
-        [--out results.json]
+        [--l4096 | --form mono | --form slab | --k3 | --k5 |
+         --dense-strip] [--compare] [--out results.json]
 
 Each TREE is a directory that holds a `sparc_ldpc_tpu_torch/` package (the
 repository root, or an unpacked `git archive` of another commit); list the
@@ -26,6 +26,10 @@ shape and inputs, T=22 fixed, B=2048, the noise as an input: the mono form
 draws none), with the device ms of each launch kind (the names of either
 design).
 
+--form slab times the slab form's (K7's) headline call the same way
+(T=22 fixed, B=2048, y given), with the device ms of each launch kind (C1,
+R2C2, R3, or the earlier design's C1, R2, C2, R3; a name of either).
+
 --k3 times K3 (`fwht_tile`, bf16, scale 1/sqrt(9216)) at (B, l, M) =
 (512, 1024, 512), (1024, 512, 512), (1024, 256, 512) and (512, 2048, 512)
 (median of 5 runs of 5 calls each), with a digest of each result, and the
@@ -33,13 +37,25 @@ section-sharded decode of phase 20 of chip_smoke.py at S = 2 (the headline
 model, B=1024 draws from one generator, a virtual (1 x 2) mesh of the
 card; median of 3 decodes).
 
+--k5 times K5 (`fwht2`, float32) at (B, N) = (512, 2^19), (512, 2^17) and
+(64, 2^20) (median of 5 runs of 5 calls each), with a digest of each
+result and of the bf16-input result at (512, 2^19).
+
 With --compare each run also decodes one headline block of the real
 headline model (SparcModel.build of L=1024, M=512, R=1.0, iterative
 power, 2.0 dB, B=2048, generator seed 0; on the split form with the noise
-drawn in the kernel, with --form mono on amp_kernel="fused" with the noise
-from the generator, and then that block's run_block timed, median of 3),
-and every run is held to the first: the sections whose decision differs,
-whether beta, the trace and the iteration counts are equal bit for bit.
+drawn in the kernel, with --form mono on amp_kernel="fused" and with
+--form slab on amp_kernel="fused_slab", both with the noise from the
+generator, and then that block's run_block timed, median of 3), and every
+run is held to the first: the sections whose decision differs, those of
+them decisive (both top-2 margins above 2 %, `decision_flips`' rule), the
+iteration counts' and mean final tau2's differences, and whether beta,
+the trace and the iteration counts are equal bit for bit.  With --form
+slab --compare a witness follows: the block's first WITNESS_B codewords
+decoded by the plain version (`amp_fused_reference`, this process's
+tree, on the card) in float32 and in float64, and every pair of those and
+of the trees' decodes held to each other the same way (how many
+decisions summation order alone moves at this point).
 Prints one JSON line per run, the card's `nvidia-smi` name and power
 limit, and writes all of it to --out.
 
@@ -69,7 +85,8 @@ import time
 REPS = 5
 SHAPES = {"headline": dict(L=1024, M=512, T=22, B=2048, n=9216),
           "l4096": dict(L=4096, M=512, T=32, B=512, n=24576),
-          "mono": dict(L=1024, M=512, T=22, B=2048, n=9216)}
+          "mono": dict(L=1024, M=512, T=22, B=2048, n=9216),
+          "slab": dict(L=1024, M=512, T=22, B=2048, n=9216)}
 # each stage's kernel names: the dense design's, then the support design's
 STAGES = {"encode": ("amp_encode_kernel", "k1_encode_kernel"),
           "col": ("amp_col_kernel", "k1_col_kernel"),
@@ -80,6 +97,16 @@ MONO_STAGES = {"encode": ("amp_encode_kernel", "k1_encode_kernel"),
                "c1_dense": ("amp_col_kernel",), "r2": ("mono_hm_kernel",),
                "c2": ("fwht_cols_kernel",), "c1": ("mono_col_kernel",),
                "r2c2": ("mono_adj_kernel",), "r3": ("mono_row_kernel",)}
+# K7's launches: the earlier design's C1 and C2 (one kernel, RESID true
+# and false), R2, and the new C1, R2C2; R3 keeps its kernel
+SLAB_STAGES = {"encode": ("amp_encode_kernel", "k1_encode_kernel"),
+               "c1_dense": ("slab_col_kernel<128, 8, 1, true>",),
+               "r2": ("slab_hm_kernel",),
+               "c2": ("slab_col_kernel<128, 8, 1, false>",),
+               "c1": ("slab_c1_kernel",), "r2c2": ("slab_adj_kernel",),
+               "r3": ("slab_row_kernel",)}
+K5_SHAPES = ((512, 1 << 19), (512, 1 << 17), (64, 1 << 20))
+WITNESS_B = 512      # codewords of the slab block the plain witness decodes
 K3_SHAPES = ((512, 1024, 512), (1024, 512, 512), (1024, 256, 512),
              (512, 2048, 512))
 K3_N = 9216          # the headline n: K3's scale is 1/sqrt(n)
@@ -224,30 +251,36 @@ def _stage_ms(fn, stages=STAGES) -> dict:
     return {k: us[k] / 1e3 for k in stages}
 
 
-def _headline_model(dev, mono: bool):
+# the amp_kernel choice of each form's headline model
+FORM_KERNELS = {"split": "fused_split", "mono": "fused", "slab": "fused_slab"}
+
+
+def _headline_model(dev, form: str = "split"):
     """The headline model (bench.py's configuration) on the split form with
-    the noise drawn in the kernel, or with mono on amp_kernel="fused" (the
-    mono form at L = 1024) with the noise drawn outside."""
+    the noise drawn in the kernel, or on the mono form (amp_kernel="fused"
+    at L = 1024) or the slab form (amp_kernel="fused_slab") with the noise
+    drawn outside."""
     import sparc_ldpc_tpu_torch as slt
     from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 
     cfg = slt.SparcConfig(L=1024, M=512, R=1.0, power_alloc="iterative",
-                          op_kind="hadamard",
-                          amp_kernel="fused" if mono else "fused_split",
+                          op_kind="hadamard", amp_kernel=FORM_KERNELS[form],
                           transform_precision="bf16", amp_iters=32,
                           amp_tol=0.0, amp_iters_auto=True,
-                          amp_noise_in_kernel=not mono)
+                          amp_noise_in_kernel=form == "split")
     return SparcModel.build(cfg, 2.0, dev)
 
 
-def _headline_block(torch, dev, out_dir: str, mono: bool = False) -> dict:
-    """Decode one headline block of the real model; save its decisions.
-    On the mono form also time its run_block (median of 3)."""
+def _headline_block(torch, dev, out_dir: str, form: str = "split") -> dict:
+    """Decode one headline block of the real model; save its decisions and
+    each section's top-2 margin.  On the mono and slab forms also time its
+    run_block (median of 3)."""
     import numpy as np
 
     from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
 
-    model = _headline_model(dev, mono)
+    mono = form != "split"
+    model = _headline_model(dev, form)
     c = model.cfg
     gen = torch.Generator(device=dev).manual_seed(0)
     B = 2048
@@ -273,6 +306,7 @@ def _headline_block(torch, dev, out_dir: str, mono: bool = False) -> dict:
     dec = res.beta.argmax(-1).to(torch.int16).cpu().numpy()
     path = os.path.join(out_dir, f"dec_{os.getpid()}.npy")
     np.save(path, dec)
+    np.save(path[:-4] + "_margin.npy", _margin(res.beta))
     digest = {k: hashlib.sha256(v.contiguous().cpu().numpy().tobytes())
               .hexdigest() for k, v in (("beta", res.beta),
                                         ("trace", res.tau2_trace),
@@ -280,6 +314,7 @@ def _headline_block(torch, dev, out_dir: str, mono: bool = False) -> dict:
     return dict(T=c.amp_iters, decisions=path, digest=digest,
                 section_errors=int((res.beta.argmax(-1) != idx).sum()),
                 tau2_final=float(res.tau2_trace[-1].mean()),
+                iters_mean=float(res.iters.float().mean()),
                 block_ms=block_ms)
 
 
@@ -302,7 +337,7 @@ def _k3_worker(torch, ak, dev) -> dict:
             y.cpu().numpy().tobytes()).hexdigest())
         del x, y
         torch.cuda.empty_cache()
-    model = _headline_model(dev, False)
+    model = _headline_model(dev)
     c = model.cfg
     B = SHARD_BATCH
     bits = torch.randint(0, 2, (B, c.k_bits), generator=gen,
@@ -332,8 +367,28 @@ def _k3_worker(torch, ak, dev) -> dict:
     return out
 
 
+def _k5_worker(torch, dev) -> dict:
+    """K5's calls at K5_SHAPES, with result digests."""
+    from sparc_ldpc_tpu_torch.ops.fwht_kernel import fwht2
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for B, N in K5_SHAPES:
+        x = torch.randn((B, N), generator=gen, device=dev)
+        ms = _events_ms(lambda: [fwht2(x) for _ in range(5)]) / 5
+        rec = dict(ms=ms, digest=hashlib.sha256(
+            fwht2(x).cpu().numpy().tobytes()).hexdigest())
+        if N == 1 << 19:
+            rec["digest_bf16"] = hashlib.sha256(
+                fwht2(x, True).cpu().numpy().tobytes()).hexdigest()
+        out[f"{B}x2^{N.bit_length() - 1}"] = rec
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 def worker(tree: str, shape: str, compare_dir: str) -> dict:
-    """Time one tree's calls of `shape` (a SHAPES key, "k3" or
+    """Time one tree's calls of `shape` (a SHAPES key, "k3", "k5" or
     "dense_strip") in this process."""
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
@@ -353,7 +408,10 @@ def worker(tree: str, shape: str, compare_dir: str) -> dict:
                     dense_strip=_dense_strip_worker(ak, dev, compare_dir))
     if shape == "k3":
         return dict(tree=root, nvcc_s=nvcc_s, k3=_k3_worker(torch, ak, dev))
-    mono = shape == "mono"
+    if shape == "k5":
+        return dict(tree=root, nvcc_s=nvcc_s, k5=_k5_worker(torch, dev))
+    form = shape if shape in ("mono", "slab") else "split"
+    mono = form != "split"
     sh = SHAPES[shape]
     L, M, T, B, n = sh["L"], sh["M"], sh["T"], sh["B"], sh["n"]
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -370,24 +428,25 @@ def worker(tree: str, shape: str, compare_dir: str) -> dict:
                           device=dev, dtype=torch.int32)
     params = inspect.signature(ak.amp_fused).parameters
     # the split form at L = 1024: the default before the mono form existed
-    form = {"split": True} if "split" in params else {}
+    kw = {"split": True} if "split" in params else {}
     if mono:
-        form = {"form": "mono"}
+        kw = {"form": form}
     if "support" in params:
         from sparc_ldpc_tpu_torch.ops.split_support import (
             split_support_from_mask)
-        form["support"] = split_support_from_mask(mask)
+        kw["support"] = split_support_from_mask(mask)
 
     def call(noise: bool):
         if noise:
             return ak.amp_fused(None, mask, sq, P, n, T, encode_idx=idx,
-                                noise_seed=seeds, noise_sigma=sigma, **form)
-        return ak.amp_fused(y_n, mask, sq, P, n, T, encode_idx=idx, **form)
+                                noise_seed=seeds, noise_sigma=sigma, **kw)
+        return ak.amp_fused(y_n, mask, sq, P, n, T, encode_idx=idx, **kw)
 
     out = dict(tree=root, shape=shape, nvcc_s=nvcc_s,
                ms=_events_ms(lambda: call(False)))
     if mono:
-        st = _stage_ms(lambda: call(False), MONO_STAGES)
+        st = _stage_ms(lambda: call(False),
+                       SLAB_STAGES if form == "slab" else MONO_STAGES)
         out.update(encode_ms=st.pop("encode"),
                    ms_per_iter={k: v / T for k, v in st.items() if v > 0})
     else:
@@ -398,7 +457,7 @@ def worker(tree: str, shape: str, compare_dir: str) -> dict:
     if compare_dir:
         del y_n
         out["headline_block"] = _headline_block(torch, dev, compare_dir,
-                                                mono)
+                                                form)
     return out
 
 
@@ -408,13 +467,80 @@ def _compare(runs) -> None:
 
     first = runs[0]["headline_block"]
     d0 = np.load(first["decisions"])
+    m0 = np.load(first["decisions"][:-4] + "_margin.npy")
     for r in runs:
         hb = r["headline_block"]
         d = np.load(hb["decisions"])
+        m = np.load(hb["decisions"][:-4] + "_margin.npy")
         hb["decisions_differing"] = int((d != d0).sum())
+        hb["decisive_differing"] = int(
+            ((d != d0) & (m > 2e-2) & (m0 > 2e-2)).sum())
+        hb["iters_mean_diff"] = hb["iters_mean"] - first["iters_mean"]
+        hb["tau2_final_diff"] = hb["tau2_final"] - first["tau2_final"]
         hb["sections"] = int(d.size)
         hb["bitwise_equal_to_first"] = {
             k: hb["digest"][k] == first["digest"][k] for k in hb["digest"]}
+
+
+def _margin(beta):
+    """Each section's top-2 relative margin (decision_flips' rule)."""
+    top2 = beta.topk(2, dim=-1).values.double()
+    return ((top2[..., 0] - top2[..., 1])
+            / top2[..., 0].clamp(min=1e-30)).float().cpu().numpy()
+
+
+def _plain_witness(runs) -> dict:
+    """The slab headline block's first WITNESS_B codewords (the draws of
+    _headline_block) decoded by the plain version in float32 and float64,
+    beside each run's decisions of them: for every pair, the sections
+    whose decision differs and those of them decisive (both top-2 margins
+    above 2 %), and each decode's section errors."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused_reference
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+
+    dev = torch.device("cuda", 0)
+    model = _headline_model(dev, "slab")
+    c = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bits = torch.randint(0, 2, (2048, c.k_bits), generator=gen,
+                         dtype=torch.int32, device=dev)
+    idx = bits_to_indices(bits, c.logM)[:WITNESS_B].contiguous()
+    noise = torch.randn((2048, c.n), generator=gen, device=dev)[:WITNESS_B]
+    y_n = model.op.embed_y(noise * math.sqrt(model.sigma2)).reshape(
+        WITNESS_B, c.L, c.M)
+    args = (y_n, model.op.mask.reshape(c.L, c.M), model.sq_npl, c.P, c.n,
+            c.amp_iters)
+    truth = idx.cpu().numpy()
+    dec = {}
+    for dt in (torch.float32, torch.float64):
+        a = tuple(t.to(dt) if torch.is_tensor(t) and t.is_floating_point()
+                  else t for t in args)
+        beta = amp_fused_reference(*a, encode_idx=idx, form="slab")[0]
+        dec[f"plain {str(dt)[6:]}"] = (beta.argmax(-1).cpu().numpy(),
+                                       _margin(beta))
+        del beta
+    for i, r in enumerate(runs):
+        path = r["headline_block"]["decisions"]
+        dec[f"kernel[{i}] {r['tree_arg']}"] = (
+            np.load(path)[:WITNESS_B],
+            np.load(path[:-4] + "_margin.npy")[:WITNESS_B])
+    rep = {"section_errors": {k: int((d != truth).sum())
+                              for k, (d, _) in dec.items()},
+           "sections": int(truth.size)}
+    for a, b in itertools.combinations(dec, 2):
+        (da, ma), (db, mb) = dec[a], dec[b]
+        diff = da != db
+        rep[f"{a} vs {b}"] = dict(
+            differ=int(diff.sum()),
+            decisive=int((diff & (ma > 2e-2) & (mb > 2e-2)).sum()))
+    return rep
 
 
 def _dense_strip_all(runs) -> dict:
@@ -450,21 +576,25 @@ def main() -> None:
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--compare-dir", help=argparse.SUPPRESS)
     ap.add_argument("--l4096", action="store_true")
-    ap.add_argument("--form", choices=("split", "mono"), default="split")
+    ap.add_argument("--form", choices=("split", "mono", "slab"),
+                    default="split")
     ap.add_argument("--k3", action="store_true")
+    ap.add_argument("--k5", action="store_true")
     ap.add_argument("--compare", action="store_true")
     ap.add_argument("--dense-strip", action="store_true")
     ap.add_argument("--out")
     a = ap.parse_args()
-    modes = [m for m, on in (("l4096", a.l4096), ("mono", a.form == "mono"),
-                             ("k3", a.k3), ("dense_strip", a.dense_strip))
+    modes = [m for m, on in (("l4096", a.l4096),
+                             (a.form, a.form in ("mono", "slab")),
+                             ("k3", a.k3), ("k5", a.k5),
+                             ("dense_strip", a.dense_strip))
              if on]
     if len(modes) > 1:
-        ap.error("--l4096, --form mono, --k3 and --dense-strip exclude each "
-                 "other")
-    if a.compare and modes and modes[0] in ("k3", "dense_strip"):
+        ap.error("--l4096, --form mono|slab, --k3, --k5 and --dense-strip "
+                 "exclude each other")
+    if a.compare and modes and modes[0] in ("k3", "k5", "dense_strip"):
         ap.error("--compare decodes a headline block: the split form's or, "
-                 "with --form mono, the mono form's")
+                 "with --form mono|slab, that form's")
     shape = modes[0] if modes else "headline"
     if a.worker:
         print(json.dumps(worker(a.worker, shape, a.compare_dir)),
@@ -484,7 +614,7 @@ def main() -> None:
             cmd = [sys.executable, os.path.abspath(__file__), "--worker",
                    tree, "--form", a.form]
             cmd += [f"--{m.replace('_', '-')}" for m in modes
-                    if m != "mono"]
+                    if m not in ("mono", "slab")]
             if a.compare or a.dense_strip:
                 cmd += ["--compare-dir", tmp]
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -494,11 +624,15 @@ def main() -> None:
             rec["tree_arg"] = tree
             print(json.dumps(rec), flush=True)
             runs.append(rec)
+        witness = None
         if a.compare:
             _compare(runs)
             for r in runs:
                 print(json.dumps({"tree_arg": r["tree_arg"],
                                   **r["headline_block"]}), flush=True)
+            if shape == "slab":
+                witness = _plain_witness(runs)
+                print(json.dumps({"plain_witness": witness}), flush=True)
         report = _dense_strip_all(runs) if a.dense_strip else None
     if report is not None:
         print(json.dumps(report, indent=1), flush=True)
@@ -507,7 +641,8 @@ def main() -> None:
         with open(a.out, "w") as f:
             json.dump(dict(card=card, mode=shape,
                            shape=SHAPES.get(shape), runs=runs,
-                           dense_strip=report), f, indent=1)
+                           dense_strip=report, plain_witness=witness), f,
+                      indent=1)
 
 
 if __name__ == "__main__":

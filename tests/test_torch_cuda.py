@@ -32,6 +32,13 @@ before H_M and before H_L; its transform is bit-equal on integer inputs
 (every sum exact) and within one bf16 ulp of the largest H_M value on
 normals (the two sum in other orders, so a rounding of the H_M stage may
 fall to the other neighbour), its decode held to the bf16 tolerances.
+Since its redesign it keeps y and z on the split form's support tables
+too (three launches an iteration: C1 on the support, R2C2 the adjoint
+from the compact z, R3): held on hand-made masks (empty columns and rows,
+dense blocks past what its launches stage, an L = 4096 cluster), with
+frozen codewords and repeats bit for bit; its adjoint alone bit-equal on
+integer z.  K5 (`fwht2`) within 1e-5 of the scale, integer inputs bit for
+bit (every sum exact), up to N = 2^20 and at batches of 1 and 37.
 The split form keeps y and z on the row support only, found through its
 support tables (ops/split_support.py): hand-made masks (an empty column,
 a full thread range, a full column, a strip with more entries than it
@@ -76,7 +83,8 @@ from sparc_ldpc_tpu_torch.ops.amp_exp import (
 from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
     fwht_tile, fwht_tile_reference, mono_adjoint, mono_tile_reference,
-    noise_uniforms, noise_uniforms_reference, slab_tile)
+    noise_uniforms, noise_uniforms_reference, slab_adjoint,
+    slab_adjoint_reference, slab_tile)
 from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
     ABLATED as SLAB_ABLATED, MODES as SLAB_MODES, amp_slab_exp,
     amp_slab_exp_reference, compact_mask, parse_mode)
@@ -515,13 +523,13 @@ def test_cuda_slab_tile_matches_plain(cuda_device, L, M):
 
 
 @pytest.mark.parametrize("L,M", [(32, 32), (64, 128), (256, 256),
-                                 (1024, 512), (2048, 64)])
+                                 (1024, 512), (2048, 64), (4096, 64)])
 def test_cuda_amp_slab_matches_plain(cuda_device, L, M):
     """K7 (the slab form, amp_kernel="fused_slab") against its plain
-    version, f_b = L below 128 and a cluster of two column blocks at
-    L = 2048: fixed T, early stop, pinning, an SE schedule and no encode,
-    to the mono form's bf16 rules; each call counted in slab_launches
-    alone."""
+    version, f_b = L below 128 and a cluster of two or four column blocks
+    at L = 2048 and 4096: fixed T, early stop, pinning, an SE schedule and
+    no encode, to the mono form's bf16 rules; each call counted in
+    slab_launches alone."""
     model, y_n, mask, sq, idx = _inputs(L, M, 4, cuda_device, ebno_db=6.0)
     c = model.cfg
     T = 16
@@ -563,6 +571,77 @@ def test_cuda_amp_slab_matches_plain(cuda_device, L, M):
             assert (ik == T).all()
     assert amp_fused.slab_launches == launches[2] + len(opts)
     assert (amp_fused.launches, amp_fused.mono_launches) == launches[:2]
+
+
+@pytest.mark.parametrize("kind", ["hand", "empty_rows", "dense",
+                                  "dense_l4096", "dense_strip"])
+def test_cuda_amp_slab_hand_made_masks_match_plain(cuda_device, kind):
+    """K7 keeps y and z on the row support in K1's layout: an empty column,
+    empty rows, a full row, a random support of density 0.1 (more entries
+    a column block than C1 stages), the same in a cluster of four blocks
+    at L = 4096, and a dense strip (more entries a block's rows than R2C2
+    stages); against its plain version and a second identical run bit for
+    bit."""
+    mask = _hand_made_mask(kind)
+    args, idx = _support_inputs(mask, 3, cuda_device)
+    launches = amp_fused.slab_launches
+    for kw in (dict(), dict(tol=1e-4)):
+        kw = dict(encode_idx=idx, form="slab", **kw)
+        out = amp_fused(*args, 8, **kw)
+        again = amp_fused(*args, 8, **kw)
+        for a, b in zip(out, again):
+            assert torch.equal(a, b)
+        _hold_mono(out, amp_fused_reference(*args, 8, **kw), idx,
+                   "tol" in kw)
+    assert amp_fused.slab_launches == launches + 4
+
+
+def test_cuda_amp_slab_walker_skips_frozen_codewords(cuda_device):
+    """With the early stop codewords freeze at different iterations; K7's
+    column launches' walkers skip their items ((codeword, strip) items
+    outnumber the walkers); the result keeps the plain version's rules and
+    repeats bit for bit."""
+    L, M, B = 1024, 64, 192
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert B * (M // 32) > sms
+    model, y_n, mask, sq, idx = _inputs(L, M, B, cuda_device, ebno_db=6.0)
+    c = model.cfg
+    y_n[:B // 2] *= 0.5
+    args = (y_n, mask, sq, c.P, c.n, 16)
+    kw = dict(encode_idx=idx, form="slab", tol=1e-3)
+    out = amp_fused(*args, **kw)
+    again = amp_fused(*args, **kw)
+    ik = out[2].cpu().numpy()
+    assert ik.min() < ik.max(), ik
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    _hold_mono(out, amp_fused_reference(*args, **kw), idx, True)
+
+
+@pytest.mark.parametrize("L,M,density", [(32, 32, 0.1), (64, 128, 0.05),
+                                         (256, 512, 0.02),
+                                         (1024, 512, 0.018),
+                                         (1024, 64, 0.5), (4096, 128, 0.05)])
+def test_cuda_slab_adjoint_matches_plain(cuda_device, L, M, density):
+    """K7's adjoint launch alone (each row's H_M from its bf16 entries,
+    rounded to bf16, then H_L on the tensor cores): against
+    `slab_adjoint_reference`, on integer z bit for bit (every sum exact)
+    and on normals to 1e-5 of the output scale; (1024, 64, 0.5) has more
+    entries than the launch stages, (4096, 128) runs on clusters of
+    four."""
+    rng = np.random.default_rng(1)
+    mask = torch.tensor(rng.random((L, M)) < density, dtype=torch.float32)
+    sp = split_support_from_mask(mask).to(cuda_device)
+    B = 3
+    for z in (rng.integers(-8, 9, (B, sp.ns)), rng.standard_normal((B, sp.ns))):
+        zc = torch.tensor(z, dtype=torch.float32, device=cuda_device)
+        ref = slab_adjoint_reference(zc, sp)
+        got = slab_adjoint(zc, sp)
+        if z.dtype.kind == "i":
+            assert torch.equal(got, ref)
+        else:
+            err = (got - ref).abs().max() / ref.abs().max()
+            assert float(err) <= 1e-5, float(err)
 
 
 def test_cuda_slab_model_block_matches_cpu(cuda_device):
@@ -774,15 +853,24 @@ def test_cuda_noise_route_matches_plain(cuda_device):
     assert decision_flips(bp, bk)[1] == 0
 
 
-@pytest.mark.parametrize("N", [1 << 11, 1 << 13, 1 << 17, 1 << 19])
-def test_cuda_fwht2_matches_plain(cuda_device, N):
-    x = torch.randn((3, N), device=cuda_device)
+@pytest.mark.parametrize("B", [1, 3, 37])
+@pytest.mark.parametrize("N", [1 << 11, 1 << 13, 1 << 17, 1 << 19, 1 << 20])
+def test_cuda_fwht2_matches_plain(cuda_device, N, B):
+    """K5 at batches that fill no whole wave of its column launch's
+    blocks, up to N = 2^20: normals within 1e-5 of the scale, with and
+    without the bf16 input, and integer inputs bit for bit (every sum
+    exact in float32)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(N + B)
+    x = torch.randn((B, N), generator=gen, device=cuda_device)
     launches = fwht2.launches
     for bf16 in (False, True):
         ref = fwht2_reference(x, bf16)
         err = (fwht2(x, bf16) - ref).abs().max() / ref.abs().max()
         assert float(err) <= 1e-5, (bf16, float(err))
-    assert fwht2.launches == launches + 2
+    ints = torch.randint(-8, 9, (B, N), generator=gen,
+                         device=cuda_device).float()
+    assert torch.equal(fwht2(ints), fwht2_reference(ints))
+    assert fwht2.launches == launches + 3
 
 
 def test_cuda_fwht2_routes_like_the_reference(cuda_device):
