@@ -39,7 +39,12 @@ the concat preset.  Each phase prints one line with its seconds:
   7. the layered BP kernel against the plain layered engine, bitwise
      (hard, ok, iters, posterior), on the LLRs of a real concat block and
      on seeded noisy LLRs of wifi_n648_r12, qc_n648_r56 and
-     wifi_n1944_r12, min-sum and offset min-sum;
+     wifi_n1944_r12, min-sum and offset min-sum, at their sigmas and at
+     BP_MAX_SIGMA (the max-iteration point: at least 99.9 % of the
+     codewords run all 32 iterations; at any sigma a few of qc_n648_r56's
+     min-sum decodes still converge to a codeword), and on a straggler
+     batch of the concat code (4095 noise-free codewords that stop after
+     iteration 1, one of pure noise that runs all 32);
   8. concat main path: run_block at B=2048 through both kernels, noise in
      the kernel; FER within 0.03 of the float64 oracle's 0.909, bp_ok
      within 0.01 of 0.995, BER within 0.5x-2x of 1.62e-3
@@ -47,7 +52,10 @@ the concat preset.  Each phase prints one line with its seconds:
      same seed twice gives identical counters;
   9. timing: median ms per concat block over 3 blocks as user bits/s, the
      block's stages (main AMP, LLR fold, BP, feedback AMP) by CUDA events,
-     and the BP kernel's and the plain engine's ms per call;
+     and the BP kernel's and the plain engine's ms per call, the kernel's
+     bound and its design floor (`ops/bp_qc_kernel.py design_traffic`:
+     device bytes at 3.35 TB/s plus on-chip bytes, shared memory and L1,
+     at SMs x 128 B a clock x nvidia-smi's clocks.max.sm);
  10. the in-kernel noise (K1 (e)): (a) the noise launch alone at B=64
      against its plain version: uniforms equal, normals within 1e-5,
      exact zeros off the row support, mean within 4 sigma / sqrt(count)
@@ -282,6 +290,13 @@ PA_EBNO_DB, PA_ORACLE_BER, PA_FER_MIN = 3.0, 3.921e-3, 0.99
 BP_CODES = (("wifi_n648_r12", 0.75), ("qc_n648_r56", 0.5),
             ("wifi_n1944_r12", 0.75))      # (code, noise sigma)
 BP_BATCH = 4096       # codewords of each of BP_CODES in phase 7
+BP_MAX_SIGMA = 2.0    # phase 7's max-iteration sigma
+# K2's design (csrc/bp_qc_layered.cu)
+K2_DESIGN = ("check state (min1, min2, sign and min1 bits), a codeword a "
+             "warp group with its own barrier and exit, a work queue, a "
+             "layer's edges in registers (two lanes a check above 12 "
+             "edges), the reduced zero-block pass")
+SMEM_BYTES_PER_CLOCK = 128   # an SM's shared memory and L1, bytes a clock
 OPTION_BATCH = 32     # codewords in phase 6
 SCHED_MARGIN = 1.1    # phase 6's SE schedule is designed at 1.1 sigma2
 KERNEL_BATCH = 64     # rows of phases 10 (a), 11 and 12
@@ -335,6 +350,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_max_mhz() -> float:
+    """The card's highest SM clock, MHz, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 class Clock:
@@ -656,7 +680,8 @@ def concat_path(dev, card: str, clock: Clock) -> dict:
     from sparc_ldpc_tpu_torch.design.se import se_trajectory
     from sparc_ldpc_tpu_torch.models.concat import ConcatModel
     from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
-    from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
+    from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import (bp_decode_qc_kernel,
+                                                      design_traffic)
     from sparc_ldpc_tpu_torch.utils.rng import block_generator
 
     cfg = slt.PRESETS["concat"]
@@ -752,9 +777,47 @@ def concat_path(dev, card: str, clock: Clock) -> dict:
             res7[f"{code} {method}"] = dict(
                 Z=Z, bitwise=bitwise(a, b), ok=int(a.ok.sum()),
                 iters_mean=float(a.iters.float().mean()))
+        # the max-iteration point: (nearly) no codeword passes its syndrome
+        rng = np.random.default_rng(SEED + 1)
+        yb = (1.0 - 2.0 * cw) + BP_MAX_SIGMA * rng.standard_normal(cw.shape)
+        llr_c = torch.tensor(2.0 * yb / BP_MAX_SIGMA ** 2,
+                             dtype=torch.float32, device=dev)
+        for method in ("minsum", "oms"):
+            a = bp_decode_qc_kernel(llr_c, sh, Z, iters=32, method=method)
+            b = bp_decode_qc(llr_c, tables, iters=32, method=method,
+                             schedule="layered")
+            res7[f"{code} max_iters {method}"] = dict(
+                Z=Z, bitwise=bitwise(a, b), ok=int(a.ok.sum()),
+                iters_mean=float(a.iters.float().mean()))
+            require(int((a.iters == 32).sum()) >= 0.999 * BP_BATCH,
+                    f"{code} at sigma {BP_MAX_SIGMA}: {int(a.ok.sum())} "
+                    f"codewords passed")
+    # a straggler among codewords that stop after one iteration
+    code_obj = build_code(lm.cfg)
+    rng = np.random.default_rng(SEED)
+    cw = code_obj.encode(rng.integers(0, 2, (BP_BATCH, code_obj.k)))
+    xb = 8.0 * (1.0 - 2.0 * cw)
+    xb[BP_BATCH // 3] = (2.0 / BP_MAX_SIGMA ** 2) * (
+        xb[BP_BATCH // 3] / 8.0
+        + BP_MAX_SIGMA * rng.standard_normal(code_obj.n))
+    llr_s = torch.tensor(xb, dtype=torch.float32, device=dev)
+    for method in ("minsum", "oms"):
+        a = bp_decode_qc_kernel(llr_s, lm.qc_shifts, lm.qc_tables.Z,
+                                iters=32, method=method)
+        b = bp_decode_qc(llr_s, lm.qc_tables, iters=32, method=method,
+                         schedule="layered")
+        res7[f"straggler {method}"] = dict(
+            bitwise=bitwise(a, b), ok=int(a.ok.sum()),
+            iters_max=int(a.iters.max()),
+            stopped_at_1=int((a.iters == 1).sum()))
+        require(int(a.iters[BP_BATCH // 3]) == 32
+                and int((a.iters == 1).sum()) == BP_BATCH - 1,
+                f"straggler batch {method}: {res7[f'straggler {method}']}")
     print(f"[7 bp kernel vs plain] {res7} ({clock.lap():.1f} s)", flush=True)
     for k, r in res7.items():
         require(r["bitwise"], f"{k}: kernel and plain engine differ")
+    k2_traffic = design_traffic(lm.qc_shifts, lm.qc_tables.Z, llr.shape[0],
+                                int(rk.iters.sum()))
 
     # 8. concat main path, as shipped (noise drawn in the kernel)
     reset_counts()
@@ -816,12 +879,21 @@ def concat_path(dev, card: str, clock: Clock) -> dict:
     plain_ms = call_ms(lambda: bp_decode_qc(
         llr, lm.qc_tables, schedule="layered", **bp_kw), REPS)
     bits_per_s = BATCH * cm.k_user / dt
+    # K2's design floor: its device bytes at the memory rate plus its
+    # on-chip bytes at every SM's shared-memory rate
+    smem_rate = (torch.cuda.get_device_properties(dev).multi_processor_count
+                 * SMEM_BYTES_PER_CLOCK * 1e6 * sm_max_mhz())
+    k2_floor = 1e3 * (k2_traffic["device_bytes"] / HBM_BYTES_PER_S
+                      + k2_traffic["chip_bytes"] / smem_rate)
     print(f"[9 timing] {CONCAT_METRIC} = {bits_per_s:.1f} "
           f"bits/s ({1e3 * dt:.2f} ms per block of {BATCH}, median of "
           f"{[round(1e3 * t, 2) for t in times]} ms) on {card}; one block's "
           f"stages, ms: {stages}; layered BP on the {llr.shape[0]} "
           f"codewords of phase 7: kernel {kernel_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bp_b} ({clock.lap():.1f} s)",
+          f"{plain_ms:.3f} ms, bound {bp_b}, design ({K2_DESIGN}) floor "
+          f"{k2_floor:.4f} ms ({k2_traffic['device_bytes']} device bytes, "
+          f"{k2_traffic['chip_bytes']} on-chip bytes at "
+          f"{smem_rate / 1e12:.2f} TB/s) ({clock.lap():.1f} s)",
           flush=True)
     return dict(model=cm, launches=launches, cnt=cnt, fer=fer, ber=ber,
                 bp_ok=bp_ok, max_abs_err=max(errs), bits_per_s=bits_per_s,
@@ -831,7 +903,7 @@ def concat_path(dev, card: str, clock: Clock) -> dict:
                     "replaces": "sparc_ldpc_tpu/ops/bp_qc_pallas.py:70",
                     "max_abs_err": res7["concat block"]["max_abs_err"],
                     "ms": kernel_ms, "plain_ms": plain_ms, **bp_b,
-                    "library_ms": None})
+                    "library_ms": None, "design": K2_DESIGN})
 
 
 def concat_windows(fer: float, ber: float, bp_ok: float) -> list:

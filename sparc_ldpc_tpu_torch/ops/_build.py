@@ -67,7 +67,7 @@ _SIGNATURES = {
         "amp_slab_adjoint": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     },
     "bp_qc_layered": {
-        "bp_qc_layered_run": ((_P,) * 5 + (_I,) * 8 + (_F,) * 3 + (_P,), _I),
+        "bp_qc_layered_run": ((_P,) * 8 + (_I,) * 11 + (_F,) * 3 + (_P,), _I),
     },
     "denoise": {
         "denoise_run": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),

@@ -3,7 +3,7 @@
 interleaved, to tell a code change from drift of the card.
 
     python3 sparc_ldpc_tpu_torch/tools/amp_ab.py TREE ... \
-        [--l4096 | --form mono | --form slab | --k3 | --k5 |
+        [--l4096 | --form mono | --form slab | --k3 | --k5 | --k2 |
          --dense-strip] [--compare] [--out results.json]
 
 Each TREE is a directory that holds a `sparc_ldpc_tpu_torch/` package (the
@@ -40,6 +40,32 @@ card; median of 3 decodes).
 --k5 times K5 (`fwht2`, float32) at (B, N) = (512, 2^19), (512, 2^17) and
 (64, 2^20) (median of 5 runs of 5 calls each), with a digest of each
 result and of the bf16-input result at (512, 2^19).
+
+--k2 times K2 (`bp_decode_qc_kernel`, the layered QC-LDPC BP) at three
+points, every tree on the same LLRs (the first run makes them, on the
+card, and saves them for the others): (1) the concat block, the 12 288
+codewords of chip_smoke.py phase 7 (PRESETS["concat"], 3.0 dB, B=2048,
+the preset's BP settings); (2) K2_CODES (chip_smoke.py's BP_CODES), 4096
+codewords each at its sigma, 32 iterations, min-sum and offset min-sum;
+(3) the same codes at sigma K2_MAX_SIGMA, where all but a few codewords
+fail their syndrome and run all 32 iterations (the per-iteration rate;
+a few of qc_n648_r56's min-sum decodes converge to a codeword at any
+sigma);
+and, for the launch's tail, the concat code's straggler batch (K2_BATCH
+noise-free codewords that stop after iteration 1, one of pure noise that
+runs all 32) and that codeword alone.
+Each point gives the call's ms (median of 5 runs of 5 calls, CUDA
+events), the kernel's own device ms (one call, torch.profiler), the
+mean iterations, the launches, and a
+sha256 digest of the posterior, iteration counts and ok flags, which must
+be the same in every tree (K2 is bitwise its plain version); the first
+run also times the plain layered engine (median of 3 calls).  The report
+adds each point's bound (BP_EDGE_OPS operations an edge and iteration as
+run at 67 TFLOP/s against the LLR and result bytes at 3.35 TB/s) and the
+design floor of `ops/bp_qc_kernel.py design_traffic` (device bytes at
+3.35 TB/s plus on-chip bytes, shared memory and L1, at SMs x 128 B a
+clock x `nvidia-smi`'s clocks.max.sm).  Only `bp_qc_layered` is built in
+the trees after the first.
 
 With --compare each run also decodes one headline block of the real
 headline model (SparcModel.build of L=1024, M=512, R=1.0, iterative
@@ -111,6 +137,16 @@ K3_SHAPES = ((512, 1024, 512), (1024, 512, 512), (1024, 256, 512),
              (512, 2048, 512))
 K3_N = 9216          # the headline n: K3's scale is 1/sqrt(n)
 SHARD_BATCH = 1024   # chip_smoke.py phase 20's codewords
+# --k2: chip_smoke.py's BP_CODES (code, noise sigma) and BP_BATCH, the
+# sigma at which none of them decodes, the concat block's draw (phase 7)
+K2_CODES = (("wifi_n648_r12", 0.75), ("qc_n648_r56", 0.5),
+            ("wifi_n1944_r12", 0.75))
+K2_BATCH = 4096
+K2_MAX_SIGMA = 2.0
+K2_CONCAT = dict(ebno_db=3.0, batch=2048, seed=0)
+BP_EDGE_OPS = 8      # per edge and layered min-sum iteration (chip_smoke)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def dense_strip_mask(L: int = 1024, M: int = 64):
@@ -387,9 +423,155 @@ def _k5_worker(torch, dev) -> dict:
     return out
 
 
+def _k2_make_points(torch, dev, path: str) -> None:
+    """The LLRs of every --k2 point, saved to `path` (CPU tensors)."""
+    import numpy as np
+
+    import sparc_ldpc_tpu_torch as slt
+    from sparc_ldpc_tpu_torch.design.ldpc_codes import (build_code,
+                                                        qc_structure)
+    from sparc_ldpc_tpu_torch.models.concat import ConcatModel
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    def shifts_of(sh):
+        return tuple(tuple(int(v) for v in row) for row in sh)
+
+    cm = ConcatModel.build(slt.PRESETS["concat"], K2_CONCAT["ebno_db"], dev)
+    sm, lm = cm.sparc, cm.ldpc
+    B = K2_CONCAT["batch"]
+    gen = block_generator(K2_CONCAT["seed"], 3, 1, dev)
+    bits = torch.randint(0, 2, (B, cm.k_user), generator=gen,
+                         dtype=torch.int32, device=dev)
+    noise = torch.randn((B, sm.cfg.n), generator=gen, device=dev)
+    beta = sm.decode(noise * math.sqrt(sm.sigma2),
+                     encode_idx=cm._true_indices(bits)).beta
+    llr = cm._protected_llrs_from_beta(beta).reshape(B * cm.num_cw, lm.n)
+    c = lm.cfg
+    kw = dict(iters=c.bp_iters, method=c.decoder, alpha=c.alpha,
+              beta=c.beta, clip=c.llr_clip)
+    sh = shifts_of(lm.qc_shifts)
+    points = {"concat": dict(llr=llr.cpu(), shifts=sh, Z=lm.qc_tables.Z,
+                             kw=kw)}
+    # the launch's tail: K2_BATCH noise-free codewords of the concat code
+    # (they stop after iteration 1) with one of pure noise (it runs every
+    # iteration), and that codeword alone
+    code_obj = build_code(c)
+    rng = np.random.default_rng(2)
+    cw = code_obj.encode(rng.integers(0, 2, (K2_BATCH, code_obj.k)))
+    x = 8.0 * (1.0 - 2.0 * cw)
+    x[K2_BATCH // 3] = (2.0 / K2_MAX_SIGMA ** 2) * (
+        x[K2_BATCH // 3] / 8.0
+        + K2_MAX_SIGMA * rng.standard_normal(code_obj.n))
+    x = torch.tensor(x, dtype=torch.float32)
+    points["concat straggler"] = dict(llr=x, shifts=sh, Z=lm.qc_tables.Z,
+                                      kw=kw)
+    points["concat lone"] = dict(llr=x[K2_BATCH // 3:K2_BATCH // 3 + 1],
+                                 shifts=sh, Z=lm.qc_tables.Z, kw=kw)
+    for code, sigma in K2_CODES:
+        cfg = slt.LdpcConfig(kind="qc", path=code)
+        code_obj = build_code(cfg)
+        sh, Z = qc_structure(cfg)
+        for label, sg, seed in (("sigma", sigma, 0),
+                                ("max_iters", K2_MAX_SIGMA, 1)):
+            rng = np.random.default_rng(seed)
+            cw = code_obj.encode(rng.integers(0, 2, (K2_BATCH, code_obj.k)))
+            y = (1.0 - 2.0 * cw) + sg * rng.standard_normal(cw.shape)
+            llr = torch.tensor(2.0 * y / sg ** 2, dtype=torch.float32)
+            for method in ("minsum", "oms"):
+                points[f"{code} {label} {method}"] = dict(
+                    llr=llr, shifts=shifts_of(sh), Z=Z,
+                    kw=dict(iters=32, method=method))
+    torch.save(points, path)
+
+
+def _k2_worker(torch, dev, points: dict, made: bool) -> dict:
+    """K2's calls at every --k2 point, with digests; the plain layered
+    engine's ms too in the run that made the points."""
+    import numpy as np
+
+    from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
+    from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import bp_decode_qc_kernel
+
+    out = {}
+    for name, pt in points.items():
+        llr = pt["llr"].to(dev)
+        sh, Z, kw = pt["shifts"], pt["Z"], pt["kw"]
+        launches = bp_decode_qc_kernel.launches
+        r = bp_decode_qc_kernel(llr, sh, Z, **kw)
+        torch.cuda.synchronize()
+        one = bp_decode_qc_kernel.launches - launches
+        ms = _events_ms(lambda: [bp_decode_qc_kernel(llr, sh, Z, **kw)
+                                 for _ in range(5)]) / 5
+        # the kernel's own device time (profiler)
+        kernel_ms = _stage_ms(lambda: bp_decode_qc_kernel(llr, sh, Z, **kw),
+                              {"k2": ("bp_qc_layered_kernel",)})["k2"]
+        h = hashlib.sha256()
+        for t in (r.posterior, r.iters, r.ok):
+            h.update(t.cpu().numpy().tobytes())
+        rec = dict(ms=ms, kernel_ms=kernel_ms,
+                   codewords=llr.shape[0], n=llr.shape[1],
+                   launches_per_call=one,
+                   iters_sum=int(r.iters.sum()),
+                   iters_mean=float(r.iters.float().mean()),
+                   ok=int(r.ok.sum()), digest=h.hexdigest())
+        if made:
+            tables = QcBpTables.build(np.asarray(sh), Z, device=dev)
+            ms_p = []
+            for _ in range(4):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                bp_decode_qc(llr, tables, schedule="layered", **kw)
+                b.record()
+                torch.cuda.synchronize()
+                ms_p.append(a.elapsed_time(b))
+            rec["plain_ms"] = statistics.median(ms_p[1:])
+        out[name] = rec
+        del llr, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k2_report(runs, sms: int, sm_mhz: float) -> dict:
+    """Every --k2 point: the trees' ms in run order, whether their digests
+    agree, and the bound and design floor on the first run's iterations."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import design_traffic
+
+    smem_rate = sms * 128 * sm_mhz * 1e6
+    first = runs[0]["k2"]
+    rep = dict(smem_bytes_per_s=smem_rate, sms=sms, sm_mhz=sm_mhz)
+    for name, pt in runs[0]["k2_points"].items():
+        r0 = first[name]
+        B, n = r0["codewords"], r0["n"]
+        sh, Z = pt["shifts"], pt["Z"]
+        edges = Z * sum(v >= 0 for row in sh for v in row)
+        nbytes = B * (4 * n + n + 4 * n + 4 + 1)   # llr, hard, post, it, ok
+        ops = BP_EDGE_OPS * edges * r0["iters_sum"]
+        bound = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+                 "operations": 1e3 * ops / FP32_OPS_PER_S}
+        by = max(bound, key=bound.get)
+        tr = design_traffic(sh, Z, B, r0["iters_sum"])
+        floor = 1e3 * (tr["device_bytes"] / HBM_BYTES_PER_S
+                       + tr["chip_bytes"] / smem_rate)
+        rep[name] = dict(
+            ms=[r["k2"][name]["ms"] for r in runs],
+            kernel_ms=[r["k2"][name]["kernel_ms"] for r in runs],
+            trees=[r["tree_arg"] for r in runs],
+            digests_equal=len({r["k2"][name]["digest"] for r in runs}) == 1,
+            iters_mean=r0["iters_mean"], ok=r0["ok"], codewords=B,
+            launches_per_call=sorted({r["k2"][name]["launches_per_call"]
+                                      for r in runs}),
+            plain_ms=r0.get("plain_ms"), bound_ms=bound[by], bound_by=by,
+            design_device_bytes=tr["device_bytes"],
+            design_chip_bytes=tr["chip_bytes"], design_floor_ms=floor)
+    return rep
+
+
 def worker(tree: str, shape: str, compare_dir: str) -> dict:
-    """Time one tree's calls of `shape` (a SHAPES key, "k3", "k5" or
-    "dense_strip") in this process."""
+    """Time one tree's calls of `shape` (a SHAPES key, "k3", "k5", "k2"
+    or "dense_strip") in this process."""
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     import inspect
@@ -401,8 +583,24 @@ def worker(tree: str, shape: str, compare_dir: str) -> dict:
 
     if not os.path.abspath(ak.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {ak.__file__}, not from {root}")
-    nvcc_s = _build.build()
     dev = torch.device("cuda", 0)
+    if shape == "k2":
+        # the first run builds every kernel and makes the points (the AMP
+        # decode of the concat block); the others build K2 alone
+        path = os.path.join(compare_dir, "k2_points.pt")
+        made = not os.path.exists(path)
+        if not made:
+            _build.LIBRARIES = ("bp_qc_layered",)
+        nvcc_s = _build.build()
+        if made:
+            _k2_make_points(torch, dev, path)
+        points = torch.load(path)
+        return dict(tree=root, nvcc_s=nvcc_s,
+                    k2=_k2_worker(torch, dev, points, made),
+                    k2_points={k: dict(shifts=p["shifts"], Z=p["Z"],
+                                       kw=p["kw"])
+                               for k, p in points.items()})
+    nvcc_s = _build.build()
     if shape == "dense_strip":
         return dict(tree=root, nvcc_s=nvcc_s,
                     dense_strip=_dense_strip_worker(ak, dev, compare_dir))
@@ -580,19 +778,21 @@ def main() -> None:
                     default="split")
     ap.add_argument("--k3", action="store_true")
     ap.add_argument("--k5", action="store_true")
+    ap.add_argument("--k2", action="store_true")
     ap.add_argument("--compare", action="store_true")
     ap.add_argument("--dense-strip", action="store_true")
     ap.add_argument("--out")
     a = ap.parse_args()
     modes = [m for m, on in (("l4096", a.l4096),
                              (a.form, a.form in ("mono", "slab")),
-                             ("k3", a.k3), ("k5", a.k5),
+                             ("k3", a.k3), ("k5", a.k5), ("k2", a.k2),
                              ("dense_strip", a.dense_strip))
              if on]
     if len(modes) > 1:
-        ap.error("--l4096, --form mono|slab, --k3, --k5 and --dense-strip "
-                 "exclude each other")
-    if a.compare and modes and modes[0] in ("k3", "k5", "dense_strip"):
+        ap.error("--l4096, --form mono|slab, --k3, --k5, --k2 and "
+                 "--dense-strip exclude each other")
+    if a.compare and modes and modes[0] in ("k3", "k5", "k2",
+                                            "dense_strip"):
         ap.error("--compare decodes a headline block: the split form's or, "
                  "with --form mono|slab, that form's")
     shape = modes[0] if modes else "headline"
@@ -615,7 +815,7 @@ def main() -> None:
                    tree, "--form", a.form]
             cmd += [f"--{m.replace('_', '-')}" for m in modes
                     if m not in ("mono", "slab")]
-            if a.compare or a.dense_strip:
+            if a.compare or a.dense_strip or a.k2:
                 cmd += ["--compare-dir", tmp]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
@@ -634,6 +834,14 @@ def main() -> None:
                 witness = _plain_witness(runs)
                 print(json.dumps({"plain_witness": witness}), flush=True)
         report = _dense_strip_all(runs) if a.dense_strip else None
+    if a.k2:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.strip().splitlines()[0])
+        report = _k2_report(
+            runs, torch.cuda.get_device_properties(0).multi_processor_count,
+            mhz)
     if report is not None:
         print(json.dumps(report, indent=1), flush=True)
     print(card)
@@ -641,7 +849,9 @@ def main() -> None:
         with open(a.out, "w") as f:
             json.dump(dict(card=card, mode=shape,
                            shape=SHAPES.get(shape), runs=runs,
-                           dense_strip=report, plain_witness=witness), f,
+                           dense_strip=report if a.dense_strip else None,
+                           k2=report if a.k2 else None,
+                           plain_witness=witness), f,
                       indent=1)
 
 

@@ -751,25 +751,92 @@ def _qc_llrs(path_or_z, B, sigma, device, seed=0):
     return tuple(tuple(int(s) for s in row) for row in shifts), Z, llr
 
 
-@pytest.mark.parametrize("method", ["minsum", "oms"])
-@pytest.mark.parametrize("code", [31, "wifi_n648_r12", "qc_n648_r56",
-                                  "wifi_n1296_r12", "wifi_n1944_r12"])
-def test_cuda_bp_kernel_bitwise_matches_plain(cuda_device, code, method):
-    """K2 against the plain layered engine, bitwise, for Z = 31, 27, 54
-    and 81: hard decisions, ok flags, iteration counts, posteriors."""
+_BP_CODES = [31, "wifi_n648_r12", "qc_n648_r56", "wifi_n1296_r12",
+             "wifi_n1944_r12"]
+_BP_ALL = _BP_CODES + ["qc_n648_r23", "qc_n648_r34"]
+# (code, method, case): the earlier mixed batches (ids unchanged), then the
+# max-iteration sigma, odd batch sizes around the group and queue edges,
+# quantised LLRs with -0.0 and +-clip, no iteration, and one straggler
+_BP_CASES = (
+    [pytest.param(c, m, "mixed", id=f"{c}-{m}")
+     for m in ("minsum", "oms") for c in _BP_CODES]
+    + [pytest.param(c, m, "max_iters", id=f"{c}-{m}-max_iters")
+       for m in ("minsum", "oms")
+       for c in (31, "wifi_n648_r12", "qc_n648_r56", "wifi_n1944_r12")]
+    + [pytest.param(c, "minsum", f"batch{b}", id=f"{c}-minsum-batch{b}")
+       for c in (31, "wifi_n1944_r12") for b in (1, 37, 4097)]
+    + [pytest.param(c, m, "ties", id=f"{c}-{m}-ties")
+       for m in ("minsum", "oms") for c in _BP_ALL]
+    + [pytest.param(c, "minsum", "iters0", id=f"{c}-minsum-iters0")
+       for c in (31, "wifi_n1944_r12")]
+    + [pytest.param(c, m, "straggler", id=f"{c}-{m}-straggler")
+       for m in ("minsum", "oms") for c in (31, "wifi_n1944_r12")])
+
+
+def _bp_case_llrs(code, case, device):
+    """(shifts, Z, llr, iters) of one case of the bitwise K2 test."""
     # rate 1/2 codes at sigma 0.75, the rate ~0.84 codes at 0.5: a mix of
     # frames that decode early and frames that run all 20 iterations
     sigma = 0.75 if "r12" in str(code) else 0.5
-    shifts, Z, llr = _qc_llrs(code, 300, sigma, cuda_device)
+    if case == "mixed" or case == "iters0":
+        shifts, Z, llr = _qc_llrs(code, 300, sigma, device)
+        return shifts, Z, llr, 0 if case == "iters0" else 20
+    if case.startswith("batch"):
+        shifts, Z, llr = _qc_llrs(code, int(case[5:]), sigma, device)
+        return shifts, Z, llr, 20
+    if case == "max_iters":
+        # no codeword passes its syndrome: every one runs 32 iterations
+        shifts, Z, llr = _qc_llrs(code, 512, 2.0, device)
+        return shifts, Z, llr, 32
+    if case == "ties":
+        shifts, Z, llr = _qc_llrs(code, 300, sigma, device, seed=3)
+        rng = np.random.default_rng(4)
+        llr = torch.round(llr)           # few levels: |m_vc| ties
+        planted = torch.tensor(rng.random(tuple(llr.shape)), device=device)
+        # +-clip and beyond where the LLR is already strong (its sign right)
+        strong = llr.abs() >= 6
+        llr = torch.where(strong & (planted >= 0.03) & (planted < 0.3),
+                          torch.sign(llr) * 20.0, llr)
+        llr = torch.where(strong & (planted >= 0.3) & (planted < 0.4),
+                          torch.sign(llr) * 25.0, llr)
+        llr[planted < 0.03] = -0.0
+        return shifts, Z, llr, 20
+    assert case == "straggler"
+    # 4095 noise-free codewords pass after iteration 1; one of pure noise
+    # runs all 32
+    shifts, Z, clean = _qc_llrs(code, 4096, 1e-3, device)
+    _, _, noisy = _qc_llrs(code, 1, 2.0, device, seed=1)
+    clean = torch.clamp(clean, -8.0, 8.0)
+    clean[1234] = noisy[0]
+    return shifts, Z, clean, 32
+
+
+@pytest.mark.parametrize("code,method,case", _BP_CASES)
+def test_cuda_bp_kernel_bitwise_matches_plain(cuda_device, code, method,
+                                              case):
+    """K2 against the plain layered engine, bitwise, for Z = 31, 27, 54
+    and 81: hard decisions, ok flags, iteration counts, posteriors (on
+    their int32 view, so signed zeros count), one launch a call."""
+    shifts, Z, llr, iters = _bp_case_llrs(code, case, cuda_device)
     launches = bp_decode_qc_kernel.launches
-    rk = bp_decode_qc_kernel(llr, shifts, Z, iters=20, method=method)
+    rk = bp_decode_qc_kernel(llr, shifts, Z, iters=iters, method=method)
     assert bp_decode_qc_kernel.launches == launches + 1
     rp = bp_decode_qc(llr, QcBpTables.build(np.asarray(shifts), Z,
                                             device=cuda_device),
-                      iters=20, method=method, schedule="layered")
-    for f in ("hard", "ok", "iters", "posterior"):
+                      iters=iters, method=method, schedule="layered")
+    for f in ("hard", "ok", "iters"):
         assert torch.equal(getattr(rk, f), getattr(rp, f)), f
-    assert rk.ok.any()
+    assert torch.equal(rk.posterior.view(torch.int32),
+                       rp.posterior.view(torch.int32))
+    if case == "max_iters":
+        assert not rk.ok.any() and (rk.iters == iters).all()
+    elif case == "straggler":
+        assert int(rk.iters[1234]) == iters and not bool(rk.ok[1234])
+        assert int((rk.iters == 1).sum()) == llr.shape[0] - 1
+    elif case == "iters0":
+        assert not rk.ok.any() and (rk.iters == 0).all()
+    elif case in ("mixed", "ties"):
+        assert rk.ok.any()
 
 
 def test_cuda_bp_kernel_rejects_what_it_cannot_take(cuda_device):

@@ -34,7 +34,7 @@ from sparc_ldpc_tpu_torch.models.ldpc import LdpcModel
 from sparc_ldpc_tpu_torch.ops.bp import BpTables, bp_decode
 from sparc_ldpc_tpu_torch.ops.bp_qc import QcBpTables, bp_decode_qc
 from sparc_ldpc_tpu_torch.ops.bp_qc_kernel import (
-    bp_decode_qc_kernel, layer_table)
+    address_table, bp_decode_qc_kernel, layer_table)
 
 # the array code at a test size, the three concat presets' outer codes and
 # the 802.11n n=1296 code (Z = 54)
@@ -201,13 +201,94 @@ def test_layered_decisions_match_float64_twin(name, method):
 
 def test_layer_table_lists_blocks_per_layer():
     shifts = ((0, -1, 3), (-1, 2, 1))
-    table, n_act, n_zero = layer_table(shifts)
-    assert (n_act, n_zero) == (4, 2)
-    assert table.tolist() == [0, 2, 4,          # layer starts
-                              0, 2, 1, 2,       # active columns
-                              0, 3, 2, 1,       # their shifts
-                              0, 1, 2,          # zero-block starts
-                              1, 0]             # zero-block columns
+    lt = layer_table(shifts)
+    assert (lt.n_act, lt.n_zero) == (4, 2)
+    assert lt.table.tolist() == [0, 2, 4,          # layer starts
+                                 0, 1, 2,          # zero-block starts
+                                 1, 0,             # zero-block columns
+                                 0, 1, 2,          # reduced starts
+                                 1, 0]             # reduced columns
+    assert lt.degrees == (2, 2) and lt.max_degree == 2
+    assert (lt.lanes, lt.slots) == (1, 8)
+    assert lt.reduced == ((0, 1), (1, 0))
+    # layer 0 reads blocks 0 (shift 0) and 2 (shift 3), layer 1 blocks 1
+    # (shift 2) and 2 (shift 1); Z = 4, n = 12, padding n + t
+    addr = address_table(shifts, 4)
+    assert addr.shape == (2, 2, 4, 4) and addr.dtype == np.int32
+    t = np.arange(4)
+    for j, cols in enumerate([[t, 8 + (t + 3) % 4],
+                              [4 + (t + 2) % 4, 8 + (t + 1) % 4]]):
+        slots = addr[j].transpose(0, 2, 1).reshape(8, 4)  # (slot, t)
+        for i in range(8):
+            want = cols[i] if i < 2 else 12 + t
+            assert slots[i].tolist() == list(want), (j, i)
+
+
+def _replay_zero_passes(shifts, iters=4):
+    """Brute force: the (layer, column) zero blocks at which clip(y) + 0
+    can change a value, iteration by iteration.  A column is dirty from
+    the start (a -0.0 LLR) and after every active layer's write, clean
+    after a zero block's clip; iteration 0 clips at every zero block."""
+    s = np.asarray(shifts)
+    J, K = s.shape
+    dirty = np.ones(K, dtype=bool)
+    needed = []
+    for it in range(iters):
+        hits = set()
+        for j in range(J):
+            for k in range(K):
+                if s[j, k] >= 0:
+                    dirty[k] = True
+                elif it == 0 or dirty[k]:
+                    if dirty[k]:
+                        hits.add((j, k))
+                    dirty[k] = False
+        needed.append(hits)
+    return needed
+
+
+@pytest.mark.parametrize("name", ["array13", "array31", "wifi648", "r56",
+                                  "wifi1296", "wifi_n1944_r12",
+                                  "qc_n648_r23", "qc_n648_r34"])
+def test_layer_table_degrees_and_reduced_zero_list(name):
+    cfg = CODES.get(name) or LdpcConfig(kind="qc", path=name)
+    shifts, Z = _shifts(cfg)
+    s = np.asarray(shifts)
+    lt = layer_table(shifts)
+    assert lt.degrees == tuple(int(d) for d in (s >= 0).sum(1))
+    assert lt.n_act == sum(lt.degrees) and lt.n_zero == int((s < 0).sum())
+    needed = _replay_zero_passes(shifts)
+    # every later iteration needs the same passes, and the list has them
+    for hits in needed[1:]:
+        assert hits == set(lt.reduced)
+    assert needed[0] >= set(lt.reduced)
+    J = s.shape[0]
+    tab = lt.table
+    red_start = tab[-(len(lt.reduced) + J + 1):][:J + 1]
+    red_k = tab[len(tab) - len(lt.reduced):]
+    assert tab[:J + 1].tolist() == np.cumsum((0,) + lt.degrees).tolist()
+    # every check's addresses: its active blocks' words in column order,
+    # then its own scratch word, lane r of the check holding edges
+    # r slots .. (r + 1) slots - 1
+    addr = address_table(shifts, Z)
+    K, L, S = s.shape[1], lt.lanes, lt.slots
+    assert addr.shape == (J, S // 4, Z * L, 4)
+    assert (L, S) == next(ls for ls in ((1, 8), (1, 12), (2, 8), (2, 12),
+                                        (2, 16))
+                          if ls[0] * ls[1] >= lt.max_degree)
+    for j in range(J):
+        ks = np.flatnonzero(s[j] >= 0)
+        for t in range(Z):
+            got = [int(addr[j, m // 4, t * L + r, m % 4])
+                   for r in range(L) for m in range(S)]
+            want = [k * Z + (t + s[j, k]) % Z for k in ks]
+            assert got == want + [K * Z + t] * (L * S - len(ks))
+
+
+def test_layer_table_refuses_more_than_32_active_blocks():
+    layer_table(((0,) * 32, (-1,) * 32))
+    with pytest.raises(ValueError, match="at most 32"):
+        layer_table(((0,) * 33, (-1,) * 33))
 
 
 def test_kernel_wrapper_on_cpu_runs_the_plain_version_without_launch():
