@@ -237,11 +237,31 @@ the concat preset.  Each phase prints one line with its seconds:
      over the time; the call's design bytes over 3.35 TB/s (a model of
      K1's design on this run's iteration counts, printed on this phase's
      line only).  The amp_split and amp_split_l4096 records carry its
-     measured `stages_ms`.
+     measured `stages_ms`;
+ 33. the BER/FER leg tool (`tools/ber_legs.py`, `run_legs`) in process:
+     a `torch` leg of plain_small at 2.0 dB and of concat_small at 3.0 dB,
+     1024 trials each, into a temporary directory: each record well
+     formed (the tool's fields, integer counters, TF32 off, the card's
+     line) and its BER within the joint 95 % bound of the float64 oracle
+     leg on disk (results/ber_parity_<preset>.jsonl), floored at
+     REL_FLOOR (default 1 %) of the larger BER; K1 launched, and K2 for
+     concat_small;
+ 34. the column-signed Hadamard operator (PRESETS["pa_l1024"] with
+     col_signs=True, and the same with --pallas: K5) and the DCT operator
+     at fast_l4096's geometry (L=4096, M=512, R=1.5, ML=2^21, cuFFT):
+     Ax and Ay of 4 seeded inputs on the card against the same operator
+     on the CPU within 1e-4 of the output scale, the card's adjointness
+     normalized by |Ax| |z| within 1e-6; a block of 64 at 6.0 dB
+     (col_signs, both routes on the same draws) and 7.0 dB (dct) decoded
+     on the card (`decode`, and `run_block_from` for the counters) and
+     once on the CPU from the same draws (its counters from that
+     decode): no decisive flip, mean final tau2 within 1e-3 of the CPU's,
+     section errors apart by at most the flips; the --pallas block
+     launches K5 and K4 and not K1.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
-13a, 13b, 15, 17, 19, 20, 21, 25, 26, and the tools' blocks of 27-31) and
-read after it.  Then a JSON line with the kernels'
+13a, 13b, 15, 17, 19, 20, 21, 25, 26, the tools' blocks of 27-31, each
+leg of 33 and the --pallas block of 34) and read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
 operations over the H100's peak for their type, 67 TFLOP/s float32 and
@@ -3208,6 +3228,184 @@ def k1_stage_phase(dev, card: str, sp: dict, lp: dict,
     return out
 
 
+LEGS_TRIALS = 1024    # phase 33's trials a leg
+# phase 33's legs: (preset, point index in the tool's GRIDS), 2.0 and 3.0 dB
+LEG_POINTS = (("plain_small", 0), ("concat_small", 1))
+OP_BATCH = 4          # phase 34's operator inputs
+OP_BLOCK = 64         # phase 34's decoded block
+OP_TOL = 1e-4         # card against CPU, of the output scale
+OP_ADJ_TOL = 1e-6     # |<Ax, z> - <x, A^T z>| / (|Ax| |z|)
+OP_TAU2_RTOL = 1e-3
+
+
+def legs_phase(dev, card: str, clock: Clock) -> dict:
+    """Phase 33: the BER/FER leg tool (tools/ber_legs.py) in process: a
+    `torch` leg of plain_small at 2.0 dB and of concat_small at 3.0 dB,
+    LEGS_TRIALS each, into a temporary directory; each record well formed
+    and its BER within the joint 95 % bound of the float64 oracle leg on
+    disk, floored as the tool's test floors it (REL_FLOOR, default 1 %)."""
+    from sparc_ldpc_tpu_torch.tools import ber_legs as bl
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_legs_")
+    out = {}
+    try:
+        for preset, point in LEG_POINTS:
+            ebno = bl.GRIDS[preset][point]
+            reset_counts()
+            bl.run_legs([preset], ["torch"], LEGS_TRIALS, 512, dev, tmp,
+                        ebnos=[ebno], commit="chip_smoke")
+            launches = read_counts()
+            recs = bl.load_records(bl.out_path(tmp, preset))
+            require(len(recs) == 1, f"{preset}: {len(recs)} records")
+            rec = recs[0]
+            missing = {"kind", "ebno_db", "trials", "bit_errors",
+                       "bit_errors_sq", "frame_errors", "k_bits", "ber",
+                       "fer", "wall_s", "bits_per_s", "seed_base",
+                       "allow_tf32", "device", "card", "commit",
+                       "launches"} - set(rec)
+            require(not missing, f"{preset}: record lacks {missing}")
+            require(rec["trials"] == LEGS_TRIALS and rec["ebno_db"] == ebno
+                    and rec["allow_tf32"] is False and rec["card"] == card,
+                    f"{preset}: record {rec}")
+            require(all(isinstance(rec[k], int) for k in
+                        ("bit_errors", "frame_errors", "trials")),
+                    f"{preset}: counters are not integers")
+            oracle = bl.last_leg(bl.load_records(bl.ref_path(bl.RESULTS,
+                                                             preset)),
+                                 "oracle", ebno)
+            require(oracle is not None, f"{preset}: no oracle leg on disk")
+            cmp = bl.compare(rec, oracle, bl.REL_FLOOR.get(preset, 0.01))
+            out[preset] = dict(ebno_db=ebno, ber=rec["ber"], fer=rec["fer"],
+                               oracle_ber=oracle["ber"], gap=cmp["gap"],
+                               bound=cmp["bound"], wall_s=rec["wall_s"],
+                               bits_per_s=rec["bits_per_s"],
+                               launches=launches)
+            require(launches["amp_split"] > 0,
+                    f"{preset}: the leg did not run K1")
+            if preset in bl.CONCAT_PRESETS:
+                require(launches["bp_qc_layered"] > 0,
+                        f"{preset}: the leg did not run K2")
+            require(cmp["ok"], f"{preset} @ {ebno} dB: BER {rec['ber']} "
+                    f"off the oracle's {oracle['ber']} by {cmp['gap']} > "
+                    f"{cmp['bound']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[33 ber legs] {out} on {card} ({clock.lap():.1f} s)", flush=True)
+    return out
+
+
+def op_compare(op_k, op_c, gen, dev) -> dict:
+    """An operator on the card against the same operator on the CPU:
+    Ax and Ay of OP_BATCH seeded inputs (max error over the output's
+    max), and the card's adjointness normalized by |Ax| |z|."""
+    import torch
+
+    beta = torch.randn((OP_BATCH, op_k.ML), generator=gen, device=dev)
+    z = torch.randn((OP_BATCH, op_k.n), generator=gen, device=dev)
+    res = {}
+    for name, fk, fc, x in (("Ax", op_k.Ax, op_c.Ax, beta),
+                            ("Ay", op_k.Ay, op_c.Ay, z)):
+        want = fc(x.cpu())
+        res[name] = float((fk(x).cpu() - want).abs().max()
+                          / want.abs().max())
+    Ab, Az = op_k.Ax(beta).double(), op_k.Ay(z).double()
+    adj = ((Ab * z.double()).sum(-1) - (beta.double() * Az).sum(-1)).abs()
+    res["adjoint"] = float((adj / (Ab.norm(dim=-1) * z.double().norm(dim=-1)))
+                           .max())
+    return res
+
+
+def operators_phase(dev, card: str, clock: Clock) -> dict:
+    """Phase 34: the column-signed Hadamard operator (PRESETS["pa_l1024"]
+    with col_signs=True, on fwht_kron and with --pallas on K5) and the DCT
+    operator at fast_l4096's geometry (L=4096, M=512, R=1.5, ML=2^21,
+    cuFFT): Ax and Ay on the card against the CPU within OP_TOL of the
+    scale, adjointness within OP_ADJ_TOL; then a block of OP_BLOCK at
+    6.0 dB (col_signs, both routes, the same draws) and 7.0 dB (dct)
+    decoded on the card (`decode`, and `run_block_from` for the counters)
+    and, from the same draws, once on the CPU (its counters from that
+    decode, as run_block_from counts them): no decisive flip, mean final
+    tau2 within OP_TAU2_RTOL.  The --pallas block's launches are counted
+    (K5 and K4 on its scan route)."""
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+    from sparc_ldpc_tpu_torch.models.amp import decision_flips, hard_indices
+    from sparc_ldpc_tpu_torch.models.sparc import SparcModel
+    from sparc_ldpc_tpu_torch.ops.operators import make_operator
+    from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    cpu = torch.device("cpu")
+    signed = slt.PRESETS["pa_l1024"].replace(col_signs=True)
+    cases = (("col_signs", signed, 6.0, (False, True)),
+             ("dct", slt.PRESETS["fast_l4096"].replace(op_kind="dct"), 7.0,
+              (False,)))
+    out, launches = {}, None
+    for i, (label, cfg, ebno, routes) in enumerate(cases):
+        gen = block_generator(SEED, 34, i, dev)
+        bits = torch.randint(0, 2, (OP_BLOCK, cfg.k_bits), generator=gen,
+                             dtype=torch.int32, device=dev)
+        noise = torch.randn((OP_BLOCK, cfg.n), generator=gen, device=dev)
+        t0 = time.perf_counter()
+        mc = SparcModel.build(cfg, ebno, cpu)
+        rc = mc.decode(mc.encode(bits.cpu())
+                       + noise.cpu() * math.sqrt(mc.sigma2))
+        cpu_s = time.perf_counter() - t0
+        idx = bits_to_indices(bits.cpu(), cfg.logM)
+        cpu_sections = int((hard_indices(rc.beta) != idx).sum())
+        tc = float(rc.tau2_trace[-1].double().mean())
+        for pallas in routes:
+            name = label + (" --pallas" if pallas else "")
+            mk = SparcModel.build(cfg, ebno, dev, use_pallas=pallas)
+            require(mk.op.mask is None and not mk.enc_in_kernel
+                    and not mk.noise_in_kernel,
+                    f"{name}: must take the scan route, encode outside")
+            res = op_compare(mk.op, make_operator(cfg, cpu,
+                                                  use_pallas=pallas),
+                             block_generator(SEED, 34, 10 + i, dev), dev)
+            t0 = time.perf_counter()
+            if pallas:
+                reset_counts()
+            ck = mk.run_block_from(bits, noise)
+            if pallas:
+                launches = read_counts()
+            rk = mk.decode(mk.encode(bits) + noise * math.sqrt(mk.sigma2))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            card_s = time.perf_counter() - t0
+            flips, decisive = decision_flips(rk.beta, rc.beta)
+            tk = float(rk.tau2_trace[-1].double().mean())
+            bk = float(ck["tau2_final"])
+            res.update(flips=flips, decisive=decisive, tau2=tk,
+                       block_tau2=bk, tau2_cpu=tc,
+                       iters=float(rk.iters.float().mean()),
+                       iters_cpu=float(rc.iters.float().mean()),
+                       section_errors=int(ck["section_errors"]),
+                       section_errors_cpu=cpu_sections,
+                       card_s=card_s, cpu_s=cpu_s)
+            out[name] = res
+            del mk, rk
+            require(res["Ax"] <= OP_TOL and res["Ay"] <= OP_TOL,
+                    f"{name}: card vs CPU {res}")
+            require(res["adjoint"] <= OP_ADJ_TOL, f"{name}: adjoint {res}")
+            require(decisive == 0, f"{name}: {decisive} decisive flips")
+            require(abs(tk - tc) <= OP_TAU2_RTOL * abs(tc)
+                    and abs(bk - tc) <= OP_TAU2_RTOL * abs(tc),
+                    f"{name}: tau2 {tk}, {bk} vs CPU {tc}")
+            require(abs(res["section_errors"] - cpu_sections) <= flips,
+                    f"{name}: section errors {res['section_errors']} vs "
+                    f"CPU {cpu_sections} with {flips} flips")
+        del mc, rc, bits, noise
+    require(launches["fwht2"] > 0 and launches["denoise"] > 0,
+            f"the col_signs --pallas block did not run K5 and K4: "
+            f"{launches}")
+    require(launches["amp_split"] == 0, "the signed operator ran K1")
+    print(f"[34 operators] {out}; --pallas launches {launches} on {card} "
+          f"({clock.lap():.1f} s)", flush=True)
+    return dict(res=out, launches=launches)
+
+
 def main() -> None:
     import torch
 
@@ -3274,13 +3472,17 @@ def main() -> None:
                         {**s4["checks"], **s4l["checks"]}, s4_tm)
     s4_rec["stages_ms_full"] = s4["stages"]["full"]
     k1s = k1_stage_phase(dev, card, sp, lp, clock)
+    legs = legs_phase(dev, card, clock)
+    ops = operators_phase(dev, card, clock)
 
     require("jax" not in sys.modules, "jax was imported")
     ref = [k for k in sys.modules
            if k == "sparc_ldpc_tpu" or k.startswith("sparc_ldpc_tpu.")]
     require(not ref, f"the reference package was imported: {ref}")
     # the paths of the L=1024 records; phases 15 and 17 have their own
-    paths = dict(sparc=sp["launches"], concat=cp["launches"], **cl)
+    paths = dict(sparc=sp["launches"], concat=cp["launches"], **cl,
+                 col_signs_pallas=ops["launches"],
+                 **{f"legs {p}": r["launches"] for p, r in legs.items()})
 
     def by_path(key):
         return {p: c[key] for p, c in paths.items() if c[key]}

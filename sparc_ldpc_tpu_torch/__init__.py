@@ -16,7 +16,9 @@ find:
   ops/fwht.py        Hadamard factors and plain Kronecker FWHT
   ops/fwht_kernel.py   length-N FWHT as one (f1, f2) tile: CUDA kernel
                      (csrc/amp_split.cu fwht2_run) and its plain version
-  ops/operators.py   matrix-free partial-Hadamard and dense operators
+  ops/operators.py   matrix-free partial-Hadamard (optional column signs),
+                     subsampled DCT and dense operators
+  ops/dct.py         orthonormal DCT-II / DCT-III from one complex FFT
   ops/denoiser.py    sectionwise softmax denoiser: plain, and the CUDA
                      kernel csrc/denoise.cu
   ops/amp_kernel.py  whole-trial AMP with in-kernel encode and Philox
@@ -30,7 +32,8 @@ find:
                      variants (csrc/amp_exp.cu, csrc/amp_mma.cuh) and
                      their plain version
   tools/             kernel_ablation, lstage_exp, pair_kernel_exp (the
-                     experiments' entry points), amp_ab, dryrun_multichip
+                     experiments' entry points), amp_ab, dryrun_multichip,
+                     ber_legs (the BER/FER legs against the oracle's)
   ops/bp.py          LDPC BP on padded edge tables (flooding)
   ops/bp_qc.py       QC-LDPC BP on circulant tensors (flooding, layered)
   ops/bp_qc_kernel.py  layered QC-LDPC min-sum: CUDA kernel

@@ -97,18 +97,6 @@ def _build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(cfg) -> str | None:
-    """Why the port cannot run this config's operator, or None."""
-    from .config import ConcatConfig
-
-    sp = cfg.sparc if isinstance(cfg, ConcatConfig) else cfg
-    if sp.op_kind == "hadamard" and sp.col_signs:
-        return "col_signs=True is not ported (ROADMAP A2)"
-    if sp.op_kind == "dct":
-        return "op_kind='dct' is not ported (ROADMAP A3)"
-    return None
-
-
 def _process_gpus(distributed: bool) -> list:
     """The CUDA devices this process drives: every visible GPU, or under
     --distributed its share of them (LOCAL_RANK of LOCAL_WORLD_SIZE, as
@@ -174,9 +162,6 @@ def cmd_campaign(args) -> int:
         else:
             cfg = cfg.replace(amp_kernel="fused_split", amp_tol=0.0,
                               transform_precision="bf16")
-    why = _unported(cfg)
-    if why is not None:
-        raise SystemExit(f"--preset {args.preset}: {why}")
     if args.amp_iters is not None:
         if args.amp_iters <= 0:
             raise SystemExit(f"--amp-iters must be positive, "

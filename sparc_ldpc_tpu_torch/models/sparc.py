@@ -37,7 +37,7 @@ import torch
 
 from .. import check_device
 from ..config import SparcConfig
-from ..design.codebook import HadamardPlan
+from ..design.codebook import DctPlan, HadamardPlan
 from ..design.power import power_allocation
 from ..design.se import se_converged_iters, se_trajectory
 from ..ops.operators import BatchedOperator, make_operator
@@ -82,18 +82,28 @@ class SparcModel:
                    policy: Optional[ShardingPolicy] = None) -> "SparcModel":
         """A model from constants computed elsewhere.
 
-        params: p_alloc (L,), sq_npl (L,), rows (n,) and mask (N,) of the
-        Hadamard operator, sigma2 and the effective amp_iters."""
+        params: p_alloc (L,), sq_npl (L,), sigma2 and the effective
+        amp_iters; for a Hadamard or DCT operator its rows (n,) and its
+        transform size, as the row support mask (N,) or as N, and, where
+        the config has column signs (col_signs=True, or the DCT), the
+        signs (ML,)."""
         cfg = replace(cfg, amp_iters=int(params["amp_iters"]))
         plan = None
-        if cfg.op_kind == "hadamard":
-            mask = np.asarray(params["mask"])
+        if cfg.op_kind in ("hadamard", "dct"):
             rows = np.asarray(params["rows"]).astype(np.int32)
-            if not np.array_equal(np.flatnonzero(mask), np.sort(rows)):
-                raise ValueError("params['mask'] is not the support of "
-                                 "params['rows']")
-            plan = HadamardPlan(N=mask.size, n=cfg.n, ML=cfg.ML, rows=rows,
-                                signs=None)
+            if "mask" in params:
+                mask = np.asarray(params["mask"])
+                if not np.array_equal(np.flatnonzero(mask), np.sort(rows)):
+                    raise ValueError("params['mask'] is not the support of "
+                                     "params['rows']")
+                N = mask.size
+            else:
+                N = int(params["N"])
+            has_signs = cfg.op_kind == "dct" or cfg.col_signs
+            signs = (np.asarray(params["signs"], dtype=np.float64)
+                     if has_signs else None)
+            kind = HadamardPlan if cfg.op_kind == "hadamard" else DctPlan
+            plan = kind(N=N, n=cfg.n, ML=cfg.ML, rows=rows, signs=signs)
         return SparcModel._make(
             cfg, ebno_db, float(params["sigma2"]),
             np.asarray(params["p_alloc"], dtype=np.float64),

@@ -1,8 +1,9 @@
 """The port's CLI (sparc_ldpc_tpu_torch.cli) on the CPU: `se` prints what
 the reference's prints, a tiny `campaign --cpu` writes a record with the
 reference's keys plus backend and device, `fast_l4096` (amp_kernel
-"fused" at L=4096) runs as shipped, and what the port cannot run exits
-with a message that names the ROADMAP item.
+"fused" at L=4096) runs as shipped, every operator and AMP route reaches
+the campaign, and what the port cannot run exits with a message that
+names the ROADMAP item.
 """
 
 import json
@@ -92,20 +93,33 @@ def test_unported_requests_exit_with_their_message(argv, needle,
 @pytest.mark.parametrize("preset,kernel", [
     ("fast_l4096", "fused"), ("fast_l4096", "fused_split"),
     ("pa_l1024", "fused"), ("pa_l1024", "fused_split")])
-def test_fused_routes_are_not_refused(preset, kernel):
+def test_fused_routes_are_not_refused(preset, kernel, monkeypatch):
     """Every AMP route runs at any L up to 4096: "fused" (mono at
-    L <= 1024, split above), "fused_split" and "fused_slab"; only the
-    column signs and the DCT operator are refused (ROADMAP A2, A3)."""
+    L <= 1024, split above), "fused_split" and "fused_slab"; so do the
+    column-signed and the DCT operators (once refused, ROADMAP A2 and
+    A3).  Each config, put in place of a preset, reaches the campaign
+    through `campaign --cpu` unchanged (the campaign itself is stood in
+    for here)."""
+    reached = []
+    monkeypatch.setattr(tcli, "_run_campaign",
+                        lambda args, cfg, ccfg, mesh: reached.append(cfg))
+
+    def runs(cfg):
+        monkeypatch.setitem(PRESETS, "under_test", cfg)
+        reached.clear()
+        assert tcli.main(["campaign", "--preset", "under_test",
+                          "--cpu"]) == 0
+        return reached == [cfg]
+
     cfg = PRESETS[preset].replace(amp_kernel=kernel)
-    assert tcli._unported(cfg) is None
-    assert tcli._unported(cfg.replace(amp_kernel="fused_slab")) is None
+    assert runs(cfg)
+    assert runs(cfg.replace(amp_kernel="fused_slab"))
     concat = PRESETS["concat"]
-    assert tcli._unported(concat.replace(
-        sparc=concat.sparc.replace(amp_kernel="fused_slab"))) is None
-    assert "A2" in tcli._unported(cfg.replace(col_signs=True))
-    assert "A3" in tcli._unported(cfg.replace(op_kind="dct"))
-    assert "A2" in tcli._unported(concat.replace(
-        sparc=concat.sparc.replace(col_signs=True)))
+    assert runs(concat.replace(
+        sparc=concat.sparc.replace(amp_kernel="fused_slab")))
+    assert runs(cfg.replace(col_signs=True))
+    assert runs(cfg.replace(op_kind="dct"))
+    assert runs(concat.replace(sparc=concat.sparc.replace(col_signs=True)))
 
 
 @pytest.mark.parametrize("extra,kernel,tol", [

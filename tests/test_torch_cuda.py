@@ -65,6 +65,12 @@ sections, tau2 to rtol 2e-2), the ablated ones over T = 2 (beta within
 NaN throughout on both sides: its first tau2 is 0).  no_consume is held
 from a decoded state instead (the state one plain full iteration leaves);
 a run resumed from its own kept state gives the bits of an unbroken one.
+The column-signed Hadamard operator (on fwht_kron, and on K5 with
+use_pallas) and the DCT operator (cuFFT) at full width against the same
+operators on the CPU, within 1e-4 of the output scale, adjoint within
+1e-6 of |Ax| |z|; one block of the BER leg tool's concat_small legs (the
+float32 control with TF32 off and no hand-written kernel, the torch leg
+on K1 and K2).
 """
 
 import math
@@ -1500,3 +1506,86 @@ def test_cuda_amp_slab_exp_rejects_what_it_has_no_kernel_for(cuda_device):
         amp_slab_exp("full", y[:, :256], mask[:256], sq[:256], 1.0, 9216, 2)
     with pytest.raises(TypeError):
         amp_slab_exp("full", y.double(), mask, sq, 1.0, 9216, 2)
+
+
+# -------------------------------------- column signs, DCT, the BER legs
+
+def _card_vs_cpu(op_k, op_c, device, batch=2, seed=0):
+    """Ax and Ay of an operator on the card against the same operator on
+    the CPU, max error over the output's max, and the card's adjointness
+    normalized by |Ax| |z|."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    beta = torch.randn((batch, op_k.ML), generator=gen, device=device)
+    z = torch.randn((batch, op_k.n), generator=gen, device=device)
+    err = {}
+    for name, fk, fc, x in (("Ax", op_k.Ax, op_c.Ax, beta),
+                            ("Ay", op_k.Ay, op_c.Ay, z)):
+        want = fc(x.cpu())
+        err[name] = float((fk(x).cpu() - want).abs().max()
+                          / want.abs().max())
+    Ab, Az = op_k.Ax(beta).double(), op_k.Ay(z).double()
+    gap = ((Ab * z.double()).sum(-1) - (beta.double() * Az).sum(-1)).abs()
+    err["adjoint"] = float((gap / (Ab.norm(dim=-1)
+                                   * z.double().norm(dim=-1))).max())
+    return err
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["fwht_kron", "pallas"])
+def test_cuda_col_signs_operator_matches_cpu(cuda_device, use_pallas):
+    """PRESETS["pa_l1024"] with col_signs=True (ML = 2^19): the card's
+    operator against the CPU's within 1e-4 of the output scale, on
+    fwht_kron and, with use_pallas, on K5 (two fwht2 launches)."""
+    from sparc_ldpc_tpu_torch.config import PRESETS
+    from sparc_ldpc_tpu_torch.ops.operators import make_operator
+
+    cfg = PRESETS["pa_l1024"].replace(col_signs=True)
+    op_k = make_operator(cfg, cuda_device, use_pallas=use_pallas)
+    op_c = make_operator(cfg, "cpu", use_pallas=use_pallas)
+    assert op_k.mask is None and op_k.split_support is None
+    launches = fwht2.launches
+    err = _card_vs_cpu(op_k, op_c, cuda_device)
+    assert fwht2.launches - launches == (4 if use_pallas else 0)
+    assert err["Ax"] <= 1e-4 and err["Ay"] <= 1e-4, err
+    assert err["adjoint"] <= 1e-6, err
+
+
+def test_cuda_dct_operator_matches_cpu(cuda_device):
+    """The DCT operator at fast_l4096's geometry (ML = 2^21, cuFFT) against
+    the CPU's within 1e-4 of the output scale; adjoint within 1e-6."""
+    from sparc_ldpc_tpu_torch.config import PRESETS
+    from sparc_ldpc_tpu_torch.ops.operators import make_operator
+
+    cfg = PRESETS["fast_l4096"].replace(op_kind="dct")
+    assert cfg.ML == 1 << 21
+    err = _card_vs_cpu(make_operator(cfg, cuda_device),
+                       make_operator(cfg, "cpu"), cuda_device)
+    assert err["Ax"] <= 1e-4 and err["Ay"] <= 1e-4, err
+    assert err["adjoint"] <= 1e-6, err
+
+
+def test_cuda_ber_legs_block_of_concat_small(cuda_device):
+    """One block of concat_small at 3.0 dB through the leg tool: the torch
+    leg on K1 and K2; the float32 control turns TF32 off itself (it is
+    switched on here first) and launches no hand-written kernel."""
+    from sparc_ldpc_tpu_torch.tools import ber_legs as bl
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ctl = bl.run_leg("concat_small", "torch_control_f32", 1, 64, 64,
+                         cuda_device)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    assert ctl["allow_tf32"] is False and ctl["launches"] == {}
+    assert ctl["kernel"] == "xla" and ctl["bp_engine"] == "qc_xla"
+    leg = bl.run_leg("concat_small", "torch", 1, 64, 64, cuda_device)
+    assert leg["launches"]["amp_split"] > 0
+    assert leg["launches"]["bp_qc_layered"] > 0
+    for rec in (ctl, leg):
+        assert rec["trials"] == 64 and rec["ebno_db"] == 3.0
+        assert 0.0 <= rec["ber"] <= 1.0 and 0.0 <= rec["fer"] <= 1.0
+        assert rec["bp_ok"] >= 0

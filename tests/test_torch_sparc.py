@@ -1,7 +1,8 @@
 """The port's SparcModel (the whole decode slice) against the JAX reference
 on the CPU, and the guards around it: the port imports no JAX and nothing
-of the reference package, a CUDA request without CUDA raises, unported
-options raise, and amp_kernel="fused" routes to the mono form at L <= 1024
+of the reference package, a CUDA request without CUDA raises, the
+column-signed and DCT operators decode as the reference's, and
+amp_kernel="fused" routes to the mono form at L <= 1024
 and to the split form above, as in the reference.
 
 Both packages get the same NumPy draws (torch and JAX random streams
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from sparc_ldpc_tpu.config import SparcConfig as JSparcConfig
+from sparc_ldpc_tpu.design import codebook as jcodebook
 from sparc_ldpc_tpu.models.amp import amp_decode as j_amp_decode
 from sparc_ldpc_tpu.models.sparc import SparcModel as JModel
 from sparc_ldpc_tpu.utils.bits import np_bits_to_indices, np_indices_to_bits
@@ -270,13 +272,88 @@ def test_slab_configs_build_and_decode(change):
     assert math.isfinite(float(out["tau2_final"]))
 
 
+def _signed_params(mj):
+    """The reference model's constants for an operator with column signs:
+    its plan's rows and signs (the reference's design code, which its
+    operator takes them from) and its transform size."""
+    c = mj.cfg
+    plan = (jcodebook.dct_plan(c.n, c.ML, c.op_seed, col_signs=True)
+            if c.op_kind == "dct" else
+            jcodebook.hadamard_plan(c.n, c.ML, c.op_seed, c.col_signs))
+    return dict(p_alloc=np.asarray(mj.p_alloc), sq_npl=np.asarray(mj.sq_npl),
+                rows=plan.rows, signs=plan.signs, N=mj.op.N,
+                sigma2=mj.sigma2, amp_iters=mj.cfg.amp_iters)
+
+
+def _jax_decode(mj, bits, noise):
+    """The reference model's decode of the same draws (encode outside)."""
+    x = np.asarray(mj.encode(jnp.asarray(bits)))
+    return mj.decode(jnp.asarray(x + noise * np.float32(math.sqrt(
+        mj.sigma2))))
+
+
 @pytest.mark.parametrize("change", [dict(col_signs=True),
                                     dict(op_kind="dct")])
 def test_unported_configs_raise_at_build(change):
-    """Every amp_kernel is ported; the column signs and the DCT operator
-    are not (ROADMAP A2, A3)."""
-    with pytest.raises(NotImplementedError):
-        SparcModel.build(FUSED.replace(**change), EBNO, "cpu")
+    """The column-signed Hadamard operator and the DCT operator (once
+    unported, ROADMAP A2 and A3) build and decode: the fused config takes
+    the scan route with the encode and the noise outside (no mask), and a
+    block's decisions agree with the reference's SparcModel on the same
+    bits and noise, margin-aware, tau2 to rtol 1e-4.  The transforms run
+    in float32: on the bf16 scan route the two packages' tau2 drift apart
+    by up to 1 % over T, signs or none (rounding noise amplified)."""
+    cfg = FUSED.replace(transform_precision="highest", **change)
+    mt = SparcModel.build(cfg, EBNO, "cpu")
+    mj = JModel.build(J(cfg), EBNO)
+    assert mt.cfg == twin(mj.cfg)
+    assert mt.op.mask is None and mj.op.mask is None
+    assert not mt.enc_in_kernel and not mt.noise_in_kernel
+    B = 3
+    bits, noise = _draws(cfg, B, seed=4)
+    launches = amp_fused.launches
+    out = mt.run_block_from(bits, noise)
+    assert amp_fused.launches == launches
+    rt = mt.decode(mt.encode(torch.tensor(bits))
+                   + torch.tensor(noise) * math.sqrt(mt.sigma2))
+    rj = _jax_decode(mj, bits, noise)
+    assert_decisions_match(np.asarray(rj.beta), rt.beta.numpy())
+    idx = np_bits_to_indices(bits, cfg.logM)
+    want = _counters(idx, rt.beta.numpy().argmax(-1), cfg.logM)
+    assert {k: out[k].item() for k in want} == want
+    assert out["trials"].item() == B
+    np.testing.assert_allclose(out["tau2_final"].item(),
+                               float(np.mean(np.asarray(rj.tau2_trace)[-1])),
+                               rtol=1e-4)
+    assert out["iters_sum"].item() == int(np.asarray(rj.iters).sum())
+
+
+@pytest.mark.parametrize("change", [dict(col_signs=True),
+                                    dict(op_kind="dct")])
+def test_from_numpy_carries_signs_and_dct_plans(change):
+    """from_numpy takes the rows and the column signs of the reference's
+    plan (and its transform size): the model decodes as the reference's on
+    the same draws, and as the port's own build does."""
+    cfg = FUSED.replace(transform_precision="highest", **change)
+    mj = JModel.build(J(cfg), EBNO)
+    params = _signed_params(mj)
+    mt = SparcModel.from_numpy(cfg, EBNO, params, "cpu")
+    mb = SparcModel.build(cfg, EBNO, "cpu")
+    assert (mt.op.n, mt.op.ML, mt.op.N) == (mj.op.n, mj.op.ML, mj.op.N)
+    bits, noise = _draws(cfg, 2, seed=5)
+    a, b = mt.run_block_from(bits, noise), mb.run_block_from(bits, noise)
+    ints = [k for k in a if k != "tau2_final"]
+    assert {k: a[k].item() for k in ints} == {k: b[k].item() for k in ints}
+    rt = mt.decode(mt.encode(torch.tensor(bits))
+                   + torch.tensor(noise) * math.sqrt(mt.sigma2))
+    rj = _jax_decode(mj, bits, noise)
+    assert_decisions_match(np.asarray(rj.beta), rt.beta.numpy())
+    np.testing.assert_allclose(
+        rt.tau2_trace[-1].numpy(), np.asarray(rj.tau2_trace)[-1], rtol=1e-4)
+    # the signs are the model's: other signs make another operator
+    flipped = dict(params, signs=-params["signs"])
+    mf = SparcModel.from_numpy(cfg, EBNO, flipped, "cpu")
+    beta = torch.randn(1, cfg.ML, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(mf.op.Ax(beta), mt.op.Ax(-beta))
 
 
 @pytest.mark.parametrize("kernel,L,form", [
