@@ -253,15 +253,34 @@ the concat preset.  Each phase prints one line with its seconds:
      on the CPU within 1e-4 of the output scale, the card's adjointness
      normalized by |Ax| |z| within 1e-6; a block of 64 at 6.0 dB
      (col_signs, both routes on the same draws) and 7.0 dB (dct) decoded
-     on the card (`decode`, and `run_block_from` for the counters) and
-     once on the CPU from the same draws (its counters from that
-     decode): no decisive flip, mean final tau2 within 1e-3 of the CPU's,
-     section errors apart by at most the flips; the --pallas block
-     launches K5 and K4 and not K1.
+     on the card (`decode`, and `run_block_from` for the counters), and
+     its first 16 rows once on the CPU from the same draws (codewords
+     decode alone, so those rows stand for the block; the CPU decode of
+     all 64 took 178 s while the card idled): on those rows no decisive
+     flip, mean final tau2 within 1e-3 of the CPU's, section errors apart
+     by at most the flips; the card's block counters agree with its
+     decode; the --pallas block launches K5 and K4 and not K1;
+ 35. the section axis across processes: `python -m torch.distributed.run
+     --nproc_per_node 2 -m sparc_ldpc_tpu_torch.cli campaign --distributed
+     --section-shards 2 --preset fast_l4096` at 6.5 dB (L=4096, M=512,
+     one slab of l=2048 sections a process), two blocks.  On one card
+     both processes share it; NCCL refuses two ranks of one GPU, so the
+     slabs cross through host memory over gloo (`--dist-backend gloo`):
+     2 exchanges an iteration of B x 4 MiB each way, so B=32 (2 GiB a
+     stage at the campaign's B=512 would take minutes over loopback).
+     With two cards or more, one process a card (cuda:0, cuda:1), NCCL
+     at B=512.  The record, written by rank 0 alone, equals counter for
+     counter the same campaign in this process on a virtual (1 x 2) mesh
+     (phase 21's route); each rank launches K3 and K4 half as often as
+     that campaign (one slab each) and prints its exchange's calls,
+     bytes and host seconds; the kernels line carries each rank's K3 and
+     K4 launches, the ms a block and the exchange's share of the
+     campaign's wall.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
 13a, 13b, 15, 17, 19, 20, 21, 25, 26, the tools' blocks of 27-31, each
-leg of 33 and the --pallas block of 34) and read after it.  Then a JSON line with the kernels'
+leg of 33, the --pallas block of 34 and the reference campaign of 35;
+the two processes of 35 count their own from 0) and read after it.  Then a JSON line with the kernels'
 records (each with its bound: the larger of the bytes its function must
 move, inputs read once and outputs written once, over 3.35 TB/s and its
 operations over the H100's peak for their type, 67 TFLOP/s float32 and
@@ -1992,6 +2011,24 @@ def policy_campaign_phase(dev, card: str, concat_rec: dict,
     return dict(launches=launches, rec=rec, crec=crec)
 
 
+def run_launcher(cmd, timeout: float, **kw) -> subprocess.CompletedProcess:
+    """subprocess.run of a process launcher (torch.distributed.run) in a
+    session of its own, so that a timeout kills it with every worker it
+    started."""
+    import signal
+
+    proc = subprocess.Popen(cmd, start_new_session=True, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            **kw)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
 def distributed_phase(card: str, concat_rec: dict, clock: Clock) -> dict:
     """Phase 22: the concat campaign in two processes with --distributed."""
     import socket
@@ -2012,8 +2049,7 @@ def distributed_phase(card: str, concat_rec: dict, clock: Clock) -> dict:
                "campaign", "--distributed", "--preset", "concat", "--ebno",
                str(CONCAT_EBNO_DB), "--batch", str(BATCH), "--max-trials",
                "4096", "--out", out]
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                              timeout=DIST_TIMEOUT_S)
+        proc = run_launcher(cmd, DIST_TIMEOUT_S, cwd=root)
         require(proc.returncode == 0, f"the two-process campaign failed "
                 f"({proc.returncode}):\n{proc.stderr[-3000:]}")
         with open(out) as f:
@@ -3233,6 +3269,7 @@ LEGS_TRIALS = 1024    # phase 33's trials a leg
 LEG_POINTS = (("plain_small", 0), ("concat_small", 1))
 OP_BATCH = 4          # phase 34's operator inputs
 OP_BLOCK = 64         # phase 34's decoded block
+OP_CPU_ROWS = 16      # the rows of it the CPU decodes too
 OP_TOL = 1e-4         # card against CPU, of the output scale
 OP_ADJ_TOL = 1e-6     # |<Ax, z> - <x, A^T z>| / (|Ax| |z|)
 OP_TAU2_RTOL = 1e-3
@@ -3322,11 +3359,13 @@ def operators_phase(dev, card: str, clock: Clock) -> dict:
     cuFFT): Ax and Ay on the card against the CPU within OP_TOL of the
     scale, adjointness within OP_ADJ_TOL; then a block of OP_BLOCK at
     6.0 dB (col_signs, both routes, the same draws) and 7.0 dB (dct)
-    decoded on the card (`decode`, and `run_block_from` for the counters)
-    and, from the same draws, once on the CPU (its counters from that
-    decode, as run_block_from counts them): no decisive flip, mean final
-    tau2 within OP_TAU2_RTOL.  The --pallas block's launches are counted
-    (K5 and K4 on its scan route)."""
+    decoded on the card (`decode`, and `run_block_from` for the
+    counters, which must agree with the decode) and its first
+    OP_CPU_ROWS rows, from the same draws, once on the CPU (their
+    counters from that decode, as run_block_from counts them): on those
+    rows no decisive flip, mean final tau2 within OP_TAU2_RTOL.  The
+    --pallas block's launches are counted (K5 and K4 on its scan
+    route)."""
     import torch
 
     import sparc_ldpc_tpu_torch as slt
@@ -3347,12 +3386,13 @@ def operators_phase(dev, card: str, clock: Clock) -> dict:
         bits = torch.randint(0, 2, (OP_BLOCK, cfg.k_bits), generator=gen,
                              dtype=torch.int32, device=dev)
         noise = torch.randn((OP_BLOCK, cfg.n), generator=gen, device=dev)
+        rows = slice(0, OP_CPU_ROWS)
         t0 = time.perf_counter()
         mc = SparcModel.build(cfg, ebno, cpu)
-        rc = mc.decode(mc.encode(bits.cpu())
-                       + noise.cpu() * math.sqrt(mc.sigma2))
+        rc = mc.decode(mc.encode(bits[rows].cpu())
+                       + noise[rows].cpu() * math.sqrt(mc.sigma2))
         cpu_s = time.perf_counter() - t0
-        idx = bits_to_indices(bits.cpu(), cfg.logM)
+        idx = bits_to_indices(bits[rows].cpu(), cfg.logM)
         cpu_sections = int((hard_indices(rc.beta) != idx).sum())
         tc = float(rc.tau2_trace[-1].double().mean())
         for pallas in routes:
@@ -3374,15 +3414,21 @@ def operators_phase(dev, card: str, clock: Clock) -> dict:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             card_s = time.perf_counter() - t0
-            flips, decisive = decision_flips(rk.beta, rc.beta)
-            tk = float(rk.tau2_trace[-1].double().mean())
+            flips, decisive = decision_flips(rk.beta[rows], rc.beta)
+            tk = float(rk.tau2_trace[-1][rows].double().mean())
+            tb = float(rk.tau2_trace[-1].double().mean())
             bk = float(ck["tau2_final"])
             res.update(flips=flips, decisive=decisive, tau2=tk,
-                       block_tau2=bk, tau2_cpu=tc,
-                       iters=float(rk.iters.float().mean()),
+                       block_tau2=bk, tau2_block_decode=tb, tau2_cpu=tc,
+                       iters=float(rk.iters[rows].float().mean()),
                        iters_cpu=float(rc.iters.float().mean()),
-                       section_errors=int(ck["section_errors"]),
+                       section_errors=int((hard_indices(rk.beta[rows]).cpu()
+                                           != idx).sum()),
                        section_errors_cpu=cpu_sections,
+                       block_section_errors=int(ck["section_errors"]),
+                       block_section_errors_decode=int(
+                           (hard_indices(rk.beta).cpu()
+                            != bits_to_indices(bits.cpu(), cfg.logM)).sum()),
                        card_s=card_s, cpu_s=cpu_s)
             out[name] = res
             del mk, rk
@@ -3390,9 +3436,14 @@ def operators_phase(dev, card: str, clock: Clock) -> dict:
                     f"{name}: card vs CPU {res}")
             require(res["adjoint"] <= OP_ADJ_TOL, f"{name}: adjoint {res}")
             require(decisive == 0, f"{name}: {decisive} decisive flips")
-            require(abs(tk - tc) <= OP_TAU2_RTOL * abs(tc)
-                    and abs(bk - tc) <= OP_TAU2_RTOL * abs(tc),
-                    f"{name}: tau2 {tk}, {bk} vs CPU {tc}")
+            require(abs(tk - tc) <= OP_TAU2_RTOL * abs(tc),
+                    f"{name}: tau2 {tk} vs CPU {tc}")
+            require(abs(bk - tb) <= OP_TAU2_RTOL * abs(tb)
+                    and res["block_section_errors"]
+                    == res["block_section_errors_decode"],
+                    f"{name}: the block's counters {bk}, "
+                    f"{res['block_section_errors']} vs its decode's {tb}, "
+                    f"{res['block_section_errors_decode']}")
             require(abs(res["section_errors"] - cpu_sections) <= flips,
                     f"{name}: section errors {res['section_errors']} vs "
                     f"CPU {cpu_sections} with {flips} flips")
@@ -3404,6 +3455,123 @@ def operators_phase(dev, card: str, clock: Clock) -> dict:
     print(f"[34 operators] {out}; --pallas launches {launches} on {card} "
           f"({clock.lap():.1f} s)", flush=True)
     return dict(res=out, launches=launches)
+
+
+SECTION_PROC_BATCH = 32      # phase 35 on one card: gloo, through the host
+SECTION_PROC_NCCL_BATCH = 512  # phase 35 on two cards or more: NCCL
+SECTION_PROC_TIMEOUT_S = 400
+SECTION_PROC_KEYS = ("bit_errors", "frame_errors", "trials", "bit_errors_sq",
+                     "blocks", "exec_blocks", "mean_iters", "ber", "fer")
+
+
+def section_processes_phase(dev, card: str, clock: Clock) -> dict:
+    """Phase 35: fast_l4096's campaign with its section axis across two
+    processes (the CLI under torch.distributed.run), against the same
+    campaign in this process on a virtual (1 x 2) mesh."""
+    import socket
+
+    import torch
+
+    import sparc_ldpc_tpu_torch as slt
+    from sparc_ldpc_tpu_torch.config import CampaignConfig
+    from sparc_ldpc_tpu_torch.models.sparc import SparcSweep
+    from sparc_ldpc_tpu_torch.parallel.campaign import run_campaign
+
+    torch.cuda.empty_cache()
+    nccl = torch.cuda.device_count() >= 2
+    backend = "nccl" if nccl else "gloo"
+    B = SECTION_PROC_NCCL_BATCH if nccl else SECTION_PROC_BATCH
+    # the budget is met once the first block is counted; the pipelined
+    # dispatch has launched the second by then: two blocks, the second
+    # the steady ms a block
+    trials = B
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sections_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        out = os.path.join(tmp, "sections.jsonl")
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+               "--master_port", str(port), "-m", "sparc_ldpc_tpu_torch.cli",
+               "campaign", "--distributed", "--section-shards", "2",
+               "--dist-backend", backend, "--preset", "fast_l4096",
+               "--ebno", str(FAST_EBNO_DB), "--batch", str(B),
+               "--max-trials", str(trials), "--min-frame-errors", "1000000",
+               "--out", out]
+        env = dict(os.environ)
+        if nccl:
+            env["CUDA_VISIBLE_DEVICES"] = "0,1"     # one card a process
+        t0 = time.perf_counter()
+        proc = run_launcher(cmd, SECTION_PROC_TIMEOUT_S, cwd=root, env=env)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"the two-process sharded campaign "
+                f"failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        with open(out) as f:
+            recs = [json.loads(x) for x in f if x.strip()]
+        with open(out + ".journal") as f:
+            journal = [x for x in f if x.strip()]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = sorted((json.loads(line.split(" ", 1)[1])
+                    for line in proc.stdout.splitlines()
+                    if line.startswith("section_exchange ")),
+                   key=lambda r: r["rank"])
+    # the same campaign in this process on a virtual (1 x 2) mesh
+    pol = virtual_policy(dev, 1, 2)
+    sweep = SparcSweep(slt.PRESETS["fast_l4096"], device=dev, policy=pol)
+    ccfg = CampaignConfig(ebno_grid_db=(FAST_EBNO_DB,), batch=B,
+                          min_frame_errors=1_000_000, max_trials=trials,
+                          base_seed=1234, section_shards=2)
+    reset_counts()
+    ref = run_campaign(sweep.model_for_point, ccfg, lambda m: m.cfg.k_bits,
+                       policy=pol, verbose=False)[0]
+    launches = read_counts()
+    del sweep
+    torch.cuda.empty_cache()
+    require(len(recs) == 1, "more than one process wrote a record")
+    rec = recs[-1]
+    same = {k: rec[k] == ref[k] for k in SECTION_PROC_KEYS}
+    # every exchange waits for the card, so the two-process blocks run
+    # one after the other and the campaign's steady bits_per_s (which
+    # assumes a pipelined dispatch) does not apply: ms a block is the
+    # point's wall over its blocks, on both sides
+    res = dict(
+        backend=backend, batch=B, wall_s=wall, record_wall_s=rec["wall_s"],
+        ms_a_block=1e3 * rec["wall_s"] / rec["blocks"],
+        ms_a_block_one_process=1e3 * ref["wall_s"] / ref["blocks"],
+        exchange_share=[r["s"] / rec["wall_s"] for r in ranks],
+        ranks=ranks, launches_one_process=launches,
+        counters={k: rec[k] for k in SECTION_PROC_KEYS})
+    print(f"[35 section axis across 2 processes, {backend}] fast_l4096 B={B}"
+          f", {trials} trials: record of processes {rec.get('processes')}, "
+          f"section processes {rec.get('section_processes')}, mesh "
+          f"{rec.get('mesh')}; counters {res['counters']} vs one process on "
+          f"a virtual (1 x 2) mesh: equal {all(same.values())}; ranks "
+          f"{ranks}; one process's launches {launches}; ms a block (the "
+          f"point's wall over its blocks) {res['ms_a_block']} (one process "
+          f"{res['ms_a_block_one_process']}), exchange share of the wall "
+          f"{res['exchange_share']}; the "
+          f"launcher's wall {wall:.1f} s on {card} ({clock.lap():.1f} s)",
+          flush=True)
+    require(rec.get("processes") == 2 and rec.get("section_processes") == 2,
+            f"the record is not two processes' with one section axis: {rec}")
+    require(len(journal) == rec["exec_blocks"], "the journal was written "
+            "by more than one process")
+    require(all(same.values()), f"two-process sharded counters differ: "
+            f"{same}")
+    require(len(ranks) == 2, f"{len(ranks)} ranks reported their exchange")
+    require(launches["fwht_tile"] > 0 and launches["denoise"] > 0
+            and launches["amp_split"] == 0,
+            f"the one-process campaign did not run K3 and K4: {launches}")
+    for r in ranks:
+        require(2 * r["fwht_tile"] == launches["fwht_tile"]
+                and 2 * r["denoise"] == launches["denoise"],
+                f"rank {r['rank']} launched K3 {r['fwht_tile']} and K4 "
+                f"{r['denoise']} times, not half of {launches}")
+        require(r["calls"] > 0, f"rank {r['rank']} exchanged nothing")
+    return res
 
 
 def main() -> None:
@@ -3474,6 +3642,7 @@ def main() -> None:
     k1s = k1_stage_phase(dev, card, sp, lp, clock)
     legs = legs_phase(dev, card, clock)
     ops = operators_phase(dev, card, clock)
+    sx = section_processes_phase(dev, card, clock)
 
     require("jax" not in sys.modules, "jax was imported")
     ref = [k for k in sys.modules
@@ -3539,6 +3708,14 @@ def main() -> None:
     k3_rec["launches"] = pc["launches"]["fwht_tile"]
     k3_rec["launches_by_path"] = {
         f"decode S={S}": c["fwht_tile"] for S, c in sh["launches"].items()}
+    # phase 35: each rank's launches of the two-process sharded campaign
+    for rec, key in ((k3_rec, "fwht_tile"), (dn_rec, "denoise")):
+        rec["launches_by_path"].update({
+            f"section axis across processes, rank {r['rank']}": r[key]
+            for r in sx["ranks"]})
+        rec["section_axis_across_processes"] = {
+            k: sx[k] for k in ("backend", "batch", "ms_a_block",
+                               "exchange_share")}
     records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec, k3_rec,
                slab_rec, ab["rec"], ls["rec"], pr["rec"], s4_rec]
     for rec in records:

@@ -26,17 +26,28 @@ Presets are the reference's (the port's copy, config.PRESETS).  Examples:
       -m sparc_ldpc_tpu_torch.cli campaign --distributed --preset concat \
       --ebno 3.0 --batch 2048 --out results/concat_torch.jsonl
 
+  # the section axis across two processes of one GPU each: the slabs
+  # cross by NCCL (on one GPU shared by both: --dist-backend gloo)
+  python -m torch.distributed.run --nproc_per_node 2 \
+      -m sparc_ldpc_tpu_torch.cli campaign --distributed --section-shards 2 \
+      --preset fast_l4096 --ebno 6.5 --batch 512 --out results/f.jsonl
+
 Without --cpu the campaign runs on the GPUs and fails where there is none.
 Its mesh (parallel/mesh.py) spans every GPU the process drives, D x S with
 S = --section-shards; with --cpu it is S copies of the CPU.  Under
---distributed (torch.distributed with gloo, from the environment that
-`python -m torch.distributed.run` sets) each process drives its share of
-the node's GPUs (LOCAL_RANK of LOCAL_WORLD_SIZE; processes share a GPU
-when they outnumber them) and decodes its share of every block.  The
-section axis stays inside a process: S must divide its GPUs (a section
-axis across processes is ROADMAP A10).  Results are jsonl, one record per
-sweep point with the reference's keys plus backend and device (and the
-mesh and process count under a mesh), and a per-block journal for
+--distributed (torch.distributed, from the
+environment that `python -m torch.distributed.run` sets; the counters
+over gloo) each process drives its share of the node's GPUs (LOCAL_RANK
+of LOCAL_WORLD_SIZE; processes share a GPU when they outnumber them) and
+decodes its share of every block.  Where S does not divide a process's
+devices, the section axis spans processes: S / k consecutive ranks of k
+devices each hold one data group's slabs and decode the same rows, and
+their slabs cross over a process group of their own, `--dist-backend`
+(nccl on the GPUs by default, gloo with --cpu).  NCCL refuses two ranks
+of one GPU, so processes that share a GPU need gloo, whose slabs cross
+through host memory.  Results are jsonl, one record per sweep point with
+the reference's keys plus backend and device (and the mesh, process
+count and section processes under a mesh), and a per-block journal for
 restart; --profile writes a torch.profiler trace (one per process).
 """
 
@@ -86,6 +97,9 @@ def _build_parser() -> argparse.ArgumentParser:
     c.add_argument("--distributed", action="store_true",
                    help="several processes (torch.distributed, gloo), "
                         "started by python -m torch.distributed.run")
+    c.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="the backend of a section axis across processes "
+                        "(default: nccl on the GPUs, gloo with --cpu)")
 
     s = sub.add_parser("se", help="state-evolution design report")
     s.add_argument("--preset", default="pa_l1024")
@@ -122,6 +136,38 @@ def _process_gpus(distributed: bool) -> list:
             f"CUDA_VISIBLE_DEVICES")
     k = n // local
     return [torch.device("cuda", i) for i in range(rank * k, (rank + 1) * k)]
+
+
+def _section_procs(S: int, k: int, distributed: bool) -> int:
+    """G, the processes the section axis spans: 1 where S divides the k
+    GPUs of this process, else S / k (k must divide S, and the axis needs
+    --distributed)."""
+    if k % S == 0:
+        return 1
+    if S % k:
+        raise SystemExit(f"--section-shards {S} and the {k} GPU(s) of this "
+                         f"process: one must divide the other (start "
+                         f"another number of processes)")
+    if not distributed:
+        raise SystemExit(f"--section-shards {S} spans more than the {k} "
+                         f"GPU(s) of this process: a section axis across "
+                         f"processes needs --distributed")
+    return S // k
+
+
+def _check_nccl_gpus() -> None:
+    """NCCL refuses two ranks of one GPU ("Duplicate GPU detected"): exit
+    where this node's processes share its GPUs."""
+    import torch
+
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    n = torch.cuda.device_count()
+    if local > n:
+        raise SystemExit(
+            f"--dist-backend nccl: the {local} processes of this node share "
+            f"its {n} GPU(s), and NCCL refuses two ranks of one GPU; start "
+            f"one process a GPU, or pass --dist-backend gloo (the slabs "
+            f"then cross through host memory)")
 
 
 def _init_distributed() -> None:
@@ -187,29 +233,36 @@ def cmd_campaign(args) -> int:
     from .parallel.mesh import make_mesh
 
     if args.cpu:
+        if args.dist_backend == "nccl":
+            raise SystemExit("--dist-backend nccl needs the GPUs: with --cpu "
+                             "the counters cross processes over gloo and the "
+                             "section axis stays in each")
         devices = [torch.device("cpu")] * S
+        backend = "gloo"
     else:
         devices = _process_gpus(args.distributed)
-        if len(devices) % S:
-            raise SystemExit(
-                f"--section-shards {S} does not divide the {len(devices)} "
-                f"GPU(s) of this process: a section axis across processes "
-                f"is not ported (ROADMAP A10)")
+        backend = args.dist_backend or "nccl"
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    G = _section_procs(S, len(devices), args.distributed)
+    if G > 1 and backend == "nccl":
+        _check_nccl_gpus()
     if args.distributed:
         _init_distributed()
     try:
-        _run_campaign(args, cfg, ccfg, make_mesh(S, devices))
+        _run_campaign(args, cfg, ccfg, make_mesh(S // G, devices), G,
+                      backend)
     finally:
         if args.distributed:
             torch.distributed.destroy_process_group()
     return 0
 
 
-def _run_campaign(args, cfg, ccfg, mesh) -> None:
+def _run_campaign(args, cfg, ccfg, mesh, section_procs: int = 1,
+                  backend: str = "gloo") -> None:
     """The campaign of cmd_campaign on `mesh` (a policy unless it is one
-    device in one process)."""
+    device in one process), its section axis spanning `section_procs`
+    processes over `backend`."""
     import torch
 
     from .config import ConcatConfig
@@ -218,12 +271,13 @@ def _run_campaign(args, cfg, ccfg, mesh) -> None:
     from .utils.profiling import trace
     from .utils.provenance import artifact_meta
 
-    policy = ShardingPolicy.for_process(mesh)
-    if mesh.shape == (1, 1) and policy.world == 1:
-        policy = None
     device = mesh.home
     if device.type == "cuda":
-        torch.cuda.set_device(device)      # this process's first GPU
+        torch.cuda.set_device(device)      # this process's first GPU (and
+        # its section group's NCCL device)
+    policy = ShardingPolicy.for_process(mesh, section_procs, backend)
+    if mesh.shape == (1, 1) and policy.world == 1:
+        policy = None
     if isinstance(cfg, ConcatConfig):
         from .models.concat import ConcatSweep
         sweep = ConcatSweep(cfg, use_pallas=args.pallas, device=device,
@@ -246,12 +300,18 @@ def _run_campaign(args, cfg, ccfg, mesh) -> None:
     meta = artifact_meta(args.preset, cfg, device)
     if policy is not None:
         meta.update(mesh=list(mesh.shape), processes=policy.world)
+        if section_procs > 1:
+            meta.update(section_shards=policy.section_shards,
+                        section_processes=section_procs,
+                        dist_backend=backend)
     if policy is None or policy.is_writer:
         print(f"campaign: preset={args.preset} grid={ccfg.ebno_grid_db} "
               f"batch={args.batch} device={dev_name} "
               f"section_shards={args.section_shards} mesh="
               f"{meta.get('mesh', [1, 1])} processes="
-              f"{meta.get('processes', 1)}")
+              f"{meta.get('processes', 1)} section_processes="
+              f"{section_procs} dist_backend="
+              f"{backend if section_procs > 1 else 'none'}")
 
     def go():
         return run_campaign(sweep.model_for_point, ccfg, k_bits,
@@ -267,6 +327,21 @@ def _run_campaign(args, cfg, ccfg, mesh) -> None:
         print(f"profile trace written to {where}")
     else:
         go()
+    if section_procs > 1:
+        _print_exchange(policy, device)
+
+
+def _print_exchange(policy, device) -> None:
+    """One line a rank: its section exchange (calls, bytes, host seconds)
+    and its launches of K3 and K4, the kernels of the sharded decode."""
+    from .ops.amp_kernel import fwht_tile
+    from .ops.denoiser import denoise_kernel
+    from .parallel.mesh import EXCHANGE_STATS
+
+    print("section_exchange " + json.dumps(dict(
+        rank=policy.rank, device=str(device), **EXCHANGE_STATS,
+        fwht_tile=fwht_tile.launches, denoise=denoise_kernel.launches)),
+        flush=True)
 
 
 def cmd_se(args) -> int:

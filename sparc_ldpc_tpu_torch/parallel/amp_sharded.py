@@ -29,6 +29,16 @@ sparc_ldpc_tpu/parallel/amp_sharded.py `amp_fused_sharded`).
   codeword's state and trace but cannot skip its work.  The in-kernel
   encode and noise need a codeword's whole tile on one device, so the
   section-sharded route takes y with the codeword in it.
+
+  Where the section axis spans the processes of a section group
+  (parallel/mesh.py), each rank holds its own slabs of the group's rows:
+  the hypercube stages between processes exchange slabs point to point,
+  the per-codeword partial sums of the slabs are gathered over the group
+  and added in shard order (the one-process sum, bit for bit: an
+  all-reduce's order is not fixed), and beta is gathered over the group
+  in shard order, so every rank of the group returns what one process
+  returns.  The freeze mask and the iteration counts are per codeword on
+  each rank, from the same sums.
 """
 
 from __future__ import annotations
@@ -117,13 +127,17 @@ def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
             policy.gather(iters, 0))
 
 
-def _sum_slabs(parts: List[torch.Tensor], dev: torch.device) -> torch.Tensor:
+def _sum_slabs(parts: List[torch.Tensor], dev: torch.device,
+               policy: ShardingPolicy) -> torch.Tensor:
     """Per-codeword sums of the slabs' squares, added in shard order on
-    dev."""
-    total = None
-    for p in parts:
-        s = (p * p).sum((1, 2)).to(dev)
-        total = s if total is None else total + s
+    dev: this process's slabs, or every slab of the section group (their
+    partial sums gathered over it)."""
+    sums = [(p * p).sum((1, 2)).to(dev) for p in parts]
+    if policy.section_procs > 1:
+        sums = list(policy.gather_sections(torch.stack(sums), 0))
+    total = sums[0]
+    for s in sums[1:]:
+        total = total + s
     return total
 
 
@@ -134,6 +148,7 @@ class _SectionShard:
 
     def __init__(self, policy: ShardingPolicy, d: int, y_d, mask, sq_npl,
                  P: float, n: int, tol: float, tau2_schedule, pin_d):
+        self.policy = policy
         self.devs = policy.mesh.devices[d]
         self.dev0 = self.devs[0]
         self.P, self.n, self.tol = P, n, tol
@@ -155,17 +170,18 @@ class _SectionShard:
     def transform(self, slabs):
         """H_L (x) H_M / sqrt(n) of the codewords: K3 on each slab, then
         H_S across the slabs."""
-        return hypercube([fwht_tile(x, "bf16", self.scale) for x in slabs])
+        return hypercube([fwht_tile(x, "bf16", self.scale) for x in slabs],
+                         self.policy)
 
     def step(self, t: int) -> None:
-        bnorm2 = _sum_slabs(self.beta, self.dev0)
+        bnorm2 = _sum_slabs(self.beta, self.dev0, self.policy)
         coef = (self.P - bnorm2 / self.n) / self.tau2_prev    # 0 at t = 0
         w = self.transform(self.beta)
         z_new = [my - m[None] * wi + coef.to(wi.device)[:, None, None] * zi
                  for my, m, wi, zi in zip(self.my, self.mask, w, self.z)]
         del w
         if self.sched is None:
-            tau2 = _sum_slabs(z_new, self.dev0) / self.n
+            tau2 = _sum_slabs(z_new, self.dev0, self.policy) / self.n
         else:
             tau2 = self.sched[t].expand(self.tau2_prev.shape[0])
         s = [a + b for a, b in zip(self.transform(z_new), self.beta)]
@@ -199,5 +215,7 @@ class _SectionShard:
         self.trace.append(self.tau2_prev)
 
     def gathered_beta(self) -> torch.Tensor:
-        """beta (B_d, L, M) on device (d, 0)."""
-        return torch.cat([b.to(self.dev0) for b in self.beta], 1)
+        """beta (B_d, L, M) on device (d, 0), every slab of the section
+        group in shard order."""
+        return self.policy.gather_sections(
+            torch.cat([b.to(self.dev0) for b in self.beta], 1), 1)

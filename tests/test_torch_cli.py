@@ -67,20 +67,22 @@ def test_fused_rewrites_the_config_with_the_reference_message(tmp_path,
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--preset", "fast_l4096", "--section-shards", "4"], "A10"),
+    (["--preset", "fast_l4096", "--section-shards", "4"],
+     "needs --distributed"),
     (["--preset", "fast_l4096", "--distributed", "--section-shards", "2"],
-     "A10"),
-    (["--preset", "concat", "--section-shards", "2"], "A10"),
+     "torch.distributed.run"),
+    (["--preset", "concat", "--section-shards", "2"], "needs --distributed"),
     (["--preset", "concat", "--distributed", "--section-shards", "4"],
-     "A10"),
+     "torch.distributed.run"),
     (["--preset", "campaign"], "not a code configuration"),
 ])
 def test_unported_requests_exit_with_their_message(argv, needle,
                                                    monkeypatch):
     """On one GPU (stood in for here) a section axis wider than the
-    process's GPUs would cross processes, which is left (ROADMAP A10);
-    --distributed and --section-shards themselves run
-    (tests/test_torch_parallel.py, tests/test_torch_multihost.py)."""
+    process's GPUs crosses processes: without --distributed the CLI exits
+    saying so, and with it but without torch.distributed.run's
+    environment it exits asking for that; the cross-process campaign
+    itself runs in tests/test_torch_multihost.py."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
@@ -88,6 +90,38 @@ def test_unported_requests_exit_with_their_message(argv, needle,
     with pytest.raises(SystemExit) as exc:
         tcli.main(["campaign", *argv])
     assert needle in str(exc.value)
+
+
+def test_nccl_between_processes_of_one_gpu_exits(monkeypatch):
+    """Two processes of one GPU (stood in for here) with the section axis
+    across them: NCCL refuses two ranks of one GPU, so the CLI exits with
+    its message before any process group; --dist-backend gloo passes that
+    check (and then asks for torch.distributed.run's environment)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    argv = ["campaign", "--preset", "fast_l4096", "--distributed",
+            "--section-shards", "2"]
+    with pytest.raises(SystemExit, match="NCCL refuses two ranks of one GPU"):
+        tcli.main(argv)
+    with pytest.raises(SystemExit, match="torch.distributed.run"):
+        tcli.main(argv + ["--dist-backend", "gloo"])
+
+
+def test_section_axis_that_neither_divides_nor_spans_the_gpus_exits(
+        monkeypatch):
+    """Three GPUs (stood in for here) and --section-shards 2: the axis
+    neither fits the process's GPUs nor spans whole processes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="one must divide the other"):
+        tcli.main(["campaign", "--preset", "fast_l4096", "--section-shards",
+                   "2"])
 
 
 @pytest.mark.parametrize("preset,kernel", [
@@ -102,7 +136,8 @@ def test_fused_routes_are_not_refused(preset, kernel, monkeypatch):
     for here)."""
     reached = []
     monkeypatch.setattr(tcli, "_run_campaign",
-                        lambda args, cfg, ccfg, mesh: reached.append(cfg))
+                        lambda args, cfg, ccfg, mesh, *section:
+                        reached.append(cfg))
 
     def runs(cfg):
         monkeypatch.setitem(PRESETS, "under_test", cfg)

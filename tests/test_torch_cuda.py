@@ -1323,6 +1323,123 @@ def test_cuda_distributed_processes_share_the_gpus(gpus, tmp_path):
             == {k: one[-1][k] for k in CAMPAIGN_KEYS})
 
 
+# ------------------------------- a section axis across processes, one card
+
+_NCCL_PAIR = """
+import os, torch, torch.distributed as dist
+dist.init_process_group("gloo", init_method="env://")
+torch.cuda.set_device(0)
+g = dist.new_group([0, 1], backend="nccl")
+r = dist.get_rank()
+x = torch.full((4,), float(r), device="cuda:0")
+y = torch.empty_like(x)
+ops = [dist.P2POp(dist.isend, x, 1 - r, g), dist.P2POp(dist.irecv, y, 1 - r, g)]
+for w in dist.batch_isend_irecv(ops):
+    w.wait()
+torch.cuda.synchronize()
+print("received", y.tolist(), flush=True)
+"""
+
+
+def _two_ranks(code, port, timeout=120):
+    """Two processes of `code` with torch.distributed.run's environment;
+    their (returncode, stdout, stderr)."""
+    import os
+    import subprocess
+    import sys
+
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), CUDA_VISIBLE_DEVICES="0"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        outs.append((p.returncode, so, se))
+    return outs
+
+
+def _port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cuda_nccl_refuses_two_ranks_of_one_gpu(cuda_device):
+    """What the CLI's --dist-backend nccl check stands on: NCCL between two
+    ranks of one GPU fails ("Duplicate GPU detected") rather than
+    exchanging."""
+    outs = _two_ranks(_NCCL_PAIR, _port())
+    assert all(rc != 0 for rc, _, _ in outs), outs
+    assert any("Duplicate GPU" in so + se for _, so, se in outs), [
+        se[-2000:] for _, _, se in outs]
+
+
+def test_cuda_cli_section_axis_across_processes_of_one_card(cuda_device,
+                                                            tmp_path):
+    """Two --distributed CLI processes sharing cuda:0 with --section-shards
+    2: with the default backend (nccl) the CLI exits with its message;
+    with --dist-backend gloo the record equals one process's with S = 2
+    on a virtual (1 x 2) mesh (the CLI in one process on one GPU
+    refuses S = 2, so the campaign runs in process)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from sparc_ldpc_tpu_torch.config import PRESETS, CampaignConfig
+    from sparc_ldpc_tpu_torch.models.sparc import SparcSweep
+    from sparc_ldpc_tpu_torch.parallel.campaign import run_campaign
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = ["campaign", "--preset", "plain_small", "--fused", "--ebno",
+            "5.0", "--batch", "8", "--max-trials", "16",
+            "--min-frame-errors", "1000000", "--amp-iters", "8",
+            "--section-shards", "2", "--distributed"]
+
+    def launch(out, *extra):
+        return subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+             "2", "--master_addr", "127.0.0.1", "--master_port", str(_port()),
+             "-m", "sparc_ldpc_tpu_torch.cli", *argv, "--out", str(out),
+             *extra], cwd=repo, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+
+    refused = launch(tmp_path / "nccl.jsonl")
+    assert refused.returncode != 0
+    assert "NCCL refuses two ranks of one GPU" in refused.stderr
+    proc = launch(tmp_path / "gloo.jsonl", "--dist-backend", "gloo")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "dist_backend=gloo" in proc.stdout
+    recs = [json.loads(x)
+            for x in (tmp_path / "gloo.jsonl").read_text().splitlines()]
+    assert len(recs) == 1 and recs[0]["section_processes"] == 2
+    # the CLI's --fused --amp-iters 8 on plain_small
+    cfg = PRESETS["plain_small"].replace(
+        amp_kernel="fused_split", amp_tol=0.0, transform_precision="bf16",
+        amp_iters=8)
+    pol = ShardingPolicy(make_mesh(2, [cuda_device] * 2))
+    sweep = SparcSweep(cfg, device=cuda_device, policy=pol)
+    ref = run_campaign(sweep.model_for_point,
+                       CampaignConfig(ebno_grid_db=(5.0,), batch=8,
+                                      min_frame_errors=1_000_000,
+                                      max_trials=16, base_seed=1234,
+                                      section_shards=2),
+                       lambda m: m.cfg.k_bits, policy=pol, verbose=False)[0]
+    assert ({k: recs[0][k] for k in CAMPAIGN_KEYS}
+            == {k: ref[k] for k in CAMPAIGN_KEYS})
+
+
 # ------------------------------------- the split kernel's experiments
 
 @pytest.fixture(scope="module")

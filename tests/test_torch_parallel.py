@@ -438,7 +438,7 @@ def test_cli_mesh_spans_every_gpu_of_the_process(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
     monkeypatch.setenv("LOCAL_RANK", "0")
-    with pytest.raises(SystemExit, match="A10"):
+    with pytest.raises(SystemExit, match="needs --distributed"):
         tcli.main(["campaign", "--preset", "concat", "--section-shards",
                    "2"])
 
