@@ -86,8 +86,9 @@ the concat preset.  Each phase prints one line with its seconds:
      journal's last block removed, a rerun (under --profile, which
      gives the per-iteration stage times) reproduces bit_errors,
      frame_errors and trials; (b) `campaign --preset concat` as shipped,
-     batch 2048, 4096 trials: phase 8's windows, and its bits_per_s
-     printed beside phase 9's;
+     batch 2048, 4096 trials: phase 8's windows, and its bits_per_s (each
+     block timed by its completion on the device clock) within 2 % of
+     phase 9's;
  14. the monolithic AMP kernel (K6, csrc/amp_mono.cu) against its plain
      version at full width (B=32, L=1024, M=512): its adjoint launch from
      a compact z on the operator's support, to 1e-5 of the output scale
@@ -240,12 +241,16 @@ the concat preset.  Each phase prints one line with its seconds:
      measured `stages_ms`;
  33. the BER/FER leg tool (`tools/ber_legs.py`, `run_legs`) in process:
      a `torch` leg of plain_small at 2.0 dB and of concat_small at 3.0 dB,
-     1024 trials each, into a temporary directory: each record well
-     formed (the tool's fields, integer counters, TF32 off, the card's
-     line) and its BER within the joint 95 % bound of the float64 oracle
-     leg on disk (results/ber_parity_<preset>.jsonl), floored at
-     REL_FLOOR (default 1 %) of the larger BER; K1 launched, and K2 for
-     concat_small;
+     and a `torch_mono` (K6) and a `torch_slab` (K7) leg of plain_small at
+     2.0 dB, each paired with K1 on the same frames, 1024 trials each,
+     into a temporary directory: each record well formed (the tool's
+     fields, integer counters, TF32 off, the card's line) and its BER
+     within the joint 95 % bound of the float64 oracle leg on disk
+     (results/ber_parity_<preset>.jsonl), floored at REL_FLOOR (default
+     1 %) of the larger BER; K1 launched, K2 for concat_small, K6 and K7
+     for their legs; the paired legs' mean per-frame difference of bit
+     errors not wholly beyond +- 2 % of K1's bit errors a frame
+     (`ber_legs.paired_compare`);
  34. the column-signed Hadamard operator (PRESETS["pa_l1024"] with
      col_signs=True, and the same with --pallas: K5) and the DCT operator
      at fast_l4096's geometry (L=4096, M=512, R=1.5, ML=2^21, cuFFT):
@@ -263,7 +268,7 @@ the concat preset.  Each phase prints one line with its seconds:
  35. the section axis across processes: `python -m torch.distributed.run
      --nproc_per_node 2 -m sparc_ldpc_tpu_torch.cli campaign --distributed
      --section-shards 2 --preset fast_l4096` at 6.5 dB (L=4096, M=512,
-     one slab of l=2048 sections a process), two blocks.  On one card
+     one slab of l=2048 sections a process), three blocks.  On one card
      both processes share it; NCCL refuses two ranks of one GPU, so the
      slabs cross through host memory over gloo (`--dist-backend gloo`):
      2 exchanges an iteration of B x 4 MiB each way, so B=32 (2 GiB a
@@ -273,9 +278,11 @@ the concat preset.  Each phase prints one line with its seconds:
      counter the same campaign in this process on a virtual (1 x 2) mesh
      (phase 21's route); each rank launches K3 and K4 half as often as
      that campaign (one slab each) and prints its exchange's calls,
-     bytes and host seconds; the kernels line carries each rank's K3 and
-     K4 launches, the ms a block and the exchange's share of the
-     campaign's wall.
+     bytes and host seconds.  The record's steady bits_per_s (the last two
+     blocks, timed from the first block's completion to the last's) as ms
+     a block, within 10 % of the point's wall over its blocks; the kernels
+     line carries each rank's K3 and K4 launches, the ms a block and the
+     exchange's share of the campaign's wall.
 
 Counts of kernel launches are set to 0 before each path (phases 4, 8,
 13a, 13b, 15, 17, 19, 20, 21, 25, 26, the tools' blocks of 27-31, each
@@ -1233,6 +1240,9 @@ def traced_kernels(fn, calls: int = 1) -> list:
     return [e for e in events if e.get("cat") == "kernel"]
 
 
+CAMPAIGN_RATE_TOL = 0.02   # 13b's campaign bits/s against phase 9's
+
+
 def cli_phase(dev, card: str, cp: dict, clock: Clock) -> dict:
     """Phase 13: the campaign CLI in process."""
     from sparc_ldpc_tpu_torch import cli
@@ -1301,6 +1311,11 @@ def cli_phase(dev, card: str, cp: dict, clock: Clock) -> dict:
               flush=True)
         require(lb["amp_split_noise"] > 0 and lb["bp_qc_layered"] > 0,
                 "the concat campaign did not launch both kernels")
+        require(rec["bits_per_s"] is not None and abs(
+            rec["bits_per_s"] / cp["bits_per_s"] - 1) <= CAMPAIGN_RATE_TOL,
+            f"the concat campaign's bits_per_s {rec['bits_per_s']} is not "
+            f"within {CAMPAIGN_RATE_TOL:.0%} of phase 9's "
+            f"{cp['bits_per_s']}")
         require(concat_windows(rec["fer"], rec["ber"], bp_ok) == [],
                 f"concat campaign off: "
                 f"{concat_windows(rec['fer'], rec['ber'], bp_ok)}")
@@ -3265,8 +3280,14 @@ def k1_stage_phase(dev, card: str, sp: dict, lp: dict,
 
 
 LEGS_TRIALS = 1024    # phase 33's trials a leg
-# phase 33's legs: (preset, point index in the tool's GRIDS), 2.0 and 3.0 dB
-LEG_POINTS = (("plain_small", 0), ("concat_small", 1))
+# phase 33's legs: (preset, point index in the tool's GRIDS, kind), 2.0
+# and 3.0 dB; the route legs are paired with K1 on the same frames
+LEG_POINTS = (("plain_small", 0, "torch"), ("concat_small", 1, "torch"),
+              ("plain_small", 0, "torch_mono"),
+              ("plain_small", 0, "torch_slab"))
+# the kernel each leg must launch besides K1 (the route legs' partner)
+LEG_KERNELS = {"torch": "amp_split", "torch_mono": "amp_mono",
+               "torch_slab": "amp_slab"}
 OP_BATCH = 4          # phase 34's operator inputs
 OP_BLOCK = 64         # phase 34's decoded block
 OP_CPU_ROWS = 16      # the rows of it the CPU decodes too
@@ -3278,53 +3299,68 @@ OP_TAU2_RTOL = 1e-3
 def legs_phase(dev, card: str, clock: Clock) -> dict:
     """Phase 33: the BER/FER leg tool (tools/ber_legs.py) in process: a
     `torch` leg of plain_small at 2.0 dB and of concat_small at 3.0 dB,
-    LEGS_TRIALS each, into a temporary directory; each record well formed
-    and its BER within the joint 95 % bound of the float64 oracle leg on
-    disk, floored as the tool's test floors it (REL_FLOOR, default 1 %)."""
+    and torch_mono and torch_slab legs of plain_small at 2.0 dB paired
+    with K1, LEGS_TRIALS each, into a temporary directory; each record
+    well formed and its BER within the joint 95 % bound of the float64
+    oracle leg on disk, floored as the tool's test floors it (REL_FLOOR,
+    default 1 %); a paired leg's mean per-frame d not wholly beyond 2 % of
+    K1's bit errors a frame."""
     from sparc_ldpc_tpu_torch.tools import ber_legs as bl
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_legs_")
     out = {}
     try:
-        for preset, point in LEG_POINTS:
+        for preset, point, kind in LEG_POINTS:
             ebno = bl.GRIDS[preset][point]
+            name = f"{preset} {kind}"
             reset_counts()
-            bl.run_legs([preset], ["torch"], LEGS_TRIALS, 512, dev, tmp,
+            bl.run_legs([preset], [kind], LEGS_TRIALS, 512, dev, tmp,
                         ebnos=[ebno], commit="chip_smoke")
             launches = read_counts()
-            recs = bl.load_records(bl.out_path(tmp, preset))
-            require(len(recs) == 1, f"{preset}: {len(recs)} records")
+            recs = [r for r in bl.load_records(bl.out_path(tmp, preset))
+                    if r["kind"] == kind]
+            require(len(recs) == 1, f"{name}: {len(recs)} records")
             rec = recs[0]
             missing = {"kind", "ebno_db", "trials", "bit_errors",
                        "bit_errors_sq", "frame_errors", "k_bits", "ber",
                        "fer", "wall_s", "bits_per_s", "seed_base",
                        "allow_tf32", "device", "card", "commit",
                        "launches"} - set(rec)
-            require(not missing, f"{preset}: record lacks {missing}")
+            require(not missing, f"{name}: record lacks {missing}")
             require(rec["trials"] == LEGS_TRIALS and rec["ebno_db"] == ebno
                     and rec["allow_tf32"] is False and rec["card"] == card,
-                    f"{preset}: record {rec}")
+                    f"{name}: record {rec}")
             require(all(isinstance(rec[k], int) for k in
                         ("bit_errors", "frame_errors", "trials")),
-                    f"{preset}: counters are not integers")
+                    f"{name}: counters are not integers")
             oracle = bl.last_leg(bl.load_records(bl.ref_path(bl.RESULTS,
                                                              preset)),
                                  "oracle", ebno)
-            require(oracle is not None, f"{preset}: no oracle leg on disk")
+            require(oracle is not None, f"{name}: no oracle leg on disk")
             cmp = bl.compare(rec, oracle, bl.REL_FLOOR.get(preset, 0.01))
-            out[preset] = dict(ebno_db=ebno, ber=rec["ber"], fer=rec["fer"],
-                               oracle_ber=oracle["ber"], gap=cmp["gap"],
-                               bound=cmp["bound"], wall_s=rec["wall_s"],
-                               bits_per_s=rec["bits_per_s"],
-                               launches=launches)
+            out[name] = dict(ebno_db=ebno, ber=rec["ber"], fer=rec["fer"],
+                             oracle_ber=oracle["ber"], gap=cmp["gap"],
+                             bound=cmp["bound"], wall_s=rec["wall_s"],
+                             bits_per_s=rec["bits_per_s"],
+                             launches=launches)
             require(launches["amp_split"] > 0,
-                    f"{preset}: the leg did not run K1")
+                    f"{name}: the leg did not run K1")
+            require(launches[LEG_KERNELS[kind]] > 0,
+                    f"{name}: the leg did not run {LEG_KERNELS[kind]}")
             if preset in bl.CONCAT_PRESETS:
                 require(launches["bp_qc_layered"] > 0,
-                        f"{preset}: the leg did not run K2")
-            require(cmp["ok"], f"{preset} @ {ebno} dB: BER {rec['ber']} "
+                        f"{name}: the leg did not run K2")
+            require(cmp["ok"], f"{name} @ {ebno} dB: BER {rec['ber']} "
                     f"off the oracle's {oracle['ber']} by {cmp['gap']} > "
                     f"{cmp['bound']}")
+            if kind != "torch":
+                pc = bl.paired_compare(rec)
+                out[name]["paired"] = dict(
+                    partner_ber=rec["paired"]["partner_bit_errors"]
+                    / (rec["trials"] * rec["k_bits"]), **pc)
+                require(pc["ok"], f"{name} @ {ebno} dB: mean d {pc['diff']}"
+                        f" ± {pc['half']} a frame wholly beyond ±"
+                        f"{pc['bound']} (2 % of K1's bit errors a frame)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[33 ber legs] {out} on {card} ({clock.lap():.1f} s)", flush=True)
@@ -3460,6 +3496,7 @@ def operators_phase(dev, card: str, clock: Clock) -> dict:
 SECTION_PROC_BATCH = 32      # phase 35 on one card: gloo, through the host
 SECTION_PROC_NCCL_BATCH = 512  # phase 35 on two cards or more: NCCL
 SECTION_PROC_TIMEOUT_S = 400
+SECTION_PROC_RATE_TOL = 0.10   # the record's bits/s against wall / blocks
 SECTION_PROC_KEYS = ("bit_errors", "frame_errors", "trials", "bit_errors_sq",
                      "blocks", "exec_blocks", "mean_iters", "ber", "fer")
 
@@ -3481,10 +3518,11 @@ def section_processes_phase(dev, card: str, clock: Clock) -> dict:
     nccl = torch.cuda.device_count() >= 2
     backend = "nccl" if nccl else "gloo"
     B = SECTION_PROC_NCCL_BATCH if nccl else SECTION_PROC_BATCH
-    # the budget is met once the first block is counted; the pipelined
-    # dispatch has launched the second by then: two blocks, the second
-    # the steady ms a block
-    trials = B
+    # the budget is met once two blocks are counted; the pipelined
+    # dispatch has launched the third by then: three blocks, the last two
+    # the steady ms a block (the first carries each process's warm-up,
+    # seconds of it on one card, which the wall over three blocks dilutes)
+    trials = 2 * B
     root = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sections_")
     try:
@@ -3533,13 +3571,15 @@ def section_processes_phase(dev, card: str, clock: Clock) -> dict:
     require(len(recs) == 1, "more than one process wrote a record")
     rec = recs[-1]
     same = {k: rec[k] == ref[k] for k in SECTION_PROC_KEYS}
-    # every exchange waits for the card, so the two-process blocks run
-    # one after the other and the campaign's steady bits_per_s (which
-    # assumes a pipelined dispatch) does not apply: ms a block is the
-    # point's wall over its blocks, on both sides
+    # every exchange waits for the card, so the two-process blocks run one
+    # after the other; the campaign times each block by its completion, so
+    # its steady bits_per_s (the blocks after the first) gives one block's
+    # time, which the point's wall over its blocks must confirm
+    k_bits = slt.PRESETS["fast_l4096"].k_bits
     res = dict(
         backend=backend, batch=B, wall_s=wall, record_wall_s=rec["wall_s"],
         ms_a_block=1e3 * rec["wall_s"] / rec["blocks"],
+        ms_a_block_from_bits_per_s=1e3 * B * k_bits / rec["bits_per_s"],
         ms_a_block_one_process=1e3 * ref["wall_s"] / ref["blocks"],
         exchange_share=[r["s"] / rec["wall_s"] for r in ranks],
         ranks=ranks, launches_one_process=launches,
@@ -3550,7 +3590,9 @@ def section_processes_phase(dev, card: str, clock: Clock) -> dict:
           f"{rec.get('mesh')}; counters {res['counters']} vs one process on "
           f"a virtual (1 x 2) mesh: equal {all(same.values())}; ranks "
           f"{ranks}; one process's launches {launches}; ms a block (the "
-          f"point's wall over its blocks) {res['ms_a_block']} (one process "
+          f"point's wall over its blocks) {res['ms_a_block']}, from the "
+          f"record's bits_per_s {rec['bits_per_s']} "
+          f"{res['ms_a_block_from_bits_per_s']} (one process "
           f"{res['ms_a_block_one_process']}), exchange share of the wall "
           f"{res['exchange_share']}; the "
           f"launcher's wall {wall:.1f} s on {card} ({clock.lap():.1f} s)",
@@ -3562,6 +3604,11 @@ def section_processes_phase(dev, card: str, clock: Clock) -> dict:
     require(all(same.values()), f"two-process sharded counters differ: "
             f"{same}")
     require(len(ranks) == 2, f"{len(ranks)} ranks reported their exchange")
+    require(abs(res["ms_a_block_from_bits_per_s"] / res["ms_a_block"] - 1)
+            <= SECTION_PROC_RATE_TOL,
+            f"the record's bits_per_s gives "
+            f"{res['ms_a_block_from_bits_per_s']} ms a block, the point's "
+            f"wall over its blocks {res['ms_a_block']}")
     require(launches["fwht_tile"] > 0 and launches["denoise"] > 0
             and launches["amp_split"] == 0,
             f"the one-process campaign did not run K3 and K4: {launches}")
@@ -3715,7 +3762,13 @@ def main() -> None:
             for r in sx["ranks"]})
         rec["section_axis_across_processes"] = {
             k: sx[k] for k in ("backend", "batch", "ms_a_block",
+                               "ms_a_block_from_bits_per_s",
                                "exchange_share")}
+    # phase 33's route legs
+    for rec, key in ((mono_rec, "amp_mono"), (slab_rec, "amp_slab")):
+        rec.setdefault("launches_by_path", {}).update({
+            f"legs {p}": r["launches"][key] for p, r in legs.items()
+            if r["launches"][key]})
     records = [amp_rec, bp_rec, fw_rec, dn_rec, mono_rec, l4096_rec, k3_rec,
                slab_rec, ab["rec"], ls["rec"], pr["rec"], s4_rec]
     for rec in records:

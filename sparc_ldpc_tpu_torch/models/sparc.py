@@ -251,7 +251,33 @@ class SparcModel:
         """One block on given draws: noise (B, n) standard normal, or None
         with noise_seed (B, 2) for the in-kernel noise.  Under a policy,
         this process's rows of them."""
+        f = self.frame_counts(bits, noise, sq_npl, sigma, noise_seed)
+        bit_errors = f["bit_errors"]
+        return dict(
+            bit_errors=bit_errors.sum(),
+            # bit errors cluster within frames: the frame-level second
+            # moment gives honest BER confidence intervals
+            bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
+            frame_errors=(bit_errors > 0).sum(),
+            section_errors=f["section_errors"].sum(),
+            # a fill, not a host-to-device copy, which would wait for the
+            # stream and stall the campaign's pipelined dispatch
+            trials=torch.full((), bit_errors.shape[0], dtype=torch.int32,
+                              device=self.device),
+            iters_sum=f["iters"].sum(),
+            tau2_final=f["tau2_final"].mean(),
+        )
+
+    def frame_counts(self, bits, noise, sq_npl=None, sigma=None,
+                     noise_seed=None) -> Dict[str, torch.Tensor]:
+        """A block on given draws decoded as run_block decodes it, frame by
+        frame: bit_errors, section_errors and iters (B,), tau2_final (B,).
+        noise (B, n) standard normal, or None with noise_seed (B, 2) for
+        the in-kernel noise; sq_npl and sigma default to the model's.
+        Under a policy, this process's rows of them."""
         cfg = self.cfg
+        sq_npl = self.sq_npl if sq_npl is None else sq_npl
+        sigma = math.sqrt(self.sigma2) if sigma is None else sigma
         if self.policy is not None:
             bits, noise, noise_seed = self.policy.own_rows(
                 bits, noise, noise_seed)
@@ -282,22 +308,9 @@ class SparcModel:
             policy=self.policy, **self.fused_kw, **noise_kw)
         idx_hat = hard_indices(res.beta)
         bits_hat = indices_to_bits(idx_hat, cfg.logM)
-        bit_errors = (bits != bits_hat).sum(-1)              # (B,)
-        section_errors = (idx_true != idx_hat).sum(-1)       # (B,)
-        return dict(
-            bit_errors=bit_errors.sum(),
-            # bit errors cluster within frames: the frame-level second
-            # moment gives honest BER confidence intervals
-            bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
-            frame_errors=(bit_errors > 0).sum(),
-            section_errors=section_errors.sum(),
-            # a fill, not a host-to-device copy, which would wait for the
-            # stream and stall the campaign's pipelined dispatch
-            trials=torch.full((), batch, dtype=torch.int32,
-                              device=self.device),
-            iters_sum=res.iters.sum(),
-            tau2_final=res.tau2_trace[-1].mean(),
-        )
+        return dict(bit_errors=(bits != bits_hat).sum(-1),
+                    section_errors=(idx_true != idx_hat).sum(-1),
+                    iters=res.iters, tau2_final=res.tau2_trace[-1])
 
 
 class SparcSweep:

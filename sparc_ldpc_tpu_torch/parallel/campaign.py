@@ -16,10 +16,18 @@ only on its coordinates, and:
     `.item()` on block b after b + 1 is queued on the same stream would
     wait for b + 1 as well and serialize the pipeline.
 
-Throughput comes from the blocks this process executed: journal-replayed
-blocks add counters but no time, and the first executed block, which
-carries the kernels' nvcc build at first use and the CUDA warm-up, is
-excluded (`first_block_s` is kept in the record).
+Throughput comes from the blocks this process executed, each timed by
+when its work completed, not by when the host harvested it: on a CUDA
+device by a timing event recorded behind the copy of its counters, read
+on the device clock against a start event recorded at the point's first
+launch; on the CPU by the host clock when `run_block` returns.  A launch
+that waits for the device (an exchange between processes, any
+synchronizing op, every CPU run) therefore moves no block's time into
+another's.  Journal-replayed blocks add counters but no time, and the
+first executed block, which carries the kernels' nvcc build at first use
+and the CUDA warm-up, is excluded: `first_block_s` is its time from its
+launch to its completion, and the steady rate divides the later blocks'
+trials by the time from the first block's completion to the last's.
 
 Under a ShardingPolicy (parallel/mesh.py) the generators live on the
 mesh's home device and the model cuts each block over the mesh.  With
@@ -54,18 +62,37 @@ _COUNTER_KEYS = ("bit_errors", "frame_errors", "section_errors", "trials",
 def _stage(out: Dict[str, torch.Tensor]):
     """Queue the copy of a block's counters to the host.
 
-    Returns (keys, values, event): on a CUDA device values is a pinned host
-    tensor that holds the counters once `event` has completed; on the CPU
-    it holds them already and event is None."""
+    Returns (keys, values, done): on a CUDA device values is a pinned host
+    tensor that holds the counters once `done`, a timing event, has
+    completed; on the CPU it holds them already and done is the host
+    clock (time.perf_counter) at which the block's work was complete."""
     keys = [k for k in _COUNTER_KEYS if k in out]
     vals = torch.stack([out[k].reshape(()).to(torch.float64) for k in keys])
     if not vals.is_cuda:
-        return keys, vals, None
+        return keys, vals, time.perf_counter()
     host = torch.empty(vals.shape, dtype=torch.float64, pin_memory=True)
     host.copy_(vals, non_blocking=True)       # on vals' device's stream
-    event = torch.cuda.Event()
+    event = torch.cuda.Event(enable_timing=True)
     event.record(torch.cuda.current_stream(vals.device))
     return keys, host, event
+
+
+def _launch_mark(device: torch.device):
+    """The point's start, taken at its first launch: a timing event on the
+    device's current stream (CUDA), or the host clock (CPU)."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _seconds(start, done) -> float:
+    """Seconds from the start mark to a block's completion mark (on the
+    device clock for CUDA events, which have completed)."""
+    if isinstance(done, float):
+        return done - start
+    return start.elapsed_time(done) / 1e3
 
 
 def run_point(
@@ -111,12 +138,12 @@ def run_point(
     exec_trials = 0
     exec_wall = 0.0
     t0 = time.perf_counter()
-    t_last = t0
+    start = None        # the first executed launch's mark (_launch_mark)
     pending = None      # ("exec", block_idx, staged) | ("replay", idx, rec)
 
     def harvest():
         """Fold the pending block's counters into totals (and journal)."""
-        nonlocal pending, exec_blocks, exec_trials, exec_wall, t_last
+        nonlocal pending, exec_blocks, exec_trials, exec_wall
         if pending is None:
             return
         tag, blk, payload = pending
@@ -125,24 +152,21 @@ def run_point(
             for k in _COUNTER_KEYS:
                 if k in payload:
                     totals[k] = totals.get(k, 0) + payload[k]
-            t_last = time.perf_counter()
             return
-        keys, vals, event = payload
-        if event is not None:
-            event.synchronize()
+        keys, vals, done = payload
+        if not isinstance(done, float):
+            done.synchronize()
         if policy is not None:
             vals = policy.all_reduce(vals)
         out = {k: int(v) for k, v in zip(keys, vals.tolist())}
-        now = time.perf_counter()
-        blk_s = now - t_last
-        t_last = now
+        # this block's completion, from the first executed launch
+        exec_wall = _seconds(start, done)
         if "first_block_s" not in totals:
             # the first executed block carries the kernels' build at first
             # use and the CUDA warm-up; kept apart from the throughput
-            totals["first_block_s"] = blk_s
+            totals["first_block_s"] = exec_wall
         exec_blocks += 1
         exec_trials += out.get("trials", 0)
-        exec_wall += blk_s
         for k, v in out.items():
             totals[k] = totals.get(k, 0) + v
         if state is not None:
@@ -159,6 +183,8 @@ def run_point(
             block += 1
             continue
         gen = block_generator(base_seed, point_idx, block, device)
+        if start is None:
+            start = _launch_mark(device)
         staged = _stage(run_block(gen, batch))   # queued, not waited on
         harvest()                                # the PREVIOUS block
         pending = ("exec", block, staged)
@@ -177,7 +203,10 @@ def run_point(
 def steady_bits_per_s(tot: Dict[str, float], batch: int,
                       kb: int) -> Optional[float]:
     """Steady-state throughput: blocks this process executed, the first
-    (build- and warm-up-bearing) block excluded.
+    (build- and warm-up-bearing) block excluded.  `exec_wall_s` is the
+    last executed block's completion and `first_block_s` the first's, both
+    from the first executed launch (run_point), so the rate is the later
+    blocks' trials over the time between the two completions.
 
     None below two executed blocks: a one-block point's only timing
     includes the first use, and a journal-replayed point did no work

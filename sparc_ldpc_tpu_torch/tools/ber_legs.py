@@ -11,7 +11,7 @@ the leg-running half of scripts/ber_parity.py, `run_tpu` and
         [--markdown]
 
 `legs` decodes each point of GRIDS on the port and appends one JSON line
-a leg to `<out-dir>/ber_parity_torch_<preset>.jsonl`.  Four kinds, each
+a leg to `<out-dir>/ber_parity_torch_<preset>.jsonl`.  Eight kinds, each
 with the reference script's overrides of the preset (`leg_config`):
 
   torch              plain_small, pa_l1024: fused_split, amp_tol=0, bf16,
@@ -34,6 +34,30 @@ with the reference script's overrides of the preset (`leg_config`):
                      frames, `paired`: the float32 decode's counters and
                      the per-frame difference d = bit errors (float32) -
                      bit errors (float64), as its sum and sum of squares.
+
+and four route kinds, each the torch leg's config (amp_tol, precision,
+leg_batch) with only what names the route changed, the noise drawn
+outside the kernel (ROUTE_PRESETS):
+
+  torch_mono         amp_kernel="fused": the mono form, K6 (plain_small,
+                     pa_l1024; concat_small, both AMP passes, then K2);
+  torch_slab         amp_kernel="fused_slab": the slab form, K7 (the same
+                     presets and fast_l4096);
+  torch_sharded      the torch config on a virtual (1 x 2) mesh of the
+                     device (S = 2): the section-sharded loop, K3 +
+                     hypercube + K4;
+  torch_pallas       amp_kernel="xla" with use_pallas, as `campaign
+                     --pallas` runs it: the scan route on K5 and K4.
+
+Where PAIRED_PRESETS has the preset, a route leg is paired: each block's
+draws (SparcModel.run_block's, the noise outside) are decoded by the
+kind's route and by its partner's (`partner_config`: K1 on the torch
+config for mono, slab and sharded; the same config without use_pallas
+for pallas), each as its own run_block decodes them.  The record counts
+the kind's decode; `paired` holds the partner's counters and d = bit
+errors (kind) - bit errors (partner) a frame, as its sum and sum of
+squares.  On the GPU a route leg fails unless its kernels launched
+(ROUTE_LAUNCHES): it never decodes on a plain version instead.
 
 Block b of point p (p its index in GRIDS[preset]) draws from
 `utils.rng.block_generator(seed_base, p, b)` on the model's device, with
@@ -58,7 +82,11 @@ torch against the oracle (joint 95 % CI floored at REL_FLOOR, default
 1 %), torch against the reference's own `tpu` leg and torch_control_f32
 against torch (2 % floor), torch_noisek against the oracle,
 torch_control_f32 against the reference's `control_f32xla` leg where it
-has one (2 %), torch_f64 against the oracle (REL_FLOOR).  A pair is APART
+has one (2 %), torch_f64 against the oracle (REL_FLOOR), each route kind
+against the oracle (REL_FLOOR) and, where paired, against its partner on
+the same frames (`paired_compare`: a base is outside when the whole 95 %
+CI of the mean d lies beyond +- SAME_PRECISION_FLOOR of the partner's
+mean bit errors a frame).  A pair is APART
 only when its legs on both seed bases are outside the bound on the same
 side (`replicated`).  For plain_small's float32 legs (torch,
 torch_noisek) against the oracle the floor is max(REL_FLOOR, u), u the
@@ -69,7 +97,9 @@ plain_small point on both bases (the third condition of that rule,
 tests/test_torch_c3_same_words.py, is a test of its own).  `check` exits
 1 if a pair is APART or a required leg is missing.  With --markdown it
 prints the same verdicts as a markdown table, a row a point, each leg's
-BER with its 95 % CI half-width on each seed base.
+BER with its 95 % CI half-width on each seed base, and the route kinds'
+in a second table, a row a kind and point, with the mean d and its 95 %
+CI half-width.
 
 On a machine where the tree is not a git checkout, pass --commit (e.g.
 `git describe --always --dirty` of the tree copied there), write to a
@@ -142,7 +172,31 @@ REL_FLOOR = {"concat_small": 0.15, "concat_wifi_small": 0.15,
              "concat_r56_small": 0.15, "concat_full": 0.15}
 NOISEK_PRESETS = ("plain_small", "pa_l1024")
 
-KINDS = ("torch", "torch_noisek", "torch_control_f32", "torch_f64")
+# the route kinds: the presets each has a leg of, and those whose leg is
+# paired with its partner's decode of the same draws
+ROUTE_PRESETS = {
+    "torch_mono": ("plain_small", "pa_l1024", "concat_small"),
+    "torch_slab": ("plain_small", "pa_l1024", "concat_small", "fast_l4096"),
+    "torch_sharded": ("plain_small", "pa_l1024"),
+    "torch_pallas": ("plain_small", "pa_l1024"),
+}
+PAIRED_PRESETS = {
+    "torch_mono": ("plain_small", "pa_l1024"),
+    "torch_slab": ("plain_small", "pa_l1024", "fast_l4096"),
+    "torch_sharded": ("plain_small", "pa_l1024"),
+    "torch_pallas": ("plain_small", "pa_l1024"),
+}
+ROUTE_KINDS = tuple(ROUTE_PRESETS)
+# the amp_kernel that names each route (torch_sharded keeps torch's)
+ROUTE_KERNEL = {"torch_mono": "fused", "torch_slab": "fused_slab",
+                "torch_pallas": "xla"}
+# the launch counters each route leg must move on the GPU
+ROUTE_LAUNCHES = {"torch_mono": ("amp_mono",), "torch_slab": ("amp_slab",),
+                  "torch_sharded": ("fwht_tile", "denoise"),
+                  "torch_pallas": ("fwht2", "denoise")}
+SHARDS = 2               # torch_sharded's section shards
+KINDS = ("torch", "torch_noisek", "torch_control_f32",
+         "torch_f64") + ROUTE_KINDS
 # plain_small's float32 shift at its waterfall (ROADMAP Queue C, C3): its
 # float32 control and float64 legs
 C3_PRESETS = ("plain_small",)
@@ -169,6 +223,7 @@ def leg_kinds(preset: str) -> List[str]:
         kinds.append("torch_control_f32")
     if preset in C3_PRESETS:
         kinds.append("torch_f64")
+    kinds += [k for k in ROUTE_KINDS if preset in ROUTE_PRESETS[k]]
     return kinds
 
 
@@ -177,9 +232,18 @@ def leg_config(preset: str, kind: str):
     `run_tpu` (torch, torch_noisek), `run_tpu_concat` (torch on the
     concat presets), concat_f32_control.py (torch_control_f32, on a
     SparcConfig the same SPARC overrides; torch_f64 decodes with the
-    control's config, in float64)."""
+    control's config, in float64).  A route kind: the torch config with
+    ROUTE_KERNEL's amp_kernel (torch_sharded: the torch config)."""
     if kind not in leg_kinds(preset):
         raise ValueError(f"{preset} has no {kind!r} leg")
+    if kind in ROUTE_KINDS:
+        cfg = leg_config(preset, "torch")
+        if kind not in ROUTE_KERNEL:
+            return cfg
+        if isinstance(cfg, SparcConfig):
+            return replace(cfg, amp_kernel=ROUTE_KERNEL[kind])
+        return replace(cfg, sparc=replace(cfg.sparc,
+                                          amp_kernel=ROUTE_KERNEL[kind]))
     cfg = get_cfg(preset)
     if kind in ("torch_control_f32", "torch_f64"):
         f32 = dict(amp_kernel="xla", amp_tol=0.0,
@@ -197,6 +261,14 @@ def leg_config(preset: str, kind: str):
     return replace(cfg, amp_kernel="fused_split", amp_tol=0.0,
                    transform_precision="bf16",
                    amp_noise_in_kernel=kind == "torch_noisek")
+
+
+def partner_config(preset: str, kind: str) -> SparcConfig:
+    """The config of a paired route kind's partner: the torch leg's (K1)
+    for mono, slab and sharded; torch_pallas's own, decoded without
+    use_pallas."""
+    return leg_config(preset, "torch_pallas" if kind == "torch_pallas"
+                      else "torch")
 
 
 def leg_batch(preset: str, batch: int) -> int:
@@ -265,7 +337,7 @@ def tf32_off() -> bool:
 
 
 def _launch_counts() -> Dict[str, int]:
-    from ..ops.amp_kernel import amp_fused
+    from ..ops.amp_kernel import amp_fused, fwht_tile
     from ..ops.bp_qc_kernel import bp_decode_qc_kernel
     from ..ops.denoiser import denoise_kernel
     from ..ops.fwht_kernel import fwht2
@@ -275,51 +347,90 @@ def _launch_counts() -> Dict[str, int]:
                 amp_mono=amp_fused.mono_launches,
                 amp_slab=amp_fused.slab_launches,
                 bp_qc_layered=bp_decode_qc_kernel.launches,
-                fwht2=fwht2.launches, denoise=denoise_kernel.launches)
+                fwht2=fwht2.launches, denoise=denoise_kernel.launches,
+                fwht_tile=fwht_tile.launches)
 
 
-def f64_block(model, gen: torch.Generator, batch: int
-              ) -> Dict[str, torch.Tensor]:
-    """One torch_f64 block on `model` (the control's SparcModel): the
-    control's draws from gen (SparcModel.run_block's: bits, then float32
-    noise) and its received words y, decoded by the model's float32 route
-    and by the scan route in float64 from y cast up.  The float64
-    decode's counters under run_block's keys; the float32 decode's as
-    `f32_*`; the per-frame d = bit errors (float32) - bit errors (float64)
-    as `diff_sum` and `diff_sq`."""
-    from ..models.amp import amp_decode, hard_indices
-    from ..utils.bits import bits_to_indices, indices_to_bits
-
+def paired_block(model, gen: torch.Generator, batch: int, decodes
+                 ) -> Dict[str, torch.Tensor]:
+    """One paired block: `model`'s run_block draws from gen with the noise
+    outside the kernel (bits, then float32 standard normals), decoded by
+    each of `decodes`, two (prefix, decode) pairs with decode(bits, noise)
+    -> per-frame bit_errors, section_errors and iters
+    (SparcModel.frame_counts).  Each decode's counters under run_block's
+    keys with its prefix; the per-frame d = bit errors (first) - bit
+    errors (second) as `diff_sum` and `diff_sq`."""
     cfg, dev = model.cfg, model.device
     bits = torch.randint(0, 2, (batch, cfg.k_bits), generator=gen,
                          dtype=torch.int32, device=dev)
     noise = torch.randn((batch, cfg.n), generator=gen, dtype=torch.float32,
                         device=dev)
-    y = model.encode(bits) + noise * math.sqrt(model.sigma2)
-    idx = bits_to_indices(bits, cfg.logM)
-    sq64 = torch.as_tensor(np.sqrt(cfg.n * model.p_alloc),
-                           dtype=torch.float64, device=dev)
-    sched = (None if model.tau2_schedule is None
-             else model.tau2_schedule.double())
-    res32 = model.decode(y)
-    res64 = amp_decode(y.double(), model.op, sq64, cfg.P, cfg.n,
-                       T=cfg.amp_iters, tol=cfg.amp_tol, tau2_schedule=sched,
-                       residual_space=cfg.amp_residual_space)
     out = {}
-    per_frame = {}
-    for tag, res in (("", res64), ("f32_", res32)):
-        hat = hard_indices(res.beta)
-        be = (bits != indices_to_bits(hat, cfg.logM)).sum(-1)
-        per_frame[tag] = be
+    per_frame = []
+    for tag, decode in decodes:
+        f = decode(bits, noise)
+        be = f["bit_errors"]
+        per_frame.append(be)
         out.update({
             tag + "bit_errors": be.sum(),
             tag + "bit_errors_sq": (be.double() ** 2).sum(),
             tag + "frame_errors": (be > 0).sum(),
-            tag + "section_errors": (idx != hat).sum(),
-            tag + "iters_sum": res.iters.sum()})
-    d = (per_frame["f32_"] - per_frame[""]).double()
+            tag + "section_errors": f["section_errors"].sum(),
+            tag + "iters_sum": f["iters"].sum()})
+    d = (per_frame[0] - per_frame[1]).double()
     out.update(diff_sum=d.sum(), diff_sq=(d * d).sum())
     return out
+
+
+def f64_block(model, gen: torch.Generator, batch: int
+              ) -> Dict[str, torch.Tensor]:
+    """One torch_f64 block on `model` (the control's SparcModel): the
+    control's draws from gen and its received words y, decoded by the
+    model's float32 route and by the scan route in float64 from y cast up
+    (paired_block).  The float64 decode's counters under run_block's keys;
+    the float32 decode's as `f32_*`; the per-frame d = bit errors
+    (float32) - bit errors (float64) as `diff_sum` and `diff_sq`."""
+    from ..models.amp import amp_decode, hard_indices
+    from ..utils.bits import bits_to_indices, indices_to_bits
+
+    cfg, dev = model.cfg, model.device
+    sq64 = torch.as_tensor(np.sqrt(cfg.n * model.p_alloc),
+                           dtype=torch.float64, device=dev)
+    sched = (None if model.tau2_schedule is None
+             else model.tau2_schedule.double())
+
+    def f64(bits, noise):
+        y = model.encode(bits) + noise * math.sqrt(model.sigma2)
+        res = amp_decode(y.double(), model.op, sq64, cfg.P, cfg.n,
+                         T=cfg.amp_iters, tol=cfg.amp_tol,
+                         tau2_schedule=sched,
+                         residual_space=cfg.amp_residual_space)
+        hat = hard_indices(res.beta)
+        return dict(
+            bit_errors=(bits != indices_to_bits(hat, cfg.logM)).sum(-1),
+            section_errors=(bits_to_indices(bits, cfg.logM) != hat).sum(-1),
+            iters=res.iters)
+
+    return paired_block(model, gen, batch,
+                        (("f32_", model.frame_counts), ("", f64)))
+
+
+def route_models(preset: str, kind: str, ebno: float, device):
+    """A route kind's SparcModel (torch_pallas with use_pallas,
+    torch_sharded on a virtual (1 x SHARDS) mesh of `device`) and its
+    partner's (None where the leg is not paired)."""
+    from ..models.sparc import SparcModel
+    from ..parallel.mesh import ShardingPolicy, make_mesh
+
+    cfg = leg_config(preset, kind)
+    policy = (ShardingPolicy(make_mesh(SHARDS, [device] * SHARDS))
+              if kind == "torch_sharded" else None)
+    model = SparcModel.build(cfg, ebno, device,
+                             use_pallas=kind == "torch_pallas", policy=policy)
+    partner = None
+    if preset in PAIRED_PRESETS[kind]:
+        partner = SparcModel.build(partner_config(preset, kind), ebno, device)
+    return model, partner
 
 
 def run_leg(preset: str, kind: str, point: int, trials: int, batch: int,
@@ -343,15 +454,24 @@ def run_leg(preset: str, kind: str, point: int, trials: int, batch: int,
     if kind in ("torch_control_f32", "torch_f64") and allow_tf32:
         raise RuntimeError("the float32 control needs TF32 off")
     concat = isinstance(cfg, ConcatConfig)
+    partner = None
     if concat:
         model = ConcatModel.build(cfg, ebno, device)
         sp, k_bits = model.sparc, model.k_user
+    elif kind in ROUTE_KINDS:
+        model, partner = route_models(preset, kind, ebno, device)
+        sp, k_bits = model, cfg.k_bits
     else:
         model = SparcModel.build(cfg, ebno, device)
         sp, k_bits = model, cfg.k_bits
     if kind == "torch_f64":
         def block(gen, b):
             return f64_block(model, gen, b)
+    elif partner is not None:
+        def block(gen, b):
+            return paired_block(model, gen, b,
+                                (("", model.frame_counts),
+                                 ("partner_", partner.frame_counts)))
     else:
         block = model.run_block
 
@@ -387,9 +507,17 @@ def run_leg(preset: str, kind: str, point: int, trials: int, batch: int,
         amp_iters=sp.cfg.amp_iters,
         mean_amp_iters=total("iters_sum") / tr,
         precision=sp.cfg.transform_precision, seed_base=seed_base,
-        allow_tf32=allow_tf32,
+        allow_tf32=allow_tf32, use_pallas=sp.use_pallas,
+        section_shards=(1 if sp.policy is None
+                        else sp.policy.section_shards),
         launches={k: after[k] - before[k] for k in after
                   if after[k] != before[k]})
+    if device.type == "cuda" and kind in ROUTE_KINDS:
+        idle = [k for k in ROUTE_LAUNCHES[kind]
+                if not rec["launches"].get(k)]
+        if idle:
+            raise RuntimeError(f"the {kind} leg of {preset} @ {ebno} dB "
+                               f"launched no {idle}: {rec['launches']}")
     rec["ber"] = rec["bit_errors"] / (tr * k_bits)
     rec["fer"] = rec["frame_errors"] / tr
     if concat:
@@ -406,6 +534,18 @@ def run_leg(preset: str, kind: str, point: int, trials: int, batch: int,
             f32_frame_errors=total("f32_frame_errors"),
             f32_section_errors=total("f32_section_errors"),
             f32_mean_amp_iters=total("f32_iters_sum") / tr,
+            diff_sum=total("diff_sum", torch.float64),
+            diff_sq=total("diff_sq", torch.float64))
+    if partner is not None:
+        rec["paired"] = dict(
+            partner_kernel=partner.cfg.amp_kernel,
+            partner_use_pallas=partner.use_pallas,
+            partner_bit_errors=total("partner_bit_errors"),
+            partner_bit_errors_sq=total("partner_bit_errors_sq",
+                                        torch.float64),
+            partner_frame_errors=total("partner_frame_errors"),
+            partner_section_errors=total("partner_section_errors"),
+            partner_mean_amp_iters=total("partner_iters_sum") / tr,
             diff_sum=total("diff_sum", torch.float64),
             diff_sq=total("diff_sq", torch.float64))
     return rec
@@ -514,11 +654,29 @@ def f32_shift(f64: dict) -> Optional[dict]:
     return dict(rel=rel, half=half, lo=rel - half, hi=rel + half)
 
 
+def paired_compare(rec: dict) -> dict:
+    """A paired route leg against its partner on the same frames: the mean
+    per-frame d = bit errors (kind) - bit errors (partner) (`diff`) with
+    its 95 % CI half-width (`half`) from the leg's sum and sum of squares;
+    the bound is SAME_PRECISION_FLOOR of the partner's mean bit errors a
+    frame, and the base is outside (ok False) when the whole CI lies
+    beyond +- the bound."""
+    p, tr = rec["paired"], rec["trials"]
+    mean = p["diff_sum"] / tr
+    half = 1.96 * math.sqrt(max(p["diff_sq"] / tr - mean * mean, 0.0) / tr)
+    bound = SAME_PRECISION_FLOOR * p["partner_bit_errors"] / tr
+    outside = mean - half > bound or mean + half < -bound
+    return dict(diff=mean, half=half, gap=abs(mean), bound=bound,
+                ok=not outside)
+
+
 REF_KINDS = ("oracle", "tpu", "control_f32xla")
-# (port kind, the leg it is held to): rule_floor gives each its floor
+# (port kind, the leg it is held to): rule_floor gives each its floor;
+# "paired" is a route kind's partner on the same frames (paired_compare)
 PAIRS = (("torch", "oracle"), ("torch", "tpu"), ("torch_noisek", "oracle"),
          ("torch_control_f32", "torch"),
-         ("torch_control_f32", "control_f32xla"), ("torch_f64", "oracle"))
+         ("torch_control_f32", "control_f32xla"), ("torch_f64", "oracle")
+         ) + tuple((k, b) for k in ROUTE_KINDS for b in ("oracle", "paired"))
 
 
 def port_legs(recs: Sequence[dict], preset: str, ebno: float) -> dict:
@@ -589,8 +747,16 @@ def point_pairs(preset: str, ebno: float, mine: Sequence[dict],
         c3 = c3_floor_holds(preset, mine, ref)
     pairs = []
     for a, b in PAIRS:
-        if a not in leg_kinds(preset) or (b not in leg_kinds(preset)
-                                          and b not in legs):
+        if a not in leg_kinds(preset):
+            continue
+        if b == "paired":
+            if preset in PAIRED_PRESETS[a]:
+                cmps = {base: dict(paired_compare(legs[(a, base)]),
+                                   floor=SAME_PRECISION_FLOOR)
+                        for base in SEED_BASES}
+                pairs.append((a, b, cmps, replicated(list(cmps.values()))))
+            continue
+        if b not in leg_kinds(preset) and b not in legs:
             continue
         cmps = {}
         for base in SEED_BASES:
@@ -604,6 +770,7 @@ def point_pairs(preset: str, ebno: float, mine: Sequence[dict],
 
 
 MARKDOWN_PORT = ("torch", "torch_noisek", "torch_control_f32", "torch_f64")
+MARKDOWN_PAIRS = tuple(p for p in PAIRS if p[0] not in ROUTE_KINDS)
 
 
 def _cell(rec: Optional[dict]) -> str:
@@ -615,7 +782,7 @@ def markdown_header() -> List[str]:
              "JAX `control_f32xla`"]
             + [f"{k} {base}" for k in MARKDOWN_PORT for base in SEED_BASES]
             + ["float32 shift vs float64 (base 0; 2)"]
-            + [f"{a} vs {b}" for a, b in PAIRS]
+            + [f"{a} vs {b}" for a, b in MARKDOWN_PAIRS]
             + ["torch wall_s, Mbit/s (base 0; 2)"])
     return ["| " + " | ".join(cols) + " |", "|" + " --- |" * len(cols)]
 
@@ -635,17 +802,57 @@ def markdown_row(preset: str, ebno: float, legs: dict, pairs) -> str:
                            else "—" for s in shifts)
                  if any(shifts) else "—")
     verdict = {(a, b): (cmps, ok) for a, b, cmps, ok in pairs}
-    for p in PAIRS:
-        if p not in verdict:
-            cells.append("—")
-            continue
-        cmps, ok = verdict[p]
-        sides = "/".join("in" if c["ok"] else "out" for c in cmps.values())
-        cells.append(f"{'OK' if ok else '**APART**'} ({sides})")
+    cells += [_verdict(*verdict[p]) if p in verdict else "—"
+              for p in MARKDOWN_PAIRS]
     cells.append("; ".join(
         f"{t['wall_s']:.2f}, {t['bits_per_s'] / 1e6:.1f}"
         for t in (legs[("torch", base)] for base in SEED_BASES)))
     return "| " + " | ".join(cells) + " |"
+
+
+def _verdict(cmps: dict, ok: bool) -> str:
+    sides = "/".join("in" if c["ok"] else "out" for c in cmps.values())
+    return f"{'OK' if ok else '**APART**'} ({sides})"
+
+
+def route_header() -> List[str]:
+    cols = (["preset", "dB", "kind", "oracle (float64)"]
+            + [f"kind {base}" for base in SEED_BASES]
+            + [f"partner {base}" for base in SEED_BASES]
+            + ["mean d a frame (base 0; 2)", "vs oracle", "vs partner",
+               "wall_s (base 0; 2)"])
+    return ["| " + " | ".join(cols) + " |", "|" + " --- |" * len(cols)]
+
+
+def route_rows(preset: str, ebno: float, legs: dict, pairs) -> List[str]:
+    """The route kinds' legs at one point, a markdown row a kind: BER ±
+    its 95 % CI half-width on each seed base, the partner's BER on the
+    same frames, the mean d ± its 95 % CI half-width, the verdicts (each
+    base's in/out) and the legs' wall_s."""
+    verdict = {(a, b): (cmps, ok) for a, b, cmps, ok in pairs}
+    rows = []
+    for kind in (k for k in ROUTE_KINDS if k in leg_kinds(preset)):
+        recs = [legs[(kind, base)] for base in SEED_BASES]
+        paired = (kind, "paired") in verdict
+        cells = [preset, str(ebno), kind, _cell(legs["oracle"])]
+        cells += [_cell(r) for r in recs]
+        cells += [_cell(dict(trials=r["trials"], k_bits=r["k_bits"],
+                             bit_errors=r["paired"]["partner_bit_errors"],
+                             bit_errors_sq=r["paired"][
+                                 "partner_bit_errors_sq"],
+                             ber=r["paired"]["partner_bit_errors"]
+                             / (r["trials"] * r["k_bits"])))
+                  if paired else "—" for r in recs]
+        cells.append("; ".join(
+            f"{c['diff']:+.3f} ± {c['half']:.3f}"
+            for c in verdict[(kind, "paired")][0].values())
+            if paired else "—")
+        cells.append(_verdict(*verdict[(kind, "oracle")]))
+        cells.append(_verdict(*verdict[(kind, "paired")]) if paired
+                     else "—")
+        cells.append("; ".join(f"{r['wall_s']:.2f}" for r in recs))
+        rows.append("| " + " | ".join(cells) + " |")
+    return rows
 
 
 def check(presets: Sequence[str], out_dir: str = RESULTS,
@@ -654,6 +861,7 @@ def check(presets: Sequence[str], out_dir: str = RESULTS,
     a pair and seed base (or, with `markdown`, a table row a point); True
     when every required leg is there and no pair is APART."""
     ok = True
+    routes = []
     if markdown:
         print("\n".join(markdown_header()))
     for preset in presets:
@@ -678,9 +886,17 @@ def check(presets: Sequence[str], out_dir: str = RESULTS,
             ok &= all(p_ok for _, _, _, p_ok in pairs)
             if markdown:
                 print(markdown_row(preset, ebno, legs, pairs))
+                routes += route_rows(preset, ebno, legs, pairs)
                 continue
             for a, b, cmps, p_ok in pairs:
                 for base, c in cmps.items():
+                    if b == "paired":
+                        print(f"{preset} @ {ebno}: {a} vs its partner on "
+                              f"the same frames (seed base {base}): mean d "
+                              f"{c['diff']:+.3e} ± {c['half']:.2e} a frame, "
+                              f"bound ±{c['bound']:.3e} (2 % of the "
+                              f"partner's) -> {'in' if c['ok'] else 'out'}")
+                        continue
                     leg_b = legs[b] if b in legs else legs[(b, base)]
                     print(f"{preset} @ {ebno}: {a} vs {b} (seed base "
                           f"{base}): {legs[(a, base)]['ber']:.3e} vs "
@@ -689,6 +905,8 @@ def check(presets: Sequence[str], out_dir: str = RESULTS,
                           f"{'in' if c['ok'] else 'out'}")
                 print(f"{preset} @ {ebno}: {a} vs {b} -> "
                       f"{'OK' if p_ok else 'APART'}")
+    if routes:
+        print("\n" + "\n".join(route_header() + routes))
     return ok
 
 

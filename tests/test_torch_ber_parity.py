@@ -19,7 +19,16 @@ nothing, with the script's own `ci_ber` and `REL_FLOOR`:
   6. torch_control_f32 against the reference's own float32 control
      (`control_f32xla`, the concat presets), 2 % floor;
   7. torch_f64 (plain_small: the control's received words decoded in
-     float64) against the oracle, REL_FLOOR.
+     float64) against the oracle, REL_FLOOR;
+  8. the route kinds, each the torch leg's config on another route with
+     the noise drawn outside the kernel: torch_mono (K6), torch_slab
+     (K7), torch_sharded (the section-sharded loop on a virtual (1 x 2)
+     mesh: K3, hypercube, K4) and torch_pallas (the --pallas scan route:
+     K5, K4), each against the oracle at REL_FLOOR and, where paired,
+     against its partner's decode of the same draws (K1; for torch_pallas
+     the scan route without use_pallas): a base is outside when the
+     whole 95 % CI of the mean per-frame difference of bit errors lies
+     beyond +- 2 % of the partner's mean bit errors a frame.
 
 Every port leg is drawn twice, from seed bases 0 and 2
 (`block_generator(base, point, block)`).  A pair is APART only when its
@@ -35,9 +44,10 @@ alike, is tests/test_torch_c3_same_words.py).
 
 A missing leg fails.  The tool's own tests run on the CPU: its copied
 constants and its kinds' configs equal the script's, a leg at a small
-size writes a well-formed record and resumes, `check` tells OK from
-APART, the seed bases select their records, the replication rule and the
-paired float32 shift behave on hand-made legs and frames.
+size writes a well-formed record and resumes (a paired one too), `check`
+tells OK from APART, the seed bases select their records, the
+replication rule, the paired float32 shift and the paired route rule
+behave on hand-made legs and frames.
 """
 
 import dataclasses
@@ -67,6 +77,30 @@ CONTROL_POINTS = [(p, e) for p in sorted(bp.REL_FLOOR)
 REF_CONTROL_POINTS = [(p, e) for p in sorted(bp.CONCAT_PRESETS)
                       for e in bp.GRIDS[p]]
 F64_POINTS = [(p, e) for p in bl.C3_PRESETS for e in bp.GRIDS[p]]
+# the route kinds (kind -> its presets, the paired ones, the amp_kernel
+# that names the route, the launch counters it must move)
+ROUTE_PRESETS = {
+    "torch_mono": ("plain_small", "pa_l1024", "concat_small"),
+    "torch_slab": ("plain_small", "pa_l1024", "concat_small", "fast_l4096"),
+    "torch_sharded": ("plain_small", "pa_l1024"),
+    "torch_pallas": ("plain_small", "pa_l1024"),
+}
+PAIRED_PRESETS = {
+    "torch_mono": ("plain_small", "pa_l1024"),
+    "torch_slab": ("plain_small", "pa_l1024", "fast_l4096"),
+    "torch_sharded": ("plain_small", "pa_l1024"),
+    "torch_pallas": ("plain_small", "pa_l1024"),
+}
+ROUTE_KERNEL = {"torch_mono": "fused", "torch_slab": "fused_slab",
+                "torch_pallas": "xla"}
+ROUTE_LAUNCHES = {"torch_mono": ("amp_mono",), "torch_slab": ("amp_slab",),
+                  "torch_sharded": ("fwht_tile", "denoise"),
+                  "torch_pallas": ("fwht2", "denoise")}
+ROUTE_KINDS = list(ROUTE_PRESETS)
+ROUTE_POINTS = [(k, p, e) for k, ps in ROUTE_PRESETS.items() for p in ps
+                for e in bp.GRIDS[p]]
+PAIRED_POINTS = [(k, p, e) for k, ps in PAIRED_PRESETS.items() for p in ps
+                 for e in bp.GRIDS[p]]
 SAME_PRECISION_FLOOR = 0.02
 # every field of the reference's `tpu` records that a port leg carries
 LEG_FIELDS = {"kind", "ebno_db", "trials", "bit_errors", "bit_errors_sq",
@@ -148,8 +182,17 @@ def _script_config(preset, kind):
     """The config each leg of the reference decodes, built as its code
     builds it: run_tpu (scripts/ber_parity.py:355), run_tpu_concat (:301)
     and concat_f32_control.py:35-40; on plain_small the control's SPARC
-    overrides, for torch_control_f32 and torch_f64 alike."""
+    overrides, for torch_control_f32 and torch_f64 alike.  A route kind:
+    the torch leg's config with the amp_kernel that names the route
+    (torch_sharded: the torch leg's config)."""
     r = dataclasses.replace
+    if kind in ROUTE_PRESETS:
+        cfg = _script_config(preset, "torch")
+        if kind not in ROUTE_KERNEL:
+            return cfg
+        if preset in bp.CONCAT_PRESETS:
+            return r(cfg, sparc=r(cfg.sparc, amp_kernel=ROUTE_KERNEL[kind]))
+        return r(cfg, amp_kernel=ROUTE_KERNEL[kind])
     if kind in ("torch_control_f32", "torch_f64") and preset == "plain_small":
         return r(JPRESETS[preset], amp_kernel="xla", amp_tol=0.0,
                  transform_precision="highest")
@@ -187,7 +230,11 @@ def test_leg_kinds_and_batches_are_the_scripts():
         {(p, "torch") for p in bp.GRIDS}
         | {(p, "torch_noisek") for p in bp.NOISEK_PRESETS}
         | {(p, "torch_control_f32") for p in bp.REL_FLOOR}
-        | {("plain_small", "torch_control_f32"), ("plain_small", "torch_f64")})
+        | {("plain_small", "torch_control_f32"), ("plain_small", "torch_f64")}
+        | {(p, k) for k, ps in ROUTE_PRESETS.items() for p in ps})
+    assert {k: tuple(v) for k, v in bl.PAIRED_PRESETS.items()} == \
+        PAIRED_PRESETS
+    assert len(ROUTE_POINTS) == 35 and len(PAIRED_POINTS) == 29
     assert bl.SEED_BASES == (0, 2) and bl.SEED_BASE == 0
     assert bl.leg_batch("fast_l4096", 512) == 256       # the script's :373
     assert bl.leg_batch("pa_l1024", 512) == 512
@@ -220,6 +267,88 @@ def test_legs_on_the_cpu_write_a_record_and_resume(tmp_path, capsys):
     assert bl.main(argv) == 0
     assert "already done" in capsys.readouterr().out
     assert len(path.read_text().splitlines()) == 1
+
+
+@pytest.mark.parametrize("preset,kind", [(p, k) for k, ps in
+                                         PAIRED_PRESETS.items() for p in ps])
+def test_partner_configs(preset, kind):
+    """K1 on the torch leg's config for mono, slab and sharded; the pallas
+    leg's own config (decoded without use_pallas) for torch_pallas."""
+    want = _script_config(preset, "torch_pallas" if kind == "torch_pallas"
+                          else "torch")
+    assert dataclasses.asdict(bl.partner_config(preset, kind)) == \
+        dataclasses.asdict(want)
+
+
+REHEARSALS = [("plain_small", k) for k in ROUTE_PRESETS] + [
+    ("concat_small", "torch_mono")]
+
+
+@pytest.mark.parametrize("preset,kind", REHEARSALS,
+                         ids=[f"{p}-{k}" for p, k in REHEARSALS])
+def test_route_legs_on_the_cpu_write_a_record_and_resume(tmp_path, capsys,
+                                                         preset, kind):
+    """A route leg at a tiny size on the CPU (its kernels' plain versions):
+    a well-formed record, paired where PAIRED_PRESETS says so, with the
+    route named; a second call finds it done."""
+    ebno = bp.GRIDS[preset][1]
+    argv = ["legs", "--device", "cpu", "--preset", preset, "--kind", kind,
+            "--ebno", str(ebno), "--trials", "4", "--batch", "2",
+            "--out-dir", str(tmp_path)]
+    assert bl.main(argv) == 0
+    path = tmp_path / f"ber_parity_torch_{preset}.jsonl"
+    recs = [json.loads(x) for x in path.read_text().splitlines()]
+    assert len(recs) == 1
+    rec = recs[0]
+    assert LEG_FIELDS <= set(rec)
+    assert rec["kind"] == kind and rec["trials"] == 4 and rec["batch"] == 2
+    assert rec["launches"] == {} and rec["noise_in_kernel"] is False
+    assert rec["config_hash"] == config_hash(bl.leg_config(preset, kind))
+    assert rec["use_pallas"] is (kind == "torch_pallas")
+    assert rec["section_shards"] == (2 if kind == "torch_sharded" else 1)
+    assert rec["kernel"] == ROUTE_KERNEL.get(kind, "fused_split")
+    if preset in PAIRED_PRESETS[kind]:
+        p = rec["paired"]
+        assert p["diff_sum"] == rec["bit_errors"] - p["partner_bit_errors"]
+        assert p["diff_sq"] >= p["diff_sum"] ** 2 / 4
+        assert p["partner_kernel"] == (
+            "xla" if kind == "torch_pallas" else "fused_split")
+        assert p["partner_use_pallas"] is False
+        for key in ("partner_bit_errors", "partner_frame_errors",
+                    "partner_section_errors"):
+            assert isinstance(p[key], int), key
+    else:
+        assert "paired" not in rec and "bp_ok" in rec
+    capsys.readouterr()
+    assert bl.main(argv) == 0
+    assert "already done" in capsys.readouterr().out
+    assert len(path.read_text().splitlines()) == 1
+
+
+@pytest.mark.parametrize("kind", list(PAIRED_PRESETS))
+def test_paired_block_halves_are_the_routes_blocks(kind):
+    """A paired block decodes the draws of run_block with the noise
+    outside: its kind's counters are the kind's own run_block on the same
+    generator, its partner's the partner's, counter for counter."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.utils.rng import block_generator
+
+    model, partner = bl.route_models("plain_small", kind, 3.0, "cpu")
+    got = bl.paired_block(model, block_generator(2, 1, 0), 4,
+                          (("", model.frame_counts),
+                           ("partner_", partner.frame_counts)))
+    for tag, m in (("", model), ("partner_", partner)):
+        assert not m.noise_in_kernel
+        want = m.run_block(block_generator(2, 1, 0), 4)
+        for k in ("bit_errors", "frame_errors", "section_errors",
+                  "iters_sum"):
+            assert int(got[tag + k]) == int(want[k]), (tag, k)
+        assert float(got[tag + "bit_errors_sq"]) == float(
+            want["bit_errors_sq"])
+    assert float(got["diff_sum"]) == int(got["bit_errors"]) - int(
+        got["partner_bit_errors"])
+    assert got["diff_sum"].dtype == torch.float64
 
 
 def _hand_leg(kind, ber, ebno=3.0, base=None, k=8490, tr=10240, frame=15):
@@ -395,6 +524,10 @@ def _c3_files(tmp_path, f64_ber=2.08e-2, control_ber=2.30e-2,
             extra = round(sh * d64.sum() / F)
             d32[n_err:n_err + extra] = F
             port.append(dict(_paired_leg(d64, d32, base, ebno, k)))
+            # the route legs: at the float64 leg's BER, the same bit
+            # errors as their partners frame for frame
+            port += [_route_leg(kd, ebno, base, 0.0, n_err, k, tr, F)
+                     for kd in ROUTE_PRESETS]
     _write(tmp_path / "mine", "ber_parity_torch_plain_small.jsonl", port)
     _write(tmp_path / "ref", "ber_parity_plain_small.jsonl", ref)
     return (bl.load_records(bl.out_path(str(tmp_path / "mine"),
@@ -435,6 +568,122 @@ def test_c3_floor_is_the_measured_shift_only_where_its_conditions_hold(
     legs, pairs = bl.point_pairs("plain_small", 3.0, mine, ref)
     got = {(a, b): (cmps, ok) for a, b, cmps, ok in pairs}
     assert got[("torch", "oracle")][0][2]["floor"] == 0.01
+
+
+def _route_leg(kind, ebno, base, shift, n_err=1000, k=8490, tr=10240, F=15):
+    """A hand-made paired route leg: the partner's frames n_err of F bit
+    errors; the kind's the same and round(shift * n_err) frames of F more
+    (shift > 0) or fewer (shift < 0)."""
+    extra = round(shift * n_err)
+    be = (n_err + extra) * F
+    return dict(kind=kind, ebno_db=ebno, trials=tr, k_bits=k, seed_base=base,
+                bit_errors=be, bit_errors_sq=float(F * be),
+                ber=be / (tr * k), wall_s=1.0, bits_per_s=tr * k / 1.0,
+                paired=dict(partner_bit_errors=n_err * F,
+                            partner_bit_errors_sq=float(n_err * F * F),
+                            diff_sum=float(extra * F),
+                            diff_sq=float(abs(extra) * F * F)))
+
+
+def _route_files(tmp_path, shift_0, shift_2):
+    """pa_l1024 at its three points: the reference's oracle and tpu legs
+    and every port kind at the same BER; torch_mono's paired frames shifted
+    by shift_0 (seed base 0) and shift_2 (base 2), the other route kinds'
+    not at all."""
+    k, tr, F, n_err = 8490, 10240, 15, 1000
+    ber = n_err * F / (tr * k)
+    port, ref = [], []
+    for ebno in bp.GRIDS["pa_l1024"]:
+        ref += [_hand_leg(kd, ber, ebno, k=k, frame=F)
+                for kd in ("oracle", "tpu")]
+        for base, sh in zip(bl.SEED_BASES, (shift_0, shift_2)):
+            port += [_hand_leg(kd, ber, ebno, base, k=k, frame=F)
+                     for kd in ("torch", "torch_noisek")]
+            port += [_route_leg(kd, ebno, base, sh if kd == "torch_mono"
+                                else 0.0, n_err, k, tr, F)
+                     for kd in ROUTE_PRESETS]
+    _write(tmp_path / "mine", "ber_parity_torch_pa_l1024.jsonl", port)
+    _write(tmp_path / "ref", "ber_parity_pa_l1024.jsonl", ref)
+    return str(tmp_path / "mine"), str(tmp_path / "ref")
+
+
+def test_paired_compare_on_hand_made_frames():
+    """The mean per-frame d and its 95 % CI half-width from the leg's sum
+    and sum of squares, against numpy on the frames; the bound is 2 % of
+    the partner's mean bit errors a frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    partner = rng.integers(0, 40, 4096) * (rng.random(4096) < 0.3)
+    kind = partner + rng.integers(-1, 4, 4096) * (rng.random(4096) < 0.1)
+    d = (kind - partner).astype(float)
+    rec = dict(trials=4096, paired=dict(
+        partner_bit_errors=int(partner.sum()), diff_sum=float(d.sum()),
+        diff_sq=float((d * d).sum())))
+    c = bl.paired_compare(rec)
+    assert c["diff"] == pytest.approx(d.mean(), rel=1e-12)
+    assert c["half"] == pytest.approx(1.96 * d.std() / np.sqrt(d.size),
+                                      rel=1e-9)
+    assert c["bound"] == pytest.approx(0.02 * partner.mean(), rel=1e-12)
+    assert c["ok"] == (abs(d.mean()) - c["half"] <= c["bound"])
+    # the same frames: no difference, inside
+    same = dict(rec, paired=dict(rec["paired"], diff_sum=0.0, diff_sq=0.0))
+    assert bl.paired_compare(same) == dict(diff=0.0, half=0.0, gap=0.0,
+                                           bound=c["bound"], ok=True)
+
+
+@pytest.mark.parametrize("shift_0,shift_2,verdict", [
+    (0.01, 0.01, "OK"),          # inside on both bases
+    (0.05, 0.01, "OK"),          # outside on base 0 only
+    (0.0, -0.05, "OK"),          # outside on base 2 only
+    (0.05, -0.05, "OK"),         # outside on both, on opposite sides
+    (0.05, 0.06, "APART"),       # outside on both, above
+    (-0.05, -0.04, "APART"),     # outside on both, below
+])
+def test_paired_rule_tells_ok_from_apart(tmp_path, capsys, shift_0, shift_2,
+                                         verdict):
+    """torch_mono's paired frames shifted by a few % of the partner's bit
+    errors: a base is outside when the whole CI of the mean d lies beyond
+    2 %, and the pair is APART only when both bases are outside on the
+    same side; `check` and its markdown list the route kinds."""
+    mine, ref = _route_files(tmp_path, shift_0, shift_2)
+    legs, pairs = bl.point_pairs(
+        "pa_l1024", 2.25, bl.load_records(bl.out_path(mine, "pa_l1024")),
+        bl.load_records(bl.ref_path(ref, "pa_l1024")))
+    got = {(a, b): (cmps, ok) for a, b, cmps, ok in pairs}
+    assert set(got) >= {(k, b) for k in ROUTE_PRESETS
+                        for b in ("oracle", "paired")}
+    cmps, ok = got[("torch_mono", "paired")]
+    assert [c["ok"] for c in cmps.values()] == [abs(x) < 0.03
+                                                for x in (shift_0, shift_2)]
+    assert ok == (verdict == "OK") == bl.replicated(list(cmps.values()))
+    for kind in ("torch_slab", "torch_sharded", "torch_pallas"):
+        assert got[(kind, "paired")][1] and got[(kind, "oracle")][1]
+    assert bl.check(["pa_l1024"], mine, ref) == (verdict == "OK")
+    out = capsys.readouterr().out
+    assert f"pa_l1024 @ 2.25: torch_mono vs paired -> {verdict}" in out
+    assert "torch_pallas vs its partner on the same frames (seed base 2)" \
+        in out
+    # the markdown: the first table as before, then a row a route kind and
+    # point
+    assert bl.check(["pa_l1024"], mine, ref, markdown=True) == (
+        verdict == "OK")
+    lines = capsys.readouterr().out.splitlines()
+    at = lines.index("")
+    header = [c.strip() for c in lines[at + 1].strip("|").split("|")]
+    rows = [dict(zip(header, (c.strip() for c in x.strip("|").split("|"))))
+            for x in lines[at + 3:]]
+    assert [(r["dB"], r["kind"]) for r in rows] == [
+        (str(e), k) for e in bp.GRIDS["pa_l1024"] for k in ROUTE_PRESETS]
+    mono = rows[ROUTE_KINDS.index("torch_mono")]    # at 1.5 dB, as at 2.25
+    assert mono["vs oracle"] == "OK (in/in)"
+    sides = "/".join("in" if abs(x) < 0.03 else "out"
+                     for x in (shift_0, shift_2))
+    assert mono["vs partner"] == ("OK" if verdict == "OK"
+                                  else "**APART**") + f" ({sides})"
+    assert mono["mean d a frame (base 0; 2)"] == "; ".join(
+        f"{c['diff']:+.3f} ± {c['half']:.3f}" for c in cmps.values())
+    assert "torch_mono vs oracle" not in lines[0]
 
 
 def test_seed_bases_select_their_records_and_resume_apart(tmp_path, capsys):
@@ -593,6 +842,106 @@ def test_control_leg_within_ci_of_the_reference_control_leg(preset, ebno):
     _assert_replicated(preset, ebno, "torch_control_f32", "control_f32xla",
                        f"{preset} @ {ebno} dB reference control_f32xla vs "
                        f"torch_control_f32")
+
+
+@pytest.mark.parametrize("kind,preset,ebno", ROUTE_POINTS,
+                         ids=[f"{k}-{p}-{e}dB" for k, p, e in ROUTE_POINTS])
+def test_route_leg_recorded(kind, preset, ebno):
+    """Every route leg on both seed bases ran its route's hand-written
+    kernels with the noise drawn outside them; a paired one carries its
+    partner's counters (K1 once a block where the partner is K1)."""
+    for base in bl.SEED_BASES:
+        r = _leg(preset, kind, ebno, base)
+        assert r is not None, (f"{preset} @ {ebno}: {kind} (seed base "
+                               f"{base}) missing — python -m "
+                               f"sparc_ldpc_tpu_torch.tools.ber_legs legs "
+                               f"--preset {preset} --kind {kind} "
+                               f"--seed-base {base}")
+        assert r["noise_in_kernel"] is False
+        assert r["kernel"] == ROUTE_KERNEL.get(
+            kind, bl.leg_config(preset, "torch").sparc.amp_kernel
+            if preset in bp.CONCAT_PRESETS else "fused_split")
+        assert r["use_pallas"] is (kind == "torch_pallas")
+        assert r["section_shards"] == (2 if kind == "torch_sharded" else 1)
+        for name in ROUTE_LAUNCHES[kind]:
+            assert r["launches"].get(name, 0) > 0, (name, r["launches"])
+        if preset in bp.CONCAT_PRESETS:
+            assert r["launches"].get("bp_qc_layered", 0) > 0
+        blocks = r["trials"] // r["batch"]
+        if preset in PAIRED_PRESETS[kind]:
+            p = r["paired"]
+            assert p["diff_sum"] == r["bit_errors"] - p["partner_bit_errors"]
+            if kind != "torch_pallas":
+                assert r["launches"]["amp_split"] == blocks
+        else:
+            assert "paired" not in r
+            assert r["launches"].get("amp_split", 0) == 0
+
+
+@pytest.mark.parametrize("kind,preset,ebno", ROUTE_POINTS,
+                         ids=[f"{k}-{p}-{e}dB" for k, p, e in ROUTE_POINTS])
+def test_route_leg_within_ci_of_the_oracle(kind, preset, ebno):
+    assert _ref(preset, "oracle", ebno) is not None
+    _assert_replicated(preset, ebno, kind, "oracle",
+                       f"{preset} @ {ebno} dB oracle vs {kind}")
+
+
+@pytest.mark.parametrize("kind,preset,ebno", PAIRED_POINTS,
+                         ids=[f"{k}-{p}-{e}dB" for k, p, e in PAIRED_POINTS])
+def test_route_leg_within_the_paired_rule(kind, preset, ebno):
+    """The route's decode against its partner's on the same frames: APART
+    only when the 95 % CI of the mean per-frame d lies wholly beyond +- 2 %
+    of the partner's mean bit errors a frame on both seed bases, on the
+    same side."""
+    cmps, lines = [], []
+    for base in bl.SEED_BASES:
+        r = _leg(preset, kind, ebno, base)
+        assert r is not None and "paired" in r, (kind, preset, ebno, base)
+        p, tr = r["paired"], r["trials"]
+        mean = p["diff_sum"] / tr
+        half = 1.96 * math.sqrt(max(p["diff_sq"] / tr - mean ** 2, 0.0) / tr)
+        bound = SAME_PRECISION_FLOOR * p["partner_bit_errors"] / tr
+        ok = not (mean - half > bound or mean + half < -bound)
+        assert bl.paired_compare(r)["ok"] == ok
+        cmps.append(dict(ok=ok, diff=mean))
+        lines.append(f"seed base {base}: mean d {mean:+.4f} ± {half:.4f} "
+                     f"a frame, bound ±{bound:.4f}")
+    assert bl.replicated(cmps), (f"{preset} @ {ebno} dB {kind} vs its "
+                                 f"partner: APART on both bases: "
+                                 + "; ".join(lines))
+
+
+def test_check_passes_on_the_committed_legs(capsys):
+    """`ber_legs check --markdown` on the records on disk: every leg there
+    and no pair APART; its second table has a row for every route kind
+    and point."""
+    assert bl.main(["check", "--markdown"]) == 0
+    out = capsys.readouterr().out
+    for kind, preset, ebno in ROUTE_POINTS:
+        assert f"| {preset} | {ebno} | {kind} |" in out, (kind, preset, ebno)
+    assert "APART" not in out and "missing" not in out
+
+
+K1_PARTNER_POINTS = [(k, p, e) for k, p, e in PAIRED_POINTS
+                     if k != "torch_pallas" and p in bp.NOISEK_PRESETS]
+
+
+@pytest.mark.parametrize("kind,preset,ebno", K1_PARTNER_POINTS,
+                         ids=[f"{k}-{p}-{e}dB"
+                              for k, p, e in K1_PARTNER_POINTS])
+def test_k1_partner_decodes_the_torch_legs_draws(kind, preset, ebno):
+    """At plain_small and pa_l1024 the torch leg draws its noise outside
+    K1 from the same generators, so a route leg's K1 partner decodes that
+    leg's draws: its counters are the torch leg's of the same seed base
+    (bit_errors_sq up to run_block's float32 sum)."""
+    for base in bl.SEED_BASES:
+        p = _leg(preset, kind, ebno, base)["paired"]
+        t = _leg(preset, "torch", ebno, base)
+        assert t["noise_in_kernel"] is False
+        for key in ("bit_errors", "frame_errors", "section_errors"):
+            assert p["partner_" + key] == t[key], (key, base)
+        assert p["partner_bit_errors_sq"] == pytest.approx(
+            t["bit_errors_sq"], rel=1e-6)
 
 
 @pytest.mark.parametrize("preset,ebno", F64_POINTS, ids=_ids(F64_POINTS))

@@ -9,6 +9,7 @@ the reference's.
 """
 
 import json
+import time
 
 import pytest
 import torch
@@ -157,6 +158,75 @@ def test_steady_bits_per_s_excludes_the_first_block():
     assert steady_bits_per_s(tot, 8, 100) == pytest.approx(16 * 100 / 2.0)
     assert steady_bits_per_s(dict(tot, exec_blocks=1), 8, 100) is None
     assert steady_bits_per_s({}, 8, 100) is None
+
+
+WAIT_S = 0.2      # a waiting block's time
+
+
+class _WaitingModel:
+    """A model whose run_block waits WAIT_S before it returns its counters,
+    as a block does whose launch waits for the device (an exchange between
+    processes, any synchronizing op, every CPU run)."""
+    device = torch.device("cpu")
+    k_bits = 100
+
+    def run_block(self, gen, batch):
+        time.sleep(WAIT_S)
+        zero = torch.zeros((), dtype=torch.int64)
+        return dict(bit_errors=zero, frame_errors=zero, iters_sum=zero,
+                    bit_errors_sq=zero.double(),
+                    trials=torch.full((), batch, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("pipelined", [True, False],
+                         ids=["pipelined", "synchronous"])
+@pytest.mark.parametrize("blocks", [2, 3, 5])
+def test_steady_bits_per_s_of_blocks_that_wait(blocks, pipelined):
+    """Each block is timed by its completion: a block that waits WAIT_S
+    gives B k_bits / WAIT_S whatever the block count and the dispatch, and
+    the first block's time is one block's.  (Timed from one harvest to the
+    next instead, the pipelined dispatch would put two blocks into the
+    first interval and almost nothing into the last.)"""
+    model = _WaitingModel()
+    batch = 8
+    # the pipelined dispatch launches one block past the trial cap
+    cap = (blocks - 1 if pipelined else blocks) * batch
+    ccfg = CampaignConfig(ebno_grid_db=(5.0,), batch=batch,
+                          min_frame_errors=1, max_trials=cap, base_seed=3)
+    rec = run_campaign(lambda e: model, ccfg, lambda m: m.k_bits,
+                       verbose=False, pipelined=pipelined)[0]
+    assert rec["exec_blocks"] == rec["blocks"] == blocks
+    assert rec["first_block_s"] == pytest.approx(WAIT_S, rel=0.1)
+    assert rec["bits_per_s"] == pytest.approx(batch * model.k_bits / WAIT_S,
+                                              rel=0.1)
+
+
+def test_a_journal_resumed_point_adds_no_time(tmp_path):
+    """Replayed blocks add their counters and no time: a point resumed
+    with three of its five blocks on the journal times the two it
+    executes."""
+    model = _WaitingModel()
+    journal = str(tmp_path / "j.jsonl")
+
+    def point():
+        state = tio.CampaignState(journal, 1, "cpu")
+        state.check_resume()
+        return run_point(model.run_block, 3, batch=8, min_frame_errors=1,
+                         max_trials=32, state=state, device="cpu")
+
+    full = point()
+    assert full["exec_blocks"] == 5
+    with open(journal) as f:
+        lines = f.read().splitlines()
+    with open(journal, "w") as f:
+        f.write("\n".join(lines[:3]) + "\n")
+    tot = point()
+    assert tot["exec_blocks"] == 2 and tot["blocks"] == 5
+    assert tot["trials"] == full["trials"] == 40
+    assert tot["first_block_s"] == pytest.approx(WAIT_S, rel=0.1)
+    assert tot["exec_wall_s"] == pytest.approx(2 * WAIT_S, rel=0.1)
+    assert steady_bits_per_s(tot, 8, model.k_bits) == pytest.approx(
+        8 * model.k_bits / WAIT_S, rel=0.1)
 
 
 def test_a_sharding_policy_raises():
