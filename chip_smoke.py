@@ -187,28 +187,33 @@ the concat preset.  Each phase prints one line with its seconds:
      "fused_slab", 3.0 dB, B=2048: K7 launched twice (main and pinned
      feedback pass) and K2 once, phase 8's windows; ms per block and user
      bits/s beside phase 9's;
- 27. the split kernel's stage ablation (S2, csrc/amp_exp.cu, the tool
+ 27. the split kernel's stage ablation (S2, csrc/amp_exp.cu on K1's own
+     kernels, csrc/amp_k1.cuh, the tool
      `python -m sparc_ldpc_tpu_torch.tools.kernel_ablation`) on the
      headline model's code (L=1024, M=512, 2.0 dB; T=32 fixed, the
      scripts'): each variant against its plain version at B=8 (full in
      bf16 over T=32: at most 1 % flipped sections, tau2 to rtol 2e-2; in
      float32 no decisive flip, tau2 to rtol 1e-4; the ablated variants,
      garbage decodes, over T=2 in float32 within 1e-2 of the output scale
-     with NaN where the plain version has NaN, and in bf16 NaN positions
-     only); then the tool's blocks at B=512 (the main path: every variant
-     launched), each variant's decode call by CUDA events with its bound,
-     K1's own fixed-T call (amp_fused, split, y given) beside full's and
-     full's with a float32 mask, device ms by launch of those, full's
-     mean final tau2 within 3 % of SE, and the stage split full - each
-     ablated variant;
- 28. the H_L factorings (S3, `tools.lstage_exp`): each variant against
-     its plain version at B=8 in bf16 (phase 27's decode rules), then the
-     tool's blocks and each decode call at B=512, T=32, the section
-     errors within 1 % of the sections of full's;
- 29. two codewords per row-stage block (S1, `tools.pair_kernel_exp`):
-     against its plain version at B=8 (bf16 and float32, as full), then
-     timed beside full at B=512, T=32, section errors within 1 % of
-     full's;
+     with NaN where the plain version has NaN, and in bf16 against the
+     plain version in K1's form and rounding); then the tool's blocks at
+     B=512 (the main path: every variant launched), each variant's decode
+     call by CUDA events with its bound and its device ms by launch
+     (encode, column, row), K1's own fixed-T call (amp_fused, split, y
+     given) beside full's: the same beta and tau2 trace bit for bit and
+     the call within 2 %; full's mean final tau2 within 3 % of SE, and
+     the stage split full - each ablated variant;
+ 28. the H_L factorings (S3, `tools.lstage_exp`: K1's encode and row
+     stage, a column stage of their own on K1's walker with H_{f_b} on the
+     tensor cores): each variant against its plain version at B=8 in bf16
+     (phase 27's decode rules), then the tool's blocks and each decode
+     call at B=512, T=32 with its column stage's ms a launch beside K1's
+     (phase 27's K1 call), the section errors within 1 % of the sections
+     of full's;
+ 29. two codewords per row-stage block (S1, `tools.pair_kernel_exp`, the
+     earlier K1 design's kernels): against its plain version at B=8 (bf16
+     and float32, as full), then timed beside full (K1's current kernels)
+     at B=512, T=32, section errors within 1 % of full's;
  30. the slab kernel's stage ablation (S4, csrc/amp_slab_exp.cu, the tool
      `python -m sparc_ldpc_tpu_torch.tools.slab_ablation`): make_kernel's
      variants and the factorings fXmY on the headline model's code, each
@@ -2721,11 +2726,20 @@ def exp_record(name: str, source: str, script: str, mode: str,
     return rec
 
 
+def exp_stages(fn, per_call: dict) -> dict:
+    """Device ms of one fn() call by launch kind (`launch_ms`: the second
+    of two traced calls, every launch of it accounted for)."""
+    return {k: round(sum(v), 3) for k, v in launch_ms(fn, per_call).items()}
+
+
 def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
-    """Phase 27: S2, the stage ablation (tools/kernel_ablation.py), and K1's
-    own fixed-T call beside its "full" variant."""
+    """Phase 27: S2, the stage ablation (tools/kernel_ablation.py) on K1's
+    own kernels, and K1's own fixed-T call beside its "full" variant: the
+    same bits, and their ms."""
+    import torch
+
     from sparc_ldpc_tpu_torch.design.se import se_trajectory
-    from sparc_ldpc_tpu_torch.ops.amp_exp import S2_MODES, _full_runtime_m
+    from sparc_ldpc_tpu_torch.ops.amp_exp import S2_MODES
     from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
     from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
 
@@ -2735,61 +2749,64 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
     checks = exp_checks(dev, ex, S2_MODES, clock, "27 S2")
     tm = exp_timing(dev, ex, S2_MODES, "27")
     calls = tm["calls"]
-    args = (tm["y_n"], model.op.mask.reshape(L, M), model.sq_npl, c.P,
-            c.n, EXP_T)
+    y_n = tm["y_n"]
+    args = (y_n, model.op.mask.reshape(L, M), model.sq_npl, c.P, c.n, EXP_T)
     sup = model.op.split_support(L, M, dev)
-    k1_ms = call_ms(lambda: amp_fused(*args, split=True, support=sup), REPS)
-    # full with a run-time row length M in its column stage, as K1's
-    # earlier dense column stage took it (a diagnostic of that design; K1's
-    # column stage now takes M at compile time)
-    rtm_ms = call_ms(lambda: _full_runtime_m(*args), REPS)
-    stages = {
-        "full": device_ms_by_kernel(
-            lambda: decode(model, "full", tm["y_n"], EXP_T),
-            ("exp_col_kernel", "exp_row_kernel")),
-        "full, run-time M": device_ms_by_kernel(
-            lambda: _full_runtime_m(*args),
-            ("exp_col_kernel", "exp_row_kernel")),
-        "K1": device_ms_by_kernel(
-            lambda: amp_fused(*args, split=True, support=sup), K1_STAGES)}
+    k1_ms, k1_out = timed_result(
+        lambda: amp_fused(*args, split=True, support=sup), REPS)
+    full_out = decode(model, "full", y_n, EXP_T)
+    same = bool(torch.equal(full_out[0], k1_out[0])
+                and torch.equal(full_out[1], k1_out[1]))
+    del k1_out, full_out
+    # device ms of each launch kind in a call (the second of two traced)
+    per_call = dict(zip(K1_STAGES, (1, EXP_T, EXP_T)))
+    stages = {m: exp_stages(lambda: decode(model, m, y_n, EXP_T), per_call)
+              for m in S2_MODES}
+    stages["K1"] = exp_stages(
+        lambda: amp_fused(*args, split=True, support=sup), per_call)
     full = calls["full"]["ms"]
-    # the traced launches' share of the call's CUDA-event ms
-    call_of = {"full": full, "full, run-time M": rtm_ms, "K1": k1_ms}
-    cover = {k: round(sum(v.values()) / call_of[k], 3)
-             for k, v in stages.items()}
     se_fp = float(se_trajectory(model.p_alloc, c.n, M, model.sigma2,
                                 T=EXP_T)[-1])
     # full's time by stage: what each ablation saves, in ms and in % of
-    # full's call
+    # full's call, and by launch
     split = {f"full - {m}": (round(full - calls[m]["ms"], 3),
                              round(100 * (1 - calls[m]["ms"] / full), 2))
              for m in S2_MODES if m != "full"}
-    print(f"[27 S2 stage ablation] B={EXP_BATCH} T={EXP_T} L={L} M={M}: "
-          f"launches {tm['launches']}; decode call ms (CUDA events) "
-          f"{ {m: round(r['ms'], 3) for m, r in calls.items()} }; K1's own "
-          f"fixed-T call (amp_fused split, y given) {k1_ms:.3f} ms beside "
-          f"full {full:.3f} ms ({100 * (full / k1_ms - 1):+.2f} %), K1 - "
-          f"full {k1_ms - full:.3f} ms; full with the earlier dense K1's "
-          f"run-time M {rtm_ms:.3f} ms; full's stage split (ms, % of full's "
-          f"call) {split}; device ms by launch {stages} (their sum over the "
-          f"call's ms {cover}); "
-          f"plain full {calls['full']['plain_ms']:.1f} ms; bounds "
+    split_by_launch = {
+        f"full - {m}": {k: round(stages["full"][k] - stages[m][k], 3)
+                        for k in K1_STAGES}
+        for m in S2_MODES if m != "full"}
+    print(f"[27 S2 stage ablation on K1's kernels] B={EXP_BATCH} T={EXP_T} "
+          f"L={L} M={M}: launches {tm['launches']}; decode call ms (CUDA "
+          f"events) { {m: round(r['ms'], 3) for m, r in calls.items()} }; "
+          f"K1's own fixed-T call (amp_fused split, y given) {k1_ms:.3f} ms "
+          f"beside full {full:.3f} ms ({100 * (full / k1_ms - 1):+.2f} %), "
+          f"beta and trace bit for bit: {same}; device ms by launch "
+          f"{stages}; full's stage split (ms, % of full's call) {split}, by "
+          f"launch {split_by_launch}; plain full "
+          f"{calls['full']['plain_ms']:.1f} ms; bounds "
           f"{ {m: round(r['bound_ms'], 3) for m, r in calls.items()} }; "
           f"full's sections in error {calls['full']['sec_err']} of "
           f"{EXP_BATCH * L}, mean final tau2 {calls['full']['tau2_final']:.4f}"
           f" (SE {se_fp:.4f}) on {card} ({clock.lap():.1f} s)", flush=True)
+    require(same, "full's beta and trace differ from K1's call")
+    require(abs(full / k1_ms - 1) <= 0.02,
+            f"full's call {full:.3f} ms is not within 2 % of K1's "
+            f"{k1_ms:.3f}")
     require(abs(calls["full"]["tau2_final"] / se_fp - 1) <= 0.03,
             "full: mean final tau2 off SE by more than 3 %")
-    rec = exp_record("amp_ablation", AMP_EXP_SOURCE,
+    rec = exp_record("amp_ablation", K1_SOURCE,
                      "scripts/kernel_ablation.py:23", "full", checks, tm)
     rec["k1_ms"] = k1_ms
-    rec["full_runtime_m_ms"] = rtm_ms
+    rec["full_is_k1_bit_for_bit"] = same
+    rec["stages_ms_by_variant"] = stages
     return dict(rec=rec, full_ms=full, sec_err=calls["full"]["sec_err"],
-                k1_ms=k1_ms)
+                k1_ms=k1_ms, k1_stages=stages["K1"])
 
 
 def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
-    """Phase 28: S3, the H_L factorings (tools/lstage_exp.py)."""
+    """Phase 28: S3, the H_L factorings (tools/lstage_exp.py), each
+    column stage's ms a launch beside K1's (phase 27's call)."""
     from sparc_ldpc_tpu_torch.ops.amp_exp import S3_MODES
     from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
 
@@ -2799,15 +2816,21 @@ def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
     tm = exp_timing(dev, ex, S3_MODES, "28")
     calls = tm["calls"]
     sec = {m: r["sec_err"] for m, r in calls.items()}
-    stages = {m: device_ms_by_kernel(
-        lambda: decode(model, m, tm["y_n"], EXP_T),
-        ("lstage_col_kernel", "exp_row_kernel", "lstage_row_kernel"))
-        for m in S3_MODES}
+    stages = {}
+    for m in S3_MODES:
+        row = "s3_hm_row_kernel" if m == "l256_m128" else "k1_row_kernel"
+        stages[m] = exp_stages(
+            lambda: decode(model, m, tm["y_n"], EXP_T),
+            {"k1_encode_kernel": 1, "s3_col_kernel": EXP_T, row: EXP_T})
+    col = {m: round(st["s3_col_kernel"] / EXP_T, 4)
+           for m, st in stages.items()}
+    k1_col = ab["k1_stages"]["k1_col_kernel"] / EXP_T
     print(f"[28 S3 H_L factorings] B={EXP_BATCH} T={EXP_T}: launches "
           f"{tm['launches']}; decode call ms "
           f"{ {m: round(r['ms'], 3) for m, r in calls.items()} } beside "
-          f"full's {ab['full_ms']:.3f}; sections in error {sec} (full: "
-          f"{ab['sec_err']}); final tau2 "
+          f"full's {ab['full_ms']:.3f} (K1's call {ab['k1_ms']:.3f}); column "
+          f"stage ms a launch {col} beside K1's {k1_col:.4f}; sections in "
+          f"error {sec} (full: {ab['sec_err']}); final tau2 "
           f"{ {m: round(r['tau2_final'], 4) for m, r in calls.items()} }; "
           f"device ms by launch {stages}; plain ms "
           f"{ {m: round(r['plain_ms'], 1) for m, r in calls.items()} }; "
@@ -2822,6 +2845,8 @@ def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
                      "slab_loop", checks, tm)
     rec["dense_bf16_flops_per_element_by_variant"] = {
         m: r["dense_bf16_flops_per_element"] for m, r in calls.items()}
+    rec["col_ms_per_launch_by_variant"] = col
+    rec["k1_col_ms_per_launch"] = k1_col
     return dict(rec=rec)
 
 
@@ -2836,10 +2861,12 @@ def pair_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
     r = tm["calls"]["pair"]
     stages = device_ms_by_kernel(
         lambda: decode(model, "pair", tm["y_n"], EXP_T),
-        ("exp_col_kernel", "exp_row_kernel"))
-    print(f"[29 S1 pair] B={EXP_BATCH} T={EXP_T}: launches {tm['launches']};"
-          f" decode call {r['ms']:.3f} ms beside full's {ab['full_ms']:.3f} "
-          f"({100 * (r['ms'] / ab['full_ms'] - 1):+.2f} %); sections in "
+        ("pair_col_kernel", "pair_row_kernel"))
+    print(f"[29 S1 pair, the earlier dense design] B={EXP_BATCH} "
+          f"T={EXP_T}: launches {tm['launches']}; decode call "
+          f"{r['ms']:.3f} ms beside full's "
+          f"{ab['full_ms']:.3f} (full on K1's current kernels; "
+          f"{100 * (r['ms'] / ab['full_ms'] - 1):+.2f} %); sections in "
           f"error {r['sec_err']} (full: {ab['sec_err']}); device ms by "
           f"launch {stages}; plain "
           f"{r['plain_ms']:.1f} ms; bound {r['bound_ms']:.3f} on {card} "
@@ -2866,6 +2893,8 @@ SLAB_STAGES = ("slabx_c1", "slabx_r2", "slabx_c2", "slabx_r3")
 # what puts their few elements off
 SLAB_TAIL = ("sched", "fold_sched")
 AMP_EXP_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_exp.cu"
+# S2's kernels: K1's own, at compile-time variants
+K1_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_k1.cuh"
 SLAB_EXP_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_slab_exp.cu"
 
 

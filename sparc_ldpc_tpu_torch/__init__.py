@@ -29,8 +29,9 @@ find:
                      csrc/amp_common.cuh) and their plain PyTorch version
   ops/amp_exp.py     the split form's experiments (stage ablation, other
                      factorings of H_L, two codewords a block): CUDA
-                     variants (csrc/amp_exp.cu, csrc/amp_mma.cuh) and
-                     their plain version
+                     variants (csrc/amp_exp.cu; the stage ablation on
+                     K1's own kernels, csrc/amp_k1.cuh; csrc/amp_mma.cuh)
+                     and their plain version
   tools/             kernel_ablation, lstage_exp, pair_kernel_exp (the
                      experiments' entry points), amp_ab, dryrun_multichip,
                      ber_legs (the BER/FER legs against the oracle's)

@@ -1,9 +1,9 @@
 // Tensor-core pieces shared by the slab form (amp_slab.cu, K7) and the
-// split kernel's experiments (amp_exp.cu): mma.sync on bf16 data with
-// +-1 Hadamard fragments made in registers from the parity of popcount
-// (no factor is loaded), butterflies across the tiles a thread holds, and
-// the row stage's H_M = H_{m_a} (x) H_{m_b} of 16 bf16 rows in shared
-// memory.
+// split kernel's experiments (amp_exp.cu): mma.sync on bf16 data (the
+// strip operand through ldmatrix.trans) with +-1 Hadamard fragments made
+// in registers from the parity of popcount (no factor is loaded),
+// butterflies across the tiles a thread holds, and the row stage's
+// H_M = H_{m_a} (x) H_{m_b} of 16 bf16 rows in shared memory.
 
 #pragma once
 
@@ -38,6 +38,18 @@ __device__ __forceinline__ void mma_bf16_k8(float& d0, float& d1, float& d2,
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
       : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8 r ..
+// 8 r + 7 give the row addresses of matrix r; thread (g, q) receives
+// elements [2 q][g] and [2 q + 1][g] of each, the mma's B fragment.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 // bf16 bits of H[r][k] and H[r][k + 1] (low half first), H[r][k] =

@@ -123,18 +123,6 @@ __device__ __forceinline__ uint32_t pack_entry(float z, int m) {
          (uint32_t)m;
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8 r ..
-// 8 r + 7 give the row addresses of matrix r; thread (g, q) receives
-// elements [2 q][g] and [2 q + 1][g] of each, the mma's B fragment.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 // H_L of the block's bf16 strip sx (LB rows of kLdX): warp (i, j) =
 // (warp / 4, warp % 4) gets D = H_{f_b} X of its tile in every slab a, then
 // H_{f_a} across the block's slabs in registers and across the cluster's

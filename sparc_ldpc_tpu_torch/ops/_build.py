@@ -53,8 +53,9 @@ _SIGNATURES = {
         "amp_mono_adjoint": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     },
     "amp_exp": {
-        "amp_exp_run": ((_I,) + (_P,) * 9 + (_I,) * 4 + (_F,) * 3
-                        + (_I, _I, _P), _I),
+        "amp_exp_run": ((_I,) + (_P,) * 5 + (_I,) + (_P,) * 11 + (_I,) * 4
+                        + (_F,) * 3 + (_I, _P), _I),
+        "amp_pair_run": ((_P,) * 9 + (_I,) * 4 + (_F,) * 3 + (_I, _P), _I),
     },
     "amp_slab_exp": {
         "amp_slab_exp_run": ((_I,) * 4 + (_P,) * 12 + (_I,) * 4 + (_F,) * 4

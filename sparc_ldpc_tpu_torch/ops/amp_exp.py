@@ -20,8 +20,8 @@ one thing changed.  `amp_exp(mode, ...)` runs one variant; the modes are
   S1 (pair_kernel_exp): "pair", the "full" decode two codewords at a time;
       its trace holds the first codeword of each pair.
 
-The arithmetic is the scripts' (not K1's scale-free form): beta in true
-scale, a 0/1 mask, and per iteration
+The plain version's arithmetic is the scripts' (`amp_exp_reference`,
+order="script"): beta in true scale, a 0/1 mask, and per iteration
 
     coef  = (P - |beta|^2 / n) / tau2_prev   (0 at t = 0)
     z     = mask (y - H(beta) / sqrt(n)) + coef z
@@ -30,23 +30,34 @@ scale, a 0/1 mask, and per iteration
 
 with H(x) = H_{f_a} H_{f_b} (x H_M), H_M along each section row first,
 then H_{f_b} down each slab of f_b rows, then H_{f_a} across the slabs.
-`amp_exp_reference` is that arithmetic in plain PyTorch, rounding where
-the scripts round: the data operand of every product is rounded to
-bfloat16 (the H_M product, each slab's H_{f_b} product and, where H_{f_a}
-is a product, that one), the sums are float32, and the butterflies of S3's
-radix factors are float32 on unrounded values.
+It rounds where the scripts round: the data operand of every product is
+rounded to bfloat16 (the H_M product, each slab's H_{f_b} product and,
+where H_{f_a} is a product, that one), the sums are float32, and the
+butterflies of S3's radix factors are float32 on unrounded values.
 
-The CUDA kernels (csrc/amp_exp.cu) are K1's two launches an iteration
-with one thing changed (the source's header says what).  Their adjoint
-transform applies H_L first, in the column stage, and H_M after it, in the
-row stage, so they round the adjoint at other places than the scripts
-(ops/amp_kernel.py says the same of K1): the decoding modes agree with
-their plain version in distribution (decisions and tau2, the bf16 decode
-contract).  The ablated modes' garbage decodes amplify that difference,
-so `amp_exp_reference(order="kernel")` rounds where the K1-style kernels
-round, forward H_L rnd(H_M rnd(beta)) and adjoint H_M rnd(H_L rnd(z)),
-with H_L float32, and is what they are held to in bf16.  The kernels take
-the scripts' shape only, L = 1024 and M = 512.
+The CUDA kernels (csrc/amp_exp.cu). S2 and S3 run on K1's own design
+(csrc/amp_k1.cuh, its row-support design): K1's compact encode of y on
+the row support, a column stage walking (codeword, strip) items and K1's
+row stage, in K1's scale-free form (ops/amp_kernel.py: beta' = beta
+sqrt(n), mask / n, sq / sqrt(n) and sq sqrt(n)). S2's variants are K1's
+column and row kernels at a compile-time variant, "full" K1's own
+instantiation, so its decode is `amp_fused(..., split=True)` at fixed T
+with y given, bit for bit; S3's have a column stage of their own
+(H_{f_b} on the tensor cores) beside K1's row stage (l256_m128: its
+own). The pair keeps the earlier K1 design (dense y, mask and z) in the
+scripts' scaling. Every kernel's adjoint applies H_L first, in the
+column stage, and H_M after it, in the row stage, so it rounds the
+adjoint at other places than the scripts (ops/amp_kernel.py says the
+same of K1): the decoding modes agree with their plain version in
+distribution (decisions and tau2, the bf16 decode contract). The ablated
+modes' garbage decodes amplify that difference, so
+`amp_exp_reference(order="kernel")` computes them as the kernels do,
+forward H_L rnd(H_M rnd(x)) and adjoint H_M rnd(H_L rnd(z)): S2's modes
+in K1's scale-free form and K1's float32 arithmetic step for step
+(`k1_form_reference`: its butterflies' order, its reductions' order, its
+contracted multiply-adds), the pair in the scripts' scaling with float32
+products (`kernel_transform`). The kernels take the scripts' shape only,
+L = 1024 and M = 512.
 
 On a CPU tensor `amp_exp` runs `amp_exp_reference`; on a CUDA tensor it
 launches the mode's kernel or raises.
@@ -55,11 +66,14 @@ launches the mode's kernel or raises.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from .amp_kernel import _constants
 from .fwht import hadamard_factor, round_bf16
+from .split_support import (SplitSupport, split_geometry,
+                            split_support_from_mask)
 
 S2_MODES = ("full", "no_softmax", "no_max", "no_transform", "m_stage_only",
             "no_norms")
@@ -168,20 +182,215 @@ def kernel_transform(mode: str, x: torch.Tensor, adjoint: bool,
     """The transform of S2's modes and the pair on x (B, L, M), rounded
     through rnd where the K1-style kernels round: forward
     H_L rnd(H_M rnd(x)), adjoint H_M rnd(H_L rnd(x)), H_L = H_{L / f_b}
-    (x) H_{f_b} in float32 (the identity for m_stage_only; no_transform
-    is the identity and rounds nothing)."""
-    if mode == "no_transform":
-        return x
+    (x) H_{f_b} in float32; H_L is the identity for m_stage_only, H_L and
+    H_M for no_transform (whose work tile carries x itself: rnd(x) both
+    ways)."""
     B, L, M = x.shape
 
     def h_l(v):
-        if mode == "m_stage_only":
+        if mode in ("m_stage_only", "no_transform"):
             return v
         return _radix_product(_slab_product(v, f_b, _same), L // f_b, _same)
 
+    def h_m(v):
+        return v if mode == "no_transform" else _rows_product(v, M, _same)
+
     if adjoint:
-        return _rows_product(rnd(h_l(rnd(x))), M, _same)
-    return h_l(rnd(_rows_product(rnd(x), M, _same)))
+        return h_m(rnd(h_l(rnd(x))))
+    return h_l(rnd(h_m(rnd(x))))
+
+
+# ------------------------------------------------- K1's float32 arithmetic
+#
+# S2's kernels are K1's own (csrc/amp_k1.cuh), and their garbage decodes
+# amplify any float32 difference through the next bf16 rounding.  So the
+# plain version of their order repeats K1's float32 arithmetic step for
+# step: the butterflies in K1's stage order, every reduction in K1's order
+# (a thread's partial, the warp's xor tree, the block's warps in turn, the
+# strips in turn), and each contracted multiply-add (fmaf, one rounding)
+# as one.  Left: exp, which may differ in its last bit off the card.
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c rounded once, as the kernels' contracted multiply-adds: for
+    float32 through float64, where the product is exact."""
+    if a.dtype != torch.float32:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _bfly(x: torch.Tensor, dim: int, bits) -> torch.Tensor:
+    """Radix-2 butterflies (a + b, a - b) over the given bits of the index
+    along `dim`, one stage a bit in the order given."""
+    y = x.movedim(dim, -1)
+    lead, N = y.shape[:-1], y.shape[-1]
+    for b in bits:
+        h = 1 << b
+        y = y.reshape(lead + (N // (2 * h), 2, h))
+        lo, hi = y[..., 0, :], y[..., 1, :]
+        y = torch.stack((lo + hi, lo - hi), -2).reshape(lead + (N,))
+    return y.movedim(-1, dim)
+
+
+def _k1_h(x: torch.Tensor, axis: str, adjoint: bool) -> torch.Tensor:
+    """K1's H_M (each row, its column bits ascending: warp_row_fwht) or
+    H_L (each column: layout A's register bits, the high log2(L / W) row
+    bits, then layout B's low log2(W); the adjoint in the other order)."""
+    B, L, M = x.shape
+    if axis == "m":
+        return _bfly(x, -1, range(M.bit_length() - 1))
+    W = split_geometry(L)[0]
+    lo, hi = range(W.bit_length() - 1), range(W.bit_length() - 1,
+                                               L.bit_length() - 1)
+    return _bfly(x, -2, (*lo, *hi) if adjoint else (*hi, *lo))
+
+
+def _pairs(x: torch.Tensor) -> torch.Tensor:
+    """The xor tree over the last axis, adjacent pairs first (a row's
+    lanes, warp_row_reduce)."""
+    while x.shape[-1] > 1:
+        x = x.reshape(x.shape[:-1] + (-1, 2))
+        x = x[..., 0] + x[..., 1]
+    return x[..., 0]
+
+
+def _halves(x: torch.Tensor) -> torch.Tensor:
+    """The xor tree over the last axis, halves first (warp_sum)."""
+    h = x.shape[-1] // 2
+    while h >= 1:
+        x = x[..., :h] + x[..., h:2 * h]
+        h //= 2
+    return x[..., 0]
+
+
+def _in_turn(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along `dim` one term after another, from the first."""
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def _k1_row_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """Each row's sum of x (B, L, M), or of x^2 with contracted
+    multiply-adds, in K1's row-stage order (RowShape, warp_row_reduce):
+    lane j holds columns C j + C TPR (i / C) + i % C, each group of 4 is
+    summed in turn, then the groups' xor tree (M <= 128), or per chunk of
+    8 columns the tree over lanes 0-15 and over 16-31, and those in column
+    order."""
+    B, L, M = x.shape
+    VPL = max(4, M // 32)
+    TPR, C = M // VPL, min(VPL, 8)
+    j = torch.arange(TPR)[:, None]
+    i = torch.arange(VPL)[None, :]
+    cols = (C * j + C * TPR * (i // C) + i % C).to(x.device)
+    v = x[..., cols].reshape(B, L, TPR, VPL // 4, 4)
+    if square:
+        p = torch.zeros_like(v[..., 0])
+        for q in range(4):
+            p = _fma(v[..., q], v[..., q], p)
+    else:
+        p = _in_turn(v, -1)
+    if C == 4:
+        return _pairs(p[..., 0])
+    cs = p[..., 0::2] + p[..., 1::2]          # (B, L, 32 lanes, chunks)
+    half = _pairs(cs.reshape(B, L, 2, 16, -1).movedim(3, -1))
+    acc = half[:, :, 0, 0] + half[:, :, 1, 0]
+    for c in range(1, half.shape[-1]):
+        acc = acc + half[:, :, 0, c]
+        acc = acc + half[:, :, 1, c]
+    return acc
+
+
+def _k1_tau2(z: torch.Tensor, n: int) -> torch.Tensor:
+    """|z|^2 / n as K1 takes it: each column-stage thread (w, c) of strip s
+    adds its rows R w + k in turn (contracted), the warp's lanes by its
+    xor tree, the block's W warps in turn, then the strips in turn."""
+    B, L, M = z.shape
+    W, R, _ = split_geometry(L)
+    zz = z.reshape(B, W, R, M // 32, 32)
+    acc = torch.zeros_like(zz[:, :, 0])
+    for k in range(R):
+        acc = _fma(zz[:, :, k], zz[:, :, k], acc)
+    zpart = _in_turn(_halves(acc), 1)          # (B, M / 32)
+    return _in_turn(zpart, 1) / n
+
+
+def _k1_bnorm2(bpart: torch.Tensor) -> torch.Tensor:
+    """|beta'|^2 from the rows' partials (B, L) as K1's column stage takes
+    it: thread t holds row t, the warp's lanes by its xor tree, the block's
+    W warps in turn."""
+    B, L = bpart.shape
+    W = split_geometry(L)[0]
+    pad = torch.zeros((B, 32 * W - L), dtype=bpart.dtype,
+                      device=bpart.device)
+    return _in_turn(_halves(torch.cat((bpart, pad), 1).reshape(B, W, 32)), 1)
+
+
+def k1_form_reference(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
+                      sq_npl: torch.Tensor, P: float, n: int, T: int,
+                      rnd=round_bf16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S2's mode `mode` as its kernel computes it (csrc/amp_k1.cuh): K1's
+    scale-free form (`amp_fused_reference`'s, fixed T, y given) in K1's
+    float32 arithmetic (above), the transforms' inputs rounded through rnd
+    where K1 rounds them (forward H_L rnd(H_M rnd(beta')), adjoint
+    H_M rnd(H_L rnd(z))), with the mode's stage dropped: no_transform
+    neither H (the work tile carries rnd(beta') and rnd(z)), m_stage_only
+    no H_L, no_softmax beta' = (sqi / tau2) (H z + beta') 1e-3 sqrt(n),
+    no_max the softmax without its row max, no_norms coef = 0.1 and
+    tau2 = 0.5.  Returns (beta (B, L, M) true scale, tau2 trace (T, B))."""
+    B, L, M = y_n.shape
+    dt, dev = y_n.dtype, y_n.device
+    mask_n, sqi, sqo = _constants(mask, sq_npl, n)
+    flat = torch.nonzero(mask.reshape(-1) > 0).reshape(-1).to(dev)
+    m_c = mask_n.reshape(-1)[flat]
+    y_c = y_n.reshape(B, -1)[:, flat]
+
+    def scalar(x):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    def h(x, axis, adjoint):
+        if axis == "l" and mode in ("m_stage_only", "no_transform"):
+            return x
+        if axis == "m" and mode == "no_transform":
+            return x
+        return _k1_h(x, axis, adjoint)
+
+    nn = scalar(float(n)) * scalar(float(n))
+    beta = torch.zeros_like(y_n)
+    z_c = y_c
+    trace = torch.empty((T, B), dtype=dt, device=dev)
+    tau2 = None
+    for t in range(T):
+        if t > 0:
+            if mode == "no_norms":
+                coef = scalar(0.1).expand(B)
+            else:
+                bpart = _k1_row_sum(beta, square=True)
+                coef = (scalar(P) - _k1_bnorm2(bpart) / nn) / tau2
+            w = h(rnd(h(rnd(beta), "m", False)), "l", False)
+            zn = _fma(-m_c, w.reshape(B, -1)[:, flat], y_c)
+            z_c = _fma(coef[:, None].expand_as(z_c), z_c, zn)
+        z = torch.zeros((B, L * M), dtype=dt, device=dev)
+        z[:, flat] = z_c
+        z = z.reshape(B, L, M)
+        if mode == "no_norms":
+            tau2 = scalar(0.5).expand(B)
+        else:
+            tau2 = _k1_tau2(z, n)
+        v = h(rnd(h(rnd(z), "l", True)), "m", True)
+        if t > 0:
+            v = v + beta
+        v = (sqi / tau2[:, None, None]) * v
+        if mode == "no_softmax":
+            beta = v * (scalar(1e-3) / scalar(1.0 / math.sqrt(n)))
+        else:
+            if mode != "no_max":
+                v = v - v.amax(-1, keepdim=True)
+            e = torch.exp(v)
+            beta = (sqo / _k1_row_sum(e)[..., None]) * e
+        trace[t] = tau2
+    return beta * (1.0 / math.sqrt(n)), trace
 
 
 def amp_exp_reference(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
@@ -195,9 +404,10 @@ def amp_exp_reference(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
     support, mask (L, M) the 0/1 support, sq_npl (L,) sqrt(n P_l); f_b the
     slab height of H_L = H_{L / f_b} (x) H_{f_b}.  precision "bf16" rounds
     as the scripts do, or with order="kernel" (S2's modes and the pair)
-    as the K1-style kernels do (`kernel_transform`); "highest"
-    rounds nothing.  Runs on any device (TF32 is never used: callers on
-    the GPU turn matmul TF32 off)."""
+    as their kernels do (S2's in K1's scale-free form,
+    `k1_form_reference`; the pair's `kernel_transform` in the scripts'
+    scaling); "highest" rounds nothing.  Runs on any device (TF32 is never
+    used: callers on the GPU turn matmul TF32 off)."""
     B, L, M = y_n.shape
     _check_mode(mode, L, M, f_b, B, pair)
     if precision not in ("bf16", "highest"):
@@ -208,6 +418,8 @@ def amp_exp_reference(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"order='kernel' is the K1-style variants' (S2 and "
                          f"the pair), not {mode!r}'s")
     rnd = round_bf16 if precision == "bf16" else _same
+    if order == "kernel" and mode in S2_MODES:
+        return k1_form_reference(mode, y_n, mask, sq_npl, P, n, T, rnd)
     if order == "kernel":
         def transform(x, adjoint):
             return kernel_transform(mode, x, adjoint, f_b, rnd)
@@ -253,7 +465,9 @@ def amp_exp_reference(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
 
 def amp_exp(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
             sq_npl: torch.Tensor, P: float, n: int, T: int,
-            precision: str = "bf16") -> Tuple[torch.Tensor, torch.Tensor]:
+            precision: str = "bf16",
+            support: Optional[SplitSupport] = None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run variant `mode` of the experiments on y_n (B, L, M): returns
     (beta (B, L, M), tau2 trace (T, B), or (T, B / 2) for "pair").
 
@@ -263,7 +477,9 @@ def amp_exp(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
     contiguous y_n, and raises on anything else.  precision "bf16" rounds
     the transforms' operands to bf16; "highest" rounds nothing (S2's
     variants and the pair only: S3's factors run on the bf16 tensor
-    cores)."""
+    cores).  support: K1's tables of mask (`amp_fused`'s argument, the
+    operator's `split_support`), which S2 and S3 read y and z by; without
+    it a CUDA call builds them from mask, which waits for the device."""
     B, L, M = y_n.shape
     pair = mode in S1_MODES
     f_b = mode_f_b(mode, L)
@@ -280,29 +496,16 @@ def amp_exp(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
                                  precision)
     if y_n.device.type != "cuda":
         raise ValueError(f"amp_exp runs on cpu or cuda, not {y_n.device}")
-    return _launch(mode, y_n, mask, sq_npl, P, n, T, precision == "bf16")
-
-
-def _full_runtime_m(y_n: torch.Tensor, mask: torch.Tensor,
-                    sq_npl: torch.Tensor, P: float, n: int, T: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """"full" in bf16 on the card with its column stage taking the row
-    length M at run time, as K1's dense column stage did before K1 was
-    redesigned on the row support, in place of the compile-time 512: the
-    same decode bit for bit, a diagnostic of what a compile-time M gives
-    this dense design (its time against full's) for chip_smoke.py's phase
-    27.  Nothing of K1 runs it now; it goes with its switch in amp_exp.cu
-    (ROADMAP.md, Queue B)."""
-    if y_n.device.type != "cuda":
-        raise ValueError(f"the diagnostic runs on cuda, not {y_n.device}")
-    return _launch("full", y_n, mask, sq_npl, P, n, T, True, runtime_m=True)
+    return _launch(mode, y_n, mask, sq_npl, P, n, T, precision == "bf16",
+                   support)
 
 
 def _launch(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
             sq_npl: torch.Tensor, P: float, n: int, T: int, bf16: bool,
-            runtime_m: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            support: Optional[SplitSupport]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     from ._build import run
-    from .amp_kernel import _check_cuda_tensor
+    from .amp_kernel import _check_cuda_tensor, _check_support
 
     B, L, M = y_n.shape
     if (L, M) != (KERNEL_L, KERNEL_M) or not 1 <= B <= 65535:
@@ -313,26 +516,46 @@ def _launch(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
     _check_cuda_tensor("y_n", y_n, torch.float32, (B, L, M), dev)
     _check_cuda_tensor("mask", mask, torch.float32, (L, M), dev)
     _check_cuda_tensor("sq_npl", sq_npl, torch.float32, (L,), dev)
-    mask_k = mask.to(torch.bfloat16)
     beta = torch.empty((B, L, M), dtype=torch.float32, device=dev)
     trace = torch.empty((T, B), dtype=torch.float32, device=dev)
-    z = torch.empty_like(beta)
-    # the work tile between the stages: H_M of beta (forward) and H_L of z
+    # the work tile between the stages: H_M of beta' (forward) and H_L of z
     # (adjoint), in bf16 as K1's bf16 mode keeps it
     work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
     zpart = torch.empty((B, M // 32), dtype=torch.float32, device=dev)
     bpart = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if mode in S1_MODES:
+        z = torch.empty_like(beta)
+        run("amp_exp", "amp_pair_run", dev, y_n.data_ptr(),
+            mask.to(torch.bfloat16).data_ptr(), sq_npl.data_ptr(),
+            beta.data_ptr(), trace.data_ptr(), z.data_ptr(), work.data_ptr(),
+            zpart.data_ptr(), bpart.data_ptr(), B, L, M, T, float(P),
+            float(n), 1.0 / math.sqrt(n), int(bf16))
+        amp_exp.launches[mode] += 1
+        return beta, trace[:, 0::2]
+    # K1's arguments (amp_fused's split form at fixed T, y given)
+    if support is None:
+        support = split_support_from_mask(mask)
+    _check_support(support, L, M, dev)
+    mask_n, sqi, sqo = _constants(mask, sq_npl, n)
+    mask_c = support.gather(mask_n)
+    yc = torch.empty((B, support.ns), dtype=torch.float32, device=dev)
+    zc = torch.empty_like(yc)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
     run("amp_exp", "amp_exp_run", dev, MODES.index(mode), y_n.data_ptr(),
-        mask_k.data_ptr(), sq_npl.data_ptr(), beta.data_ptr(),
-        trace.data_ptr(), z.data_ptr(), work.data_ptr(), zpart.data_ptr(),
-        bpart.data_ptr(), B, L, M, T, float(P), float(n),
-        1.0 / math.sqrt(n), int(bf16), int(runtime_m))
+        mask_c.data_ptr(), support.offset.data_ptr(), support.word.data_ptr(),
+        support.block_offset.data_ptr(), support.ns, sqi.data_ptr(),
+        sqo.data_ptr(), beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+        active.data_ptr(), yc.data_ptr(), zc.data_ptr(), work.data_ptr(),
+        zpart.data_ptr(), bpart.data_ptr(), B, L, M, T, float(P), float(n),
+        1.0 / math.sqrt(n), int(bf16))
     amp_exp.launches[mode] += 1
-    return beta, (trace[:, 0::2] if mode in S1_MODES else trace)
+    return beta, trace
 
 
 # kernel runs by mode, one per amp_exp call on a CUDA tensor (each call
-# is 2 T launches), never counted on the CPU route
+# is 2 T launches, and the encode launch on S2 and S3), never counted on
+# the CPU route
 amp_exp.launches = dict.fromkeys(MODES, 0)
 
 

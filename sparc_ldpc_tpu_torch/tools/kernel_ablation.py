@@ -8,7 +8,9 @@ scripts/kernel_ablation.py): where does the time of an iteration go?
 Each variant replaces one stage of the decode with a near-free stand-in
 (ops/amp_exp.py): "full" is the decode itself, "no_softmax",
 "no_max", "no_transform", "m_stage_only" and "no_norms" are for timing
-only (their decodes are garbage).  The code is the scripts': L=1024,
+only (their decodes are garbage); on the card each is K1's own kernels
+(csrc/amp_k1.cuh) with that stage dropped at compile time, "full" K1's
+fixed-T decode itself.  The code is the scripts': L=1024,
 M=512, R=1.0, iterative power at 2.0 dB, bf16 transforms, B=512
 codewords, T=32 fixed iterations.  A block draws its bits and noise from
 an explicit torch.Generator, encodes them with the port's SparcModel and
@@ -84,10 +86,14 @@ def draw_block(model: SparcModel, gen: torch.Generator, B: int):
 
 def decode(model: SparcModel, mode: str, y_n: torch.Tensor, T: int,
            precision: str = "bf16"):
-    """Variant `mode` on y_n: (beta, trace (T, B or B / 2))."""
+    """Variant `mode` on y_n: (beta, trace (T, B or B / 2)); on the card
+    with the operator's support tables (K1's, which S2 and S3 read y and z
+    by), built once per device."""
     c = model.cfg
+    sup = (model.op.split_support(c.L, c.M, y_n.device)
+           if y_n.device.type == "cuda" else None)
     return amp_exp(mode, y_n, model.op.mask.reshape(c.L, c.M), model.sq_npl,
-                   c.P, c.n, T, precision)
+                   c.P, c.n, T, precision, sup)
 
 
 def _sync(dev: torch.device) -> None:

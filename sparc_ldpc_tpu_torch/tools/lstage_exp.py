@@ -6,7 +6,10 @@ stage better?
     python -m sparc_ldpc_tpu_torch.tools.lstage_exp [VARIANT ...]
         [--batch 512] [--iters 32] [--cpu]
 
-Variants (ops/amp_exp.py, csrc/amp_exp.cu), every one a real decode:
+Variants (ops/amp_exp.py, csrc/amp_exp.cu), every one a real decode; on
+the card each is K1's encode and row stage with a column stage of its own
+on K1's walker (one block an SM over (codeword, strip) items, the next
+strip prefetched), H_{f_b} on the tensor cores reading the strip in place:
 
   slab_loop     H_1024 = H_8 (x) H_128, both on the tensor cores, the
                 slabs in a loop

@@ -57,6 +57,7 @@ import os
 import sys
 
 import pytest
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 

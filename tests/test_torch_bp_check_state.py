@@ -17,6 +17,7 @@ levels, so that magnitudes tie at min1 and min2 == min1, and hold -0.0,
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu_torch.config import LdpcConfig
 from sparc_ldpc_tpu_torch.design.ldpc_codes import build_code, qc_structure

@@ -32,6 +32,7 @@ from dataclasses import replace
 import jax.numpy as jnp
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu.config import PRESETS as JPRESETS
 from sparc_ldpc_tpu.models.sparc import SparcModel as JModel

@@ -13,6 +13,7 @@ import time
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu.config import PRESETS, CampaignConfig, SparcConfig
 from sparc_ldpc_tpu.utils import io as jio

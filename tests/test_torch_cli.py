@@ -10,6 +10,7 @@ import json
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu import cli as jcli
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu.config import PRESETS, ConcatConfig, LdpcConfig, SparcConfig
 from sparc_ldpc_tpu.models.concat import ConcatModel as JConcat

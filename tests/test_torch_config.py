@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu import config as jconfig
 from sparc_ldpc_tpu.design import codebook as jcodebook

@@ -54,9 +54,11 @@ flipped sections, tau2 to rtol 2e-2), full and the pair also in float32
 (no decisive flip, tau2 to rtol 1e-4); the ablated variants, whose
 decodes are garbage, over T = 2 in float32 and in bf16 (beta within
 1e-2 of the output scale, NaN where the plain version has NaN; in bf16
-against the plain version rounded where the K1-style kernels round,
+against the plain version rounded where the kernels round,
 order="kernel": the scripts round the adjoint at other places, which a
-garbage decode amplifies).
+garbage decode amplifies).  S2's full is K1's fixed-T call with y given,
+bit for bit (the same kernels: S2 is K1's at compile-time variants), and
+S2 and S3 give the same bits without K1's support tables.
 The slab kernel's stage ablation (amp_slab_exp.cu, S4) at the script's
 shape: it rounds where its plain version does, so every variant is held to
 it directly: the decoding variants over T = 32 (at most 1 % flipped
@@ -78,6 +80,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu_torch.config import ConcatConfig, LdpcConfig, SparcConfig
 from sparc_ldpc_tpu_torch.design.ldpc_codes import build_code, qc_structure
@@ -85,7 +88,8 @@ from sparc_ldpc_tpu_torch.models.amp import decision_flips
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 from sparc_ldpc_tpu_torch.ops.amp_exp import (
-    ABLATED, MODES, _full_runtime_m, amp_exp, amp_exp_reference, mode_f_b)
+    ABLATED, MODES, S2_MODES, S3_MODES, amp_exp, amp_exp_reference,
+    mode_f_b)
 from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     amp_fused, amp_fused_reference, channel_noise, channel_noise_reference,
     fwht_tile, fwht_tile_reference, mono_adjoint, mono_tile_reference,
@@ -1491,18 +1495,29 @@ def test_cuda_amp_exp_matches_plain(cuda_device, exp_draws, mode):
             assert decisive == 0
 
 
-def test_cuda_amp_exp_runtime_m_is_full_bit_for_bit(cuda_device, exp_draws):
-    """full with a run-time row length (as K1's earlier dense column stage
-    took it) reads the same values at the same offsets: the same decode,
-    bit for bit."""
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_cuda_amp_exp_full_is_k1_bit_for_bit(cuda_device, exp_draws, prec):
+    """S2's full is K1's own kernels at their default variant: its beta and
+    tau2 trace are K1's fixed-T call with y given (amp_fused, split form,
+    the same support tables), bit for bit; and every S2 and S3 variant
+    gives the same bits without the tables (built from the mask)."""
     model, y_n, _ = exp_draws
     c = model.cfg
-    args = (y_n.to(cuda_device),
-            model.op.mask.reshape(c.L, c.M).to(cuda_device),
-            model.sq_npl.to(cuda_device), c.P, c.n, 4)
-    want = amp_exp("full", *args)
-    got = _full_runtime_m(*args)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    L, M = c.L, c.M
+    sup = model.op.split_support(L, M, cuda_device)
+    args = (y_n.to(cuda_device), model.op.mask.reshape(L, M).to(cuda_device),
+            model.sq_npl.to(cuda_device), c.P, c.n, 6)
+    bk, tk, _ = amp_fused(*args, precision=prec, split=True, support=sup)
+    be, te = amp_exp("full", *args, prec, sup)
+    assert torch.equal(be, bk) and torch.equal(te, tk)
+    modes = S2_MODES + (S3_MODES if prec == "bf16" else ())
+    for mode in modes:
+        want = amp_exp(mode, *args, prec, sup)
+        got = amp_exp(mode, *args, prec)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0])), mode
+        assert torch.equal(got[0].nan_to_num(), want[0].nan_to_num()), mode
+        assert torch.equal(got[1].nan_to_num(), want[1].nan_to_num()), mode
 
 
 def test_cuda_amp_exp_rejects_what_it_cannot_take(cuda_device):

@@ -22,6 +22,10 @@ sections of these small blocks flip beyond the contract's 1 % (and at
 L = 1024 some with margins above 2 %), where after three they stay
 within it.  Three iterations run every line of the iteration (the
 Onsager term from the second on).
+The plain version the card's S2 kernels are held to in bf16 (order=
+"kernel") is K1's scale-free form in K1's float32 arithmetic: it is held
+here to a float64 decode with the same rounding points, to the scripts'
+function in float32, and (full) to the script's kernel.
 """
 
 import dataclasses
@@ -35,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
@@ -208,10 +213,12 @@ def test_float32_plain_version_is_the_unrounded_decode():
 
 
 def kernel_order_numpy(mode, y_n, mask, sq, P, n, T):
-    """The decode of an S2 mode or the pair rounded where the K1-style
-    kernels round (forward H_L rnd(H_M rnd(beta)), adjoint
-    H_M rnd(H_L rnd(z))), in float64 NumPy with dense Hadamard matrices:
-    (beta, trace (T, B or B / 2))."""
+    """The decode of an S2 mode or the pair rounded where its kernel rounds
+    (forward H_L rnd(H_M rnd(beta')), adjoint H_M rnd(H_L rnd(z)), H_L the
+    identity for m_stage_only and no_transform, H_M for no_transform; S2's
+    kernels are K1's, which hold and round beta' = beta sqrt(n), the pair's
+    hold beta), in float64 NumPy with dense Hadamard matrices: (beta,
+    trace (T, B or B / 2))."""
     from scipy.linalg import hadamard
 
     def rnd(x):
@@ -220,13 +227,17 @@ def kernel_order_numpy(mode, y_n, mask, sq, P, n, T):
 
     Bn, L, M = y_n.shape
     hl, hm = hadamard(L).astype(np.float64), hadamard(M).astype(np.float64)
-    hl = np.eye(L) if mode == "m_stage_only" else hl
+    if mode in ("m_stage_only", "no_transform"):
+        hl = np.eye(L)
+    if mode == "no_transform":
+        hm = np.eye(M)
+    s = np.sqrt(n) if mode in S2_MODES else 1.0
 
     def fwd(b):
-        return b if mode == "no_transform" else hl @ rnd(rnd(b) @ hm)
+        return hl @ rnd(rnd(b * s) @ hm) / s
 
     def adj(z):
-        return z if mode == "no_transform" else rnd(hl @ rnd(z)) @ hm
+        return rnd(hl @ rnd(z)) @ hm
 
     y = y_n.astype(np.float64)
     sq = sq.astype(np.float64).reshape(L, 1)
@@ -243,12 +254,12 @@ def kernel_order_numpy(mode, y_n, mask, sq, P, n, T):
             z = mask * (y - fwd(beta) / np.sqrt(n)) + coef[:, None, None] * z
             tau2 = (np.full(Bn, 0.5) if mode == "no_norms"
                     else (z * z).sum((1, 2)) / n)
-            s = adj(z) / np.sqrt(n) + beta
+            s_ = adj(z) / np.sqrt(n) + beta
             ai = sq / tau2[:, None, None]
             if mode == "no_softmax":
-                beta = s * ai * 1e-3
+                beta = s_ * ai * 1e-3
             else:
-                a = ai * s
+                a = ai * s_
                 if mode != "no_max":
                     a = a - a.max(-1, keepdims=True)
                 e = np.exp(a)
@@ -273,6 +284,42 @@ def test_kernel_order_plain_version_rounds_where_the_kernels_round(mode):
     want = kernel_order_numpy(mode, y_n, mask.numpy(), sq.numpy(), c.P,
                               c.n, T_run)
     check(mode, (beta.numpy(), trace.numpy()), want, T_run)
+
+
+@pytest.mark.parametrize("mode", S2_MODES)
+def test_kernel_order_is_the_script_function_in_float32(mode):
+    """S2's kernel order is K1's scale-free form (beta' = beta sqrt(n),
+    mask / n, sq / sqrt(n), sq sqrt(n)): rounding nothing, it computes the
+    scripts' function, to float32 rounding, with NaN (no_max's overflow)
+    where the scripts' form has NaN."""
+    L, M = _shape(mode)
+    _, mt, y_n, _ = _models(L, M)
+    c = mt.cfg
+    T_run = T_ABLATED if mode in ABLATED else T
+    args = (mode, torch.tensor(y_n), mt.op.mask.reshape(L, M), mt.sq_npl,
+            c.P, c.n, T_run, 128)
+    bk, tk = amp_exp_reference(*args, precision="highest", order="kernel")
+    bs, ts = amp_exp_reference(*args, precision="highest", order="script")
+    nan = torch.isnan(bs)
+    assert torch.equal(torch.isnan(bk), nan)
+    torch.testing.assert_close(tk, ts, rtol=1e-5, atol=0, equal_nan=True)
+    scale = float(bs[~nan].abs().max())
+    assert float((bk - bs)[~nan].abs().max()) <= 1e-5 * scale
+
+
+def test_kernel_order_full_decodes_as_the_script_kernel():
+    """full as its kernel computes it (K1's scale-free form and rounding
+    points, order="kernel") against the script's Pallas kernel on the same
+    draws, under the bf16 decode contract."""
+    L, M = _shape("full")
+    mj, mt, y_n, _ = _models(L, M)
+    c = mj.cfg
+    want = run_script("full", y_n, np.asarray(mj.op.mask).reshape(L, M),
+                      np.asarray(mj.sq_npl), c.P, c.n, T, 128)
+    beta, trace = amp_exp_reference(
+        "full", torch.tensor(y_n), mt.op.mask.reshape(L, M), mt.sq_npl, c.P,
+        c.n, T, 128, order="kernel")
+    check("full", (beta.numpy(), trace.numpy()), want, T)
 
 
 def test_kernel_order_is_refused_for_the_s3_variants():

@@ -18,6 +18,7 @@ messages saturate (two iterations on noisy LLRs), and to decisions after.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 import jax.numpy as jnp
 

@@ -10,6 +10,7 @@ import math
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 import chip_smoke
 from sparc_ldpc_tpu_torch.ops.amp_kernel import fwht_tile_reference

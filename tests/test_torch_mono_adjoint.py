@@ -14,6 +14,7 @@ to the same in tests/test_torch_cuda.py and chip_smoke.py phase 14.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu_torch.config import SparcConfig
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel

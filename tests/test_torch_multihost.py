@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu_torch import cli as tcli
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import scipy.fft
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu.config import SparcConfig as JSparcConfig
 from sparc_ldpc_tpu.design.codebook import hadamard_plan

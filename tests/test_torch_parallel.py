@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu.ops.amp_kernel import fwht_tile_pallas
 from sparc_ldpc_tpu.parallel import mesh as jmesh

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 from sparc_ldpc_tpu.config import SparcConfig as JConfig
 from sparc_ldpc_tpu.models.amp import hard_indices as j_hard_indices

@@ -55,6 +55,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 

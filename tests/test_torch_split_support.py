@@ -12,6 +12,7 @@ cluster of two blocks) and for hand-made masks.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 
 import sparc_ldpc_tpu_torch as slt
 from sparc_ldpc_tpu_torch.design.codebook import hadamard_plan
