@@ -210,30 +210,33 @@ the concat preset.  Each phase prints one line with its seconds:
      call at B=512, T=32 with its column stage's ms a launch beside K1's
      (phase 27's K1 call), the section errors within 1 % of the sections
      of full's;
- 29. two codewords per row-stage block (S1, `tools.pair_kernel_exp`, the
-     earlier K1 design's kernels): against its plain version at B=8 (bf16
-     and float32, as full), then timed beside full (K1's current kernels)
-     at B=512, T=32, section errors within 1 % of full's;
- 30. the slab kernel's stage ablation (S4, csrc/amp_slab_exp.cu, the tool
-     `python -m sparc_ldpc_tpu_torch.tools.slab_ablation`): make_kernel's
-     variants and the factorings fXmY on the headline model's code, each
-     against its plain version at B=8 on encoded draws (decoding variants
-     over T=32: at most 1 % flipped sections, tau2 to rtol 2e-2; ablated
-     ones over T=2: beta within 1e-2 of the output scale, no NaN;
-     no_consume, NaN throughout from beta = 0 as the script's, also from
-     the state one plain full iteration leaves); then the tool's blocks at
-     the script's B=1024, T=32 on its pure-noise draws (the main path:
-     every variant launched); each variant's decode call at B=1024 by CUDA
-     events with its bound, held to the plain version of the same call in
-     the same way (sched and fold_sched: at most a 1e-6 share of the
-     elements beyond 1e-2 of the scale and none beyond 5e-2, where the
-     float32 plain version is as far from a float64-sum one, and one
-     iteration from the same state stays within 1e-2); device ms by
-     launch (C1, R2, C2, R3) of full and each ablated variant; full's mean
-     final tau2 within 3 % of SE; the split full - each variant in % of
-     full's call;
+ 29. two codewords per row-stage block (S1, `tools.pair_kernel_exp`: K1's
+     encode and column stage, K1's row stage at its paired variant):
+     against its plain version (K1's form of full) at B=8 in bf16 and
+     float32, then the tool's blocks and the decode call at B=512, T=32
+     beside K1's own fixed-T call on the same draws: beta and the trace of
+     the first codeword of each pair bit for bit, each one's row stage ms
+     a launch, section errors within 1 % of full's;
+ 30. the slab kernel's stage ablation (S4, csrc/amp_slab_exp.cu: K7's own
+     kernels, csrc/amp_k7.cuh, at compile-time variants; the tool `python
+     -m sparc_ldpc_tpu_torch.tools.slab_ablation`): make_kernel's variants
+     and the factorings fXmY on the headline model's code, each against
+     its kernels' plain version (K7's form, order="kernel") at B=8 on
+     encoded draws (decoding variants over T=32: at most 1 % flipped
+     sections, tau2 to rtol 2e-2; ablated ones over T=2: beta within 1e-2
+     of the output scale, no NaN; no_consume, NaN throughout from beta' = 0
+     as the script's, also from the state one plain full iteration leaves);
+     then the tool's blocks at the script's B=1024, T=32 on its pure-noise
+     draws (the main path: every variant launched); each variant's decode
+     call at B=1024 by CUDA events with its bound, held to the plain
+     version of the same call in the same way; K7's own fixed-T call (amp_fused, slab form, y given) beside
+     full's: the same beta and trace bit for bit, the call within 2 %;
+     device ms by launch (encode, C1, R2C2, R3) of every variant and of
+     K7's call; full's mean final tau2 within 3 % of SE; the split full -
+     each variant in ms and % of full's call, and by launch;
  31. S4's compact layouts (compact, compact32) and the pair, in the same
-     way; the pair's kept state and trace bit for bit full's;
+     way, by launch beside full; the pair's kept state and trace bit for
+     bit full's;
  32. K1 by launch: the headline call of the main path (B=2048, T=22, the
      noise drawn in the kernel, the operator's support tables) and
      fast_l4096's (B=512, T cap 32, tol 1e-4), each launch's device ms
@@ -306,6 +309,7 @@ script.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -424,12 +428,13 @@ class Clock:
         return dt
 
 
-def call_ms(fn, reps: int, inner: int = 1) -> float:
-    """Median device ms of fn() by CUDA events (one warm-up call; each of
-    the reps times `inner` calls back to back)."""
+def call_ms(fn, reps: int, inner: int = 1, warm: bool = True) -> float:
+    """Median device ms of fn() by CUDA events (one warm-up call unless
+    warm is false; each of the reps times `inner` calls back to back)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     ms = []
     for _ in range(reps):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -442,16 +447,16 @@ def call_ms(fn, reps: int, inner: int = 1) -> float:
     return statistics.median(ms)
 
 
-def timed_result(fn, reps: int, inner: int = 1):
-    """call_ms(fn, reps, inner) and fn's last result; each call drops the
-    one before it first, so at most one is held."""
+def timed_result(fn, reps: int, inner: int = 1, warm: bool = True):
+    """call_ms(fn, reps, inner, warm) and fn's last result; each call drops
+    the one before it first, so at most one is held."""
     box = []
 
     def run():
         box.clear()
         box.append(fn())
 
-    return call_ms(run, reps, inner), box[0]
+    return call_ms(run, reps, inner, warm), box[0]
 
 
 def reset_counts() -> None:
@@ -484,6 +489,25 @@ def read_counts() -> dict:
                 bp_qc_layered=bp_decode_qc_kernel.launches,
                 fwht2=fwht2.launches, denoise=denoise_kernel.launches,
                 fwht_tile=fwht_tile.launches)
+
+
+# the headline model's SE trajectory (host, about half a minute), by model
+_SE_TRACES = {}
+
+
+def se_final(model, T: int) -> float:
+    """SE's tau2 after T iterations at the model's point: one
+    se_trajectory a model, run to max(T, EXP_T) iterations (its first
+    entries are a shorter run's: the same draws, the same early stop)."""
+    from sparc_ldpc_tpu_torch.design.se import se_trajectory
+
+    key = id(model)
+    if key not in _SE_TRACES or len(_SE_TRACES[key]) <= min(T, EXP_T):
+        c = model.cfg
+        _SE_TRACES[key] = se_trajectory(model.p_alloc, c.n, c.M,
+                                        model.sigma2, T=max(T, EXP_T))
+    tr = _SE_TRACES[key]
+    return float(tr[min(T, len(tr) - 1)])
 
 
 def bound(nbytes: float, ops: dict) -> dict:
@@ -605,7 +629,6 @@ def sparc_path(dev, card: str, clock: Clock) -> dict:
     import torch
 
     import sparc_ldpc_tpu_torch as slt
-    from sparc_ldpc_tpu_torch.design.se import se_trajectory
     from sparc_ldpc_tpu_torch.models.sparc import SparcModel
     from sparc_ldpc_tpu_torch.ops.amp_kernel import (
         amp_fused, amp_fused_reference, fwht_tile, fwht_tile_reference)
@@ -660,7 +683,7 @@ def sparc_path(dev, card: str, clock: Clock) -> dict:
     del y_n, x
 
     # 4. main path, noise drawn in the kernel
-    se_fp = float(se_trajectory(model.p_alloc, n, M, model.sigma2, T=T)[-1])
+    se_fp = se_final(model, T)
     reset_counts()
     out = model.run_block(block_generator(SEED, 0, 0, dev), BATCH)
     launches = read_counts()
@@ -2526,14 +2549,17 @@ def exp_compare(kout, pout, idx, decoding: bool) -> dict:
 
 
 def exp_plain(model, mode: str, y_n, T: int, prec: str = "bf16"):
-    """The plain version of variant `mode` on y_n, T iterations: the bf16
-    ablated variants rounded where the K1-style kernels round
-    (order="kernel", ops/amp_exp.py), the rest where the scripts round."""
+    """The plain version of variant `mode` on y_n, T iterations: the pair
+    and the bf16 ablated variants as the K1-style kernels compute them
+    (order="kernel", ops/amp_exp.py: the pair's is full's,
+    k1_form_reference), the rest where the scripts round."""
     from sparc_ldpc_tpu_torch.ops.amp_exp import (
         ABLATED, amp_exp_reference, mode_f_b)
 
     c = model.cfg
-    order = "kernel" if mode in ABLATED and prec == "bf16" else "script"
+    order = ("kernel" if mode == "pair" or (mode in ABLATED
+                                            and prec == "bf16")
+             else "script")
     return amp_exp_reference(mode, y_n, model.op.mask.reshape(c.L, c.M),
                              model.sq_npl, c.P, c.n, T, mode_f_b(mode, c.L),
                              mode == "pair", prec, order)
@@ -2679,8 +2705,10 @@ def exp_timing(dev, ex: Experiment, modes, label: str) -> dict:
                     mode, ex.decode(mode, y_n, EXP_ABLATED_T, f),
                     ex.plain(mode, y_n, EXP_ABLATED_T, f), idx)
         else:
+            # one call, no warm-up: the plain versions take seconds a call
+            # (S4's over 4 s at B=1024)
             rec["plain_ms"], pout = timed_result(
-                lambda: ex.plain(mode, y_n, EXP_T, form), 1)
+                lambda: ex.plain(mode, y_n, EXP_T, form), 1, warm=False)
             checks[f"{mode} {form}"] = ex.compare(mode, out, pout, idx)
             del out, pout
         calls[mode] = rec
@@ -2726,10 +2754,58 @@ def exp_record(name: str, source: str, script: str, mode: str,
     return rec
 
 
-def exp_stages(fn, per_call: dict) -> dict:
-    """Device ms of one fn() call by launch kind (`launch_ms`: the second
-    of two traced calls, every launch of it accounted for)."""
-    return {k: round(sum(v), 3) for k, v in launch_ms(fn, per_call).items()}
+def exp_stages(calls: dict) -> dict:
+    """Device ms of one call by launch kind for each of calls = {label:
+    (fn, per_call)}, per_call the launches of each kernel name (a
+    substring of it) in one fn() call.  One torch.profiler session after a
+    warm-up call: each fn called twice in turn, and its second call's
+    launches kept; the kernels of those names, in launch order, are split
+    call by call, every launch of a call accounted for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = {k for _, pc in calls.values() for k in pc}
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            next(iter(calls.values()))[0]()
+            torch.cuda.synchronize()
+            prof.step()
+            for fn, _ in calls.values():
+                fn()
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    events = sorted((e for e in events if e.get("cat") == "kernel"
+                     and any(k in e.get("name", "") for k in names)),
+                    key=lambda e: float(e["ts"]))
+    out, pos = {}, 0
+    for label, (_, per_call) in calls.items():
+        n = sum(per_call.values())
+        ms = dict.fromkeys(per_call, 0.0)
+        count = dict.fromkeys(per_call, 0)
+        for e in events[pos + n:pos + 2 * n]:
+            key = next((k for k in per_call if k in e["name"]), None)
+            require(key is not None, f"{label}: the trace has another "
+                    f"call's kernel {e['name']} in its place")
+            ms[key] += float(e.get("dur", 0.0)) / 1e3
+            count[key] += 1
+        require(count == per_call, f"{label}: the trace holds {count} "
+                f"launches of a call, not {per_call}")
+        out[label] = {k: round(v, 3) for k, v in ms.items()}
+        pos += 2 * n
+    require(pos == len(events), f"the trace holds {len(events)} launches, "
+            f"not the calls' {pos}")
+    return out
 
 
 def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
@@ -2738,7 +2814,6 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
     same bits, and their ms."""
     import torch
 
-    from sparc_ldpc_tpu_torch.design.se import se_trajectory
     from sparc_ldpc_tpu_torch.ops.amp_exp import S2_MODES
     from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
     from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
@@ -2760,13 +2835,12 @@ def ablation_phase(dev, card: str, model, clock: Clock) -> dict:
     del k1_out, full_out
     # device ms of each launch kind in a call (the second of two traced)
     per_call = dict(zip(K1_STAGES, (1, EXP_T, EXP_T)))
-    stages = {m: exp_stages(lambda: decode(model, m, y_n, EXP_T), per_call)
-              for m in S2_MODES}
-    stages["K1"] = exp_stages(
-        lambda: amp_fused(*args, split=True, support=sup), per_call)
+    stages = exp_stages({
+        **{m: (functools.partial(decode, model, m, y_n, EXP_T), per_call)
+           for m in S2_MODES},
+        "K1": (lambda: amp_fused(*args, split=True, support=sup), per_call)})
     full = calls["full"]["ms"]
-    se_fp = float(se_trajectory(model.p_alloc, c.n, M, model.sigma2,
-                                T=EXP_T)[-1])
+    se_fp = se_final(model, EXP_T)
     # full's time by stage: what each ablation saves, in ms and in % of
     # full's call, and by launch
     split = {f"full - {m}": (round(full - calls[m]["ms"], 3),
@@ -2816,12 +2890,12 @@ def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
     tm = exp_timing(dev, ex, S3_MODES, "28")
     calls = tm["calls"]
     sec = {m: r["sec_err"] for m, r in calls.items()}
-    stages = {}
-    for m in S3_MODES:
-        row = "s3_hm_row_kernel" if m == "l256_m128" else "k1_row_kernel"
-        stages[m] = exp_stages(
-            lambda: decode(model, m, tm["y_n"], EXP_T),
-            {"k1_encode_kernel": 1, "s3_col_kernel": EXP_T, row: EXP_T})
+    stages = exp_stages({
+        m: (functools.partial(decode, model, m, tm["y_n"], EXP_T),
+            {"k1_encode_kernel": 1, "s3_col_kernel": EXP_T,
+             ("s3_hm_row_kernel" if m == "l256_m128" else "k1_row_kernel"):
+             EXP_T})
+        for m in S3_MODES})
     col = {m: round(st["s3_col_kernel"] / EXP_T, 4)
            for m, st in stages.items()}
     k1_col = ab["k1_stages"]["k1_col_kernel"] / EXP_T
@@ -2851,31 +2925,55 @@ def lstage_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
 
 
 def pair_phase(dev, card: str, model, ab: dict, clock: Clock) -> dict:
-    """Phase 29: S1, two codewords per block (tools/pair_kernel_exp.py)."""
+    """Phase 29: S1, two codewords per row-stage block
+    (tools/pair_kernel_exp.py) on K1's kernels, beside K1's own fixed-T
+    call on the same draws: the same bits, their ms and the row stage's
+    ms a launch."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
     from sparc_ldpc_tpu_torch.tools.kernel_ablation import decode
 
+    c = model.cfg
+    L, M = c.L, c.M
     modes = ("pair",)
     ex = amp_family(model, True)
     checks = exp_checks(dev, ex, modes, clock, "29 S1")
     tm = exp_timing(dev, ex, modes, "29")
     r = tm["calls"]["pair"]
-    stages = device_ms_by_kernel(
-        lambda: decode(model, "pair", tm["y_n"], EXP_T),
-        ("pair_col_kernel", "pair_row_kernel"))
-    print(f"[29 S1 pair, the earlier dense design] B={EXP_BATCH} "
-          f"T={EXP_T}: launches {tm['launches']}; decode call "
-          f"{r['ms']:.3f} ms beside full's "
-          f"{ab['full_ms']:.3f} (full on K1's current kernels; "
-          f"{100 * (r['ms'] / ab['full_ms'] - 1):+.2f} %); sections in "
-          f"error {r['sec_err']} (full: {ab['sec_err']}); device ms by "
-          f"launch {stages}; plain "
+    y_n = tm["y_n"]
+    args = (y_n, model.op.mask.reshape(L, M), model.sq_npl, c.P, c.n, EXP_T)
+    sup = model.op.split_support(L, M, dev)
+    k1_ms, k1_out = timed_result(
+        lambda: amp_fused(*args, split=True, support=sup), REPS)
+    pair_out = decode(model, "pair", y_n, EXP_T)
+    same = bool(torch.equal(pair_out[0], k1_out[0])
+                and torch.equal(pair_out[1], k1_out[1][:, 0::2]))
+    del k1_out, pair_out
+    per_call = dict(zip(K1_STAGES, (1, EXP_T, EXP_T)))
+    stages = exp_stages({
+        "pair": (lambda: decode(model, "pair", y_n, EXP_T), per_call),
+        "K1": (lambda: amp_fused(*args, split=True, support=sup), per_call)})
+    row = {k: round(v["k1_row_kernel"] / EXP_T, 4) for k, v in stages.items()}
+    print(f"[29 S1 pair on K1's kernels] B={EXP_BATCH} T={EXP_T}: launches "
+          f"{tm['launches']}; decode call {r['ms']:.3f} ms beside K1's own "
+          f"fixed-T call {k1_ms:.3f} ms ({100 * (r['ms'] / k1_ms - 1):+.2f} "
+          f"%; phase 27's full {ab['full_ms']:.3f}), beta and trace (the "
+          f"first codeword of each pair) bit for bit: {same}; row stage ms a "
+          f"launch {row}; device ms by launch {stages}; sections in error "
+          f"{r['sec_err']} (full: {ab['sec_err']}); plain "
           f"{r['plain_ms']:.1f} ms; bound {r['bound_ms']:.3f} on {card} "
           f"({clock.lap():.1f} s)", flush=True)
-    require(abs(r["sec_err"] - ab["sec_err"]) <= 0.01 * EXP_BATCH
-            * model.cfg.L, "pair: section errors off full's")
-    return dict(rec=exp_record("amp_pair", AMP_EXP_SOURCE,
-                               "scripts/pair_kernel_exp.py:28", "pair", checks,
-                               tm))
+    require(same, "the pair's beta and trace differ from K1's call")
+    require(abs(r["sec_err"] - ab["sec_err"]) <= 0.01 * EXP_BATCH * L,
+            "pair: section errors off full's")
+    rec = exp_record("amp_pair", K1_SOURCE, "scripts/pair_kernel_exp.py:28",
+                     "pair", checks, tm)
+    rec["k1_ms"] = k1_ms
+    rec["pair_is_k1_bit_for_bit"] = same
+    rec["row_ms_per_launch"] = row
+    rec["stages_ms"] = stages
+    return dict(rec=rec)
 
 
 # the slab ablation's timed batch (scripts/slab_ablation.py main; T is
@@ -2887,11 +2985,6 @@ SLAB_EXP_BATCH = 1024
 # and Onsager term; sched and fold_sched |z|^2)
 SLAB_ELEM_OPS = {"no_softmax": 8, "no_consume": 5, "sched": 10,
                  "fold_sched": 10}
-SLAB_STAGES = ("slabx_c1", "slabx_r2", "slabx_c2", "slabx_r3")
-# the ablated variants whose timed hold takes the tail rule (slab_hold):
-# tau2 fixed at 0.36 sharpens the softmax, and slab_tail_witness shows
-# what puts their few elements off
-SLAB_TAIL = ("sched", "fold_sched")
 AMP_EXP_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_exp.cu"
 # S2's kernels: K1's own, at compile-time variants
 K1_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_k1.cuh"
@@ -2900,16 +2993,17 @@ SLAB_EXP_SOURCE = "sparc_ldpc_tpu_torch/csrc/amp_slab_exp.cu"
 
 def slab_exp_bound(mode: str, B: int, L: int, M: int, T: int) -> dict:
     """Bound of one S4 call (ops/amp_slab_exp.py) at fixed T: y read once,
-    the mask and sq once, beta and the trace written once; 2 T - 1
-    transforms (the first forward one acts on beta = 0) at one float32 add
-    an element and radix-2 stage, plus SLAB_ELEM_OPS.  Decoding variants
-    compute full's function and get full's bound; no_radix keeps the
-    stages of the 128-wide factors (log2 128 + log2 128), no_mm those of
-    the radix factors (log2 f_a + log2 m_a); the compact variants are
-    bounded by the rows they produce: per codeword and iteration H_M of
-    every row, the slab sum, H_{f_b} of one slab each way, H_M of the csub
-    rows, and AMP_ELEM_OPS an element."""
-    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import DECODING, parse_mode
+    the mask and sq once, beta and the trace written once; T - 1 forward
+    transforms (the first acts on beta = 0) and T adjoints at one float32
+    add an element and radix-2 stage, plus SLAB_ELEM_OPS.  Decoding
+    variants compute full's function and get full's bound; no_radix keeps
+    the stages of the 128-wide factors (log2 f_b + log2 m_b), no_mm those
+    of the radix factors (log2 f_a + log2 m_a), and both the adjoint's
+    whole H_M (log2 M: K7's closed form, which they keep); the compact
+    variants are bounded by the rows they produce: per codeword and
+    iteration H_M of every row, the slab sum, H_{f_b} of one slab each way,
+    H_M of the csub rows, and AMP_ELEM_OPS an element."""
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import parse_mode
 
     el, E = L * M, B * L * M
     nbytes = 8 * E + 2 * el + 4 * L + 4 * T * B
@@ -2918,12 +3012,13 @@ def slab_exp_bound(mode: str, B: int, L: int, M: int, T: int) -> dict:
         per = (el * math.log2(M) + el + 2 * v.f_b * M * math.log2(v.f_b)
                + v.csub * M * math.log2(M) + el * AMP_ELEM_OPS)
         return bound(nbytes, {"fp32": B * T * per})
-    stages = math.log2(el)
-    if mode not in DECODING:
-        stages = {"no_radix": math.log2(v.f_b) + math.log2(v.m_b),
-                  "no_mm": math.log2(L // v.f_b) + math.log2(M // v.m_b)
-                  }.get(mode, stages)
-    f32 = (2 * T - 1) * E * stages
+    fwd = adj = math.log2(el)
+    if mode in ("no_radix", "no_mm"):
+        f = v.f_b if mode == "no_radix" else L // v.f_b
+        fwd = math.log2(f) + math.log2(v.m_b if mode == "no_radix"
+                                       else M // v.m_b)
+        adj = math.log2(f) + math.log2(M)
+    f32 = (T - 1) * E * fwd + T * E * adj
     f32 += T * E * SLAB_ELEM_OPS.get(mode, AMP_ELEM_OPS)
     return bound(nbytes, {"fp32": f32})
 
@@ -2958,12 +3053,8 @@ def slab_compare(mode: str, kout, pout, idx) -> dict:
 def slab_hold(key: str, r: dict, sections: int, timed: bool) -> None:
     """A slab_compare result held to its contract (exp_hold).  An ablated
     variant is held only where it has values: NaN anywhere fails it, but
-    for no_consume from beta = 0, which must be NaN throughout on both
-    sides (the script's function: its first tau2 is 0).  At the timed
-    batch the SLAB_TAIL variants may exceed 1e-2 of the scale on at most a
-    1e-6 share of the elements, and 5e-2 nowhere, where slab_tail_witness
-    shows the float32 plain version as far from float64 sums
-    (witness_hold)."""
+    for no_consume from beta' = 0, which must be NaN throughout on both
+    sides (the script's function: its first tau2 is 0)."""
     mode, form = key.split()[:2]
     if "n_over" in r:
         require(r["nan_equal"], f"{key}: NaN positions differ")
@@ -2973,45 +3064,40 @@ def slab_hold(key: str, r: dict, sections: int, timed: bool) -> None:
             return
         require(r["nan_frac"] == 0.0, f"{key}: NaN in {r['nan_frac']} of "
                 f"beta, nothing to hold there")
-        if timed and mode in SLAB_TAIL:
-            require(r["n_over"] <= 1e-6 * r["numel"]
-                    and r["err_over_scale"] <= 5e-2,
-                    f"{key}: {r['n_over']} of {r['numel']} elements off by "
-                    f"more than 1e-2 of the scale, largest "
-                    f"{r['err_over_scale']}")
-            return
     exp_hold(key, r, sections)
 
 
 def slab_family(model) -> Experiment:
-    """S4 (tools/slab_ablation.py): every variant from beta = 0 ("cold"),
-    the script's start, and no_consume also from the state one plain full
-    iteration leaves ("warm"): from beta = 0 its function is NaN
-    throughout, which holds its arithmetic to nothing."""
+    """S4 (tools/slab_ablation.py), each variant held to its kernels' plain
+    version (K7's form, order="kernel"): every variant from beta = 0
+    ("cold"), the script's start, and no_consume also from the state one
+    plain full iteration leaves ("warm"): from beta = 0 its function is
+    NaN throughout, which holds its arithmetic to nothing."""
     from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
         ABLATED, amp_slab_exp, amp_slab_exp_reference, reset_launches)
     from sparc_ldpc_tpu_torch.tools import slab_ablation as sa
 
     c = model.cfg
-    masks = {}
+    masks, sups = {}, {}
 
     def args(mode, y_n, form):
         if mode not in masks:
             masks[mode] = sa.variant_mask(model, mode)
+            sups[mode] = sa.variant_support(model, mode, masks[mode])
         state = None
         if form == "warm":
             state = amp_slab_exp_reference(
                 "full", y_n, masks[mode], model.sq_npl, c.P, c.n, 1,
-                keep_state=True)[2]
+                keep_state=True, order="kernel")[2]
         return (mode, y_n, masks[mode], model.sq_npl, c.P, c.n), state
 
     def decode(mode, y_n, T, form):
         a, state = args(mode, y_n, form)
-        return amp_slab_exp(*a, T, state=state)
+        return amp_slab_exp(*a, T, state=state, support=sups[mode])
 
     def plain(mode, y_n, T, form):
         a, state = args(mode, y_n, form)
-        return amp_slab_exp_reference(*a, T, state=state)
+        return amp_slab_exp_reference(*a, T, state=state, order="kernel")
 
     return Experiment(
         model=model, phase=30, batch=SLAB_EXP_BATCH, ablated=ABLATED,
@@ -3025,103 +3111,21 @@ def slab_family(model) -> Experiment:
         extra=lambda mode: {})
 
 
-def _over(a, b, scale: float) -> dict:
-    """The largest |a - b| over scale, and the count above 1e-2 of it."""
-    d = (a - b).abs()
-    return dict(err=float(d.max()) / scale, n_over=int((d > 1e-2 * scale)
-                                                       .sum()))
-
-
-def slab_tail_witness(ex: Experiment, mode: str, y_n, T: int) -> dict:
-    """What puts an SLAB_TAIL variant's few elements off at the timed batch
-    (T iterations on y_n).  The kernel against two plain versions, in
-    float32 and in float64 sums with the same bf16 roundings (both the
-    script's function), and those two against each other; the elements off
-    by more than 1e-2 of the scale with the three values there.  Then the
-    state after one iteration, kernel against plain (beta, and the bf16
-    roundings of beta that the next H_M stage reads: how many differ, by
-    how many ulps), and the remaining T - 1 iterations run by each side
-    from the other side's state against the other's T iterations."""
-    import torch
-
-    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
-        amp_slab_exp, amp_slab_exp_reference)
-
-    model = ex.model
-    c = model.cfg
-    mask = model.op.mask.reshape(c.L, c.M)
-    args = (mode, y_n, mask, model.sq_npl, c.P, c.n)
-    kb = amp_slab_exp(*args, T)[0]
-    pb = amp_slab_exp_reference(*args, T)[0]
-    scale = float(pb.abs().max())
-    out = dict(kernel_vs_plain=_over(kb, pb, scale))
-    off = ((kb - pb).abs() > 1e-2 * scale).nonzero()[:16].tolist()
-    # float64 sums, 64 codewords at a time
-    args64 = (mask.double(), model.sq_npl.double(), c.P, c.n, T)
-    p64, k64, at = dict(err=0.0, n_over=0), dict(err=0.0, n_over=0), []
-    for b0 in range(0, y_n.shape[0], 64):
-        q = amp_slab_exp_reference(mode, y_n[b0:b0 + 64].double(),
-                                   *args64)[0]
-        for acc, x in ((p64, pb), (k64, kb)):
-            r = _over(x[b0:b0 + 64].double(), q, scale)
-            acc["err"] = max(acc["err"], r["err"])
-            acc["n_over"] += r["n_over"]
-        at += [dict(at=(b, l, m), kernel=float(kb[b, l, m]),
-                    plain=float(pb[b, l, m]),
-                    plain64=float(q[b - b0, l, m]))
-               for b, l, m in off if b0 <= b < b0 + 64]
-        del q
-    out.update(plain_vs_plain64=p64, kernel_vs_plain64=k64, off=at)
-    ks = amp_slab_exp(*args, 1, keep_state=True)[2]
-    ps = amp_slab_exp_reference(*args, 1, keep_state=True)[2]
-    bits = [x.beta.to(torch.bfloat16).view(torch.int16).int()
-            for x in (ks, ps)]
-    ulps = (bits[0] - bits[1]).abs()
-    out["after_one"] = dict(
-        beta=_over(ks.beta, ps.beta, float(ps.beta.abs().max())),
-        bf16_beta_differ=int((ulps > 0).sum()), max_ulps=int(ulps.max()),
-        tau2_rel_err=float(((ks.tau2 - ps.tau2).abs() / ps.tau2).max()))
-    del bits, ulps
-    if T > 1:
-        out["plain_from_kernel_state"] = _over(
-            amp_slab_exp_reference(*args, T - 1, state=ks)[0], kb, scale)
-        out["kernel_from_plain_state"] = _over(
-            amp_slab_exp(*args, T - 1, state=ps)[0], pb, scale)
-    return out
-
-
-def witness_hold(mode: str, w: dict) -> None:
-    """The conditions under which slab_hold's tail rule holds a SLAB_TAIL
-    variant: after one iteration the kernel's beta within 1e-4 of the
-    plain version's scale and its bf16 roundings at most one ulp apart;
-    one iteration from the same state, either way, within 1e-2 of the
-    scale everywhere; and the kernel no further from the float64-sum plain
-    version than the float32 one is (as few elements beyond 1e-2, the
-    largest error within 10 %)."""
-    a = w["after_one"]
-    require(a["beta"]["err"] <= 1e-4 and a["max_ulps"] <= 1,
-            f"{mode}: after one iteration {a}")
-    for k in ("plain_from_kernel_state", "kernel_from_plain_state"):
-        require(w[k]["n_over"] == 0, f"{mode}: {k} {w[k]}")
-    k64, p64 = w["kernel_vs_plain64"], w["plain_vs_plain64"]
-    require(k64["n_over"] <= p64["n_over"] and k64["err"] <= 1.1 * p64["err"],
-            f"{mode}: kernel against float64 sums {k64}, plain {p64}")
-
-
 def pair_vs_full(ex: Experiment, y_n) -> dict:
-    """The pair's kernel against full's over EXP_T iterations on y_n (their
-    plain versions are bit-identical; the kernels round every residual
-    and softmax-input operation on its own, so the two compilations must
-    agree too): per part of the kept state and for full's trace of the
-    first codeword of each pair, how many elements differ."""
+    """The pair's kernels against full's over EXP_T iterations on y_n
+    (their plain versions are bit-identical; per codeword the paired R2C2
+    and R3 do K7's arithmetic, so the two must agree too): per part of the
+    kept state and for full's trace of the first codeword of each pair,
+    how many elements differ."""
     from sparc_ldpc_tpu_torch.ops.amp_slab_exp import SlabState, amp_slab_exp
 
     model = ex.model
     c = model.cfg
     args = (y_n, model.op.mask.reshape(c.L, c.M), model.sq_npl, c.P, c.n,
             EXP_T)
-    _, tf, sf = amp_slab_exp("full", *args, keep_state=True)
-    _, tp, sp = amp_slab_exp("pair", *args, keep_state=True)
+    sup = model.op.split_support(c.L, c.M, y_n.device)
+    _, tf, sf = amp_slab_exp("full", *args, keep_state=True, support=sup)
+    _, tp, sp = amp_slab_exp("pair", *args, keep_state=True, support=sup)
     out = {name: int((getattr(sf, name) != getattr(sp, name)).sum())
            for name in SlabState._fields}
     out["trace"] = int((tf[:, 0::2] != tp).sum())
@@ -3129,39 +3133,59 @@ def pair_vs_full(ex: Experiment, y_n) -> dict:
 
 
 def slab_report(label: str, title: str, tm: dict, stages: dict,
-                full: dict, card: str, clock: Clock) -> None:
+                full: dict, card: str) -> str:
+    """The head of an S4 phase's line: launches, the tool's blocks, each
+    variant's call and device ms by launch beside full's, plain ms,
+    bounds, section errors and final tau2."""
     calls, blocks = tm["calls"], tm["blocks"]
-    print(f"[{label} {title}] B={SLAB_EXP_BATCH} T={EXP_T}: launches "
-          f"{tm['launches']}; tool ms/block "
-          f"{ {m: round(b['ms'], 2) for m, b in blocks.items()} }; us/iter/cw "
-          f"{ {m: round(b['us_per_iter_cw'], 3) for m, b in blocks.items()} };"
-          f" decode call ms (CUDA events) "
-          f"{ {m: round(r['ms'], 3) for m, r in calls.items()} } beside "
-          f"full's {full['ms']:.3f}; device ms by launch {stages}; plain ms "
-          f"{ {m: round(r['plain_ms'], 1) for m, r in calls.items() if 'plain_ms' in r} };"
-          f" bound ms { {m: round(r['bound_ms'], 3) for m, r in calls.items()} }"
-          f"; sections in error "
-          f"{ {m: r['sec_err'] for m, r in calls.items()} } (full: "
-          f"{full['sec_err']}), mean final tau2 "
-          f"{ {m: round(r['tau2_final'], 4) for m, r in calls.items()} } on "
-          f"{card} ({clock.lap():.1f} s)", flush=True)
+    return (f"[{label} {title}] B={SLAB_EXP_BATCH} T={EXP_T}: launches "
+            f"{tm['launches']}; tool ms/block "
+            f"{ {m: round(b['ms'], 2) for m, b in blocks.items()} }; "
+            f"us/iter/cw "
+            f"{ {m: round(b['us_per_iter_cw'], 3) for m, b in blocks.items()} }"
+            f"; decode call ms (CUDA events) "
+            f"{ {m: round(r['ms'], 3) for m, r in calls.items()} } beside "
+            f"full's {full['ms']:.3f}; device ms by launch {stages}; plain ms "
+            f"{ {m: round(r['plain_ms'], 1) for m, r in calls.items() if 'plain_ms' in r} }"
+            f"; bound ms "
+            f"{ {m: round(r['bound_ms'], 3) for m, r in calls.items()} }; "
+            f"sections in error "
+            f"{ {m: r['sec_err'] for m, r in calls.items()} } (full: "
+            f"{full['sec_err']}), mean final tau2 "
+            f"{ {m: round(r['tau2_final'], 4) for m, r in calls.items()} } on "
+            f"{card}")
 
 
-def slab_stages(ex: Experiment, tm: dict, modes) -> dict:
-    """Device ms by launch (C1, R2, C2, R3) of each of `modes`' timed
-    calls."""
-    return {m: device_ms_by_kernel(
-        lambda: ex.decode(m, tm["y_n"], EXP_T, "cold"), SLAB_STAGES)
-        for m in modes}
+# K7's launches in one S4 call at EXP_T: the encode, then C1, R2C2 and R3
+# an iteration
+SLAB_PER_CALL = dict(zip(SLAB_STAGES_K7, (1, EXP_T, EXP_T, EXP_T)))
+
+
+def slab_calls(ex: Experiment, tm: dict, modes) -> dict:
+    """exp_stages's calls of `modes`' timed decodes (encode, C1, R2C2, R3
+    by launch)."""
+    return {m: (functools.partial(ex.decode, m, tm["y_n"], EXP_T, "cold"),
+                SLAB_PER_CALL) for m in modes}
+
+
+def stage_split(stages: dict, modes) -> dict:
+    """full - variant by launch, in device ms a call."""
+    return {f"full - {m}": {k: round(stages["full"][k] - stages[m][k], 3)
+                            for k in SLAB_STAGES_K7}
+            for m in modes if m != "full"}
 
 
 def slab_ablation_phase(dev, card: str, model, clock: Clock) -> dict:
     """Phase 30: S4's make_kernel variants and factorings
-    (tools/slab_ablation.py)."""
-    from sparc_ldpc_tpu_torch.design.se import se_trajectory
-    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import ABLATED, DECODING, MODES
+    (tools/slab_ablation.py) on K7's own kernels, and K7's own fixed-T
+    call beside its "full" variant: the same bits, and their ms."""
+    import torch
+
+    from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused
+    from sparc_ldpc_tpu_torch.ops.amp_slab_exp import DECODING, MODES
 
     c = model.cfg
+    L, M = c.L, c.M
     ex = slab_family(model)
     modes = tuple(m for m in MODES if not m.startswith("compact")
                   and m != "pair")
@@ -3169,59 +3193,79 @@ def slab_ablation_phase(dev, card: str, model, clock: Clock) -> dict:
     tm = exp_timing(dev, ex, modes, "30")
     calls = tm["calls"]
     full = calls["full"]
-    stages = slab_stages(ex, tm, ("full",) + tuple(m for m in modes
-                                                   if m in ABLATED))
-    slab_report("30", "S4 slab stage ablation", tm, stages, full, card,
-                clock)
-    witness = {m: slab_tail_witness(ex, m, tm["y_n"], EXP_ABLATED_T)
-               for m in SLAB_TAIL}
-    se_fp = float(se_trajectory(model.p_alloc, c.n, c.M, model.sigma2,
-                                T=EXP_T)[-1])
+    y_n = tm["y_n"]
+    args = (y_n, model.op.mask.reshape(L, M), model.sq_npl, c.P, c.n, EXP_T)
+    sup = model.op.split_support(L, M, dev)
+    k7_ms, k7_out = timed_result(
+        lambda: amp_fused(*args, form="slab", support=sup), REPS)
+    full_out = ex.decode("full", y_n, EXP_T, "cold")
+    same = bool(torch.equal(full_out[0], k7_out[0])
+                and torch.equal(full_out[1], k7_out[1]))
+    del k7_out, full_out
+    stages = exp_stages({
+        **slab_calls(ex, tm, modes),
+        "K7": (lambda: amp_fused(*args, form="slab", support=sup),
+               SLAB_PER_CALL)})
+    head = slab_report("30", "S4 slab stage ablation on K7's kernels", tm,
+                       stages, full, card)
+    se_fp = se_final(model, EXP_T)
     # full's time by stage: what each changed variant saves, in ms and in
-    # % of full's call
+    # % of full's call, and by launch
     split = {f"full - {m}": (round(full["ms"] - calls[m]["ms"], 3),
                              round(100 * (1 - calls[m]["ms"] / full["ms"]), 2))
              for m in modes if m != "full"}
     share = {k: round(100 * v / full["ms"], 1)
              for k, v in stages["full"].items()}
-    print(f"[30 S4 split] full {full['ms']:.3f} ms a call, "
-          f"{full['ms'] / full['bound_ms']:.1f}x its {full['bound_ms']:.3f} "
-          f"ms bound; by launch, % of the call {share}; full - each variant "
-          f"(ms, % of full's call) {split}; full's mean final tau2 "
-          f"{full['tau2_final']:.4f} (SE {se_fp:.4f}); the tail rule's "
-          f"witness at B={SLAB_EXP_BATCH}, T={EXP_ABLATED_T} {witness} "
-          f"({clock.lap():.1f} s)", flush=True)
+    print(f"{head}; full {full['ms']:.3f} ms a call, K7's own fixed-T "
+          f"call (amp_fused slab, y given) {k7_ms:.3f} ms "
+          f"({100 * (full['ms'] / k7_ms - 1):+.2f} %), beta and trace bit "
+          f"for bit: {same}; full {full['ms'] / full['bound_ms']:.1f}x its "
+          f"{full['bound_ms']:.3f} ms bound; by launch, % of the call "
+          f"{share}; full - each variant (ms, % of full's call) {split}, by "
+          f"launch {stage_split(stages, modes)}; full's mean final tau2 "
+          f"{full['tau2_final']:.4f} (SE {se_fp:.4f}) ({clock.lap():.1f} s)",
+          flush=True)
+    require(same, "S4 full's beta and trace differ from K7's call")
+    require(abs(full["ms"] / k7_ms - 1) <= 0.02,
+            f"S4 full's call {full['ms']:.3f} ms is not within 2 % of K7's "
+            f"{k7_ms:.3f}")
     require(abs(full["tau2_final"] / se_fp - 1) <= 0.03,
             "S4 full: mean final tau2 off SE by more than 3 %")
     for m in modes:
         if m in DECODING:
             require(abs(calls[m]["sec_err"] - full["sec_err"])
-                    <= 0.01 * SLAB_EXP_BATCH * c.L,
+                    <= 0.01 * SLAB_EXP_BATCH * L,
                     f"{m}: section errors {calls[m]['sec_err']} against "
                     f"full's {full['sec_err']}")
-    for m, w in witness.items():
-        witness_hold(m, w)
     return dict(ex=ex, checks=checks, tm=tm, full=full, stages=stages,
-                witness=witness)
+                k7_ms=k7_ms, same=same)
 
 
 def slab_layout_phase(dev, card: str, model, sa: dict, clock: Clock) -> dict:
-    """Phase 31: S4's compact layouts and the pair."""
+    """Phase 31: S4's compact layouts and the pair, by launch beside
+    full."""
     ex, full = sa["ex"], sa["full"]
     modes = ("compact", "compact32", "pair")
     checks = exp_checks(dev, ex, modes, clock, "31 S4")
     tm = exp_timing(dev, ex, modes, "31")
-    stages = slab_stages(ex, tm, modes)
-    slab_report("31", "S4 compact and pair", tm, stages, full, card, clock)
+    stages = exp_stages(slab_calls(ex, tm, modes))
+    stages["full"] = sa["stages"]["full"]
+    head = slab_report("31", "S4 compact and pair on K7's kernels", tm,
+                       stages, full, card)
     pf = pair_vs_full(ex, tm["y_n"])
-    print(f"[31 S4 pair vs full kernels] B={SLAB_EXP_BATCH}, T={EXP_T}: "
-          f"elements that differ {pf}", flush=True)
+    split = {f"full - {m}": (round(full["ms"] - tm["calls"][m]["ms"], 3),
+                             round(100 * (1 - tm["calls"][m]["ms"]
+                                          / full["ms"]), 2))
+             for m in modes}
+    print(f"{head}; full - each variant (ms, % of full's call) {split}, "
+          f"by launch {stage_split(stages, modes)}; pair vs full kernels: "
+          f"elements that differ {pf} ({clock.lap():.1f} s)", flush=True)
     require(not any(pf.values()), f"S4 pair: not full's bits: {pf}")
     pair = tm["calls"]["pair"]
     require(abs(pair["sec_err"] - full["sec_err"])
             <= 0.01 * SLAB_EXP_BATCH * model.cfg.L,
             "S4 pair: section errors off full's")
-    return dict(checks=checks, tm=tm, pair_vs_full=pf)
+    return dict(checks=checks, tm=tm, pair_vs_full=pf, stages=stages)
 
 
 def k1_design_bytes(iters, L: int, M: int, ns: int, T: int,
@@ -3714,7 +3758,9 @@ def main() -> None:
     s4_rec = exp_record("slab_ablation", SLAB_EXP_SOURCE,
                         "scripts/slab_ablation.py:130", "full",
                         {**s4["checks"], **s4l["checks"]}, s4_tm)
-    s4_rec["stages_ms_full"] = s4["stages"]["full"]
+    s4_rec["stages_ms_by_variant"] = {**s4["stages"], **s4l["stages"]}
+    s4_rec["k7_ms"] = s4["k7_ms"]
+    s4_rec["full_is_k7_bit_for_bit"] = s4["same"]
     k1s = k1_stage_phase(dev, card, sp, lp, clock)
     legs = legs_phase(dev, card, clock)
     ops = operators_phase(dev, card, clock)

@@ -11,7 +11,7 @@
 // All run T fixed iterations on an observation y given (no encode of a
 // codeword, no noise, no early stop, no pins).
 //
-// S2 and S3 are K1 as it is (its row-support design) with one thing
+// S1, S2 and S3 are K1 as it is (its row-support design) with one thing
 // changed: K1's compact encode of y on the row support, then per
 // iteration a column stage that walks (codeword, 32-column strip) items
 // with one block an SM, the next item's strip brought by cp.async, and
@@ -73,10 +73,13 @@
 // entries staged in shared memory as K1's column stage stages them (two
 // shared loads and a popcount an element, no table of its own).
 //
-// S1 (the pair) keeps K1's earlier, dense design until its own
-// redesign: dense y, mask and z in the column stage, one block a (codeword,
-// strip), two codewords a row-stage block, the scripts' scaling (beta in
-// true scale, a 0/1 mask), the row length a compile-time 512.
+// S1 (the pair): K1's encode and column stage (its walker holds one
+// codeword's strip: two would need twice its 192 KB at L = 1024), and K1's
+// row stage at its variant kK1Pair, a warp taking section row l of two
+// codewords and issuing each phase (load, H_M, max, exp, sum, store, the
+// next H_M) for both before the next.  Per codeword the arithmetic is
+// K1's, so the pair's bits are K1's fixed-T call's.  Does one codeword's
+// arithmetic hide behind the other's loads in the row stage?
 //
 // Shapes: L = 1024, M = 512 (the scripts'), any B up to 65535 (even for
 // the pair).  Bounds (chip_smoke.py exp_bound): every decoding variant
@@ -120,8 +123,9 @@ struct K1Args {
 
 // ------------------------------------------------------------------ S2
 
-// K1's encode and T iterations of its two launches at variant V.
-template <int V, typename WT>
+// K1's encode and T iterations of its two launches: the column stage at
+// variant V, the row stage at RV (V's own, or S1's kK1Pair).
+template <int V, typename WT, int RV = V>
 int run_s2(const K1Args& a, cudaStream_t st) {
   WT* work = static_cast<WT*>(a.work);
   const float nn = a.n * a.n;
@@ -132,10 +136,11 @@ int run_s2(const K1Args& a, cudaStream_t st) {
                                              a.bpart, a.trace, a.active, a.B,
                                              t, a.P, nn, st);
     if (rc) break;
-    rc = k1_row_launch<kM, WT, 1, V>(work, a.beta, a.zpart, a.bpart, a.trace,
-                                     a.iters, a.active, nullptr, nullptr,
-                                     a.sqi, a.sqo, a.B, kL, t, t == a.T - 1,
-                                     a.n, a.inv_sqrt_n, 0.f, st);
+    rc = k1_row_launch<kM, WT, 1, RV>(work, a.beta, a.zpart, a.bpart,
+                                      a.trace, a.iters, a.active, nullptr,
+                                      nullptr, a.sqi, a.sqo, a.B, kL, t,
+                                      t == a.T - 1, a.n, a.inv_sqrt_n, 0.f,
+                                      st);
   }
   return rc;
 }
@@ -650,341 +655,28 @@ int run_s3(const K1Args& a, cudaStream_t st) {
   return rc;
 }
 
-// --------------------------------------- S1 (K1's earlier, dense design)
-//
-// The pair's kernels, K1's earlier design in the scripts' scaling:
-//
-//   coef = (P - |beta|^2 / n) / tau2_prev          (0 at t = 0)
-//   z    = mask (y - H(beta) / sqrt(n)) + coef z   (mask 0/1, bf16)
-//   tau2 = |z|^2 / n
-//   beta = sq softmax_row((sq / tau2) (H(z) / sqrt(n) + beta))
-//
-// Column stage: one block per (codeword, 32-column strip) holds the (L, 32)
-// strip (K1's layouts A and B of amp_common.cuh): H_L of the forward
-// transform, the residual on dense y, mask and z, the strip's |z|^2, H_L
-// of the adjoint into the work tile.  Row stage: a section row handled by
-// TPR = M / 4 threads with 4 adjacent columns each, two codewords a block,
-// every phase (load, H_M, max, exp, sum, store, H_M) for both before the
-// next.  They stay here for the pair alone until its own redesign.
-
-constexpr int kTPR = kM / 4, kRPB = kRowThreads / kTPR;
-
-// coef of iteration t from the row partials of |beta|^2 (every thread gets
-// it); 0 at t = 0, where beta = 0 and z = 0.
-__device__ __forceinline__ float onsager(const float* bpart,
-                                         const float* tau2s, float* red,
-                                         int B, int b, int t, float P,
-                                         float n) {
-  if (t == 0) return 0.f;
-  float acc = 0.f;
-  for (int l = threadIdx.x; l < kL; l += 32 * kW)
-    acc += bpart[(size_t)b * kL + l];
-  const float bnorm2 = block_sum<kW>(acc, red);
-  return (P - bnorm2 / n) / tau2s[(size_t)(t - 1) * B + b];
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(32 * kW, 1)
-pair_col_kernel(WT* __restrict__ work, const float* __restrict__ y,
-                float* __restrict__ z, const __nv_bfloat16* __restrict__ mask,
-                float* __restrict__ zpart,        // (B, M / 32)
-                const float* __restrict__ bpart,  // (B, L) row |beta|^2
-                const float* __restrict__ tau2s,  // (T, B)
-                int B, int t, float P, float n, float inv_sqrt_n) {
-  extern __shared__ float sm[];
-  __shared__ float red[kW];
-  constexpr int kRound = IsBf16<WT>::value;
-  const int w = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const int b = blockIdx.y, m = blockIdx.x * kStrip + c;
-  const size_t base = (size_t)b * kL * kM;
-  const float coef = onsager(bpart, tau2s, red, B, b, t, P, n);
-  float v[kR];
-  if (t > 0) {
-#pragma unroll
-    for (int k = 0; k < kR; ++k)
-      v[k] = to_f32(work[base + (size_t)(w + kW * k) * kM + m]);
-    col_fwht_ab<kW, kR, 1>(v, sm, w, c, 0);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kR; ++k) v[k] = 0.f;
-  }
-  float zz = 0.f;
-#pragma unroll
-  for (int k = 0; k < kR; ++k) {
-    const int l = kR * w + k;
-    const size_t off = base + (size_t)l * kM + m;
-    float zk = to_f32(mask[(size_t)l * kM + m]) * (y[off] - v[k] * inv_sqrt_n);
-    if (t > 0) zk += coef * z[off];
-    z[off] = zk;
-    zz += zk * zk;
-    v[k] = maybe_round(zk, kRound);
-  }
-  const float zsum = block_sum<kW>(zz, red);
-  if (threadIdx.x == 0) zpart[(size_t)b * gridDim.x + blockIdx.x] = zsum;
-  col_fwht_ba<kW, kR, 1>(v, sm, w, c, 0);
-#pragma unroll
-  for (int k = 0; k < kR; ++k)
-    work[base + (size_t)(w + kW * k) * kM + m] = from_f32<WT>(v[k]);
-}
-
-// H_M of the C rows this thread's row group holds (amp_split.cu row_fwht
-// for C codewords); srow points at the row's C * M floats of scratch.
-template <int C>
-__device__ __forceinline__ void row_fwht_c(float (&v)[C][4], float* srow,
-                                           int j) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float a = v[c][0] + v[c][1], b = v[c][0] - v[c][1];
-    const float d = v[c][2] + v[c][3], e = v[c][2] - v[c][3];
-    v[c][0] = a + d;
-    v[c][1] = b + e;
-    v[c][2] = a - d;
-    v[c][3] = b - e;
-  }
-#pragma unroll
-  for (int mk = 1; mk < 32; mk <<= 1) {
-    const bool hi = (j & mk) != 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float o = __shfl_xor_sync(0xffffffffu, v[c][i], mk);
-        v[c][i] = hi ? o - v[c][i] : v[c][i] + o;
-      }
-    }
-  }
-  // bits 7 and 8 of the column span the row's four warps
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    reinterpret_cast<float4*>(srow + c * kM)[j] =
-        make_float4(v[c][0], v[c][1], v[c][2], v[c][3]);
-  __syncthreads();
-  for (int h = 128; h < kM; h <<= 1) {
-    for (int i = j; i < kM / 2; i += kTPR) {
-      const int p = (i / h) * 2 * h + (i % h);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float* s = srow + c * kM;
-        const float a = s[p], b = s[p + h];
-        s[p] = a + b;
-        s[p + h] = a - b;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float4 q = reinterpret_cast<const float4*>(srow + c * kM)[j];
-    v[c][0] = q.x;
-    v[c][1] = q.y;
-    v[c][2] = q.z;
-    v[c][3] = q.w;
-  }
-}
-
-// Max or sum over each of the C rows' TPR threads, fixed order; every
-// thread of the row gets its codeword's result.  red: C * 8 floats.
-template <int C, bool IS_MAX>
-__device__ __forceinline__ void row_reduce_c(float (&x)[C], float* red,
-                                             int r) {
-  constexpr int WPR = kTPR / 32;  // warps per row
-#pragma unroll
-  for (int mk = 1; mk < 32; mk <<= 1) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float o = __shfl_xor_sync(0xffffffffu, x[c], mk);
-      x[c] = IS_MAX ? fmaxf(x[c], o) : x[c] + o;
-    }
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) red[c * 8 + (threadIdx.x >> 5)] = x[c];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float s = red[c * 8 + r * WPR];
-#pragma unroll
-    for (int i = 1; i < WPR; ++i) {
-      const float o = red[c * 8 + r * WPR + i];
-      s = IS_MAX ? fmaxf(s, o) : s + o;
-    }
-    x[c] = s;
-  }
-}
-
-__device__ __forceinline__ void load4(float (&v)[4], const float* p) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
-
-__device__ __forceinline__ void load4(float (&v)[4], const __nv_bfloat16* p) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
-}
-
-// Row stage of iteration t for codewords C blockIdx.y + c.  work holds H_L
-// of round(z) on entry and H_M of round(beta) on exit unless t is the last
-// iteration.
-template <typename WT, int C>
-__global__ void __launch_bounds__(kRowThreads)
-pair_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
-                const float* __restrict__ zpart,  // (B, M / 32)
-                float* __restrict__ bpart,        // (B, L)
-                float* __restrict__ tau2s,        // (T, B)
-                const float* __restrict__ sq, int B, int t, int last, float n,
-                float inv_sqrt_n) {
-  constexpr int kRound = IsBf16<WT>::value;
-  __shared__ __align__(16) float srows[kRPB * C * kM];
-  __shared__ float red[C * 8];
-  const int r = threadIdx.x / kTPR, j = threadIdx.x % kTPR;
-  const int l = blockIdx.x * kRPB + r;
-  float* srow = srows + r * C * kM;
-  size_t off[C];
-  float tau2[C], v[C][4];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int b = blockIdx.y * C + c;
-    off[c] = ((size_t)b * kL + l) * kM + 4 * j;
-    float zz = 0.f;
-#pragma unroll
-    for (int s = 0; s < kNS; ++s) zz += zpart[(size_t)b * kNS + s];
-    tau2[c] = zz / n;
-    load4(v[c], work + off[c]);
-  }
-  row_fwht_c<C>(v, srow, j);
-  const float sql = sq[l];
-  float mx[C], se[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float bo[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t > 0) load4(bo, beta + off[c]);
-    const float ai = sql / tau2[c];
-    mx[c] = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[c][i] = ai * (v[c][i] * inv_sqrt_n + bo[i]);
-      mx[c] = fmaxf(mx[c], v[c][i]);
-    }
-  }
-  row_reduce_c<C, true>(mx, red, r);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    se[c] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[c][i] = expf(v[c][i] - mx[c]);
-      se[c] += v[c][i];
-    }
-  }
-  row_reduce_c<C, false>(se, red, r);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float so = sql / se[c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[c][i] = so * v[c][i];
-    store4(beta + off[c], v[c]);
-  }
-  if (!last) {  // uniform per launch
-    float bb[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      bb[c] = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) bb[c] += v[c][i] * v[c][i];
-    }
-    row_reduce_c<C, false>(bb, red, r);
-    if (j == 0) {
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        bpart[(size_t)(blockIdx.y * C + c) * kL + l] = bb[c];
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[c][i] = maybe_round(v[c][i], kRound);
-    }
-    row_fwht_c<C>(v, srow, j);
-#pragma unroll
-    for (int c = 0; c < C; ++c) store4(work + off[c], v[c]);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      tau2s[(size_t)t * B + blockIdx.y * C + c] = tau2[c];
-  }
-}
-
-// Arguments of the pair's iteration loop (see amp_pair_run).
-struct PairArgs {
-  const float *y, *sq;
-  const __nv_bfloat16* mask;
-  float *beta, *tau2s, *z, *zpart, *bpart;
-  void* work;
-  int B, T;
-  float P, n, inv_sqrt_n;
-};
-
-template <typename WT>
-int run_pair(const PairArgs& a, cudaStream_t st) {
-  WT* work = static_cast<WT*>(a.work);
-  for (int t = 0; t < a.T; ++t) {
-    int rc = launch_cols<kW, kR, 1>(pair_col_kernel<WT>, a.B, kM, st, work,
-                                    a.y, a.z, a.mask, a.zpart, a.bpart,
-                                    a.tau2s, a.B, t, a.P, a.n, a.inv_sqrt_n);
-    if (rc) return rc;
-    pair_row_kernel<WT, 2><<<dim3(kL / kRPB, a.B / 2), kRowThreads, 0, st>>>(
-        work, a.beta, a.zpart, a.bpart, a.tau2s, a.sq, a.B, t, t == a.T - 1,
-        a.n, a.inv_sqrt_n);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-  }
-  return 0;
-}
-
-template <int V>
+template <int V, int RV = V>
 int run_s2_both(const K1Args& a, int round_bf16, cudaStream_t st) {
-  return round_bf16 ? run_s2<V, __nv_bfloat16>(a, st)
-                    : run_s2<V, float>(a, st);
+  return round_bf16 ? run_s2<V, __nv_bfloat16, RV>(a, st)
+                    : run_s2<V, float, RV>(a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// S2 or S3 variant `mode` (the order of ops/amp_exp.py MODES, the pair
-// excepted) for B codewords, T fixed iterations, on K1's design.  Inputs:
-// y_n (B, L, M) the observation, read on the row support only; the row
-// support as K1 takes it (ops/split_support.py, ns entries in K1's order):
-// mask_c (ns,) mask/n of each entry, offset and word (L / 32, M),
+// S1, S2 or S3 variant `mode` (the order of ops/amp_exp.py MODES) for B
+// codewords (even for the pair), T fixed iterations, on K1's design.
+// Inputs: y_n (B, L, M) the observation, read on the row support only; the
+// row support as K1 takes it (ops/split_support.py, ns entries in K1's
+// order): mask_c (ns,) mask/n of each entry, offset and word (L / 32, M),
 // block (M / 32 + 1,); sqi, sqo (L,) sq / sqrt(n), sq sqrt(n).  Outputs:
 // beta (B, L, M) true scale, trace (T, B).  Scratch: iters (B,) int32,
 // active (T + 1, B) int32 all ones, yc, zc (B, ns); work (B, L, M),
 // bfloat16 when round_bf16 (the transforms' operands rounded to bf16) and
-// float otherwise (S2 only: S3's factors run on the bf16 tensor cores);
-// zpart (B, M / 32); bpart (B, L).  L = 1024, M = 512.  Returns 0, a
-// cudaError_t, or -1 for an unsupported shape or mode.
+// float otherwise (S1 and S2 only: S3's factors run on the bf16 tensor
+// cores); zpart (B, M / 32); bpart (B, L).  L = 1024, M = 512.  Returns 0,
+// a cudaError_t, or -1 for an unsupported shape or mode.
 int amp_exp_run(int mode, const float* y_n, const float* mask_c,
                 const int32_t* offset, const uint32_t* word,
                 const int32_t* block, int ns, const float* sqi,
@@ -995,8 +687,9 @@ int amp_exp_run(int mode, const float* y_n, const float* mask_c,
                 void* stream) {
   if (L != kL || M != kM || B < 1 || B > 65535 || T < 1 || ns < 0)
     return kBadShape;
-  if (mode < 0 || mode >= kPair) return kBadShape;
-  if (mode >= kSlabLoop && !round_bf16) return kBadShape;
+  if (mode < 0 || mode >= kModes) return kBadShape;
+  if (mode >= kSlabLoop && mode < kPair && !round_bf16) return kBadShape;
+  if (mode == kPair && B % 2) return kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   K1Args a;
   a.sp.mask = mask_c;
@@ -1035,28 +728,9 @@ int amp_exp_run(int mode, const float* y_n, const float* mask_c,
     case kF256Vpu4: return run_s3<256, kVpu, false>(a, st);
     case kF128Vpu8: return run_s3<128, kVpu, false>(a, st);
     case kL256M128: return run_s3<256, kVpu, true>(a, st);
+    case kPair: return run_s2_both<kK1, kK1Pair>(a, round_bf16, st);
     default: return kBadShape;
   }
-}
-
-// S1, the pair, for B (even) codewords, T fixed iterations, in the scripts'
-// scaling.  Inputs: y (B, L, M) the observation on the row support; mask
-// (L, M) bfloat16 0/1; sq (L,) sqrt(n P_l).  Outputs: beta (B, L, M) true
-// scale; tau2s (T, B).  Scratch: z (B, L, M) float; work (B, L, M),
-// bfloat16 when round_bf16 and float otherwise; zpart (B, M / 32); bpart
-// (B, L).  L = 1024, M = 512.  Returns 0, a cudaError_t, or -1 for an
-// unsupported shape.
-int amp_pair_run(const float* y, const __nv_bfloat16* mask, const float* sq,
-                 float* beta, float* tau2s, float* z, void* work,
-                 float* zpart, float* bpart, int B, int L, int M, int T,
-                 float P, float n, float inv_sqrt_n, int round_bf16,
-                 void* stream) {
-  if (L != kL || M != kM || B < 2 || B > 65535 || B % 2 || T < 1)
-    return kBadShape;
-  const PairArgs a{y, sq, mask, beta, tau2s, z, zpart, bpart,
-                   work, B, T, P, n, inv_sqrt_n};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return round_bf16 ? run_pair<__nv_bfloat16>(a, st) : run_pair<float>(a, st);
 }
 
 const char* amp_exp_error_string(int code) {

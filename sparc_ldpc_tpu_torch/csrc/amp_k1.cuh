@@ -14,7 +14,14 @@
 //                  (rounded to bf16 when it is bf16);
 //   kK1MStageOnly  no H_L: the column stage passes the work tile through;
 //   kK1NoNorms     coef = 0.1 and tau2 = 0.5: no |beta'|^2 or |z|^2
-//                  partials and no pass over them.
+//                  partials and no pass over them;
+//   kK1Pair        (the row stage only; S1, the pair) a warp takes section
+//                  row l of codewords 2 p and 2 p + 1 and issues each phase
+//                  (load, H_M, max, exp, sum, store, the next H_M) for both
+//                  before the next; per codeword K1's arithmetic, so K1's
+//                  bits.  The column stage stays K1's own: its walker holds
+//                  one codeword's strip (two 192 KB at L = 1024 would not
+//                  fit an SM).
 // The ablations run at L <= 1024 only (no cluster).  See amp_split.cu for
 // K1's algorithm, layout and what bounds each stage.
 
@@ -25,8 +32,14 @@
 namespace {
 
 enum K1Variant {
-  kK1 = 0, kK1NoSoftmax, kK1NoMax, kK1NoTransform, kK1MStageOnly, kK1NoNorms
+  kK1 = 0, kK1NoSoftmax, kK1NoMax, kK1NoTransform, kK1MStageOnly, kK1NoNorms,
+  kK1Pair
 };
+
+// codewords a row-stage block
+__host__ __device__ constexpr int k1_row_cw(int v) {
+  return v == kK1Pair ? 2 : 1;
+}
 
 constexpr int kRowThreads = 256;   // threads per row-stage block
 
@@ -401,7 +414,8 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float* v) {
 // Row stage of iteration t.  work holds H_L z on entry and, unless this is
 // the codeword's last iteration, H_M beta'_new (the next forward
 // transform) on exit.  beta holds beta' and, after the codeword's last
-// iteration, the true-scale beta.  Grid (L / RPB, B).
+// iteration, the true-scale beta.  Grid (L / RPB, B / C): C codewords a
+// block (kK1Pair: 2, at fixed T, without pins).
 template <int M, typename WT, int FA, int V = kK1>
 __global__ void __launch_bounds__(kRowThreads)
 k1_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
@@ -422,129 +436,201 @@ k1_row_kernel(WT* __restrict__ work, float* __restrict__ beta,
   constexpr int kRound = IsBf16<WT>::value;
   constexpr bool HM = V != kK1NoTransform;
   constexpr bool NORMS = V != kK1NoNorms;
+  constexpr int CW = k1_row_cw(V);
   const int lane = threadIdx.x & 31;
   const int j = lane % Sh::TPR;
   const int r = (threadIdx.x >> 5) * (32 / Sh::TPR) + lane / Sh::TPR;
-  const int b = blockIdx.y;
+  const int b0 = blockIdx.y * CW;
   const int l = blockIdx.x * Sh::RPB + r;
-  const size_t row = ((size_t)b * L + l) * M;
+  size_t row[CW];
+  float tau2_prev[CW];
+#pragma unroll
+  for (int cw = 0; cw < CW; ++cw) {
+    row[cw] = ((size_t)(b0 + cw) * L + l) * M;
+    tau2_prev[cw] = t > 0 ? trace[(size_t)(t - 1) * B + b0 + cw] : INFINITY;
+  }
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
-  const float tau2_prev = t > 0 ? trace[(size_t)(t - 1) * B + b] : INFINITY;
 
-  if (!active[(size_t)t * B + b]) {  // frozen: uniform per block
+  if (!active[(size_t)t * B + b0]) {  // frozen: uniform per block
     if (lead) {
-      trace[(size_t)t * B + b] = tau2_prev;
-      active[(size_t)(t + 1) * B + b] = 0;
+#pragma unroll
+      for (int cw = 0; cw < CW; ++cw) {
+        trace[(size_t)t * B + b0 + cw] = tau2_prev[cw];
+        active[(size_t)(t + 1) * B + b0 + cw] = 0;
+      }
     }
     return;
   }
-  float tau2;
-  if constexpr (!NORMS) {
-    tau2 = 0.5f;
-  } else if (sched != nullptr) {
-    tau2 = sched[t];
-  } else {
-    float zz = 0.f;
-    for (int s = 0; s < NS; ++s) zz += zpart[(size_t)b * NS + s];
-    tau2 = zz / n;
+  float tau2[CW];
+  bool conv = false;
+#pragma unroll
+  for (int cw = 0; cw < CW; ++cw) {
+    if constexpr (!NORMS) {
+      tau2[cw] = 0.5f;
+    } else if (sched != nullptr) {
+      tau2[cw] = sched[t];
+    } else {
+      float zz = 0.f;
+      for (int s = 0; s < NS; ++s) zz += zpart[(size_t)(b0 + cw) * NS + s];
+      tau2[cw] = zz / n;
+    }
+    conv = conv || fabsf(tau2[cw] - tau2_prev[cw]) < tol * tau2[cw];
   }
-  const bool conv = fabsf(tau2 - tau2_prev) < tol * tau2;
   const bool fin = last || conv;  // this codeword's last iteration
 
-  float v[VPL];
+  float v[CW][VPL];
 #pragma unroll
-  for (int i = 0; i < NCH; ++i)
-    load_chunk<C>(v + C * i, work + row + Sh::col(j, C * i));
-  if constexpr (HM) warp_row_fwht<M>(v, j);
+  for (int i = 0; i < NCH; ++i) {
+#pragma unroll
+    for (int cw = 0; cw < CW; ++cw)
+      load_chunk<C>(v[cw] + C * i, work + row[cw] + Sh::col(j, C * i));
+  }
+  if constexpr (HM) {
+#pragma unroll
+    for (int cw = 0; cw < CW; ++cw) warp_row_fwht<M>(v[cw], j);
+  }
   if (t > 0) {
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
-      float bo[C];
-      load_chunk<C>(bo, beta + row + Sh::col(j, C * i));
 #pragma unroll
-      for (int q = 0; q < C; ++q) v[C * i + q] += bo[q];
+      for (int cw = 0; cw < CW; ++cw) {
+        float bo[C];
+        load_chunk<C>(bo, beta + row[cw] + Sh::col(j, C * i));
+#pragma unroll
+        for (int q = 0; q < C; ++q) v[cw][C * i + q] += bo[q];
+      }
     }
   }
-  const float ai = sqi[l] / tau2;
-  float p[NG];
+  float p[CW][NG];
   if constexpr (V == kK1NoSoftmax) {
     const float s = 1e-3f / inv_sqrt_n;
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) v[i] = (ai * v[i]) * s;
+    for (int cw = 0; cw < CW; ++cw) {
+      const float ai = sqi[l] / tau2[cw];
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) v[cw][i] = (ai * v[cw][i]) * s;
+    }
   } else {
-    float mx = 0.f;
+    float mx[CW];
+#pragma unroll
+    for (int cw = 0; cw < CW; ++cw) {
+      const float ai = sqi[l] / tau2[cw];
+      mx[cw] = 0.f;
+      if constexpr (V != kK1NoMax) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          float gm = -INFINITY;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            v[cw][4 * g + q] = ai * v[cw][4 * g + q];
+            gm = fmaxf(gm, v[cw][4 * g + q]);
+          }
+          p[cw][g] = gm;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) v[cw][i] = ai * v[cw][i];
+      }
+    }
     if constexpr (V != kK1NoMax) {
 #pragma unroll
+      for (int cw = 0; cw < CW; ++cw)
+        mx[cw] = warp_row_reduce<M, true>(p[cw]);
+    }
+#pragma unroll
+    for (int cw = 0; cw < CW; ++cw) {
+#pragma unroll
       for (int g = 0; g < NG; ++g) {
-        float gm = -INFINITY;
+        float se = 0.f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          v[4 * g + q] = ai * v[4 * g + q];
-          gm = fmaxf(gm, v[4 * g + q]);
+          v[cw][4 * g + q] = V == kK1NoMax ? expf(v[cw][4 * g + q])
+                                           : expf(v[cw][4 * g + q] - mx[cw]);
+          se += v[cw][4 * g + q];
         }
-        p[g] = gm;
+        p[cw][g] = se;
       }
-      mx = warp_row_reduce<M, true>(p);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) v[i] = ai * v[i];
     }
+    float so[CW];
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      float se = 0.f;
+    for (int cw = 0; cw < CW; ++cw)
+      so[cw] = sqo[l] / warp_row_reduce<M, false>(p[cw]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        v[4 * g + q] = V == kK1NoMax ? expf(v[4 * g + q])
-                                     : expf(v[4 * g + q] - mx);
-        se += v[4 * g + q];
-      }
-      p[g] = se;
+    for (int cw = 0; cw < CW; ++cw) {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) v[cw][i] = so[cw] * v[cw][i];
     }
-    const float so = sqo[l] / warp_row_reduce<M, false>(p);
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) v[i] = so * v[i];
   }
   if (pin != nullptr) {
-    const int pc = pin[(size_t)b * L + l];
-    if (pc >= 0) {
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) v[i] = (Sh::col(j, i) == pc) ? sqo[l] : 0.f;
+    for (int cw = 0; cw < CW; ++cw) {
+      const int pc = pin[(size_t)(b0 + cw) * L + l];
+      if (pc >= 0) {
+#pragma unroll
+        for (int i = 0; i < VPL; ++i)
+          v[cw][i] = (Sh::col(j, i) == pc) ? sqo[l] : 0.f;
+      }
     }
   }
   if (fin) {
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
-      float out[C];
 #pragma unroll
-      for (int q = 0; q < C; ++q) out[q] = v[C * i + q] * inv_sqrt_n;
-      store_chunk<C>(beta + row + Sh::col(j, C * i), out);
+      for (int cw = 0; cw < CW; ++cw) {
+        float out[C];
+#pragma unroll
+        for (int q = 0; q < C; ++q) out[q] = v[cw][C * i + q] * inv_sqrt_n;
+        store_chunk<C>(beta + row[cw] + Sh::col(j, C * i), out);
+      }
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < NCH; ++i)
-      store_chunk<C>(beta + row + Sh::col(j, C * i), v + C * i);
+    for (int i = 0; i < NCH; ++i) {
+#pragma unroll
+      for (int cw = 0; cw < CW; ++cw)
+        store_chunk<C>(beta + row[cw] + Sh::col(j, C * i), v[cw] + C * i);
+    }
     if constexpr (NORMS) {
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        float bb = 0.f;
+      for (int cw = 0; cw < CW; ++cw) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bb += v[4 * g + q] * v[4 * g + q];
-        p[g] = bb;
+        for (int g = 0; g < NG; ++g) {
+          float bb = 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            bb += v[cw][4 * g + q] * v[cw][4 * g + q];
+          p[cw][g] = bb;
+        }
       }
-      const float bb = warp_row_reduce<M, false>(p);
-      if (j == 0) bpart[(size_t)b * L + l] = bb;
+#pragma unroll
+      for (int cw = 0; cw < CW; ++cw) {
+        const float bb = warp_row_reduce<M, false>(p[cw]);
+        if (j == 0) bpart[(size_t)(b0 + cw) * L + l] = bb;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) v[i] = maybe_round(v[i], kRound);
-    if constexpr (HM) warp_row_fwht<M>(v, j);
+    for (int cw = 0; cw < CW; ++cw) {
 #pragma unroll
-    for (int i = 0; i < NCH; ++i)
-      store_chunk<C>(work + row + Sh::col(j, C * i), v + C * i);
+      for (int i = 0; i < VPL; ++i) v[cw][i] = maybe_round(v[cw][i], kRound);
+    }
+    if constexpr (HM) {
+#pragma unroll
+      for (int cw = 0; cw < CW; ++cw) warp_row_fwht<M>(v[cw], j);
+    }
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+#pragma unroll
+      for (int cw = 0; cw < CW; ++cw)
+        store_chunk<C>(work + row[cw] + Sh::col(j, C * i), v[cw] + C * i);
+    }
   }
   if (lead) {
-    trace[(size_t)t * B + b] = tau2;
-    active[(size_t)(t + 1) * B + b] = fin ? 0 : 1;
-    if (fin) iters[b] = t + 1;
+#pragma unroll
+    for (int cw = 0; cw < CW; ++cw) {
+      trace[(size_t)t * B + b0 + cw] = tau2[cw];
+      active[(size_t)(t + 1) * B + b0 + cw] = fin ? 0 : 1;
+      if (fin) iters[b0 + cw] = t + 1;
+    }
   }
 }
 
@@ -590,7 +676,7 @@ int k1_col_launch(WT* work, const float* yc, float* zc, const Support& sp,
   return rc ? rc : (int)cudaGetLastError();
 }
 
-// The row stage: grid (L / RPB, B).
+// The row stage: grid (L / RPB, B / codewords a block).
 template <int M, typename WT, int FA, int V = kK1>
 int k1_row_launch(WT* work, float* beta, const float* zpart, float* bpart,
                   float* trace, int32_t* iters, int32_t* active,
@@ -598,7 +684,7 @@ int k1_row_launch(WT* work, float* beta, const float* zpart, float* bpart,
                   const float* sqo, int B, int L, int t, int last, float n,
                   float inv_sqrt_n, float tol, cudaStream_t st) {
   k1_row_kernel<M, WT, FA, V>
-      <<<dim3(L / RowShape<M>::RPB, B), kRowThreads, 0, st>>>(
+      <<<dim3(L / RowShape<M>::RPB, B / k1_row_cw(V)), kRowThreads, 0, st>>>(
           work, beta, zpart, bpart, trace, iters, active, pin, sched, sqi,
           sqo, B, L, t, last, n, inv_sqrt_n, tol);
   return (int)cudaGetLastError();

@@ -55,11 +55,10 @@ _SIGNATURES = {
     "amp_exp": {
         "amp_exp_run": ((_I,) + (_P,) * 5 + (_I,) + (_P,) * 11 + (_I,) * 4
                         + (_F,) * 3 + (_I, _P), _I),
-        "amp_pair_run": ((_P,) * 9 + (_I,) * 4 + (_F,) * 3 + (_I, _P), _I),
     },
     "amp_slab_exp": {
-        "amp_slab_exp_run": ((_I,) * 4 + (_P,) * 12 + (_I,) * 4 + (_F,) * 4
-                             + (_P,), _I),
+        "amp_slab_exp_run": ((_I,) + (_P,) * 7 + (_I,) + (_P,) * 14
+                             + (_I,) * 6 + (_F,) * 4 + (_P,), _I),
     },
     "amp_slab": {
         "amp_slab_run": ((_P,) * 7 + (_I,) + (_P,) * 16 + (_I,) * 4

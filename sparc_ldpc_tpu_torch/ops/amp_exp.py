@@ -17,8 +17,9 @@ one thing changed.  `amp_exp(mode, ...)` runs one variant; the modes are
       "f512_vpu2", "f256_vpu4", "f128_vpu8" (H_L = H_{f_a} (x) H_{f_b},
       H_{f_b} a product, H_{f_a} float32 butterflies), "l256_m128" (as
       f256_vpu4, and H_M = H_4 (x) H_128 with H_128 a product; M = 512);
-  S1 (pair_kernel_exp): "pair", the "full" decode two codewords at a time;
-      its trace holds the first codeword of each pair.
+  S1 (pair_kernel_exp): "pair", the "full" decode two codewords at a time
+      (on the card: in the row stage); its trace holds the first codeword
+      of each pair.
 
 The plain version's arithmetic is the scripts' (`amp_exp_reference`,
 order="script"): beta in true scale, a 0/1 mask, and per iteration
@@ -35,29 +36,29 @@ rounded to bfloat16 (the H_M product, each slab's H_{f_b} product and,
 where H_{f_a} is a product, that one), the sums are float32, and the
 butterflies of S3's radix factors are float32 on unrounded values.
 
-The CUDA kernels (csrc/amp_exp.cu). S2 and S3 run on K1's own design
+The CUDA kernels (csrc/amp_exp.cu) run on K1's own design
 (csrc/amp_k1.cuh, its row-support design): K1's compact encode of y on
 the row support, a column stage walking (codeword, strip) items and K1's
 row stage, in K1's scale-free form (ops/amp_kernel.py: beta' = beta
 sqrt(n), mask / n, sq / sqrt(n) and sq sqrt(n)). S2's variants are K1's
 column and row kernels at a compile-time variant, "full" K1's own
 instantiation, so its decode is `amp_fused(..., split=True)` at fixed T
-with y given, bit for bit; S3's have a column stage of their own
-(H_{f_b} on the tensor cores) beside K1's row stage (l256_m128: its
-own). The pair keeps the earlier K1 design (dense y, mask and z) in the
-scripts' scaling. Every kernel's adjoint applies H_L first, in the
+with y given, bit for bit; the pair is K1's column stage and K1's row
+stage at its paired variant (a warp takes a section row of two
+codewords), so its bits are full's too; S3's have a column stage of
+their own (H_{f_b} on the tensor cores) beside K1's row stage
+(l256_m128: its own). Every kernel's adjoint applies H_L first, in the
 column stage, and H_M after it, in the row stage, so it rounds the
 adjoint at other places than the scripts (ops/amp_kernel.py says the
 same of K1): the decoding modes agree with their plain version in
 distribution (decisions and tau2, the bf16 decode contract). The ablated
 modes' garbage decodes amplify that difference, so
-`amp_exp_reference(order="kernel")` computes them as the kernels do,
-forward H_L rnd(H_M rnd(x)) and adjoint H_M rnd(H_L rnd(z)): S2's modes
-in K1's scale-free form and K1's float32 arithmetic step for step
-(`k1_form_reference`: its butterflies' order, its reductions' order, its
-contracted multiply-adds), the pair in the scripts' scaling with float32
-products (`kernel_transform`). The kernels take the scripts' shape only,
-L = 1024 and M = 512.
+`amp_exp_reference(order="kernel")` computes S2's modes and the pair as
+the kernels do, forward H_L rnd(H_M rnd(x)) and adjoint H_M rnd(H_L
+rnd(z)), in K1's scale-free form and K1's float32 arithmetic step for
+step (`k1_form_reference`: its butterflies' order, its reductions'
+order, its contracted multiply-adds; the pair's is full's). The kernels
+take the scripts' shape only, L = 1024 and M = 512.
 
 On a CPU tensor `amp_exp` runs `amp_exp_reference`; on a CUDA tensor it
 launches the mode's kernel or raises.
@@ -175,29 +176,6 @@ def exp_transform(mode: str, x: torch.Tensor, f_b: int,
 
 def _same(x: torch.Tensor) -> torch.Tensor:
     return x
-
-
-def kernel_transform(mode: str, x: torch.Tensor, adjoint: bool,
-                     f_b: int = 128, rnd=round_bf16) -> torch.Tensor:
-    """The transform of S2's modes and the pair on x (B, L, M), rounded
-    through rnd where the K1-style kernels round: forward
-    H_L rnd(H_M rnd(x)), adjoint H_M rnd(H_L rnd(x)), H_L = H_{L / f_b}
-    (x) H_{f_b} in float32; H_L is the identity for m_stage_only, H_L and
-    H_M for no_transform (whose work tile carries x itself: rnd(x) both
-    ways)."""
-    B, L, M = x.shape
-
-    def h_l(v):
-        if mode in ("m_stage_only", "no_transform"):
-            return v
-        return _radix_product(_slab_product(v, f_b, _same), L // f_b, _same)
-
-    def h_m(v):
-        return v if mode == "no_transform" else _rows_product(v, M, _same)
-
-    if adjoint:
-        return h_m(rnd(h_l(rnd(x))))
-    return h_l(rnd(h_m(rnd(x))))
 
 
 # ------------------------------------------------- K1's float32 arithmetic
@@ -404,9 +382,8 @@ def amp_exp_reference(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
     support, mask (L, M) the 0/1 support, sq_npl (L,) sqrt(n P_l); f_b the
     slab height of H_L = H_{L / f_b} (x) H_{f_b}.  precision "bf16" rounds
     as the scripts do, or with order="kernel" (S2's modes and the pair)
-    as their kernels do (S2's in K1's scale-free form,
-    `k1_form_reference`; the pair's `kernel_transform` in the scripts'
-    scaling); "highest" rounds nothing.  Runs on any device (TF32 is never
+    as their kernels do, in K1's scale-free form (`k1_form_reference`;
+    the pair's is full's); "highest" rounds nothing.  Runs on any device (TF32 is never
     used: callers on the GPU turn matmul TF32 off)."""
     B, L, M = y_n.shape
     _check_mode(mode, L, M, f_b, B, pair)
@@ -418,14 +395,14 @@ def amp_exp_reference(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"order='kernel' is the K1-style variants' (S2 and "
                          f"the pair), not {mode!r}'s")
     rnd = round_bf16 if precision == "bf16" else _same
-    if order == "kernel" and mode in S2_MODES:
-        return k1_form_reference(mode, y_n, mask, sq_npl, P, n, T, rnd)
     if order == "kernel":
-        def transform(x, adjoint):
-            return kernel_transform(mode, x, adjoint, f_b, rnd)
-    else:
-        def transform(x, adjoint):
-            return exp_transform(mode, x, f_b, rnd)
+        beta, trace = k1_form_reference("full" if pair else mode, y_n, mask,
+                                        sq_npl, P, n, T, rnd)
+        return beta, (trace[:, 0::2] if pair else trace)
+
+    def transform(x, adjoint):
+        return exp_transform(mode, x, f_b, rnd)
+
     inv_sqrt_n = 1.0 / math.sqrt(n)
     mask = mask.to(torch.float32)
     sq = sq_npl.to(torch.float32).reshape(L, 1)
@@ -478,8 +455,9 @@ def amp_exp(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
     the transforms' operands to bf16; "highest" rounds nothing (S2's
     variants and the pair only: S3's factors run on the bf16 tensor
     cores).  support: K1's tables of mask (`amp_fused`'s argument, the
-    operator's `split_support`), which S2 and S3 read y and z by; without
-    it a CUDA call builds them from mask, which waits for the device."""
+    operator's `split_support`), which the kernels read y and z by;
+    without it a CUDA call builds them from mask, which waits for the
+    device."""
     B, L, M = y_n.shape
     pair = mode in S1_MODES
     f_b = mode_f_b(mode, L)
@@ -523,15 +501,6 @@ def _launch(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
     work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
     zpart = torch.empty((B, M // 32), dtype=torch.float32, device=dev)
     bpart = torch.empty((B, L), dtype=torch.float32, device=dev)
-    if mode in S1_MODES:
-        z = torch.empty_like(beta)
-        run("amp_exp", "amp_pair_run", dev, y_n.data_ptr(),
-            mask.to(torch.bfloat16).data_ptr(), sq_npl.data_ptr(),
-            beta.data_ptr(), trace.data_ptr(), z.data_ptr(), work.data_ptr(),
-            zpart.data_ptr(), bpart.data_ptr(), B, L, M, T, float(P),
-            float(n), 1.0 / math.sqrt(n), int(bf16))
-        amp_exp.launches[mode] += 1
-        return beta, trace[:, 0::2]
     # K1's arguments (amp_fused's split form at fixed T, y given)
     if support is None:
         support = split_support_from_mask(mask)
@@ -550,12 +519,12 @@ def _launch(mode: str, y_n: torch.Tensor, mask: torch.Tensor,
         zpart.data_ptr(), bpart.data_ptr(), B, L, M, T, float(P), float(n),
         1.0 / math.sqrt(n), int(bf16))
     amp_exp.launches[mode] += 1
-    return beta, trace
+    return beta, (trace[:, 0::2] if mode in S1_MODES else trace)
 
 
 # kernel runs by mode, one per amp_exp call on a CUDA tensor (each call
-# is 2 T launches, and the encode launch on S2 and S3), never counted on
-# the CPU route
+# is an encode launch and 2 T iteration launches), never counted on the
+# CPU route
 amp_exp.launches = dict.fromkeys(MODES, 0)
 
 

@@ -7,7 +7,9 @@ hide one codeword's arithmetic behind the other's loads?
         [--batch 512] [--iters 32] [--cpu]
 
 "pair" is the full decode with two codewords in every row-stage block
-(ops/amp_exp.py, csrc/amp_exp.cu); "full", one codeword a block, runs
+(ops/amp_exp.py, csrc/amp_exp.cu: on the card K1's column stage and K1's
+row stage at its paired variant, a warp taking a section row of two
+codewords, so its bits are full's); "full", one codeword a block, runs
 beside it for the comparison.  The sizes, draws and timing are
 kernel_ablation.py's (L=1024, M=512, R=1.0, iterative power, 2.0 dB,
 bf16, B=512 (even), T=32, median of 5 blocks after a warm one); each line

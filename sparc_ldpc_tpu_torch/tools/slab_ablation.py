@@ -6,7 +6,8 @@ scripts/slab_ablation.py): where does the time of K7's iteration go?
         [--batch 1024] [--iters 32] [--cpu]
 
 Each variant is the slab kernel's decode with one stage removed or changed
-(ops/amp_slab_exp.py): "full" is the decode, "fold", "fold_hfb",
+(ops/amp_slab_exp.py; on the card K7's own kernels at a compile-time
+variant, "full" K7's instantiation): "full" is the decode, "fold", "fold_hfb",
 "no_trace", "exp2", "bf16_radix", "midbf16", the factorings "fXmY" and
 "pair" compute the same function otherwise; "no_radix", "no_mm",
 "no_softmax", "no_consume", "sched", "fold_sched", "compact" and
@@ -22,9 +23,10 @@ a warm one (host clock around the draw, the decode and a scalar readback
 of sum(beta^2), as the script times its jitted block): ms per block and
 us per iteration and codeword, and the seconds the variant took in all.
 On the card the variants are hand-written CUDA kernels
-(csrc/amp_slab_exp.cu) and the `nvidia-smi` name and power limit are
-printed beside the numbers; with --cpu the plain versions run (slow at
-these sizes; the tests run them small).  Without a GPU and without --cpu
+(csrc/amp_slab_exp.cu on csrc/amp_k7.cuh) and the `nvidia-smi` name and
+power limit are printed beside the numbers; with --cpu the kernels' plain
+versions run (K7's form, `amp_slab_exp_reference(order="kernel")`; slow
+at these sizes, the tests run them small).  Without a GPU and without --cpu
 it exits with an error.
 
 `run(model, variants, B, T)` is the same for a model built elsewhere
@@ -44,6 +46,8 @@ import torch
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
 from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
     DEFAULT_VARIANTS, amp_slab_exp, compact_mask, parse_mode)
+from sparc_ldpc_tpu_torch.ops.split_support import (SplitSupport,
+                                                    split_support_from_mask)
 from sparc_ldpc_tpu_torch.tools.kernel_ablation import (
     EBNO_DB, REPS, SEED, WARM_BLOCK, _sync, card_line, script_config)
 from sparc_ldpc_tpu_torch.utils.rng import block_generator
@@ -60,13 +64,30 @@ def variant_mask(model: SparcModel, mode: str) -> torch.Tensor:
     return model.op.mask.reshape(c.L, c.M)
 
 
+def variant_support(model: SparcModel, mode: str,
+                    mask: torch.Tensor = None) -> SplitSupport:
+    """The support tables the kernels read y and z by: the operator's
+    (built once per device), or the compact variants' own; None on the
+    CPU, whose plain versions do not read them."""
+    c = model.cfg
+    if model.device.type == "cpu":
+        return None
+    if parse_mode(mode, c.L, c.M, c.n).base == "compact":
+        return split_support_from_mask(
+            variant_mask(model, mode) if mask is None else mask)
+    return model.op.split_support(c.L, c.M, model.device)
+
+
 def decode(model: SparcModel, mode: str, y_n: torch.Tensor, T: int,
-           mask: torch.Tensor = None):
+           mask: torch.Tensor = None, support: SplitSupport = None):
     """Variant `mode` on y_n: (beta, trace (T, B or B / 2))."""
     c = model.cfg
     if mask is None:
         mask = variant_mask(model, mode)
-    return amp_slab_exp(mode, y_n, mask, model.sq_npl, c.P, c.n, T)
+    if support is None:
+        support = variant_support(model, mode, mask)
+    return amp_slab_exp(mode, y_n, mask, model.sq_npl, c.P, c.n, T,
+                        support=support)
 
 
 def draw_noise(model: SparcModel, gen: torch.Generator, B: int
@@ -82,11 +103,12 @@ def time_variant(model: SparcModel, mode: str, B: int, T: int,
     after a warm one."""
     dev = model.device
     mask = variant_mask(model, mode)
+    support = variant_support(model, mode, mask)
     t_start = time.perf_counter()
 
     def block(r: int) -> float:
         y = draw_noise(model, block_generator(SEED, 0, r, dev), B)
-        beta, _ = decode(model, mode, y, T, mask)
+        beta, _ = decode(model, mode, y, T, mask, support)
         return float((beta * beta).sum())
 
     block(WARM_BLOCK)

@@ -56,17 +56,21 @@ decodes are garbage, over T = 2 in float32 and in bf16 (beta within
 1e-2 of the output scale, NaN where the plain version has NaN; in bf16
 against the plain version rounded where the kernels round,
 order="kernel": the scripts round the adjoint at other places, which a
-garbage decode amplifies).  S2's full is K1's fixed-T call with y given,
-bit for bit (the same kernels: S2 is K1's at compile-time variants), and
-S2 and S3 give the same bits without K1's support tables.
+garbage decode amplifies; the pair always, as K1 computes full).  S2's
+full and S1's pair are K1's fixed-T call with y given, bit for bit (the
+same kernels: S2 is K1's at compile-time variants, the pair K1's column
+stage and K1's row stage at its paired variant), and S2 and S3 give the
+same bits without K1's support tables.
 The slab kernel's stage ablation (amp_slab_exp.cu, S4) at the script's
-shape: it rounds where its plain version does, so every variant is held to
-it directly: the decoding variants over T = 32 (at most 1 % flipped
-sections, tau2 to rtol 2e-2), the ablated ones over T = 2 (beta within
-1e-2 of the output scale, no NaN but no_consume's from beta = 0, which is
-NaN throughout on both sides: its first tau2 is 0).  no_consume is held
-from a decoded state instead (the state one plain full iteration leaves);
-a run resumed from its own kept state gives the bits of an unbroken one.
+shape: K7's own kernels at compile-time variants, each held to the plain
+version of its form (order="kernel", K7's rounding points): the decoding
+variants over T = 32 (at most 1 % flipped sections, tau2 to rtol 2e-2),
+the ablated ones over T = 2 (beta within 1e-2 of the output scale, no NaN
+but no_consume's from beta' = 0, which is NaN throughout on both sides:
+its first tau2 is 0).  no_consume is held from a decoded state instead
+(the state one plain full iteration leaves); a run resumed from its own
+kept state gives the bits of an unbroken one; full is K7's fixed-T call
+(amp_fused, slab form) bit for bit.
 The column-signed Hadamard operator (on fwht_kron, and on K5 with
 use_pallas) and the DCT operator (cuFFT) at full width against the same
 operators on the CPU, within 1e-4 of the output scale, adjoint within
@@ -96,7 +100,7 @@ from sparc_ldpc_tpu_torch.ops.amp_kernel import (
     noise_uniforms, noise_uniforms_reference, slab_adjoint,
     slab_adjoint_reference, slab_tile)
 from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
-    ABLATED as SLAB_ABLATED, MODES as SLAB_MODES, amp_slab_exp,
+    ABLATED as SLAB_ABLATED, MODES as SLAB_MODES, SlabState, amp_slab_exp,
     amp_slab_exp_reference, compact_mask, parse_mode)
 from sparc_ldpc_tpu_torch.ops.denoiser import denoise, denoise_kernel
 from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, round_bf16
@@ -1475,7 +1479,8 @@ def test_cuda_amp_exp_matches_plain(cuda_device, exp_draws, mode):
              else ("bf16",))
     for prec in precs:
         bk, tk = amp_exp(mode, *args, T, prec)
-        order = "kernel" if ablated and prec == "bf16" else "script"
+        order = ("kernel" if mode == "pair" or (ablated and prec == "bf16")
+                 else "script")
         bp, tp = amp_exp_reference(mode, *args, T, mode_f_b(mode, L),
                                    mode == "pair", prec, order)
         torch.cuda.synchronize()
@@ -1520,6 +1525,24 @@ def test_cuda_amp_exp_full_is_k1_bit_for_bit(cuda_device, exp_draws, prec):
         assert torch.equal(got[1].nan_to_num(), want[1].nan_to_num()), mode
 
 
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_cuda_amp_exp_pair_is_k1_bit_for_bit(cuda_device, exp_draws, prec):
+    """S1's pair is K1's column stage and K1's row stage at its paired
+    variant: its beta is K1's fixed-T call's (amp_fused, split form) bit for
+    bit, its trace K1's of the first codeword of each pair."""
+    model, y_n, _ = exp_draws
+    c = model.cfg
+    L, M = c.L, c.M
+    sup = model.op.split_support(L, M, cuda_device)
+    args = (y_n.to(cuda_device), model.op.mask.reshape(L, M).to(cuda_device),
+            model.sq_npl.to(cuda_device), c.P, c.n, 6)
+    bk, tk, _ = amp_fused(*args, precision=prec, split=True, support=sup)
+    before = amp_exp.launches["pair"]
+    bp, tp = amp_exp("pair", *args, prec, sup)
+    assert amp_exp.launches["pair"] == before + 1
+    assert torch.equal(bp, bk) and torch.equal(tp, tk[:, 0::2])
+
+
 def test_cuda_amp_exp_rejects_what_it_cannot_take(cuda_device):
     mask, sq = torch.ones((256, 64), device=cuda_device), torch.ones(
         256, device=cuda_device)
@@ -1554,7 +1577,7 @@ def test_cuda_amp_slab_exp_matches_plain(cuda_device, exp_draws, mode):
     before = amp_slab_exp.launches[mode]
     bk, tk = amp_slab_exp(mode, *args, T)
     assert amp_slab_exp.launches[mode] == before + 1
-    bp, tp = amp_slab_exp_reference(mode, *args, T)
+    bp, tp = amp_slab_exp_reference(mode, *args, T, order="kernel")
     torch.cuda.synchronize()
     assert tk.shape == tp.shape == (T, 4 if mode == "pair" else 8)
     if ablated:
@@ -1582,11 +1605,12 @@ def _slab_args(model, y_n, dev):
 
 
 @pytest.mark.parametrize("mode", ["full", "pair", "sched", "fold",
-                                  "no_radix"])
+                                  "no_trace"])
 def test_cuda_amp_slab_exp_resumes_bit_for_bit(cuda_device, exp_draws, mode):
     """One iteration, its state kept, then one more from that state: the
     same bits as two iterations in one run (the resume rebuilds the work
-    tile with R2 and sums |beta|^2 in slab order, as the run does)."""
+    tile with K7's H_M launch and sums |beta'|^2 in slab order, as the run
+    does)."""
     model, y_n, _ = exp_draws
     args = _slab_args(model, y_n, cuda_device)
     b2, t2 = amp_slab_exp(mode, *args, 2)
@@ -1594,6 +1618,20 @@ def test_cuda_amp_slab_exp_resumes_bit_for_bit(cuda_device, exp_draws, mode):
     br, tr = amp_slab_exp(mode, *args, 1, state=state)
     assert torch.equal(br, b2)
     assert torch.equal(torch.cat([t1, tr]), t2)
+
+
+def test_cuda_amp_slab_exp_full_is_k7_bit_for_bit(cuda_device, exp_draws):
+    """S4's full is K7's own kernels at their default variant: its beta
+    and trace are K7's fixed-T call with y given (amp_fused, slab form),
+    bit for bit, with or without the support tables."""
+    model, y_n, _ = exp_draws
+    c = model.cfg
+    args = _slab_args(model, y_n, cuda_device) + (6,)
+    sup = model.op.split_support(c.L, c.M, cuda_device)
+    bk, tk, _ = amp_fused(*args, form="slab", support=sup)
+    for s in (sup, None):
+        bs, ts = amp_slab_exp("full", *args, support=s)
+        assert torch.equal(bs, bk) and torch.equal(ts, tk)
 
 
 def test_cuda_amp_slab_exp_pair_is_full_bit_for_bit(cuda_device, exp_draws):
@@ -1614,9 +1652,11 @@ def test_cuda_amp_slab_exp_no_consume_from_a_decoded_state(cuda_device,
     every element finite, beta within 1e-2 of the output scale."""
     model, y_n, _ = exp_draws
     args = _slab_args(model, y_n, cuda_device)
-    state = amp_slab_exp_reference("full", *args, 1, keep_state=True)[2]
+    state = amp_slab_exp_reference("full", *args, 1, keep_state=True,
+                                   order="kernel")[2]
     bk, tk = amp_slab_exp("no_consume", *args, 2, state=state)
-    bp, tp = amp_slab_exp_reference("no_consume", *args, 2, state=state)
+    bp, tp = amp_slab_exp_reference("no_consume", *args, 2, state=state,
+                                    order="kernel")
     assert bool(torch.isfinite(bk).all() & torch.isfinite(bp).all())
     err = (bk - bp).abs().max() / bp.abs().max()
     assert float(err) <= 1e-2, float(err)
@@ -1634,6 +1674,9 @@ def test_cuda_amp_slab_exp_rejects_what_it_has_no_kernel_for(cuda_device):
         amp_slab_exp("pair", y[:1], mask, sq, 1.0, 9216, 2)
     with pytest.raises(ValueError, match="compact"):
         amp_slab_exp("compact", y, mask, sq, 1.0, 9216, 2, keep_state=True)
+    state = SlabState(y, y, y[:, 0, 0], y[:, 0, 0])
+    with pytest.raises(ValueError, match="cannot resume"):
+        amp_slab_exp("no_radix", y, mask, sq, 1.0, 9216, 2, state=state)
     with pytest.raises(ValueError, match="L = 1024"):
         amp_slab_exp("full", y[:, :256], mask[:256], sq[:256], 1.0, 9216, 2)
     with pytest.raises(TypeError):

@@ -215,10 +215,10 @@ def test_float32_plain_version_is_the_unrounded_decode():
 def kernel_order_numpy(mode, y_n, mask, sq, P, n, T):
     """The decode of an S2 mode or the pair rounded where its kernel rounds
     (forward H_L rnd(H_M rnd(beta')), adjoint H_M rnd(H_L rnd(z)), H_L the
-    identity for m_stage_only and no_transform, H_M for no_transform; S2's
-    kernels are K1's, which hold and round beta' = beta sqrt(n), the pair's
-    hold beta), in float64 NumPy with dense Hadamard matrices: (beta,
-    trace (T, B or B / 2))."""
+    identity for m_stage_only and no_transform, H_M for no_transform; the
+    kernels are K1's, which hold and round beta' = beta sqrt(n)), in
+    float64 NumPy with dense Hadamard matrices: (beta, trace (T, B or
+    B / 2))."""
     from scipy.linalg import hadamard
 
     def rnd(x):
@@ -231,7 +231,7 @@ def kernel_order_numpy(mode, y_n, mask, sq, P, n, T):
         hl = np.eye(L)
     if mode == "no_transform":
         hm = np.eye(M)
-    s = np.sqrt(n) if mode in S2_MODES else 1.0
+    s = np.sqrt(n)
 
     def fwd(b):
         return hl @ rnd(rnd(b * s) @ hm) / s
@@ -305,6 +305,22 @@ def test_kernel_order_is_the_script_function_in_float32(mode):
     torch.testing.assert_close(tk, ts, rtol=1e-5, atol=0, equal_nan=True)
     scale = float(bs[~nan].abs().max())
     assert float((bk - bs)[~nan].abs().max()) <= 1e-5 * scale
+
+
+def test_kernel_order_pair_is_k1_full():
+    """The pair's kernels are K1's (its row stage paired): in the kernel
+    order its beta is K1's form of full bit for bit, its trace full's of
+    the first codeword of each pair, in bf16 and in float32."""
+    L, M = _shape("pair")
+    _, mt, y_n, _ = _models(L, M)
+    c = mt.cfg
+    args = (torch.tensor(y_n), mt.op.mask.reshape(L, M), mt.sq_npl, c.P,
+            c.n, T, 128)
+    for prec in ("bf16", "highest"):
+        bp, tp = amp_exp_reference("pair", *args, True, prec, "kernel")
+        bf, tf = amp_exp_reference("full", *args, False, prec, "kernel")
+        assert torch.equal(bp, bf) and torch.equal(tp, tf[:, 0::2])
+        assert tp.shape == (T, B // 2)
 
 
 def test_kernel_order_full_decodes_as_the_script_kernel():

@@ -66,11 +66,14 @@ from test_precision import assert_decisions_match
 
 from sparc_ldpc_tpu_torch.config import SparcConfig
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
+from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused_reference
 from sparc_ldpc_tpu_torch.ops.amp_slab_exp import (
-    ABLATED, DECODING, DEFAULT_VARIANTS, MODES, amp_slab_exp,
-    amp_slab_exp_reference, compact_mask, parse_mode)
+    ABLATED, DECODING, DEFAULT_VARIANTS, FACTORINGS, MODES, SCHED_TAU2,
+    amp_slab_exp, amp_slab_exp_reference, compact_mask, k7_form_reference,
+    parse_mode)
 from sparc_ldpc_tpu_torch.tools import slab_ablation
-from sparc_ldpc_tpu_torch.tools.kernel_ablation import script_config
+from sparc_ldpc_tpu_torch.tools.kernel_ablation import (draw_block,
+                                                        script_config)
 
 TESTS = Path(__file__).resolve().parent
 SCRIPT = TESTS.parent / "scripts" / "slab_ablation.py"
@@ -305,13 +308,14 @@ def test_amp_slab_exp_rejects_what_it_cannot_take(mode, kw, match):
 
 
 def test_cpu_route_is_the_plain_version():
-    """On the CPU the wrapper is the plain version at the default factors
-    (f_b = min(128, L), m_b = min(128, M)), and counts no kernel run."""
+    """On the CPU the wrapper is the kernels' plain version (K7's form,
+    order="kernel") at the default factors (f_b = min(128, L), m_b =
+    min(128, M)), and counts no kernel run."""
     L, M = 256, 64
     y_n, mask, sq, P, n, _, _, _ = _inputs("fold", L, M)
     args = (torch.tensor(y_n), torch.tensor(mask), torch.tensor(sq), P, n, 2)
     got = amp_slab_exp("fold", *args)
-    want = amp_slab_exp_reference("fold", *args, 128, 64)
+    want = amp_slab_exp_reference("fold", *args, 128, 64, order="kernel")
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert not any(amp_slab_exp.launches.values())
 
@@ -391,6 +395,109 @@ def test_float64_sums_are_the_same_function(mode):
                                       m_b)
     b64, t64 = amp_slab_exp_reference(mode, y_n.double(), mask.double(),
                                       sq.double(), P, n, T_run, f_b, m_b)
+    assert b64.dtype == t64.dtype == torch.float64
+    check(mode, (b64.float().numpy(), t64.float().numpy()),
+          (b32.numpy(), t32.numpy()), T_run)
+
+
+# ------------------------------------------ the kernels' form (K7's)
+
+@functools.lru_cache(maxsize=None)
+def _port_case(L, M):
+    """The port's own model of the script's code at (L, M) and one block
+    of B encoded codewords on the CPU: (y_n, mask, sq, P, n)."""
+    model = SparcModel.build(script_config(T, L, M), EBNO, "cpu")
+    c = model.cfg
+    y_n, _ = draw_block(model, torch.Generator().manual_seed(3), B)
+    return y_n, model.op.mask.reshape(L, M), model.sq_npl, c.P, c.n
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (128, 64)])
+def test_kernel_order_full_is_the_slab_form_reference(shape):
+    """K7's form of full is K7's plain version, amp_fused_reference in
+    the slab form at fixed T with y given, to float32 summation order
+    where both round at the same places (L, M <= 128: one factor a
+    transform stage): the same decisions, beta within 1e-5 of its scale,
+    the trace to rtol 1e-5 (K7's form adds the adjoint's H_M over each
+    row's entries in column order, the softmax's and |beta'|^2's sums in
+    R3's lane order, and contracts the residual's multiply-adds)."""
+    y_n, mask, sq, P, n = _port_case(*shape)
+    want_b, want_t, _ = amp_fused_reference(y_n, mask, sq, P, n, T,
+                                            form="slab")
+    beta, trace = amp_slab_exp_reference("full", y_n, mask, sq, P, n, T,
+                                         order="kernel")
+    assert torch.equal(beta.argmax(-1), want_b.argmax(-1))
+    scale = float(want_b.abs().max())
+    assert float((beta - want_b).abs().max()) <= 1e-5 * scale
+    torch.testing.assert_close(trace, want_t, rtol=1e-5, atol=0)
+
+
+def test_kernel_order_pair_is_full():
+    """In K7's form the pair's beta is full's and its trace full's first
+    codeword of each pair; fold has nothing to fold and is full."""
+    y_n, mask, sq, P, n = _port_case(256, 256)
+    bf, tf = k7_form_reference("full", y_n, mask, sq, P, n, T)
+    bp, tp = k7_form_reference("pair", y_n, mask, sq, P, n, T)
+    assert torch.equal(bp, bf) and torch.equal(tp, tf[:, 0::2])
+    assert tp.shape == (T, B // 2)
+    bo, to = k7_form_reference("fold", y_n, mask, sq, P, n, T)
+    assert torch.equal(bo, bf) and torch.equal(to, tf)
+
+
+def test_kernel_order_traces_of_sched_and_no_trace():
+    """sched's and fold_sched's traces are their fixed tau2, no_trace's
+    is zero and its decode full's."""
+    y_n, mask, sq, P, n = _port_case(256, 64)
+    for mode in ("sched", "fold_sched"):
+        _, trace = k7_form_reference(mode, y_n, mask, sq, P, n, T)
+        assert torch.equal(trace, torch.full((T, B), SCHED_TAU2))
+    bt, tt = k7_form_reference("no_trace", y_n, mask, sq, P, n, T)
+    bf, _ = k7_form_reference("full", y_n, mask, sq, P, n, T)
+    assert not bool(tt.any()) and torch.equal(bt, bf)
+
+
+@pytest.mark.parametrize("mode", FACTORINGS)
+def test_kernel_order_factorings_decide_as_full(mode):
+    """Each factoring with a kernel computes full's function in K7's form:
+    its decisions are full's under the bf16 decode contract, its trace
+    full's to rtol 2e-2."""
+    y_n, mask, sq, P, n = _port_case(256, 512)
+    bf, tf = k7_form_reference("full", y_n, mask, sq, P, n, T)
+    bm, tm = k7_form_reference(mode, y_n, mask, sq, P, n, T)
+    assert bool(torch.isfinite(bm).all())
+    assert_decisions_match(bm.numpy(), bf.numpy())
+    np.testing.assert_allclose(tm.numpy(), tf.numpy(), rtol=2e-2)
+
+
+@pytest.mark.parametrize("mode", ["full", "sched", "no_trace"])
+def test_kernel_order_resume_continues_the_decode(mode):
+    """In K7's form, one iteration with its state (beta') kept, then two
+    more from that state: the bits of three iterations in one run."""
+    y_n, mask, sq, P, n = _port_case(256, 256)
+    args = (y_n, mask, sq, P, n)
+    b3, t3 = k7_form_reference(mode, *args, 3)
+    b1, t1, state = k7_form_reference(mode, *args, 1, keep_state=True)
+    torch.testing.assert_close(state.beta * (1.0 / math.sqrt(n)), b1,
+                               rtol=0, atol=0)
+    br, tr = k7_form_reference(mode, *args, 2, state=state)
+    assert torch.equal(br, b3)
+    assert torch.equal(torch.cat([t1, tr]), t3)
+
+
+@pytest.mark.parametrize("mode", ["full", "sched", "no_radix", "no_mm",
+                                  "bf16_radix", "compact"])
+def test_kernel_order_float64_sums_are_the_same_function(mode):
+    """K7's form given float64 tensors sums in float64 with the same bf16
+    roundings: the decode contract (or 1e-2 of the scale for the ablated
+    variants, over T = 2) against its float32 self, dtypes kept."""
+    L, M = 256, 256
+    y_n, mask, sq, P, n = _port_case(L, M)
+    if mode == "compact":
+        mask = compact_mask(L, M, n)
+    T_run = T_ABLATED if _ablated(mode) else T
+    b32, t32 = k7_form_reference(mode, y_n, mask, sq, P, n, T_run)
+    b64, t64 = k7_form_reference(mode, y_n.double(), mask.double(),
+                                 sq.double(), P, n, T_run)
     assert b64.dtype == t64.dtype == torch.float64
     check(mode, (b64.float().numpy(), t64.float().numpy()),
           (b32.numpy(), t32.numpy()), T_run)
