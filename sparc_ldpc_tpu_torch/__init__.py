@@ -12,7 +12,8 @@ find:
   utils/rng.py       one torch.Generator per (base, point, block)
   utils/io.py        jsonl results and the campaign journal
   utils/provenance.py  config hash, commit, backend and device of a record
-  utils/profiling.py   timing and torch.profiler traces
+  utils/profiling.py   tracing: torch.profiler traces, the program's
+                     spans, counters and intervals (off when untraced)
   ops/fwht.py        Hadamard factors and plain Kronecker FWHT
   ops/fwht_kernel.py   length-N FWHT as one (f1, f2) tile: CUDA kernel
                      (csrc/amp_split.cu fwht2_run) and its plain version

@@ -48,7 +48,8 @@ of one GPU, so processes that share a GPU need gloo, whose slabs cross
 through host memory.  Results are jsonl, one record per sweep point with
 the reference's keys plus backend and device (and the mesh, process
 count and section processes under a mesh), and a per-block journal for
-restart; --profile writes a torch.profiler trace (one per process).
+restart; --profile writes a torch.profiler trace and the program's
+counters (one of each per process).
 """
 
 from __future__ import annotations
@@ -93,7 +94,12 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="SE-derived per-point AMP iteration budget "
                         "(amp_iters becomes the cap; design/se.py)")
     c.add_argument("--profile", default=None,
-                   help="torch.profiler trace output dir")
+                   help="output dir of a torch.profiler trace of the "
+                        "campaign (trace.json, with the program's spans) "
+                        "and of its counters (counters.json: BP and "
+                        "feedback-pass iterations, gathered bytes, each "
+                        "interval's count and mean ms, the section "
+                        "exchange)")
     c.add_argument("--distributed", action="store_true",
                    help="several processes (torch.distributed, gloo), "
                         "started by python -m torch.distributed.run")

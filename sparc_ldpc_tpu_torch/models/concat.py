@@ -45,6 +45,7 @@ import torch
 from .. import check_device
 from ..config import ConcatConfig
 from ..utils.bits import bits_to_indices, indices_to_bits
+from ..utils.profiling import annotate, count
 from .amp import hard_indices
 from .ldpc import LdpcModel
 from .sparc import SparcModel
@@ -169,7 +170,8 @@ class ConcatModel:
     def _protected_llrs_from_beta(self, beta: torch.Tensor) -> torch.Tensor:
         """(B, L, M) final AMP beta -> (B, Lp*logM) LLRs: beta_l is
         sq_npl[l] * posterior_l and the scale cancels in the fold."""
-        return self._llr_fold(beta[:, self.Lu:, :])
+        with annotate("concat.fold"):
+            return self._llr_fold(beta[:, self.Lu:, :])
 
     def _bp_from_beta(self, beta: torch.Tensor):
         return self._bp_from_llr(self._protected_llrs_from_beta(beta))
@@ -197,28 +199,32 @@ class ConcatModel:
         Only sections whose bits all come from syndrome-verified codewords
         are pinned: pinning a wrongly decoded codeword poisons the second
         pass.  noise_kw (noise_seed, noise_sigma) must be the main pass's,
-        so that the kernel draws the same noise again (y is then None)."""
-        B = cw_hat.shape[0]
-        logM = self.cfg.sparc.logM
-        dev = cw_hat.device
-        prot_idx = bits_to_indices(cw_hat, logM)                # (B, Lp)
-        bit_ok = ok.repeat_interleave(self.ldpc.n, dim=1)       # (B, Lp*logM)
-        sec_ok = bit_ok.reshape(B, self.Lp, logM).all(-1)
-        pin_mask = torch.cat(
-            [torch.zeros((B, self.Lu), dtype=torch.bool, device=dev),
-             sec_ok], dim=1)
-        full_idx = torch.cat(
-            [torch.zeros((B, self.Lu), dtype=torch.int32, device=dev),
-             prot_idx], dim=1)
-        res2 = self.sparc.decode(y, T=self.cfg.feedback_iters,
-                                 pinned_idx=full_idx, pinned_mask=pin_mask,
-                                 encode_idx=enc_idx, **(noise_kw or {}))
-        unprot_bits = indices_to_bits(hard_indices(res2.beta)[:, :self.Lu],
-                                      logM)
-        msg_bits = self.ldpc.extract_message(
-            cw_hat.reshape(B * self.num_cw, self.ldpc.n)
-        ).reshape(B, self.num_cw * self.ldpc.k)
-        return torch.cat([unprot_bits, msg_bits.to(torch.int32)], dim=1)
+        so that the kernel draws the same noise again (y is then None).
+        While tracing, the pass's iterations count into
+        `concat.feedback_iters`."""
+        with annotate("concat.feedback"):
+            B = cw_hat.shape[0]
+            logM = self.cfg.sparc.logM
+            dev = cw_hat.device
+            prot_idx = bits_to_indices(cw_hat, logM)             # (B, Lp)
+            bit_ok = ok.repeat_interleave(self.ldpc.n, dim=1)  # (B, Lp*logM)
+            sec_ok = bit_ok.reshape(B, self.Lp, logM).all(-1)
+            pin_mask = torch.cat(
+                [torch.zeros((B, self.Lu), dtype=torch.bool, device=dev),
+                 sec_ok], dim=1)
+            full_idx = torch.cat(
+                [torch.zeros((B, self.Lu), dtype=torch.int32, device=dev),
+                 prot_idx], dim=1)
+            res2 = self.sparc.decode(
+                y, T=self.cfg.feedback_iters, pinned_idx=full_idx,
+                pinned_mask=pin_mask, encode_idx=enc_idx, **(noise_kw or {}))
+            count("concat.feedback_iters", res2.iters)
+            unprot_bits = indices_to_bits(
+                hard_indices(res2.beta)[:, :self.Lu], logM)
+            msg_bits = self.ldpc.extract_message(
+                cw_hat.reshape(B * self.num_cw, self.ldpc.n)
+            ).reshape(B, self.num_cw * self.ldpc.k)
+            return torch.cat([unprot_bits, msg_bits.to(torch.int32)], dim=1)
 
     def decode(self, y: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full concatenated decode of observations y (B, n)."""
@@ -233,13 +239,16 @@ class ConcatModel:
     def run_block(self, gen: torch.Generator, batch: int
                   ) -> Dict[str, torch.Tensor]:
         """One Monte-Carlo block of `batch` frames drawn from `gen`."""
-        bits = torch.randint(0, 2, (batch, self.k_user), generator=gen,
-                             dtype=torch.int32, device=self.device)
-        if self.sparc.noise_in_kernel:
-            return self._block(bits, None, self.sparc.draw_seeds(gen, batch))
-        noise = torch.randn((batch, self.sparc.cfg.n), generator=gen,
-                            dtype=torch.float32, device=self.device)
-        return self._block(bits, noise)
+        with annotate("block.draw"):
+            bits = torch.randint(0, 2, (batch, self.k_user), generator=gen,
+                                 dtype=torch.int32, device=self.device)
+            noise = seeds = None
+            if self.sparc.noise_in_kernel:
+                seeds = self.sparc.draw_seeds(gen, batch)
+            else:
+                noise = torch.randn((batch, self.sparc.cfg.n), generator=gen,
+                                    dtype=torch.float32, device=self.device)
+        return self._block(bits, noise, seeds)
 
     def run_block_from(self, bits, noise) -> Dict[str, torch.Tensor]:
         """run_block on given draws: user bits (B, k_user) {0,1} and
@@ -273,18 +282,19 @@ class ConcatModel:
             out = dict(user_bits=user_hat, bp_ok=ok, amp_iters=res.iters)
         else:
             out = self.decode(self.encode(bits) + noise * sigma)
-        bit_errors = (bits != out["user_bits"]).sum(-1)
-        return dict(
-            bit_errors=bit_errors.sum(),
-            # bit errors cluster within frames: the frame-level second
-            # moment gives honest BER confidence intervals
-            bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
-            frame_errors=(bit_errors > 0).sum(),
-            trials=torch.full((), bits.shape[0], dtype=torch.int32,
-                              device=self.device),
-            bp_ok=out["bp_ok"].sum(),
-            iters_sum=out["amp_iters"].sum(),
-        )
+        with annotate("block.counters"):
+            bit_errors = (bits != out["user_bits"]).sum(-1)
+            return dict(
+                bit_errors=bit_errors.sum(),
+                # bit errors cluster within frames: the frame-level second
+                # moment gives honest BER confidence intervals
+                bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
+                frame_errors=(bit_errors > 0).sum(),
+                trials=torch.full((), bits.shape[0], dtype=torch.int32,
+                                  device=self.device),
+                bp_ok=out["bp_ok"].sum(),
+                iters_sum=out["amp_iters"].sum(),
+            )
 
 
 class ConcatSweep:

@@ -21,6 +21,7 @@ from ..design.ldpc_codes import LdpcCode, build_code, qc_structure
 from ..ops.bp import BpResult, BpTables, bp_decode
 from ..ops.bp_qc import QcBpTables, bp_decode_qc
 from ..ops.bp_qc_kernel import bp_decode_qc_kernel
+from ..utils.profiling import annotate, count
 
 
 @dataclass(frozen=True)
@@ -76,6 +77,15 @@ class LdpcModel:
 
     def decode(self, llr: torch.Tensor, iters: Optional[int] = None
                ) -> BpResult:
+        """BP of the codewords llr (N, n); while tracing, their iterations
+        count into `bp.iters` and N into `bp.codewords`."""
+        with annotate("bp.decode"):
+            res = self._decode(llr, iters)
+        count("bp.iters", res.iters)
+        count("bp.codewords", llr.shape[0])
+        return res
+
+    def _decode(self, llr: torch.Tensor, iters: Optional[int]) -> BpResult:
         cfg = self.cfg
         iters = iters or cfg.bp_iters
         use_qc = (cfg.engine in ("qc", "qc_xla")

@@ -43,6 +43,7 @@ from ..design.se import se_converged_iters, se_trajectory
 from ..ops.operators import BatchedOperator, make_operator
 from ..parallel.mesh import ShardingPolicy
 from ..utils.bits import bits_to_indices, indices_to_bits
+from ..utils.profiling import annotate
 from .amp import AmpResult, amp_decode, hard_indices
 
 
@@ -229,14 +230,17 @@ class SparcModel:
                          sq_npl: torch.Tensor, sigma: float
                          ) -> Dict[str, torch.Tensor]:
         """run_block with the operating point's sq_npl and sigma given."""
-        bits = torch.randint(0, 2, (batch, self.cfg.k_bits), generator=gen,
-                             dtype=torch.int32, device=self.device)
-        if self.noise_in_kernel:
-            return self._block(bits, None, sq_npl, sigma,
-                               self.draw_seeds(gen, batch))
-        noise = torch.randn((batch, self.cfg.n), generator=gen,
-                            dtype=torch.float32, device=self.device)
-        return self._block(bits, noise, sq_npl, sigma)
+        with annotate("block.draw"):
+            bits = torch.randint(0, 2, (batch, self.cfg.k_bits),
+                                 generator=gen, dtype=torch.int32,
+                                 device=self.device)
+            noise = seeds = None
+            if self.noise_in_kernel:
+                seeds = self.draw_seeds(gen, batch)
+            else:
+                noise = torch.randn((batch, self.cfg.n), generator=gen,
+                                    dtype=torch.float32, device=self.device)
+        return self._block(bits, noise, sq_npl, sigma, seeds)
 
     def run_block_from(self, bits, noise) -> Dict[str, torch.Tensor]:
         """run_block on given draws: bits (B, k_bits) {0,1} and standard
@@ -253,20 +257,21 @@ class SparcModel:
         this process's rows of them."""
         f = self.frame_counts(bits, noise, sq_npl, sigma, noise_seed)
         bit_errors = f["bit_errors"]
-        return dict(
-            bit_errors=bit_errors.sum(),
-            # bit errors cluster within frames: the frame-level second
-            # moment gives honest BER confidence intervals
-            bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
-            frame_errors=(bit_errors > 0).sum(),
-            section_errors=f["section_errors"].sum(),
-            # a fill, not a host-to-device copy, which would wait for the
-            # stream and stall the campaign's pipelined dispatch
-            trials=torch.full((), bit_errors.shape[0], dtype=torch.int32,
-                              device=self.device),
-            iters_sum=f["iters"].sum(),
-            tau2_final=f["tau2_final"].mean(),
-        )
+        with annotate("block.counters"):
+            return dict(
+                bit_errors=bit_errors.sum(),
+                # bit errors cluster within frames: the frame-level second
+                # moment gives honest BER confidence intervals
+                bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
+                frame_errors=(bit_errors > 0).sum(),
+                section_errors=f["section_errors"].sum(),
+                # a fill, not a host-to-device copy, which would wait for
+                # the stream and stall the campaign's pipelined dispatch
+                trials=torch.full((), bit_errors.shape[0],
+                                  dtype=torch.int32, device=self.device),
+                iters_sum=f["iters"].sum(),
+                tau2_final=f["tau2_final"].mean(),
+            )
 
     def frame_counts(self, bits, noise, sq_npl=None, sigma=None,
                      noise_seed=None) -> Dict[str, torch.Tensor]:
@@ -306,11 +311,12 @@ class SparcModel:
             residual_space=cfg.amp_residual_space, fused=self.fused,
             encode_idx=enc_idx, use_pallas_denoiser=self.use_pallas,
             policy=self.policy, **self.fused_kw, **noise_kw)
-        idx_hat = hard_indices(res.beta)
-        bits_hat = indices_to_bits(idx_hat, cfg.logM)
-        return dict(bit_errors=(bits != bits_hat).sum(-1),
-                    section_errors=(idx_true != idx_hat).sum(-1),
-                    iters=res.iters, tau2_final=res.tau2_trace[-1])
+        with annotate("block.counters"):
+            idx_hat = hard_indices(res.beta)
+            bits_hat = indices_to_bits(idx_hat, cfg.logM)
+            return dict(bit_errors=(bits != bits_hat).sum(-1),
+                        section_errors=(idx_true != idx_hat).sum(-1),
+                        iters=res.iters, tau2_final=res.tau2_trace[-1])
 
 
 class SparcSweep:

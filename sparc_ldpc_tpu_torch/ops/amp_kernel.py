@@ -74,6 +74,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .fwht import fwht_kron, round_bf16
 from .split_support import (SplitSupport, split_geometry,
                             split_support_from_mask)
@@ -681,135 +682,136 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
     (the operator's `split_support`); without it a CUDA call builds it
     from mask, which waits for the device.  The CPU route does not read
     it."""
-    if noise_seed is not None:
-        if encode_idx is None or y_n is not None or noise_sigma is None:
-            raise ValueError("the in-kernel noise needs encode_idx and "
-                             "noise_sigma, and no y_n")
-    elif y_n is None:
-        raise ValueError("y_n is needed unless noise_seed is given")
-    if T < 1:
-        raise ValueError(f"T must be >= 1, got {T}")
-    if precision not in _PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
-    if tol < 0:
-        raise ValueError(f"tol must be >= 0, got {tol}")
-    L, M = mask.shape
-    f = fused_form(L, split, form, noise_seed is not None)
-    dev = (y_n if y_n is not None else noise_seed).device
-    if dev.type == "cpu":
-        return amp_fused_reference(y_n, mask, sq_npl, P, n, T, encode_idx,
-                                   precision, tol, pin_idx, tau2_schedule,
-                                   noise_seed, noise_sigma, form=f)
-    if dev.type != "cuda":
-        raise ValueError(f"amp_fused runs on cpu or cuda, not {dev}")
-    from ._build import run
+    with annotate("amp.fused"):
+        if noise_seed is not None:
+            if encode_idx is None or y_n is not None or noise_sigma is None:
+                raise ValueError("the in-kernel noise needs encode_idx and "
+                                 "noise_sigma, and no y_n")
+        elif y_n is None:
+            raise ValueError("y_n is needed unless noise_seed is given")
+        if T < 1:
+            raise ValueError(f"T must be >= 1, got {T}")
+        if precision not in _PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r}")
+        if tol < 0:
+            raise ValueError(f"tol must be >= 0, got {tol}")
+        L, M = mask.shape
+        f = fused_form(L, split, form, noise_seed is not None)
+        dev = (y_n if y_n is not None else noise_seed).device
+        if dev.type == "cpu":
+            return amp_fused_reference(y_n, mask, sq_npl, P, n, T, encode_idx,
+                                       precision, tol, pin_idx, tau2_schedule,
+                                       noise_seed, noise_sigma, form=f)
+        if dev.type != "cuda":
+            raise ValueError(f"amp_fused runs on cpu or cuda, not {dev}")
+        from ._build import run
 
-    B = encode_idx.shape[0] if y_n is None else y_n.shape[0]
-    _check_cuda_shape(B, L, M, max_l=1024 if f == "mono" else 4096)
-    if f in ("mono", "slab") and precision != "bf16":
-        raise ValueError(f"the {f} kernel computes its Hadamard factors on "
-                         f"the tensor cores in bf16: precision must be "
-                         f"'bf16'")
-    if y_n is None:
-        _check_seed(noise_seed, B, dev)
-    else:
-        _check_cuda_tensor("y_n", y_n, torch.float32, (B, L, M), dev)
-    _check_cuda_tensor("mask", mask, torch.float32, (L, M), dev)
-    _check_cuda_tensor("sq_npl", sq_npl, torch.float32, (L,), dev)
-    for name, idx in (("encode_idx", encode_idx), ("pin_idx", pin_idx)):
-        if idx is not None:
-            _check_cuda_tensor(name, idx, torch.int32, (B, L), dev)
-    if tau2_schedule is not None:
-        _check_cuda_tensor("tau2_schedule", tau2_schedule, torch.float32,
-                           (T,), dev)
-    mask_n, sqi, sqo = _constants(mask, sq_npl, n)
-    beta = torch.empty((B, L, M), dtype=torch.float32, device=dev)
-    trace = torch.empty((T, B), dtype=torch.float32, device=dev)
-    iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    # active[t, b]: codeword b runs iteration t.  Row 0 is all ones; the
-    # row stage of iteration t writes row t + 1, which only the launches
-    # of iteration t + 1 read.
-    active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
-    # the |z|^2 partials, one per column-stage block (a cluster of L / 1024
-    # blocks per 32-column strip above L = 1024), and the |beta'|^2
-    # partials, one per row; on the slab form one per (slab, 32-column
-    # strip) and one per slab
-    if f == "slab":
-        f_a = slab_geometry(L, M)[0]
-        nz, nb = f_a * (M // 32), f_a
-    else:
-        nz, nb = max(1, L // 1024) * (M // 32), L
-    zpart = torch.empty((B, nz), dtype=torch.float32, device=dev)
-    bpart = torch.empty((B, nb), dtype=torch.float32, device=dev)
+        B = encode_idx.shape[0] if y_n is None else y_n.shape[0]
+        _check_cuda_shape(B, L, M, max_l=1024 if f == "mono" else 4096)
+        if f in ("mono", "slab") and precision != "bf16":
+            raise ValueError(f"the {f} kernel computes its Hadamard factors "
+                             f"on the tensor cores in bf16: precision must "
+                             f"be 'bf16'")
+        if y_n is None:
+            _check_seed(noise_seed, B, dev)
+        else:
+            _check_cuda_tensor("y_n", y_n, torch.float32, (B, L, M), dev)
+        _check_cuda_tensor("mask", mask, torch.float32, (L, M), dev)
+        _check_cuda_tensor("sq_npl", sq_npl, torch.float32, (L,), dev)
+        for name, idx in (("encode_idx", encode_idx), ("pin_idx", pin_idx)):
+            if idx is not None:
+                _check_cuda_tensor(name, idx, torch.int32, (B, L), dev)
+        if tau2_schedule is not None:
+            _check_cuda_tensor("tau2_schedule", tau2_schedule, torch.float32,
+                               (T,), dev)
+        mask_n, sqi, sqo = _constants(mask, sq_npl, n)
+        beta = torch.empty((B, L, M), dtype=torch.float32, device=dev)
+        trace = torch.empty((T, B), dtype=torch.float32, device=dev)
+        iters = torch.empty((B,), dtype=torch.int32, device=dev)
+        # active[t, b]: codeword b runs iteration t.  Row 0 is all ones; the
+        # row stage of iteration t writes row t + 1, which only the launches
+        # of iteration t + 1 read.
+        active = torch.ones((T + 1, B), dtype=torch.int32, device=dev)
+        # the |z|^2 partials, one per column-stage block (a cluster of L / 1024
+        # blocks per 32-column strip above L = 1024), and the |beta'|^2
+        # partials, one per row; on the slab form one per (slab, 32-column
+        # strip) and one per slab
+        if f == "slab":
+            f_a = slab_geometry(L, M)[0]
+            nz, nb = f_a * (M // 32), f_a
+        else:
+            nz, nb = max(1, L // 1024) * (M // 32), L
+        zpart = torch.empty((B, nz), dtype=torch.float32, device=dev)
+        bpart = torch.empty((B, nb), dtype=torch.float32, device=dev)
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
 
-    # y and z live on the row support only, in the split kernel's order of
-    # its entries (every form)
-    if support is None:
-        support = split_support_from_mask(mask)
-    _check_support(support, L, M, dev)
-    ns = support.ns
-    mask_c = support.gather(mask_n)
-    yc = torch.empty((B, ns), dtype=torch.float32, device=dev)
-    zc = torch.empty_like(yc)
-    if f == "slab":
-        # the work tile holds the H_M stage's results rounded to bf16, as
-        # the H_L stage reads them; u the adjoint's float32 result; zr
-        # bf16(z) with its column in row-major order for the adjoint
-        work = torch.empty_like(beta, dtype=torch.bfloat16)
-        u = torch.empty_like(beta)
-        zr = torch.empty((B, ns), dtype=torch.int32, device=dev)
-        run("amp_slab", "amp_slab_run", dev,
-            y_n.data_ptr(), mask_c.data_ptr(), support.offset.data_ptr(),
-            support.word.data_ptr(), support.block_offset.data_ptr(),
-            support.perm.data_ptr(), support.row_offset.data_ptr(), ns,
+        # y and z live on the row support only, in the split kernel's order of
+        # its entries (every form)
+        if support is None:
+            support = split_support_from_mask(mask)
+        _check_support(support, L, M, dev)
+        ns = support.ns
+        mask_c = support.gather(mask_n)
+        yc = torch.empty((B, ns), dtype=torch.float32, device=dev)
+        zc = torch.empty_like(yc)
+        if f == "slab":
+            # the work tile holds the H_M stage's results rounded to bf16, as
+            # the H_L stage reads them; u the adjoint's float32 result; zr
+            # bf16(z) with its column in row-major order for the adjoint
+            work = torch.empty_like(beta, dtype=torch.bfloat16)
+            u = torch.empty_like(beta)
+            zr = torch.empty((B, ns), dtype=torch.int32, device=dev)
+            run("amp_slab", "amp_slab_run", dev,
+                y_n.data_ptr(), mask_c.data_ptr(), support.offset.data_ptr(),
+                support.word.data_ptr(), support.block_offset.data_ptr(),
+                support.perm.data_ptr(), support.row_offset.data_ptr(), ns,
+                sqi.data_ptr(), sqo.data_ptr(),
+                ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+                beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+                active.data_ptr(), yc.data_ptr(), zc.data_ptr(), zr.data_ptr(),
+                u.data_ptr(), work.data_ptr(), zpart.data_ptr(),
+                bpart.data_ptr(), B, L, M, T, float(P), float(n),
+                1.0 / math.sqrt(n), float(tol))
+            amp_fused.slab_launches += 1
+            return beta, trace, iters
+        if f == "mono":
+            # the mono form's work tile holds float32 products (bf16(x) H_M
+            # and its H_L), so it is float32; zr holds bf16(z) with its column
+            # in row-major order for the adjoint's launch
+            work = torch.empty_like(beta)
+            zr = torch.empty((B, ns), dtype=torch.int32, device=dev)
+            run("amp_mono", "amp_mono_run", dev,
+                y_n.data_ptr(), mask_c.data_ptr(), support.offset.data_ptr(),
+                support.word.data_ptr(), support.block_offset.data_ptr(),
+                support.perm.data_ptr(), support.row_offset.data_ptr(), ns,
+                sqi.data_ptr(), sqo.data_ptr(),
+                ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+                beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
+                active.data_ptr(), yc.data_ptr(), zc.data_ptr(), zr.data_ptr(),
+                work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(), B, L, M,
+                T, float(P), float(n), 1.0 / math.sqrt(n), float(tol))
+            amp_fused.mono_launches += 1
+            return beta, trace, iters
+        # the split stages round the work tile to bf16 when they read it: in
+        # bf16 mode it is stored in bf16 (same values, half the bytes)
+        bf16 = precision == "bf16"
+        work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
+        run("amp_split", "amp_split_run", dev,
+            ptr(y_n), mask_c.data_ptr(), support.offset.data_ptr(),
+            support.word.data_ptr(), support.block_offset.data_ptr(), ns,
             sqi.data_ptr(), sqo.data_ptr(),
-            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
+            ptr(encode_idx), ptr(noise_seed), ptr(pin_idx), ptr(tau2_schedule),
             beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
-            active.data_ptr(), yc.data_ptr(), zc.data_ptr(), zr.data_ptr(),
-            u.data_ptr(), work.data_ptr(), zpart.data_ptr(),
-            bpart.data_ptr(), B, L, M, T, float(P), float(n),
-            1.0 / math.sqrt(n), float(tol))
-        amp_fused.slab_launches += 1
+            active.data_ptr(), yc.data_ptr(), zc.data_ptr(),
+            work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(),
+            B, L, M, T, float(P), float(n), 1.0 / math.sqrt(n), float(tol),
+            float(noise_sigma or 0.0), int(bf16))
+        amp_fused.launches += 1
+        if noise_seed is not None:
+            amp_fused.noise_launches += 1
         return beta, trace, iters
-    if f == "mono":
-        # the mono form's work tile holds float32 products (bf16(x) H_M
-        # and its H_L), so it is float32; zr holds bf16(z) with its column
-        # in row-major order for the adjoint's launch
-        work = torch.empty_like(beta)
-        zr = torch.empty((B, ns), dtype=torch.int32, device=dev)
-        run("amp_mono", "amp_mono_run", dev,
-            y_n.data_ptr(), mask_c.data_ptr(), support.offset.data_ptr(),
-            support.word.data_ptr(), support.block_offset.data_ptr(),
-            support.perm.data_ptr(), support.row_offset.data_ptr(), ns,
-            sqi.data_ptr(), sqo.data_ptr(),
-            ptr(encode_idx), ptr(pin_idx), ptr(tau2_schedule),
-            beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
-            active.data_ptr(), yc.data_ptr(), zc.data_ptr(), zr.data_ptr(),
-            work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(), B, L, M, T,
-            float(P), float(n), 1.0 / math.sqrt(n), float(tol))
-        amp_fused.mono_launches += 1
-        return beta, trace, iters
-    # the split stages round the work tile to bf16 when they read it: in
-    # bf16 mode it is stored in bf16 (same values, half the bytes)
-    bf16 = precision == "bf16"
-    work = torch.empty_like(beta, dtype=torch.bfloat16 if bf16 else None)
-    run("amp_split", "amp_split_run", dev,
-        ptr(y_n), mask_c.data_ptr(), support.offset.data_ptr(),
-        support.word.data_ptr(), support.block_offset.data_ptr(), ns,
-        sqi.data_ptr(), sqo.data_ptr(),
-        ptr(encode_idx), ptr(noise_seed), ptr(pin_idx), ptr(tau2_schedule),
-        beta.data_ptr(), trace.data_ptr(), iters.data_ptr(),
-        active.data_ptr(), yc.data_ptr(), zc.data_ptr(),
-        work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(),
-        B, L, M, T, float(P), float(n), 1.0 / math.sqrt(n), float(tol),
-        float(noise_sigma or 0.0), int(bf16))
-    amp_fused.launches += 1
-    if noise_seed is not None:
-        amp_fused.noise_launches += 1
-    return beta, trace, iters
 
 
 # kernel runs, one per amp_fused call on a CUDA tensor, never counted on the

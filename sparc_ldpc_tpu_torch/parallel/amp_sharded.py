@@ -43,6 +43,7 @@ sparc_ldpc_tpu/parallel/amp_sharded.py `amp_fused_sharded`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -50,6 +51,7 @@ import torch
 
 from ..ops.amp_kernel import amp_fused, fwht_tile
 from ..ops.denoiser import denoise_kernel
+from ..utils.profiling import annotate, interval
 from .dist_fwht import hypercube
 from .mesh import ShardingPolicy
 
@@ -110,18 +112,29 @@ def amp_fused_sharded(
 def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
                    pin_idx, split, tol, encode_idx, noise_seed, noise_sigma,
                    split_support):
+    """Each data shard's amp_fused on its device, in shard order.  While
+    tracing, a `mesh.shard` span a shard, and on every shard but the home
+    one a `mesh.shard_inputs` interval on its device's stream around its
+    copies of the tables: a copy between two cards runs on the source
+    card's stream behind its queued work, so the interval is the time the
+    shard's card waits for the home card (its K1 queued just before)."""
     L, M = mask.shape
     outs = []
-    for dev, y_d, enc_d, seed_d, pin_d in zip(
+    for d, (dev, y_d, enc_d, seed_d, pin_d) in enumerate(zip(
             policy.data_devices, policy.split_data(y_n),
             policy.split_data(encode_idx), policy.split_data(noise_seed),
-            policy.split_data(pin_idx)):
-        outs.append(amp_fused(
-            y_d, mask.to(dev), sq_npl.to(dev), P, n, T, encode_idx=enc_d,
-            tol=tol, pin_idx=pin_d, tau2_schedule=_to(tau2_schedule, dev),
-            noise_seed=seed_d, noise_sigma=noise_sigma, split=split,
-            support=(None if split_support is None
-                     else split_support(L, M, dev))))
+            policy.split_data(pin_idx))):
+        with annotate("mesh.shard"):
+            with (interval("mesh.shard_inputs", dev) if d else
+                  contextlib.nullcontext()):
+                mask_d, sq_d = mask.to(dev), sq_npl.to(dev)
+                sched_d = _to(tau2_schedule, dev)
+                support = (None if split_support is None
+                           else split_support(L, M, dev))
+            outs.append(amp_fused(
+                y_d, mask_d, sq_d, P, n, T, encode_idx=enc_d, tol=tol,
+                pin_idx=pin_d, tau2_schedule=sched_d, noise_seed=seed_d,
+                noise_sigma=noise_sigma, split=split, support=support))
     beta, trace, iters = zip(*outs)
     return (policy.gather(beta, 0), policy.gather(trace, 1),
             policy.gather(iters, 0))

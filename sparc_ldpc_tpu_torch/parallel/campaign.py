@@ -52,6 +52,7 @@ import torch
 
 from .. import check_device
 from ..utils import io as iou
+from ..utils.profiling import annotate
 from ..utils.rng import block_generator
 from .mesh import ShardingPolicy
 
@@ -132,72 +133,79 @@ def run_point(
         device = getattr(getattr(run_block, "__self__", None), "device",
                          None)
     device = check_device(device)
-    totals: Dict[str, float] = {}
-    block = 0
-    exec_blocks = 0
-    exec_trials = 0
-    exec_wall = 0.0
-    t0 = time.perf_counter()
-    start = None        # the first executed launch's mark (_launch_mark)
-    pending = None      # ("exec", block_idx, staged) | ("replay", idx, rec)
+    with annotate("campaign.point"):
+        totals: Dict[str, float] = {}
+        block = 0
+        exec_blocks = 0
+        exec_trials = 0
+        exec_wall = 0.0
+        t0 = time.perf_counter()
+        start = None    # the first executed launch's mark (_launch_mark)
+        pending = None  # ("exec", block_idx, staged) | ("replay", idx, rec)
 
-    def harvest():
-        """Fold the pending block's counters into totals (and journal)."""
-        nonlocal pending, exec_blocks, exec_trials, exec_wall
-        if pending is None:
-            return
-        tag, blk, payload = pending
-        pending = None
-        if tag == "replay":
-            for k in _COUNTER_KEYS:
-                if k in payload:
-                    totals[k] = totals.get(k, 0) + payload[k]
-            return
-        keys, vals, done = payload
-        if not isinstance(done, float):
-            done.synchronize()
-        if policy is not None:
-            vals = policy.all_reduce(vals)
-        out = {k: int(v) for k, v in zip(keys, vals.tolist())}
-        # this block's completion, from the first executed launch
-        exec_wall = _seconds(start, done)
-        if "first_block_s" not in totals:
-            # the first executed block carries the kernels' build at first
-            # use and the CUDA warm-up; kept apart from the throughput
-            totals["first_block_s"] = exec_wall
-        exec_blocks += 1
-        exec_trials += out.get("trials", 0)
-        for k, v in out.items():
-            totals[k] = totals.get(k, 0) + v
-        if state is not None:
-            state.record_block(point_idx, blk, out)
+        def harvest():
+            """Fold the pending block's counters into totals (and
+            journal)."""
+            nonlocal pending, exec_blocks, exec_trials, exec_wall
+            if pending is None:
+                return
+            tag, blk, payload = pending
+            pending = None
+            if tag == "replay":
+                for k in _COUNTER_KEYS:
+                    if k in payload:
+                        totals[k] = totals.get(k, 0) + payload[k]
+                return
+            keys, vals, done = payload
+            with annotate("campaign.wait"):
+                if not isinstance(done, float):
+                    done.synchronize()
+            if policy is not None:
+                vals = policy.all_reduce(vals)
+            out = {k: int(v) for k, v in zip(keys, vals.tolist())}
+            # this block's completion, from the first executed launch
+            exec_wall = _seconds(start, done)
+            if "first_block_s" not in totals:
+                # the first executed block carries the kernels' build at
+                # first use and the CUDA warm-up; kept apart from the
+                # throughput
+                totals["first_block_s"] = exec_wall
+            exec_blocks += 1
+            exec_trials += out.get("trials", 0)
+            for k, v in out.items():
+                totals[k] = totals.get(k, 0) + v
+            if state is not None:
+                with annotate("campaign.journal"):
+                    state.record_block(point_idx, blk, out)
 
-    while (totals.get("frame_errors", 0) < min_frame_errors
-           and totals.get("trials", 0) < max_trials):
-        if state is not None and state.is_done(point_idx, block):
-            rec = state.block_record(point_idx, block)
-            harvest()
-            pending = ("replay", block, rec)
+        while (totals.get("frame_errors", 0) < min_frame_errors
+               and totals.get("trials", 0) < max_trials):
+            if state is not None and state.is_done(point_idx, block):
+                rec = state.block_record(point_idx, block)
+                harvest()
+                pending = ("replay", block, rec)
+                if not pipelined:
+                    harvest()
+                block += 1
+                continue
+            with annotate("campaign.launch"):
+                gen = block_generator(base_seed, point_idx, block, device)
+                if start is None:
+                    start = _launch_mark(device)
+                # queued, not waited on
+                staged = _stage(run_block(gen, batch))
+            harvest()                               # the PREVIOUS block
+            pending = ("exec", block, staged)
             if not pipelined:
                 harvest()
             block += 1
-            continue
-        gen = block_generator(base_seed, point_idx, block, device)
-        if start is None:
-            start = _launch_mark(device)
-        staged = _stage(run_block(gen, batch))   # queued, not waited on
-        harvest()                                # the PREVIOUS block
-        pending = ("exec", block, staged)
-        if not pipelined:
-            harvest()
-        block += 1
-    harvest()
-    totals["wall_s"] = time.perf_counter() - t0
-    totals["blocks"] = block
-    totals["exec_blocks"] = exec_blocks
-    totals["exec_trials"] = exec_trials
-    totals["exec_wall_s"] = exec_wall
-    return totals
+        harvest()
+        totals["wall_s"] = time.perf_counter() - t0
+        totals["blocks"] = block
+        totals["exec_blocks"] = exec_blocks
+        totals["exec_trials"] = exec_trials
+        totals["exec_wall_s"] = exec_wall
+        return totals
 
 
 def steady_bits_per_s(tot: Dict[str, float], batch: int,

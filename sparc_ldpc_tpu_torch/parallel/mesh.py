@@ -49,6 +49,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import annotate, count, group, tracing
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -87,8 +89,10 @@ def make_mesh(section_shards: int = 1,
 
 # The section exchange's cost in this process (`exchange` and
 # `gather_sections`): calls, bytes sent, and host seconds from the
-# synchronized start of each to its received tensors on their devices.
-EXCHANGE_STATS = {"calls": 0, "bytes": 0, "s": 0.0}
+# synchronized start of each to its received tensors on their devices; a
+# group of the tracing registry (utils/profiling.py) that counts in every
+# run, traced or not.
+EXCHANGE_STATS = group("mesh.exchange", calls=0, bytes=0, s=0.0)
 
 
 def section_groups(section_procs: int, backend: str):
@@ -305,10 +309,16 @@ class ShardingPolicy:
 
     def gather(self, parts: Sequence[torch.Tensor], dim: int
                ) -> torch.Tensor:
-        """The parts concatenated along dim on the home device."""
-        if len(parts) == 1:
-            return parts[0].to(self.home)
-        return torch.cat([p.to(self.home) for p in parts], dim)
+        """The parts concatenated along dim on the home device; while
+        tracing, the bytes of every part but the first (the home shard's)
+        count into `mesh.gather_bytes`."""
+        with annotate("mesh.gather"):
+            if tracing():
+                count("mesh.gather_bytes", sum(
+                    p.numel() * p.element_size() for p in parts[1:]))
+            if len(parts) == 1:
+                return parts[0].to(self.home)
+            return torch.cat([p.to(self.home) for p in parts], dim)
 
     def all_reduce(self, vals: torch.Tensor) -> torch.Tensor:
         """vals, a CPU tensor of this data group's counters, summed over

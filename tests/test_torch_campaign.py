@@ -278,12 +278,21 @@ def test_journal_matches_the_reference_format(tmp_path):
 
 
 def test_profiling_helpers_time_and_trace(tmp_path):
-    dt, out = tprof.timeit_blocked(lambda x: x * 2, torch.ones(4), reps=2)
-    assert dt >= 0 and torch.equal(out, 2 * torch.ones(4))
-    rep = tprof.throughput_report(lambda: torch.ones(8).sum(), (), 100,
-                                  reps=2)
-    assert rep["bits_per_s"] > 0
+    """trace writes the profiler's trace and the counters beside it; a span
+    under it lands in the trace, and without a profiler annotate is one
+    shared no-op."""
+    assert not tprof.tracing()
+    assert tprof.annotate("stage") is tprof.annotate("other")
     with tprof.trace(str(tmp_path / "prof")):
+        assert tprof.tracing()
         with tprof.annotate("stage"):
             torch.ones(16).cumsum(0)
-    assert (tmp_path / "prof" / "trace.json").exists()
+        tprof.count("test.rows", 16)
+    assert not tprof.tracing()
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert any(e.get("name") == "stage" and e.get("cat") == "user_annotation"
+               for e in events["traceEvents"])
+    summary = json.loads((tmp_path / "prof" / "counters.json").read_text())
+    assert summary["counters"] == {"test.rows": 16.0}
+    assert "mesh.exchange" in summary["groups"]
+    tprof.reset()
