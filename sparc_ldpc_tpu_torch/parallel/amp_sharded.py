@@ -6,7 +6,10 @@ sparc_ldpc_tpu/parallel/amp_sharded.py `amp_fused_sharded`).
   slice of the batch, on its device; encode indices, noise seeds and pins
   are sliced alike, and the outputs are concatenated in shard order on the
   home device.  K1 and K6 compute each codeword alone, so the result is
-  the single-device call's, bit for bit.
+  the single-device call's, bit for bit.  Every shard's tables are copied
+  onto its device before the first launch: a copy between two cards runs
+  behind the work queued on both, so a copy queued after the home card's
+  launch would hold the other cards until that launch ends.
 
 - **Section-sharded** (S > 1, a power of two dividing L): a loop over the
   iterations in which device (d, s) holds the (B / D, L / S, M) slab of
@@ -112,25 +115,30 @@ def amp_fused_sharded(
 def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
                    pin_idx, split, tol, encode_idx, noise_seed, noise_sigma,
                    split_support):
-    """Each data shard's amp_fused on its device, in shard order.  While
-    tracing, a `mesh.shard` span a shard, and on every shard but the home
-    one a `mesh.shard_inputs` interval on its device's stream around its
-    copies of the tables: a copy between two cards runs on the source
-    card's stream behind its queued work, so the interval is the time the
-    shard's card waits for the home card (its K1 queued just before)."""
+    """Each data shard's amp_fused on its device, in shard order, after
+    every shard's tables are on its device: the copies of all shards
+    first, then the launches back to back, so that no card's inputs wait
+    for another card's launch of this call.  While tracing, on every
+    shard but the home one a `mesh.shard_inputs` interval on its device's
+    stream around its copies of the tables (a copy between two cards runs
+    on the source card's stream behind its queued work, so the interval
+    is the time the shard's card waits for the home card's work queued
+    before this call's launches), and a `mesh.shard` span a shard around
+    its launch."""
     L, M = mask.shape
+    tables = []
+    for d, dev in enumerate(policy.data_devices):
+        with (interval("mesh.shard_inputs", dev) if d else
+              contextlib.nullcontext()):
+            tables.append((mask.to(dev), sq_npl.to(dev),
+                           _to(tau2_schedule, dev),
+                           None if split_support is None
+                           else split_support(L, M, dev)))
     outs = []
-    for d, (dev, y_d, enc_d, seed_d, pin_d) in enumerate(zip(
-            policy.data_devices, policy.split_data(y_n),
-            policy.split_data(encode_idx), policy.split_data(noise_seed),
-            policy.split_data(pin_idx))):
+    for (mask_d, sq_d, sched_d, support), y_d, enc_d, seed_d, pin_d in zip(
+            tables, policy.split_data(y_n), policy.split_data(encode_idx),
+            policy.split_data(noise_seed), policy.split_data(pin_idx)):
         with annotate("mesh.shard"):
-            with (interval("mesh.shard_inputs", dev) if d else
-                  contextlib.nullcontext()):
-                mask_d, sq_d = mask.to(dev), sq_npl.to(dev)
-                sched_d = _to(tau2_schedule, dev)
-                support = (None if split_support is None
-                           else split_support(L, M, dev))
             outs.append(amp_fused(
                 y_d, mask_d, sq_d, P, n, T, encode_idx=enc_d, tol=tol,
                 pin_idx=pin_d, tau2_schedule=sched_d, noise_seed=seed_d,

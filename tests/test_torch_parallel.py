@@ -23,6 +23,7 @@ tolerance:
     change with the batch size, so floats are not compared with ==.
 """
 
+import contextlib
 import json
 
 import jax
@@ -45,8 +46,9 @@ from sparc_ldpc_tpu_torch.config import (
 from sparc_ldpc_tpu_torch.design.se import se_trajectory
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel, SparcSweep
-from sparc_ldpc_tpu_torch.ops.amp_kernel import fwht_tile
+from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, fwht_tile
 from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, hadamard_factor
+from sparc_ldpc_tpu_torch.parallel import amp_sharded
 from sparc_ldpc_tpu_torch.parallel.amp_sharded import amp_fused_sharded
 from sparc_ldpc_tpu_torch.parallel.campaign import run_campaign, run_point
 from sparc_ldpc_tpu_torch.parallel.dist_fwht import dist_fwht, hypercube
@@ -212,6 +214,52 @@ def test_section_sharded_amp_refuses_in_kernel_encode():
     with pytest.raises(ValueError, match="divisible"):
         amp_fused_sharded(y_n, mask, m.sq_npl, 1.0, m.cfg.n, 2,
                           cpu_policy(1, 256))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("option", ["noise", "schedule"])
+def test_data_parallel_stages_every_shards_tables_before_the_first_launch(
+        D, option, monkeypatch):
+    """The data-parallel loop copies every shard's tables onto its device
+    (the `mesh.shard_inputs` interval of each shard but the home one)
+    before it queues the first shard's launch: a copy between two cards
+    runs behind the work queued on both, so a copy queued after the home
+    card's launch would hold its card until that launch ends.  The order
+    moves no result: beta, trace and iterations are the single-device
+    call's, bit for bit."""
+    m, y_n, mask, idx, pin, sched = _sharded_inputs(B=8)
+    c = m.cfg
+    if option == "noise":       # the in-kernel encode and noise, fixed T
+        seeds = torch.arange(16, dtype=torch.int32).reshape(8, 2) * 7919
+        kw = dict(encode_idx=idx, noise_seed=seeds,
+                  noise_sigma=float(np.sqrt(m.sigma2)))
+        y = None
+    else:                       # y given, pins and the SE schedule
+        kw = dict(pin_idx=pin, tau2_schedule=sched)
+        y = y_n
+    want = amp_fused(y, mask, m.sq_npl, c.P, c.n, c.amp_iters, split=True,
+                     **kw)
+    order = []
+    fused, opened = amp_sharded.amp_fused, amp_sharded.interval
+
+    @contextlib.contextmanager
+    def interval(name, dev):
+        order.append(name)
+        with opened(name, dev):
+            yield
+
+    def launch(*a, **k):
+        order.append("launch")
+        return fused(*a, **k)
+
+    monkeypatch.setattr(amp_sharded, "interval", interval)
+    monkeypatch.setattr(amp_sharded, "amp_fused", launch)
+    got = amp_fused_sharded(y, mask, m.sq_npl, c.P, c.n, c.amp_iters,
+                            cpu_policy(D, 1), split=True,
+                            split_support=m.op.split_support, **kw)
+    assert order == ["mesh.shard_inputs"] * (D - 1) + ["launch"] * D
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ----------------------------------------------------------- models
