@@ -74,7 +74,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, count, tracing
 from .fwht import fwht_kron, round_bf16
 from .split_support import (SplitSupport, split_geometry,
                             split_support_from_mask)
@@ -625,6 +625,17 @@ def amp_fused_reference(y_n: Optional[torch.Tensor], mask: torch.Tensor,
     return beta * (1.0 / math.sqrt(n)), trace, iters
 
 
+def _counted(out: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """amp_fused's result, counted while tracing: `amp.iters_max` adds the
+    call's slowest codeword's iterations (a one-element tensor on the
+    device, summed when read: no sync), `amp.calls` one call."""
+    if tracing():
+        count("amp.iters_max", out[2].max())
+        count("amp.calls", 1)
+    return out
+
+
 def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
               mask: torch.Tensor,           # (L, M) 0/1 row support
               sq_npl: torch.Tensor,         # (L,) sqrt(n P_l)
@@ -699,9 +710,9 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
         f = fused_form(L, split, form, noise_seed is not None)
         dev = (y_n if y_n is not None else noise_seed).device
         if dev.type == "cpu":
-            return amp_fused_reference(y_n, mask, sq_npl, P, n, T, encode_idx,
-                                       precision, tol, pin_idx, tau2_schedule,
-                                       noise_seed, noise_sigma, form=f)
+            return _counted(amp_fused_reference(
+                y_n, mask, sq_npl, P, n, T, encode_idx, precision, tol,
+                pin_idx, tau2_schedule, noise_seed, noise_sigma, form=f))
         if dev.type != "cuda":
             raise ValueError(f"amp_fused runs on cpu or cuda, not {dev}")
         from ._build import run
@@ -775,7 +786,7 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
                 bpart.data_ptr(), B, L, M, T, float(P), float(n),
                 1.0 / math.sqrt(n), float(tol))
             amp_fused.slab_launches += 1
-            return beta, trace, iters
+            return _counted((beta, trace, iters))
         if f == "mono":
             # the mono form's work tile holds float32 products (bf16(x) H_M
             # and its H_L), so it is float32; zr holds bf16(z) with its column
@@ -793,7 +804,7 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
                 work.data_ptr(), zpart.data_ptr(), bpart.data_ptr(), B, L, M,
                 T, float(P), float(n), 1.0 / math.sqrt(n), float(tol))
             amp_fused.mono_launches += 1
-            return beta, trace, iters
+            return _counted((beta, trace, iters))
         # the split stages round the work tile to bf16 when they read it: in
         # bf16 mode it is stored in bf16 (same values, half the bytes)
         bf16 = precision == "bf16"
@@ -811,7 +822,7 @@ def amp_fused(y_n: Optional[torch.Tensor],  # (B, L, M) N-space embedded y
         amp_fused.launches += 1
         if noise_seed is not None:
             amp_fused.noise_launches += 1
-        return beta, trace, iters
+        return _counted((beta, trace, iters))
 
 
 # kernel runs, one per amp_fused call on a CUDA tensor, never counted on the

@@ -16,6 +16,7 @@ import torch
 import torch_threads  # noqa: F401  (torch's threads: this worker's share)
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import sparc_ldpc_tpu_torch.models.amp as model_amp
 from sparc_ldpc_tpu_torch.config import ConcatConfig, LdpcConfig, SparcConfig
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel
@@ -36,6 +37,8 @@ CONCAT = ConcatConfig(
     ldpc=LdpcConfig(kind="array", z=13, rows_b=3, cols_b=12, engine="qc",
                     schedule="layered", bp_iters=16),
     f_prot=0.5, feedback_iters=4)
+# the fast_l4096 cell's decode at a tiny size: per-codeword early stop
+EARLY = SPARC.replace(power_alloc="iterative", amp_iters=16, amp_tol=1e-4)
 B, BLOCKS, SEED = 8, 3, 2 ** 31 + 7
 
 # each span and the spans that may call it (the nearest span around it)
@@ -67,7 +70,8 @@ def models():
     pol = ShardingPolicy(make_mesh(1, ["cpu", "cpu"]))
     return {"sparc": SparcModel.build(SPARC, 6.0, "cpu"),
             "concat": ConcatModel.build(CONCAT, 4.0, "cpu"),
-            "mesh": SparcModel.build(SPARC, 6.0, None, policy=pol)}
+            "mesh": SparcModel.build(SPARC, 6.0, None, policy=pol),
+            "early": SparcModel.build(EARLY, 6.0, "cpu")}
 
 
 def campaign(model, tmp_path):
@@ -158,7 +162,9 @@ def test_concat_counters_equal_the_decoders_results(models, tmp_path):
                 if kw.get("T") == CONCAT.feedback_iters]
     assert len(feedback) == len(bp) == tot["blocks"]
     c = prof.counters()
-    assert set(c) == {"concat.feedback_iters", "bp.iters", "bp.codewords"}
+    assert set(c) == {"concat.feedback_iters", "bp.iters", "bp.codewords",
+                      "amp.iters_max", "amp.calls"}
+    assert c["amp.calls"] == 2 * tot["blocks"]     # both passes a block
     assert c["concat.feedback_iters"] == sum(int(i.sum()) for i in feedback)
     assert c["bp.iters"] == sum(int(out.iters.sum()) for _, _, out in bp)
     assert c["bp.codewords"] == sum(a[0].shape[0] for a, _, _ in bp) == (
@@ -174,12 +180,64 @@ def test_mesh_counts_the_second_shards_gather_and_input_wait(models,
     tot, _ = traced(lambda: campaign(m, tmp_path))
     blocks, half, T = int(tot["blocks"]), B // 2, m.cfg.amp_iters
     shard = half * SPARC.L * SPARC.M * 4 + T * half * 4 + half * 4
-    assert prof.counters() == {"mesh.gather_bytes": blocks * shard}
+    c = prof.counters()
+    assert c.pop("amp.calls") == 2 * blocks       # one call a shard
+    assert 0 < c.pop("amp.iters_max") <= 2 * blocks * T
+    assert c == {"mesh.gather_bytes": blocks * shard}
     ivs = prof.intervals_ms("mesh.shard_inputs")
     assert len(ivs) == blocks
     assert all(ms >= 0 and dev is None for ms, dev in ivs)
     s = prof.summary()
     assert s["intervals"]["mesh.shard_inputs"]["count"] == blocks
+
+
+def amp_results(monkeypatch):
+    """Every amp_fused call's (beta, trace, iters), as the decoder gets
+    them."""
+    log, orig = [], model_amp.amp_fused
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        log.append(out)
+        return out
+
+    monkeypatch.setattr(model_amp, "amp_fused", wrapped)
+    return log
+
+
+@pytest.mark.parametrize("kind", ["early", "concat"])
+def test_amp_counters_are_each_calls_slowest_codeword(models, tmp_path,
+                                                      monkeypatch, kind):
+    """amp.iters_max is the sum of each amp_fused call's largest
+    per-codeword iteration count, amp.calls the calls (concat: both
+    passes), on early-stopping blocks of the CPU route."""
+    log = amp_results(monkeypatch)
+    tot, _ = traced(lambda: campaign(models[kind], tmp_path))
+    per_block = 2 if kind == "concat" else 1
+    assert len(log) == per_block * tot["blocks"]
+    c = prof.counters()
+    assert c["amp.calls"] == len(log)
+    assert c["amp.iters_max"] == sum(int(it.max()) for _, _, it in log)
+    if kind == "early":
+        its = torch.cat([it for _, _, it in log])
+        # the codewords stop at different iterations, before the cap
+        assert int(its.min()) < int(its.max()) < EARLY.amp_iters
+        assert tot["iters_sum"] == int(its.sum())
+        assert c["amp.iters_max"] > tot["iters_sum"] / B
+
+
+def test_untraced_amp_counts_keep_no_tensor(models, tmp_path):
+    """Untraced, an early-stopping campaign records nothing and keeps no
+    tensor, and the decode takes no maximum of the iterations."""
+    with Ops() as ops:
+        campaign(models["early"], tmp_path)
+    assert prof._REG.counts == {}
+    assert not [o for o in ops.ops if o.startswith("aten.max")]
+    # traced (a journal of its own), the same campaign takes them
+    (tmp_path / "traced").mkdir()
+    _, events = traced(lambda: campaign(models["early"],
+                                        tmp_path / "traced"))
+    assert [e for e in events if e.name == "aten::max"]
 
 
 class Ops(TorchDispatchMode):
