@@ -28,13 +28,17 @@ runs the form that L routes to (mono at L <= 1024, split above) per data
 shard, or the section-sharded loop.  The scan route with one
 section shard runs each data shard's slice of the batch on its device;
 with several, its operator's transforms are the collective `dist_fwht`
-and the rest of the loop runs on the home device.
+and the rest of the loop runs on the home device.  Under a data mesh the
+AmpResult keeps each data shard's outputs on that shard's device
+(`AmpResult.parts`): a caller that needs only the decisions takes them on
+each card (`AmpResult.decide`), and beta is gathered only when read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from functools import cached_property
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -43,20 +47,67 @@ from ..ops.denoiser import denoise, denoise_kernel
 from ..ops.operators import BatchedOperator
 from ..parallel.amp_sharded import amp_fused_sharded
 from ..parallel.mesh import ShardingPolicy
+from ..utils.profiling import count
 
 
 @dataclass(frozen=True)
 class AmpResult:
-    """Final AMP state; the posteriors are derived from beta on demand."""
-    beta: torch.Tensor         # (B, L, M) final posterior-mean estimate
-    tau2_trace: torch.Tensor   # (T, B)
-    iters: torch.Tensor        # (B,) iterations actually used
+    """Final AMP state: beta (B, L, M), the final posterior-mean estimate;
+    tau2_trace (T, B); iters (B,), the iterations each codeword used; the
+    posteriors derived from beta on demand.
+
+    Held as `parts`, the (beta, tau2 trace, iters) of each data shard on
+    that shard's first device, in shard order: one part without a policy
+    or with one data shard, one a data shard on a data mesh (on the
+    section-sharded route, beta gathered over each shard's slabs).  A
+    field is gathered onto the home device by `policy.gather` when first
+    read, and is the part's own tensor with one part.  Beta is 4 L M bytes
+    a codeword: a caller that needs only the sectionwise decisions takes
+    them with `decide`, on each card, and only (B, L) int32 crosses; while
+    tracing, a gather of a whole beta over several parts counts into
+    `mesh.beta_gathers`."""
+    parts: Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
     sq_npl: torch.Tensor       # (L,) sqrt(n P_l)
+    policy: Optional[ShardingPolicy] = None
+
+    def _whole(self, field: int, dim: int) -> torch.Tensor:
+        if len(self.parts) == 1:
+            return self.parts[0][field]
+        return self.policy.gather([p[field] for p in self.parts], dim)
+
+    @cached_property
+    def beta(self) -> torch.Tensor:
+        if len(self.parts) > 1:
+            count("mesh.beta_gathers", 1)
+        return self._whole(0, 0)
+
+    @cached_property
+    def tau2_trace(self) -> torch.Tensor:
+        return self._whole(1, 1)
+
+    @cached_property
+    def iters(self) -> torch.Tensor:
+        return self._whole(2, 0)
 
     @property
     def posteriors(self) -> torch.Tensor:
         """(B, L, M) section posteriors (= beta / sqrt(n P_l))."""
         return self.beta / self.sq_npl[None, :, None]
+
+    def decide(self, fn: Callable[[torch.Tensor], torch.Tensor]
+               ) -> torch.Tensor:
+        """fn(beta) (B, ...) on the home device, fn a rowwise decision such
+        as `hard_indices`: fn of each part's beta on that part's device,
+        queued for every part before any copy to the home device, then the
+        results gathered in shard order.  A copy between two cards waits
+        for the work queued on both, so an fn queued behind one would wait
+        for the other card.  With one part, fn(beta); while tracing, a
+        call over several parts counts into `mesh.local_decisions`."""
+        out = [fn(p[0]) for p in self.parts]
+        if len(out) == 1:
+            return out[0]
+        count("mesh.local_decisions", 1)
+        return self.policy.gather(out, 0)
 
 
 def amp_decode(
@@ -110,15 +161,14 @@ def amp_decode(
             data = y_n if y_n is not None else noise_seed
             support = (op.split_support(L, M, data.device)
                        if op.split_support is not None else None)
-            beta3, trace, iters = amp_fused(
+            parts = [amp_fused(
                 y_n, op.mask.reshape(L, M), sq_npl, P, n, T, form=fused_form,
-                support=support, **kw)
+                support=support, **kw)]
         else:
-            beta3, trace, iters = amp_fused_sharded(
+            parts = amp_fused_sharded(
                 y_n, op.mask.reshape(L, M), sq_npl, P, n, T, policy,
-                split_support=op.split_support, **kw)
-        return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
-                         sq_npl=sq_npl)
+                split_support=op.split_support, gather=False, **kw)
+        return AmpResult(tuple(parts), sq_npl, policy)
     if encode_idx is not None or noise_seed is not None:
         raise ValueError("encode_idx/noise_seed need the fused route (op.mask "
                          "present, L <= 4096, M <= 1024); encode outside "
@@ -136,10 +186,7 @@ def amp_decode(
                 None if tau2_schedule is None else tau2_schedule.to(dev),
                 *(p[d] for p in pins), residual_space=residual_space,
                 use_pallas_denoiser=use_pallas_denoiser))
-        return AmpResult(
-            beta=policy.gather([r.beta for r in parts], 0),
-            tau2_trace=policy.gather([r.tau2_trace for r in parts], 1),
-            iters=policy.gather([r.iters for r in parts], 0), sq_npl=sq_npl)
+        return AmpResult(tuple(r.parts[0] for r in parts), sq_npl, policy)
     dn = denoise_kernel if use_pallas_denoiser else denoise
 
     def apply_pin(beta3):
@@ -186,12 +233,15 @@ def amp_decode(
         iters = iters + (~done).to(torch.int32)
         trace[t] = tau2_prev
         done = done | conv
-    return AmpResult(beta=beta.reshape(B, L, M), tau2_trace=trace,
-                     iters=iters, sq_npl=sq_npl)
+    return AmpResult(((beta.reshape(B, L, M), trace, iters),), sq_npl)
 
 
 def hard_indices(scores_or_beta: torch.Tensor) -> torch.Tensor:
-    """Sectionwise argmax: (B, L, M) -> (B, L) int32."""
+    """Sectionwise argmax: (B, L, M) -> (B, L) int32, the first maximum of
+    each section, so a row's decision does not depend on the rows beside
+    it.  The decisions of an AmpResult that may live on several cards are
+    `res.decide(hard_indices)`: each card's rows there, then only the
+    indices gathered."""
     return scores_or_beta.argmax(-1).to(torch.int32)
 
 

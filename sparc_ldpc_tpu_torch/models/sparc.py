@@ -215,7 +215,7 @@ class SparcModel:
             policy=self.policy, **self.fused_kw)
 
     def decode_bits(self, y: torch.Tensor) -> torch.Tensor:
-        return indices_to_bits(hard_indices(self.decode(y).beta),
+        return indices_to_bits(self.decode(y).decide(hard_indices),
                                self.cfg.logM)
 
     # ------------------------------------------------------------- trial
@@ -312,7 +312,8 @@ class SparcModel:
             encode_idx=enc_idx, use_pallas_denoiser=self.use_pallas,
             policy=self.policy, **self.fused_kw, **noise_kw)
         with annotate("block.counters"):
-            idx_hat = hard_indices(res.beta)
+            # on each data shard's card: beta stays where AMP left it
+            idx_hat = res.decide(hard_indices)
             bits_hat = indices_to_bits(idx_hat, cfg.logM)
             return dict(bit_errors=(bits != bits_hat).sum(-1),
                         section_errors=(idx_true != idx_hat).sum(-1),

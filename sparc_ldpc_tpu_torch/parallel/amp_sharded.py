@@ -4,12 +4,18 @@ sparc_ldpc_tpu/parallel/amp_sharded.py `amp_fused_sharded`).
 - **Pure DP** (one section shard): each data shard runs the unchanged
   `amp_fused` (K1, or K6 at L <= 1024 under amp_kernel="fused") on its
   slice of the batch, on its device; encode indices, noise seeds and pins
-  are sliced alike, and the outputs are concatenated in shard order on the
-  home device.  K1 and K6 compute each codeword alone, so the result is
-  the single-device call's, bit for bit.  Every shard's tables are copied
-  onto its device before the first launch: a copy between two cards runs
-  behind the work queued on both, so a copy queued after the home card's
-  launch would hold the other cards until that launch ends.
+  are sliced alike.  K1 and K6 compute each codeword alone, so the result
+  is the single-device call's, bit for bit.  Every shard's tables are
+  copied onto its device before the first launch: a copy between two
+  cards runs behind the work queued on both, so a copy queued after the
+  home card's launch would hold the other cards until that launch ends.
+  By default the outputs are concatenated in shard order on the home
+  device.  With gather=False each shard's stay on its device, and the
+  model's `AmpResult` gathers a field when it is read: a caller that
+  needs only the decisions takes them on every card before anything is
+  copied (`AmpResult.decide`), so that only (B, L) int32 indices cross
+  instead of the (B, L, M) float32 beta, and no card's argmax is queued
+  behind a copy, which would make it wait for the home card's work.
 
 - **Section-sharded** (S > 1, a power of two dividing L): a loop over the
   iterations in which device (d, s) holds the (B / D, L / S, M) slab of
@@ -48,7 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import torch
 
@@ -77,19 +83,39 @@ def amp_fused_sharded(
         noise_seed: Optional[torch.Tensor] = None,     # (B, 2), pure DP only
         noise_sigma: Optional[float] = None,
         split_support=None,                            # op.split_support
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        gather: bool = True,
+):
     """`amp_fused` over the policy's mesh: returns (beta (B, L, M) true
     scale, tau2 trace (T, B), iterations used (B,) int32) on the home
-    device; iterations are T when tol == 0.  split_support, the operator's
-    cache of the split kernel's tables of mask (`amp_fused`'s support, per
-    device), gives each data shard the tables on its device; the
-    section-sharded loop does not read it."""
+    device; iterations are T when tol == 0.  With gather=False, returns
+    instead the list of each data shard's (beta, trace, iterations), in
+    shard order, on the shard's first device.  split_support, the
+    operator's cache of the split kernel's tables of mask (`amp_fused`'s
+    support, per device), gives each data shard the tables on its device;
+    the section-sharded loop does not read it."""
     if tol and tau2_schedule is not None:
         raise ValueError("a tau2 schedule has no online estimate for tol")
     if policy.section_shards == 1:
-        return _data_parallel(y_n, mask, sq_npl, P, n, T, policy,
-                              tau2_schedule, pin_idx, split, tol, encode_idx,
-                              noise_seed, noise_sigma, split_support)
+        parts = _data_parallel(y_n, mask, sq_npl, P, n, T, policy,
+                               tau2_schedule, pin_idx, split, tol,
+                               encode_idx, noise_seed, noise_sigma,
+                               split_support)
+    else:
+        parts = _section_sharded(y_n, mask, sq_npl, P, n, T, policy,
+                                 tau2_schedule, pin_idx, tol, encode_idx,
+                                 noise_seed)
+    if not gather:
+        return parts
+    beta, trace, iters = zip(*parts)
+    return (policy.gather(beta, 0), policy.gather(trace, 1),
+            policy.gather(iters, 0))
+
+
+def _section_sharded(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
+                     pin_idx, tol, encode_idx, noise_seed):
+    """The section-sharded loop (module docstring): each data shard's
+    (beta, trace, iterations) on its device (d, 0), beta gathered over
+    the shard's slabs."""
     if encode_idx is not None or noise_seed is not None:
         raise ValueError("the in-kernel encode and noise need each "
                          "codeword's whole (L, M) state on one device; "
@@ -107,9 +133,8 @@ def amp_fused_sharded(
     for t in range(T):
         for dec in decodes:
             dec.step(t)
-    return (policy.gather([dec.gathered_beta() for dec in decodes], 0),
-            policy.gather([torch.stack(dec.trace) for dec in decodes], 1),
-            policy.gather([dec.iters for dec in decodes], 0))
+    return [(dec.gathered_beta(), torch.stack(dec.trace), dec.iters)
+            for dec in decodes]
 
 
 def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
@@ -118,13 +143,14 @@ def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
     """Each data shard's amp_fused on its device, in shard order, after
     every shard's tables are on its device: the copies of all shards
     first, then the launches back to back, so that no card's inputs wait
-    for another card's launch of this call.  While tracing, on every
-    shard but the home one a `mesh.shard_inputs` interval on its device's
-    stream around its copies of the tables (a copy between two cards runs
-    on the source card's stream behind its queued work, so the interval
-    is the time the shard's card waits for the home card's work queued
-    before this call's launches), and a `mesh.shard` span a shard around
-    its launch."""
+    for another card's launch of this call.  Returns each shard's (beta,
+    trace, iterations) on its device.  While tracing, on every shard but
+    the home one a `mesh.shard_inputs` interval on its device's stream
+    around its copies of the tables (a copy between two cards runs on the
+    source card's stream behind its queued work, so the interval is the
+    time the shard's card waits for the home card's work queued before
+    this call's launches), and a `mesh.shard` span a shard around its
+    launch."""
     L, M = mask.shape
     tables = []
     for d, dev in enumerate(policy.data_devices):
@@ -143,9 +169,7 @@ def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
                 y_d, mask_d, sq_d, P, n, T, encode_idx=enc_d, tol=tol,
                 pin_idx=pin_d, tau2_schedule=sched_d, noise_seed=seed_d,
                 noise_sigma=noise_sigma, split=split, support=support))
-    beta, trace, iters = zip(*outs)
-    return (policy.gather(beta, 0), policy.gather(trace, 1),
-            policy.gather(iters, 0))
+    return outs
 
 
 def _sum_slabs(parts: List[torch.Tensor], dev: torch.device,

@@ -1225,8 +1225,9 @@ CAMPAIGN_KEYS = ("bit_errors", "frame_errors", "trials", "bit_errors_sq",
 
 
 def test_cuda_real_mesh_data_parallel_is_bitwise_one_card(gpus):
-    """A data shard on every GPU (K1 with its noise on each, beta gathered
-    on cuda:0): the block of cuda:0 alone, tau2_final included."""
+    """A data shard on every GPU (K1 with its noise on each, the decisions
+    taken there and gathered on cuda:0): the block of cuda:0 alone,
+    tau2_final included."""
     import dataclasses
 
     from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
@@ -1242,6 +1243,42 @@ def test_cuda_real_mesh_data_parallel_is_bitwise_one_card(gpus):
     real = dataclasses.replace(model, policy=ShardingPolicy(
         make_mesh(1, gpus)))
     assert run(real) == want
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_real_mesh_frames_are_one_cards_without_beta_home(gpus, n):
+    """frame_counts on a real (n, 1) mesh (K1 with its noise on each card,
+    each card's argmax there, only the int32 indices, trace and
+    iterations copied to cuda:0): every per-frame output of cuda:0 alone
+    on the same seeds, bit for bit, and cuda:0's peak over the call stays
+    below the size of the whole batch's beta, which it held before the
+    decisions moved to the cards."""
+    import dataclasses
+
+    from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+
+    if len(gpus) < n:
+        pytest.skip(f"needs {n} GPUs, {len(gpus)} visible")
+    model = _mesh_model(gpus[0])
+    c, B = model.cfg, 64 * n
+    gen = torch.Generator(device=gpus[0]).manual_seed(11)
+    bits = torch.randint(0, 2, (B, c.k_bits), generator=gen,
+                         dtype=torch.int32, device=gpus[0])
+    seeds = model.draw_seeds(gen, B)
+    want = model.frame_counts(bits, None, noise_seed=seeds)
+    mesh = dataclasses.replace(model, policy=ShardingPolicy(
+        make_mesh(1, gpus[:n])))
+    torch.cuda.synchronize(gpus[0])
+    torch.cuda.reset_peak_memory_stats(gpus[0])
+    base = torch.cuda.memory_allocated(gpus[0])
+    got = mesh.frame_counts(bits, None, noise_seed=seeds)
+    for d in gpus[:n]:
+        torch.cuda.synchronize(d)
+    peak = torch.cuda.max_memory_allocated(gpus[0]) - base
+    for k in want:
+        assert got[k].device == gpus[0], k
+        assert torch.equal(got[k], want[k]), k
+    assert peak < B * c.L * c.M * 4, peak
 
 
 @pytest.mark.parametrize("S", [2, 4])

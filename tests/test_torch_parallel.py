@@ -44,6 +44,8 @@ from sparc_ldpc_tpu_torch import cli as tcli
 from sparc_ldpc_tpu_torch.config import (
     CampaignConfig, ConcatConfig, LdpcConfig, SparcConfig)
 from sparc_ldpc_tpu_torch.design.se import se_trajectory
+from sparc_ldpc_tpu_torch.models import sparc as sparc_mod
+from sparc_ldpc_tpu_torch.models.amp import hard_indices
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
 from sparc_ldpc_tpu_torch.models.sparc import SparcModel, SparcSweep
 from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, fwht_tile
@@ -53,6 +55,7 @@ from sparc_ldpc_tpu_torch.parallel.amp_sharded import amp_fused_sharded
 from sparc_ldpc_tpu_torch.parallel.campaign import run_campaign, run_point
 from sparc_ldpc_tpu_torch.parallel.dist_fwht import dist_fwht, hypercube
 from sparc_ldpc_tpu_torch.parallel.mesh import ShardingPolicy, make_mesh
+from sparc_ldpc_tpu_torch.utils import profiling as prof
 from sparc_ldpc_tpu_torch.utils.bits import bits_to_indices
 from sparc_ldpc_tpu_torch.utils.rng import block_generator
 
@@ -274,6 +277,153 @@ def test_data_parallel_block_matches_single_device(D, cfg):
     assert model.device == torch.device("cpu")
     assert model.noise_in_kernel == cfg.amp_noise_in_kernel
     assert_same_block(block(model), want)
+
+
+DP_CFGS = [FUSED.replace(amp_kernel="fused_split", amp_noise_in_kernel=True),
+           FUSED, XLA]
+DP_IDS = ["split+noise", "mono", "scan"]
+
+
+def _draws(model, batch=16, seed=3):
+    """A block's draws: bits and either the noise or, with the in-kernel
+    noise, its per-codeword keys."""
+    gen = block_generator(seed, 0, 0, model.device)
+    bits = torch.randint(0, 2, (batch, model.cfg.k_bits), generator=gen,
+                         dtype=torch.int32, device=model.device)
+    if model.noise_in_kernel:
+        return bits, None, model.draw_seeds(gen, batch)
+    return bits, torch.randn((batch, model.cfg.n), generator=gen), None
+
+
+def _frames_and_results(model, draws, monkeypatch):
+    """model.frame_counts on the draws, and the AmpResult it decided."""
+    log, decode = [], sparc_mod.amp_decode
+
+    def logged(*a, **kw):
+        log.append(decode(*a, **kw))
+        return log[-1]
+
+    monkeypatch.setattr(sparc_mod, "amp_decode", logged)
+    bits, noise, seeds = draws
+    frames = model.frame_counts(bits, noise, noise_seed=seeds)
+    monkeypatch.setattr(sparc_mod, "amp_decode", decode)
+    (res,) = log
+    return frames, res
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("cfg", DP_CFGS, ids=DP_IDS)
+def test_data_mesh_decisions_are_the_single_devices(D, cfg, monkeypatch):
+    """Under a data mesh frame_counts takes each shard's decisions on its
+    device and gathers them: the per-frame bit and section errors,
+    iterations and last tau2 of the single device, and beta, gathered
+    when read afterwards, the single device's.  The fused routes' plain
+    versions compute each codeword alone, so their floats are equal bit
+    for bit; the scan route's transforms go through BLAS, whose summation
+    order may follow the batch size, so its floats are held to rtol 1e-5
+    (the module's rule) and its decisions to the argmax of its own beta."""
+    one = SparcModel.build(cfg, 5.0, "cpu")
+    draws = _draws(one)
+    want, ref = _frames_and_results(one, draws, monkeypatch)
+    model = SparcModel.build(cfg, 5.0, None, policy=cpu_policy(D, 1))
+    got, res = _frames_and_results(model, draws, monkeypatch)
+    assert len(res.parts) == D and len(ref.parts) == 1
+    assert ref.beta is ref.parts[0][0]          # one part: no copy
+    for k in ("bit_errors", "section_errors", "iters"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(res.decide(hard_indices), hard_indices(res.beta))
+    if cfg is XLA:
+        np.testing.assert_allclose(got["tau2_final"], want["tau2_final"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(res.beta, ref.beta, rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert torch.equal(got["tau2_final"], want["tau2_final"])
+        assert torch.equal(res.beta, ref.beta)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("cfg", DP_CFGS, ids=DP_IDS)
+def test_data_mesh_takes_every_decision_before_a_copy_home(D, cfg,
+                                                         monkeypatch):
+    """frame_counts queues every shard's argmax, each on its shard's
+    device, before the first gather onto the home device (a copy between
+    two cards waits for the work queued on both, so an argmax queued
+    behind one would wait for the home card); then it gathers the
+    indices, the iterations and the trace, and never beta."""
+    order = []
+    argmax, gather = sparc_mod.hard_indices, ShardingPolicy.gather
+
+    def decide(beta):
+        order.append(("argmax", beta.shape[0]))
+        return argmax(beta)
+
+    def gathered(self, parts, dim):
+        order.append(("gather", parts[0].dtype))
+        return gather(self, parts, dim)
+
+    model = SparcModel.build(cfg, 5.0, None, policy=cpu_policy(D, 1))
+    draws = _draws(model)
+    monkeypatch.setattr(sparc_mod, "hard_indices", decide)
+    monkeypatch.setattr(ShardingPolicy, "gather", gathered)
+    model.frame_counts(draws[0], draws[1], noise_seed=draws[2])
+    assert order == ([("argmax", 16 // D)] * D
+                     + [("gather", torch.int32), ("gather", torch.int32),
+                        ("gather", torch.float32)])
+
+
+def _traced(fn):
+    """fn() under a CPU profiler: its result and the mesh's counters."""
+    prof.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    return out, {k: v for k, v in prof.counters().items()
+                 if k.startswith("mesh.")}
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("cfg", DP_CFGS, ids=DP_IDS)
+def test_data_mesh_gathers_the_indices_not_beta(D, cfg, monkeypatch):
+    """While tracing, `mesh.gather_bytes` of a block under a data mesh is
+    the bytes of the shards but the home one's int32 indices, trace and
+    iterations; `mesh.local_decisions` counts the call once and
+    `mesh.beta_gathers` not at all.  Reading beta afterwards gathers it
+    once: one count, and beta's bytes."""
+    c = cfg
+    model = SparcModel.build(cfg, 5.0, None, policy=cpu_policy(D, 1))
+    draws = _draws(model)
+    try:
+        (_, res), counted = _traced(
+            lambda: _frames_and_results(model, draws, monkeypatch))
+        rest = 16 - 16 // D               # the rows off the home shard
+        assert counted == {"mesh.gather_bytes": rest * (
+                               c.L * 4 + c.amp_iters * 4 + 4),
+                           "mesh.local_decisions": 1}
+        _, read = _traced(lambda: (res.beta, res.beta))
+        assert read == {"mesh.gather_bytes": rest * c.L * c.M * 4,
+                        "mesh.beta_gathers": 1}
+    finally:
+        prof.reset()
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_concat_under_a_data_mesh_gathers_beta_for_its_fold(D):
+    """A concat block under a data mesh reads the whole beta of both AMP
+    passes (the LLR fold of the first, the unprotected sections of the
+    pinned pass): two gathers of beta a block, no decisions taken on the
+    shards; a SPARC block gathers none."""
+    try:
+        _, counted = _traced(lambda: block(ConcatModel.build(
+            CONCAT, 6.0, None, policy=cpu_policy(D, 1)), batch=8, seed=9))
+        assert counted["mesh.beta_gathers"] == 2
+        assert "mesh.local_decisions" not in counted
+        _, counted = _traced(lambda: block(SparcModel.build(
+            FUSED, 5.0, None, policy=cpu_policy(D, 1))))
+        assert "mesh.beta_gathers" not in counted
+        assert counted["mesh.local_decisions"] == 1
+    finally:
+        prof.reset()
 
 
 @pytest.mark.parametrize("D,S", [(1, 2), (2, 2), (1, 4)])

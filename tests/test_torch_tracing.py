@@ -4,11 +4,12 @@ Tiny SPARC and concatenated campaigns run through the campaign's own
 `run_point`.  Under a CPU torch.profiler they show every span of the
 program, each inside the span that calls it; the counters equal the sums
 taken from the decoders' own results on the same draws; on a virtual data
-mesh of two CPU devices the gathered bytes are the second shard's beta,
-trace and iterations, and the second shard records one interval of its
-input copies a block.  Untraced, the same runs enter no span and leave the
-registry empty, and the primitives call nothing: no dispatcher op, no CUDA
-event, no synchronize.
+mesh of two CPU devices the gathered bytes are the second shard's
+decisions (int32 indices), trace and iterations, each block's decisions
+taken on the shards count once, and the second shard records one interval
+of its input copies a block.  Untraced, the same runs enter no span and
+leave the registry empty, and the primitives call nothing: no dispatcher
+op, no CUDA event, no synchronize.
 """
 
 import pytest
@@ -54,7 +55,7 @@ CALLERS = {
     "bp.decode": {"campaign.launch"},
     "concat.feedback": {"campaign.launch"},
     "mesh.shard": {"campaign.launch"},
-    "mesh.gather": {"campaign.launch", "concat.feedback"},
+    "mesh.gather": {"campaign.launch", "concat.feedback", "block.counters"},
 }
 
 
@@ -138,7 +139,7 @@ def test_spans_nest_as_the_program_calls(models, tmp_path, kind):
                        "bp.decode": blocks, "concat.feedback": blocks,
                        "block.counters": blocks})
     elif kind == "mesh":
-        # two shards a block, three gathers (beta, trace, iterations)
+        # two shards a block, three gathers (indices, trace, iterations)
         expect.update({"amp.fused": 2 * blocks, "mesh.shard": 2 * blocks,
                        "mesh.gather": 3 * blocks})
     else:
@@ -179,11 +180,12 @@ def test_mesh_counts_the_second_shards_gather_and_input_wait(models,
     m = models["mesh"]
     tot, _ = traced(lambda: campaign(m, tmp_path))
     blocks, half, T = int(tot["blocks"]), B // 2, m.cfg.amp_iters
-    shard = half * SPARC.L * SPARC.M * 4 + T * half * 4 + half * 4
+    shard = half * SPARC.L * 4 + T * half * 4 + half * 4
     c = prof.counters()
     assert c.pop("amp.calls") == 2 * blocks       # one call a shard
     assert 0 < c.pop("amp.iters_max") <= 2 * blocks * T
-    assert c == {"mesh.gather_bytes": blocks * shard}
+    assert c == {"mesh.gather_bytes": blocks * shard,
+                 "mesh.local_decisions": blocks}
     ivs = prof.intervals_ms("mesh.shard_inputs")
     assert len(ivs) == blocks
     assert all(ms >= 0 and dev is None for ms, dev in ivs)
