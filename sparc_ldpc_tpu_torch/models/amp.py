@@ -8,10 +8,10 @@ Onsager correction and online tau tracking:
     s_t    = beta_t + A^T z_t
     beta_{t+1} = eta(s_t; tau2_t)             (ops.denoiser)
 
-Two routes: the fused whole-trial route (ops.amp_kernel.amp_fused: the CUDA
-kernel of the split, mono or slab form on a GPU, its plain version on the
-CPU; with noise seeds the split form also draws the channel noise) and the
-scan route, a Python loop, whose
+Two routes: the fused whole-trial route where `fused_route` allows it
+(ops.amp_kernel.amp_fused: the CUDA kernel of the split, mono or slab form
+on a GPU, its plain version on the CPU; with noise seeds the split form
+also draws the channel noise) and the scan route, a Python loop, whose
 denoiser is `denoise` or, with use_pallas_denoiser, the CUDA kernel
 `denoise_kernel` (the reference's `denoise_pallas`).  Both have the
 reference's per-codeword freeze: once
@@ -26,7 +26,8 @@ shard, or the section-sharded loop on K3).  As in the reference, a policy
 takes fused_split but not fused_form: under a policy a "fused_slab" config
 runs the form that L routes to (mono at L <= 1024, split above) per data
 shard, or the section-sharded loop.  The scan route with one
-section shard runs each data shard's slice of the batch on its device;
+section shard runs each data shard's slice of the batch on its device,
+every shard's constants staged first (`ShardingPolicy.stage`);
 with several, its operator's transforms are the collective `dist_fwht`
 and the rest of the loop runs on the home device.  Under a data mesh the
 AmpResult keeps each data shard's outputs on that shard's device
@@ -98,16 +99,22 @@ class AmpResult:
                ) -> torch.Tensor:
         """fn(beta) (B, ...) on the home device, fn a rowwise decision such
         as `hard_indices`: fn of each part's beta on that part's device,
-        queued for every part before any copy to the home device, then the
-        results gathered in shard order.  A copy between two cards waits
-        for the work queued on both, so an fn queued behind one would wait
-        for the other card.  With one part, fn(beta); while tracing, a
-        call over several parts counts into `mesh.local_decisions`."""
+        queued for every part before any copy to the home device (for the
+        reason `ShardingPolicy.stage` gives), then the results gathered in
+        shard order.  With one part, fn(beta); while tracing, a call over
+        several parts counts into `mesh.local_decisions`."""
         out = [fn(p[0]) for p in self.parts]
         if len(out) == 1:
             return out[0]
         count("mesh.local_decisions", 1)
         return self.policy.gather(out, 0)
+
+
+def fused_route(op: BatchedOperator, L: int) -> bool:
+    """Whether amp_decode's fused route (`amp_fused`) can decode with op at
+    L sections: op has a row mask (the kernels' support), L <= 4096 and
+    M <= 1024.  Only there can a decode take encode_idx or noise_seed."""
+    return op.mask is not None and L <= 4096 and op.ML // L <= 1024
 
 
 def amp_decode(
@@ -144,7 +151,7 @@ def amp_decode(
     ML = op.ML
     M = ML // L
 
-    if fused and op.mask is not None and L <= 4096 and M <= 1024:
+    if fused and fused_route(op, L):
         # schedule mode has no online tau to compare: no early stop there
         k_tol = tol if (tol > 0 and tau2_schedule is None) else 0.0
         pin_idx = None
@@ -167,26 +174,28 @@ def amp_decode(
         else:
             parts = amp_fused_sharded(
                 y_n, op.mask.reshape(L, M), sq_npl, P, n, T, policy,
-                split_support=op.split_support, gather=False, **kw)
+                split_support=op.split_support, **kw)
         return AmpResult(tuple(parts), sq_npl, policy)
     if encode_idx is not None or noise_seed is not None:
-        raise ValueError("encode_idx/noise_seed need the fused route (op.mask "
-                         "present, L <= 4096, M <= 1024); encode outside "
-                         "amp_decode")
+        raise ValueError("encode_idx/noise_seed need the fused route "
+                         "(fused_route); encode outside amp_decode")
     if (policy is not None and policy.section_shards == 1
             and policy.data_shards > 1):
-        # data-parallel scan: each data shard's slice on its device
-        parts = []
+        # data-parallel scan: each data shard's slice on its device, every
+        # shard's constants staged before the first shard's decode
+        consts = policy.stage(lambda dev: (
+            sq_npl.to(dev),
+            None if tau2_schedule is None else tau2_schedule.to(dev)))
         pins = [policy.split_data(p) for p in
                 (pinned_onehot, pinned_mask, pinned_idx)]
-        for d, (dev, y_d) in enumerate(zip(policy.data_devices,
-                                           policy.split_data(y))):
+        parts = []
+        for d, ((sq_d, sched_d), y_d) in enumerate(
+                zip(consts, policy.split_data(y))):
             parts.append(amp_decode(
-                y_d, op, sq_npl.to(dev), P, n, T, tol,
-                None if tau2_schedule is None else tau2_schedule.to(dev),
-                *(p[d] for p in pins), residual_space=residual_space,
-                use_pallas_denoiser=use_pallas_denoiser))
-        return AmpResult(tuple(r.parts[0] for r in parts), sq_npl, policy)
+                y_d, op, sq_d, P, n, T, tol, sched_d, *(p[d] for p in pins),
+                residual_space=residual_space,
+                use_pallas_denoiser=use_pallas_denoiser).parts[0])
+        return AmpResult(tuple(parts), sq_npl, policy)
     dn = denoise_kernel if use_pallas_denoiser else denoise
 
     def apply_pin(beta3):

@@ -17,10 +17,13 @@ Decode chain:
   5. user bits: the unprotected sections' argmax from the feedback pass
      and the LDPC message bits.
 
-With the config's in-kernel noise, a block draws one Philox key per frame
-and both AMP passes take the same keys, so the pinned feedback pass's
-kernel regenerates exactly the noise the main pass decoded (as it
-re-synthesizes the same codeword from the same true indices).
+A block's draws, its received word and its frame counters are the inner
+SPARC model's (`SparcModel.draw`, `SparcModel.received`,
+`frame_counters`).  Both AMP passes take the received word with the same
+keywords: with the config's in-kernel noise the same Philox key per frame,
+so the pinned feedback pass's kernel regenerates exactly the noise the
+main pass decoded (as it re-synthesizes the same codeword from the same
+true indices).
 `ConcatSweep` builds a model per Eb/N0 point; the reference's staged
 s1/s2/s3 runner exists for its JIT compile times and has no counterpart
 here (the campaign takes `run_block`).
@@ -35,7 +38,6 @@ same function per slab or gathered).
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -48,7 +50,7 @@ from ..utils.bits import bits_to_indices, indices_to_bits
 from ..utils.profiling import annotate, count
 from .amp import hard_indices
 from .ldpc import LdpcModel
-from .sparc import SparcModel
+from .sparc import SparcModel, frame_counters
 
 
 def _derive_partition(L: int, logM: int, ldpc_n: int, f_prot: float
@@ -228,27 +230,28 @@ class ConcatModel:
 
     def decode(self, y: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full concatenated decode of observations y (B, n)."""
-        res = self.sparc.decode(y)
+        res, out = self._decode(y)
+        return dict(out, tau2_final=res.tau2_trace[-1])
+
+    def _decode(self, y: Optional[torch.Tensor],
+                encode_idx: Optional[torch.Tensor] = None, **noise_kw):
+        """The chain on a received word and its decode keywords
+        (`SparcModel.received`): AMP, the fold and BP, then the pinned pass
+        with the same keywords.  Returns the first pass's AmpResult and
+        dict(user_bits, bp_ok, amp_iters, bp_iters)."""
+        res = self.sparc.decode(y, encode_idx=encode_idx, **noise_kw)
         cw_hat, ok, bp_iters = self._bp_from_beta(res.beta)
-        user_hat = self._feedback_user_bits(y, cw_hat, ok)
-        return dict(user_bits=user_hat, bp_ok=ok, amp_iters=res.iters,
-                    bp_iters=bp_iters, tau2_final=res.tau2_trace[-1])
+        user_hat = self._feedback_user_bits(y, cw_hat, ok, enc_idx=encode_idx,
+                                            noise_kw=noise_kw)
+        return res, dict(user_bits=user_hat, bp_ok=ok, amp_iters=res.iters,
+                         bp_iters=bp_iters)
 
     # ------------------------------------------------------------- trial
 
     def run_block(self, gen: torch.Generator, batch: int
                   ) -> Dict[str, torch.Tensor]:
         """One Monte-Carlo block of `batch` frames drawn from `gen`."""
-        with annotate("block.draw"):
-            bits = torch.randint(0, 2, (batch, self.k_user), generator=gen,
-                                 dtype=torch.int32, device=self.device)
-            noise = seeds = None
-            if self.sparc.noise_in_kernel:
-                seeds = self.sparc.draw_seeds(gen, batch)
-            else:
-                noise = torch.randn((batch, self.sparc.cfg.n), generator=gen,
-                                    dtype=torch.float32, device=self.device)
-        return self._block(bits, noise, seeds)
+        return self._block(*self.sparc.draw(gen, batch, self.k_user))
 
     def run_block_from(self, bits, noise) -> Dict[str, torch.Tensor]:
         """run_block on given draws: user bits (B, k_user) {0,1} and
@@ -266,35 +269,13 @@ class ConcatModel:
         if self.sparc.policy is not None:
             bits, noise, noise_seed = self.sparc.policy.own_rows(
                 bits, noise, noise_seed)
-        sigma = math.sqrt(self.sparc.sigma2)
-        if noise_seed is not None or self.sparc.enc_in_kernel:
-            # both AMP passes add mask o (A beta0) from the true indices, and
-            # take the noise as y or draw it again from the same seeds
-            idx = self._true_indices(bits)
-            if noise_seed is None:
-                y, nkw = noise * sigma, {}
-            else:
-                y, nkw = None, dict(noise_seed=noise_seed, noise_sigma=sigma)
-            res = self.sparc.decode(y, encode_idx=idx, **nkw)
-            cw_hat, ok, bp_iters = self._bp_from_beta(res.beta)
-            user_hat = self._feedback_user_bits(y, cw_hat, ok, enc_idx=idx,
-                                                noise_kw=nkw)
-            out = dict(user_bits=user_hat, bp_ok=ok, amp_iters=res.iters)
-        else:
-            out = self.decode(self.encode(bits) + noise * sigma)
+        y, kw = self.sparc.received(self._true_indices(bits), noise,
+                                    noise_seed)
+        _, out = self._decode(y, **kw)
         with annotate("block.counters"):
-            bit_errors = (bits != out["user_bits"]).sum(-1)
-            return dict(
-                bit_errors=bit_errors.sum(),
-                # bit errors cluster within frames: the frame-level second
-                # moment gives honest BER confidence intervals
-                bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
-                frame_errors=(bit_errors > 0).sum(),
-                trials=torch.full((), bits.shape[0], dtype=torch.int32,
-                                  device=self.device),
-                bp_ok=out["bp_ok"].sum(),
-                iters_sum=out["amp_iters"].sum(),
-            )
+            return dict(frame_counters((bits != out["user_bits"]).sum(-1)),
+                        bp_ok=out["bp_ok"].sum(),
+                        iters_sum=out["amp_iters"].sum())
 
 
 class ConcatSweep:

@@ -10,10 +10,12 @@ port compute with the same constants.
 
 A block draws its message bits and then either the channel noise
 (torch.randn) or, with the config's in-kernel noise, one Philox key per
-codeword, from which the fused AMP draws the noise itself.  The gate is
-the reference's, without its backend test: on the CPU the plain version
-draws the same noise.  `use_pallas` is the reference's --pallas route
-(ops/operators.py).
+codeword, from which the fused AMP draws the noise itself (`draw`);
+`received` makes its received word and `frame_counters` its counters, for
+this model's blocks and the concat chain's (models/concat.py).  The gate
+is the reference's, without its backend test: on the CPU the plain
+version draws the same noise.  `use_pallas` is the reference's --pallas
+route (ops/operators.py).
 
 With a ShardingPolicy (parallel/mesh.py) the model's constants and draws
 live on the mesh's home device.  A block's draws are the same whatever the
@@ -40,11 +42,12 @@ from ..config import SparcConfig
 from ..design.codebook import DctPlan, HadamardPlan
 from ..design.power import power_allocation
 from ..design.se import se_converged_iters, se_trajectory
+from ..ops.amp_kernel import fused_form
 from ..ops.operators import BatchedOperator, make_operator
 from ..parallel.mesh import ShardingPolicy
 from ..utils.bits import bits_to_indices, indices_to_bits
 from ..utils.profiling import annotate
-from .amp import AmpResult, amp_decode, hard_indices
+from .amp import AmpResult, amp_decode, fused_route, hard_indices
 
 
 @dataclass(frozen=True)
@@ -150,27 +153,41 @@ class SparcModel:
 
     @property
     def enc_in_kernel(self) -> bool:
-        """The trial paths encode inside the fused AMP (one section shard
-        at most)."""
+        """The trial paths encode inside the fused AMP: amp_decode takes
+        the fused route (`fused_route`), on one section shard at most."""
         c = self.cfg
         return (self.fused and c.amp_encode_in_kernel
                 and (self.policy is None or self.policy.section_shards == 1)
-                and self.op.mask is not None and c.L <= 4096
-                and c.M <= 1024)
+                and fused_route(self.op, c.L))
 
     @property
     def noise_in_kernel(self) -> bool:
-        """The trial paths draw the channel noise inside the fused AMP (the
-        reference's gate: split form, or "fused" above L = 1024)."""
-        c = self.cfg
-        return (self.enc_in_kernel and c.amp_noise_in_kernel
-                and (c.amp_kernel == "fused_split"
-                     or (c.amp_kernel == "fused" and c.L > 1024)))
+        """The trial paths draw the channel noise inside the fused AMP: the
+        in-kernel encode, on the form that takes the noise (`fused_form`
+        routes the config's kernel choice; the reference's gate)."""
+        k = self.fused_kw
+        return (self.enc_in_kernel and self.cfg.amp_noise_in_kernel
+                and fused_form(self.cfg.L, k["fused_split"],
+                               k["fused_form"]) == "split")
 
     def draw_seeds(self, gen: torch.Generator, batch: int) -> torch.Tensor:
         """(batch, 2) int32 Philox keys (uint32 bit patterns) from gen."""
         return torch.randint(-2 ** 31, 2 ** 31, (batch, 2), generator=gen,
                              dtype=torch.int32, device=self.device)
+
+    def draw(self, gen: torch.Generator, batch: int, width: int):
+        """A block's draws from gen: bits (batch, width) {0,1}, then the
+        channel noise (batch, n) standard normal or, with the in-kernel
+        noise, one Philox key a codeword (`draw_seeds`).  Returns (bits,
+        noise, seeds), the one not drawn None."""
+        with annotate("block.draw"):
+            bits = torch.randint(0, 2, (batch, width), generator=gen,
+                                 dtype=torch.int32, device=self.device)
+            if self.noise_in_kernel:
+                return bits, None, self.draw_seeds(gen, batch)
+            return bits, torch.randn((batch, self.cfg.n), generator=gen,
+                                     dtype=torch.float32,
+                                     device=self.device), None
 
     # ------------------------------------------------------------ encode
 
@@ -190,6 +207,22 @@ class SparcModel:
         noise = torch.randn(x.shape, generator=gen, dtype=x.dtype,
                             device=x.device)
         return x + noise * math.sqrt(self.sigma2)
+
+    def received(self, idx: torch.Tensor, noise: Optional[torch.Tensor],
+                 noise_seed: Optional[torch.Tensor] = None):
+        """A block's received word from its true indices idx (B, L) and its
+        draws, and the keywords `decode` takes it with: with noise_seed, y
+        is None and the fused route synthesizes the codeword A beta0 from
+        idx and draws the noise from the seeds; with the in-kernel encode,
+        y is the scaled noise and the route synthesizes the codeword; else
+        y = A beta0 + sigma noise."""
+        sigma = math.sqrt(self.sigma2)
+        if noise_seed is not None:
+            return None, dict(encode_idx=idx, noise_seed=noise_seed,
+                              noise_sigma=sigma)
+        if self.enc_in_kernel:
+            return noise * sigma, dict(encode_idx=idx)
+        return self.op.Ax(self.build_beta(idx)) + noise * sigma, {}
 
     # ------------------------------------------------------------ decode
 
@@ -223,24 +256,7 @@ class SparcModel:
     def run_block(self, gen: torch.Generator, batch: int
                   ) -> Dict[str, torch.Tensor]:
         """One Monte-Carlo block of `batch` trials drawn from `gen`."""
-        return self.run_block_params(gen, batch, self.sq_npl,
-                                     math.sqrt(self.sigma2))
-
-    def run_block_params(self, gen: torch.Generator, batch: int,
-                         sq_npl: torch.Tensor, sigma: float
-                         ) -> Dict[str, torch.Tensor]:
-        """run_block with the operating point's sq_npl and sigma given."""
-        with annotate("block.draw"):
-            bits = torch.randint(0, 2, (batch, self.cfg.k_bits),
-                                 generator=gen, dtype=torch.int32,
-                                 device=self.device)
-            noise = seeds = None
-            if self.noise_in_kernel:
-                seeds = self.draw_seeds(gen, batch)
-            else:
-                noise = torch.randn((batch, self.cfg.n), generator=gen,
-                                    dtype=torch.float32, device=self.device)
-        return self._block(bits, noise, sq_npl, sigma, seeds)
+        return self._block(*self.draw(gen, batch, self.cfg.k_bits))
 
     def run_block_from(self, bits, noise) -> Dict[str, torch.Tensor]:
         """run_block on given draws: bits (B, k_bits) {0,1} and standard
@@ -248,76 +264,55 @@ class SparcModel:
         bits = torch.as_tensor(bits, dtype=torch.int32, device=self.device)
         noise = torch.as_tensor(noise, dtype=torch.float32,
                                 device=self.device)
-        return self._block(bits, noise, self.sq_npl, math.sqrt(self.sigma2))
+        return self._block(bits, noise)
 
-    def _block(self, bits, noise, sq_npl, sigma, noise_seed=None
+    def _block(self, bits, noise, noise_seed=None
                ) -> Dict[str, torch.Tensor]:
         """One block on given draws: noise (B, n) standard normal, or None
         with noise_seed (B, 2) for the in-kernel noise.  Under a policy,
         this process's rows of them."""
-        f = self.frame_counts(bits, noise, sq_npl, sigma, noise_seed)
-        bit_errors = f["bit_errors"]
+        f = self.frame_counts(bits, noise, noise_seed)
         with annotate("block.counters"):
-            return dict(
-                bit_errors=bit_errors.sum(),
-                # bit errors cluster within frames: the frame-level second
-                # moment gives honest BER confidence intervals
-                bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
-                frame_errors=(bit_errors > 0).sum(),
-                section_errors=f["section_errors"].sum(),
-                # a fill, not a host-to-device copy, which would wait for
-                # the stream and stall the campaign's pipelined dispatch
-                trials=torch.full((), bit_errors.shape[0],
-                                  dtype=torch.int32, device=self.device),
-                iters_sum=f["iters"].sum(),
-                tau2_final=f["tau2_final"].mean(),
-            )
+            return dict(frame_counters(f["bit_errors"]),
+                        section_errors=f["section_errors"].sum(),
+                        iters_sum=f["iters"].sum(),
+                        tau2_final=f["tau2_final"].mean())
 
-    def frame_counts(self, bits, noise, sq_npl=None, sigma=None,
-                     noise_seed=None) -> Dict[str, torch.Tensor]:
+    def frame_counts(self, bits, noise, noise_seed=None
+                     ) -> Dict[str, torch.Tensor]:
         """A block on given draws decoded as run_block decodes it, frame by
         frame: bit_errors, section_errors and iters (B,), tau2_final (B,).
         noise (B, n) standard normal, or None with noise_seed (B, 2) for
-        the in-kernel noise; sq_npl and sigma default to the model's.
-        Under a policy, this process's rows of them."""
-        cfg = self.cfg
-        sq_npl = self.sq_npl if sq_npl is None else sq_npl
-        sigma = math.sqrt(self.sigma2) if sigma is None else sigma
+        the in-kernel noise.  Under a policy, this process's rows of
+        them."""
         if self.policy is not None:
             bits, noise, noise_seed = self.policy.own_rows(
                 bits, noise, noise_seed)
-        batch = bits.shape[0]
-        idx_true = bits_to_indices(bits, cfg.logM)
-        # In-kernel encode: the fused route synthesizes x = A beta0 from the
-        # true indices, so only the noise is materialized here (and with
-        # in-kernel noise, nothing: the kernel draws it from the seeds).
-        noise_kw = {}
-        if noise_seed is not None:
-            y = None
-            enc_idx = idx_true
-            noise_kw = dict(noise_seed=noise_seed, noise_sigma=sigma)
-        elif self.enc_in_kernel:
-            y = noise * sigma
-            enc_idx = idx_true
-        else:
-            onehot = torch.nn.functional.one_hot(idx_true.to(torch.int64),
-                                                 cfg.M).to(torch.float32)
-            beta = (sq_npl[None, :, None] * onehot).reshape(batch, cfg.ML)
-            y = self.op.Ax(beta) + noise * sigma
-            enc_idx = None
-        res = amp_decode(
-            y, self.op, sq_npl, cfg.P, cfg.n, T=cfg.amp_iters,
-            tol=cfg.amp_tol, tau2_schedule=self.tau2_schedule,
-            residual_space=cfg.amp_residual_space, fused=self.fused,
-            encode_idx=enc_idx, use_pallas_denoiser=self.use_pallas,
-            policy=self.policy, **self.fused_kw, **noise_kw)
+        idx_true = bits_to_indices(bits, self.cfg.logM)
+        y, kw = self.received(idx_true, noise, noise_seed)
+        res = self.decode(y, **kw)
         with annotate("block.counters"):
             # on each data shard's card: beta stays where AMP left it
             idx_hat = res.decide(hard_indices)
-            bits_hat = indices_to_bits(idx_hat, cfg.logM)
+            bits_hat = indices_to_bits(idx_hat, self.cfg.logM)
             return dict(bit_errors=(bits != bits_hat).sum(-1),
                         section_errors=(idx_true != idx_hat).sum(-1),
                         iters=res.iters, tau2_final=res.tau2_trace[-1])
+
+
+def frame_counters(bit_errors: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A block's frame counters from its per-frame bit errors (B,): their
+    sum and sum of squares, the frames with errors, the trials."""
+    return dict(
+        bit_errors=bit_errors.sum(),
+        # bit errors cluster within frames: the frame-level second moment
+        # gives honest BER confidence intervals
+        bit_errors_sq=(bit_errors.to(torch.float32) ** 2).sum(),
+        frame_errors=(bit_errors > 0).sum(),
+        # a fill, not a host-to-device copy, which would wait for the
+        # stream and stall the campaign's pipelined dispatch
+        trials=torch.full((), bit_errors.shape[0], dtype=torch.int32,
+                          device=bit_errors.device))
 
 
 class SparcSweep:

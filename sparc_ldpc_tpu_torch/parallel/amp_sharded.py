@@ -6,16 +6,8 @@ sparc_ldpc_tpu/parallel/amp_sharded.py `amp_fused_sharded`).
   slice of the batch, on its device; encode indices, noise seeds and pins
   are sliced alike.  K1 and K6 compute each codeword alone, so the result
   is the single-device call's, bit for bit.  Every shard's tables are
-  copied onto its device before the first launch: a copy between two
-  cards runs behind the work queued on both, so a copy queued after the
-  home card's launch would hold the other cards until that launch ends.
-  By default the outputs are concatenated in shard order on the home
-  device.  With gather=False each shard's stay on its device, and the
-  model's `AmpResult` gathers a field when it is read: a caller that
-  needs only the decisions takes them on every card before anything is
-  copied (`AmpResult.decide`), so that only (B, L) int32 indices cross
-  instead of the (B, L, M) float32 beta, and no card's argmax is queued
-  behind a copy, which would make it wait for the home card's work.
+  staged onto its device before the first launch
+  (`ShardingPolicy.stage`).
 
 - **Section-sharded** (S > 1, a power of two dividing L): a loop over the
   iterations in which device (d, s) holds the (B / D, L / S, M) slab of
@@ -52,7 +44,6 @@ sparc_ldpc_tpu/parallel/amp_sharded.py `amp_fused_sharded`).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import List, Optional
 
@@ -60,7 +51,7 @@ import torch
 
 from ..ops.amp_kernel import amp_fused, fwht_tile
 from ..ops.denoiser import denoise_kernel
-from ..utils.profiling import annotate, interval
+from ..utils.profiling import annotate
 from .dist_fwht import hypercube
 from .mesh import ShardingPolicy
 
@@ -83,32 +74,24 @@ def amp_fused_sharded(
         noise_seed: Optional[torch.Tensor] = None,     # (B, 2), pure DP only
         noise_sigma: Optional[float] = None,
         split_support=None,                            # op.split_support
-        gather: bool = True,
 ):
-    """`amp_fused` over the policy's mesh: returns (beta (B, L, M) true
-    scale, tau2 trace (T, B), iterations used (B,) int32) on the home
-    device; iterations are T when tol == 0.  With gather=False, returns
-    instead the list of each data shard's (beta, trace, iterations), in
-    shard order, on the shard's first device.  split_support, the
-    operator's cache of the split kernel's tables of mask (`amp_fused`'s
-    support, per device), gives each data shard the tables on its device;
-    the section-sharded loop does not read it."""
+    """`amp_fused` over the policy's mesh: each data shard's (beta (B_d, L,
+    M) true scale, tau2 trace (T, B_d), iterations used (B_d,) int32), in
+    shard order, on the shard's first device; iterations are T when tol
+    == 0.  A field stays there until a caller gathers it
+    (`ShardingPolicy.gather`; the model's `AmpResult`).  split_support,
+    the operator's cache of the split kernel's tables of mask
+    (`amp_fused`'s support, per device), gives each data shard the tables
+    on its device; the section-sharded loop does not read it."""
     if tol and tau2_schedule is not None:
         raise ValueError("a tau2 schedule has no online estimate for tol")
     if policy.section_shards == 1:
-        parts = _data_parallel(y_n, mask, sq_npl, P, n, T, policy,
-                               tau2_schedule, pin_idx, split, tol,
-                               encode_idx, noise_seed, noise_sigma,
-                               split_support)
-    else:
-        parts = _section_sharded(y_n, mask, sq_npl, P, n, T, policy,
-                                 tau2_schedule, pin_idx, tol, encode_idx,
-                                 noise_seed)
-    if not gather:
-        return parts
-    beta, trace, iters = zip(*parts)
-    return (policy.gather(beta, 0), policy.gather(trace, 1),
-            policy.gather(iters, 0))
+        return _data_parallel(y_n, mask, sq_npl, P, n, T, policy,
+                              tau2_schedule, pin_idx, split, tol, encode_idx,
+                              noise_seed, noise_sigma, split_support)
+    return _section_sharded(y_n, mask, sq_npl, P, n, T, policy,
+                            tau2_schedule, pin_idx, tol, encode_idx,
+                            noise_seed)
 
 
 def _section_sharded(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
@@ -140,26 +123,15 @@ def _section_sharded(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
 def _data_parallel(y_n, mask, sq_npl, P, n, T, policy, tau2_schedule,
                    pin_idx, split, tol, encode_idx, noise_seed, noise_sigma,
                    split_support):
-    """Each data shard's amp_fused on its device, in shard order, after
-    every shard's tables are on its device: the copies of all shards
-    first, then the launches back to back, so that no card's inputs wait
-    for another card's launch of this call.  Returns each shard's (beta,
-    trace, iterations) on its device.  While tracing, on every shard but
-    the home one a `mesh.shard_inputs` interval on its device's stream
-    around its copies of the tables (a copy between two cards runs on the
-    source card's stream behind its queued work, so the interval is the
-    time the shard's card waits for the home card's work queued before
-    this call's launches), and a `mesh.shard` span a shard around its
-    launch."""
+    """Each data shard's amp_fused on its device, in shard order: every
+    shard's tables staged first (`ShardingPolicy.stage`), then the
+    launches back to back.  Returns each shard's (beta, trace,
+    iterations) on its device.  While tracing, a `mesh.shard` span a
+    shard around its launch."""
     L, M = mask.shape
-    tables = []
-    for d, dev in enumerate(policy.data_devices):
-        with (interval("mesh.shard_inputs", dev) if d else
-              contextlib.nullcontext()):
-            tables.append((mask.to(dev), sq_npl.to(dev),
-                           _to(tau2_schedule, dev),
-                           None if split_support is None
-                           else split_support(L, M, dev)))
+    tables = policy.stage(lambda dev: (
+        mask.to(dev), sq_npl.to(dev), _to(tau2_schedule, dev),
+        None if split_support is None else split_support(L, M, dev)))
     outs = []
     for (mask_d, sq_d, sched_d, support), y_d, enc_d, seed_d, pin_d in zip(
             tables, policy.split_data(y_n), policy.split_data(encode_idx),

@@ -43,13 +43,14 @@ bit.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils.profiling import annotate, count, group, tracing
+from ..utils.profiling import annotate, count, group, interval, tracing
 
 
 @dataclass(frozen=True)
@@ -219,6 +220,22 @@ class ShardingPolicy:
                              f"data shards")
         return [p.to(dev) for p, dev in
                 zip(torch.chunk(x, D, 0), self.data_devices)]
+
+    def stage(self, fn: Callable[[torch.device], Any]) -> List[Any]:
+        """fn(dev) for each data shard's first device, in shard order: a
+        data mesh's per-card inputs, staged before the first shard's work
+        is queued.  A copy between two cards runs on the source card's
+        stream behind the work queued on both, so a copy queued after the
+        home card's launch would hold its card until that launch ends.
+        While tracing, each call but the home shard's runs in a
+        `mesh.shard_inputs` interval on its device's stream: the time that
+        card waits for the home card's work queued before these copies."""
+        out = []
+        for d, dev in enumerate(self.data_devices):
+            with (interval("mesh.shard_inputs", dev) if d
+                  else contextlib.nullcontext()):
+                out.append(fn(dev))
+        return out
 
     def split_sections(self, x: Optional[torch.Tensor], d: int, dim: int
                        ) -> List[Optional[torch.Tensor]]:

@@ -1157,12 +1157,17 @@ def test_cuda_section_sharded_amp_matches_plain(cuda_device, S):
     beta0 = model.build_beta(idx).reshape(B, L, M)
     y_n = y_n + mask * fwht_tile_reference(beta0) / math.sqrt(c.n)
     args = (c.P, c.n, c.amp_iters)
-    bp, tp, _ = amp_fused_sharded(y_n, mask, sq, *args, ShardingPolicy(
-        make_mesh(S, ["cpu"] * S)))
+
+    def run(dev):
+        pol = ShardingPolicy(make_mesh(S, [dev] * S))
+        beta, trace, iters = zip(*amp_fused_sharded(
+            y_n.to(dev), mask.to(dev), sq.to(dev), *args, pol))
+        return (pol.gather(beta, 0), pol.gather(trace, 1),
+                pol.gather(iters, 0))
+
+    bp, tp, _ = run("cpu")
     launches = fwht_tile.launches
-    bk, tk, ik = amp_fused_sharded(
-        y_n.to(cuda_device), mask.to(cuda_device), sq.to(cuda_device), *args,
-        ShardingPolicy(make_mesh(S, [cuda_device] * S)))
+    bk, tk, ik = run(cuda_device)
     assert fwht_tile.launches == launches + 2 * c.amp_iters * S
     assert decision_flips(bp, bk)[1] == 0
     np.testing.assert_allclose(tk.cpu().numpy(), tp.numpy(), rtol=2e-2)

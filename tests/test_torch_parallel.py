@@ -44,6 +44,7 @@ from sparc_ldpc_tpu_torch import cli as tcli
 from sparc_ldpc_tpu_torch.config import (
     CampaignConfig, ConcatConfig, LdpcConfig, SparcConfig)
 from sparc_ldpc_tpu_torch.design.se import se_trajectory
+from sparc_ldpc_tpu_torch.models import amp as amp_mod
 from sparc_ldpc_tpu_torch.models import sparc as sparc_mod
 from sparc_ldpc_tpu_torch.models.amp import hard_indices
 from sparc_ldpc_tpu_torch.models.concat import ConcatModel
@@ -51,6 +52,7 @@ from sparc_ldpc_tpu_torch.models.sparc import SparcModel, SparcSweep
 from sparc_ldpc_tpu_torch.ops.amp_kernel import amp_fused, fwht_tile
 from sparc_ldpc_tpu_torch.ops.fwht import fwht_kron, hadamard_factor
 from sparc_ldpc_tpu_torch.parallel import amp_sharded
+from sparc_ldpc_tpu_torch.parallel import mesh as mesh_mod
 from sparc_ldpc_tpu_torch.parallel.amp_sharded import amp_fused_sharded
 from sparc_ldpc_tpu_torch.parallel.campaign import run_campaign, run_point
 from sparc_ldpc_tpu_torch.parallel.dist_fwht import dist_fwht, hypercube
@@ -71,6 +73,14 @@ XLA = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=12)
 def cpu_policy(D, S):
     """A (D, S) virtual mesh of the CPU."""
     return ShardingPolicy(make_mesh(S, ["cpu"] * (D * S)))
+
+
+def gathered(policy, parts):
+    """amp_fused_sharded's (beta, trace, iterations) of each data shard,
+    each field gathered onto the home device in shard order."""
+    beta, trace, iters = zip(*parts)
+    return (policy.gather(beta, 0), policy.gather(trace, 1),
+            policy.gather(iters, 0))
 
 
 def block(model, batch=16, seed=3):
@@ -192,8 +202,9 @@ def test_section_sharded_amp_matches_jax(S, option):
             jnp.asarray(y_n.numpy()), jnp.asarray(mask.numpy()),
             jnp.asarray(m.sq_npl.numpy()), c.P, c.n, T,
             jmesh.ShardingPolicy(mesh), interpret=True, **jkw)
-    bt, tt, it = amp_fused_sharded(y_n, mask, m.sq_npl, c.P, c.n, T,
-                                   cpu_policy(2, S), **kw)
+    pol = cpu_policy(2, S)
+    bt, tt, it = gathered(pol, amp_fused_sharded(y_n, mask, m.sq_npl, c.P,
+                                                 c.n, T, pol, **kw))
     assert_decisions_match(np.asarray(bj), bt.numpy())
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=2e-2)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
@@ -220,30 +231,23 @@ def test_section_sharded_amp_refuses_in_kernel_encode():
 
 
 @pytest.mark.parametrize("D", [2, 4])
-@pytest.mark.parametrize("option", ["noise", "schedule"])
+@pytest.mark.parametrize("option", ["noise", "schedule", "scan"])
 def test_data_parallel_stages_every_shards_tables_before_the_first_launch(
         D, option, monkeypatch):
-    """The data-parallel loop copies every shard's tables onto its device
-    (the `mesh.shard_inputs` interval of each shard but the home one)
-    before it queues the first shard's launch: a copy between two cards
-    runs behind the work queued on both, so a copy queued after the home
-    card's launch would hold its card until that launch ends.  The order
-    moves no result: beta, trace and iterations are the single-device
-    call's, bit for bit."""
+    """The data-parallel loops copy every shard's tables onto its device
+    (`ShardingPolicy.stage`: the `mesh.shard_inputs` interval of each
+    shard but the home one) before they queue the first shard's launch:
+    a copy between two cards runs behind the work queued on both, so a
+    copy queued after the home card's launch would hold its card until
+    that launch ends.  The fused route stages mask, sq_npl, the schedule
+    and the split tables before its first amp_fused; the scan route
+    (amp_decode without fused) sq_npl and the schedule before its first
+    shard's decode.  The order moves no result: beta, trace and
+    iterations are the single-device calls', bit for bit."""
     m, y_n, mask, idx, pin, sched = _sharded_inputs(B=8)
     c = m.cfg
-    if option == "noise":       # the in-kernel encode and noise, fixed T
-        seeds = torch.arange(16, dtype=torch.int32).reshape(8, 2) * 7919
-        kw = dict(encode_idx=idx, noise_seed=seeds,
-                  noise_sigma=float(np.sqrt(m.sigma2)))
-        y = None
-    else:                       # y given, pins and the SE schedule
-        kw = dict(pin_idx=pin, tau2_schedule=sched)
-        y = y_n
-    want = amp_fused(y, mask, m.sq_npl, c.P, c.n, c.amp_iters, split=True,
-                     **kw)
     order = []
-    fused, opened = amp_sharded.amp_fused, amp_sharded.interval
+    opened = mesh_mod.interval
 
     @contextlib.contextmanager
     def interval(name, dev):
@@ -251,15 +255,50 @@ def test_data_parallel_stages_every_shards_tables_before_the_first_launch(
         with opened(name, dev):
             yield
 
-    def launch(*a, **k):
-        order.append("launch")
-        return fused(*a, **k)
+    monkeypatch.setattr(mesh_mod, "interval", interval)
+    if option == "scan":        # y given, pins and the SE schedule
+        gen = torch.Generator().manual_seed(5)
+        y = m.op.Ax(m.build_beta(idx)) + torch.randn(
+            (8, c.n), generator=gen) * float(np.sqrt(m.sigma2))
+        kw = dict(tau2_schedule=sched, pinned_mask=pin >= 0,
+                  pinned_idx=pin.clamp_min(0))
+        decode = amp_mod.amp_decode
+        parts = [decode(y_d, m.op, m.sq_npl, c.P, c.n, c.amp_iters,
+                        tau2_schedule=sched, pinned_mask=pin_d >= 0,
+                        pinned_idx=pin_d.clamp_min(0)).parts[0]
+                 for y_d, pin_d in zip(y.chunk(D), pin.chunk(D))]
+        want = [torch.cat(f, dim) for f, dim in zip(zip(*parts), (0, 1, 0))]
 
-    monkeypatch.setattr(amp_sharded, "interval", interval)
-    monkeypatch.setattr(amp_sharded, "amp_fused", launch)
-    got = amp_fused_sharded(y, mask, m.sq_npl, c.P, c.n, c.amp_iters,
-                            cpu_policy(D, 1), split=True,
-                            split_support=m.op.split_support, **kw)
+        def launch(*a, **k):
+            order.append("launch")
+            return decode(*a, **k)
+
+        monkeypatch.setattr(amp_mod, "amp_decode", launch)
+        res = decode(y, m.op, m.sq_npl, c.P, c.n, c.amp_iters,
+                     policy=cpu_policy(D, 1), **kw)
+        got = (res.beta, res.tau2_trace, res.iters)
+    else:
+        if option == "noise":   # the in-kernel encode and noise, fixed T
+            seeds = torch.arange(16, dtype=torch.int32).reshape(8, 2) * 7919
+            kw = dict(encode_idx=idx, noise_seed=seeds,
+                      noise_sigma=float(np.sqrt(m.sigma2)))
+            y = None
+        else:                   # y given, pins and the SE schedule
+            kw = dict(pin_idx=pin, tau2_schedule=sched)
+            y = y_n
+        want = amp_fused(y, mask, m.sq_npl, c.P, c.n, c.amp_iters,
+                         split=True, **kw)
+        fused = amp_sharded.amp_fused
+
+        def launch(*a, **k):
+            order.append("launch")
+            return fused(*a, **k)
+
+        monkeypatch.setattr(amp_sharded, "amp_fused", launch)
+        pol = cpu_policy(D, 1)
+        got = gathered(pol, amp_fused_sharded(
+            y, mask, m.sq_npl, c.P, c.n, c.amp_iters, pol, split=True,
+            split_support=m.op.split_support, **kw))
     assert order == ["mesh.shard_inputs"] * (D - 1) + ["launch"] * D
     for g, w in zip(got, want):
         assert torch.equal(g, w)

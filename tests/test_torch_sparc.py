@@ -418,7 +418,7 @@ def test_in_kernel_noise_is_not_ported():
     bits = torch.randint(0, 2, (3, FUSED.k_bits), generator=gen,
                          dtype=torch.int32)
     seeds = mt.draw_seeds(gen, 3)
-    want = mt._block(bits, None, mt.sq_npl, math.sqrt(mt.sigma2), seeds)
+    want = mt._block(bits, None, seeds)
     assert out == {k: v.item() for k, v in want.items()}
     assert out == {k: v.item() for k, v in
                    mt.run_block(block_generator(0, 0, 0), 3).items()}

@@ -228,8 +228,9 @@ def test_data_parallel_takes_each_shards_tables_from_the_cache():
     mask = op.mask.reshape(L, M)
     y_n = torch.randn((4, L, M), generator=torch.Generator().manual_seed(0))
     policy = ShardingPolicy(make_mesh(1, ["cpu"] * 2))
-    beta, _, _ = amp_fused_sharded(y_n * mask, mask, torch.ones(L), 1.0, c.n,
-                                   2, policy, split_support=cache)
+    parts = amp_fused_sharded(y_n * mask, mask, torch.ones(L), 1.0, c.n, 2,
+                              policy, split_support=cache)
+    beta = policy.gather([p[0] for p in parts], 0)
     assert beta.shape == (4, L, M)
     assert asked == [(L, M, torch.device("cpu"))] * 2
 
